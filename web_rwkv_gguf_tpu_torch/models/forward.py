@@ -1,0 +1,182 @@
+"""RWKV-7 forward over ``[B, T]`` token chunks, eagerly in PyTorch.
+
+Padding tokens (``t >= lengths[b]``) never touch recurrent state. The
+layers run in a Python loop over per-layer views of the parameters.
+
+Routing in this slice:
+
+- T = 1 (decode): every quantized matrix goes through the gemv kernels
+  and every layer's attention core through the fused att-core kernel
+  (``ops/cuda``); on the CPU those wrappers take their plain versions.
+- T > 1 (prefill): the CPU runs the composed plain path (the delta rule
+  token by token). On CUDA it raises: prefill needs the slab GEMM and WKV
+  scan kernels, queue 2 of ROADMAP.md.
+
+Dense matrices and the inner-LoRA adapters multiply with ``torch.matmul``
+in f32 (bf16 operands where the weights are bf16); TF32 is switched off
+when a CUDA input first arrives, so f32 products keep f32 precision.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ..ops import basic as B
+from ..ops import wkv as W
+from ..ops.cuda.wkv7 import att_core7_step
+from .info import ModelInfo
+from .loader import layer_params
+
+LN_EPS = 1e-5
+GN_EPS = 64.0e-5
+L2_EPS = 1.0e-12
+
+
+def init_state(info: ModelInfo, batch: int, device="cuda") -> dict:
+    """Zero recurrent state, layer-stacked: shifts ``[L, B, C]`` and the
+    WKV matrices ``[L, B, H, hs, hs]``, all f32."""
+    L, C, H, hs = info.num_layer, info.num_emb, info.num_head, info.head_size
+    z = lambda *s: torch.zeros(s, dtype=torch.float32, device=device)  # noqa: E731
+    return {
+        "att_shift": z(L, batch, C),
+        "wkv": z(L, batch, H, hs, hs),
+        "ffn_shift": z(L, batch, C),
+    }
+
+
+def embed_tokens(params: dict, tokens: torch.Tensor) -> torch.Tensor:
+    """Token ids → ln0-normalized embeddings in f32."""
+    x = params["emb"][tokens.long()].float()
+    return B.layer_norm(x, params["ln0"]["w"], params["ln0"]["b"], LN_EPS)
+
+
+def logits_head(params: dict, x: torch.Tensor) -> torch.Tensor:
+    """Final LayerNorm and the head matmul on the selected rows ``[B, C]``."""
+    x = B.layer_norm(x, params["ln_out"]["w"], params["ln_out"]["b"], LN_EPS)
+    return params["head"].matmul(x)
+
+
+def _heads(x, H):
+    return x.reshape(x.shape[0], x.shape[1], H, -1)
+
+
+def _flat(x):
+    return x.reshape(x.shape[0], x.shape[1], -1)
+
+
+def _lora(x, w_a, w_b, mid_act=None):
+    """Adapter pair ``w_b · act(w_a · x)``: operands rounded to the
+    adapters' dtype, products in f32."""
+    z = x.to(w_a.dtype).float() @ w_a.float().T
+    if mid_act is not None:
+        z = mid_act(z)
+    return z.to(w_b.dtype).float() @ w_b.float().T
+
+
+def _att_core_composed(att, H, lst_wkv, r, w_in, k, v, a_in, g, mask):
+    """The attention core over a chunk of T tokens from the reference ops:
+    activations, control-k, the delta rule, group norm, bonus, gate."""
+    a = torch.sigmoid(a_in)
+    kk = _flat(B.l2_normalize(_heads(k * att["k_k"], H), L2_EPS))
+    k = k * (1.0 + (a - 1.0) * att["k_a"])
+    rh, wh, kh, vh = (_heads(t, H) for t in (r, W.wkv7_act_w(w_in), k, v))
+    kkh = _heads(kk, H)
+    y, wkv = W.wkv7(lst_wkv, rh, wh, kh, vh, -kkh, kkh * _heads(a, H), mask)
+    y = B.group_norm(_flat(y), att["gn"]["w"], att["gn"]["b"], H, GN_EPS)
+    y = y + _flat(W.wkv7_bonus(rh, kh, vh, att["r_k"]))
+    return y * g, wkv
+
+
+def _layer_v7(info, blk, lst, x, v0, layer_idx, mask, lengths):
+    H = info.num_head
+    att, ffn = blk["att"], blk["ffn"]
+    xx = B.layer_norm(x, blk["ln1"]["w"], blk["ln1"]["b"], LN_EPS)
+    sh = lst["att_shift"]
+    rx, wx, kx, vx, ax, gx = B.token_shift_multi(xx, sh, att["x_stack"]).unbind(2)
+
+    r = att["Wr"].matmul(rx)
+    k = att["Wk"].matmul(kx)
+    v = att["Wv"].matmul(vx)
+    w_in = att["w0"] + _lora(wx, att["w1"], att["w2"], torch.tanh)
+    a_in = att["a0"] + _lora(ax, att["a1"], att["a2"])
+    g = _lora(gx, att["g1"], att["g2"], torch.sigmoid)
+    if layer_idx == 0:
+        v0 = v
+    else:  # value residual towards layer 0's v
+        v_mix = torch.sigmoid(att["v0"] + _lora(vx, att["v1"], att["v2"]))
+        v = v + v_mix * (v0 - v)
+
+    Bsz, T = x.shape[:2]
+    if T == 1:
+        hs = att["r_k"].shape[-1]
+        y, wkv = att_core7_step(
+            lst["wkv"], _heads(r, H)[:, 0], _heads(w_in, H)[:, 0],
+            _heads(k, H)[:, 0], _heads(v, H)[:, 0], _heads(a_in, H)[:, 0],
+            _heads(g, H)[:, 0], att["k_k"].reshape(H, hs),
+            att["k_a"].reshape(H, hs), att["gn"]["w"].reshape(H, -1),
+            att["gn"]["b"].reshape(H, -1), att["r_k"], mask[:, 0],
+            GN_EPS, L2_EPS,
+        )
+        y = y.reshape(Bsz, 1, -1)
+    else:
+        y, wkv = _att_core_composed(att, H, lst["wkv"], r, w_in, k, v, a_in,
+                                    g, mask)
+    x = x + att["Wo"].matmul(y)
+
+    xx2 = B.layer_norm(x, blk["ln2"]["w"], blk["ln2"]["b"], LN_EPS)
+    kx2 = B.token_shift(xx2, lst["ffn_shift"], ffn["x_k"], reversed_mix=True)
+    x = x + ffn["Wv"].matmul(B.squared_relu(ffn["Wk"].matmul(kx2)))
+
+    new = {
+        "att_shift": B.update_shift_state(xx, lengths, sh),
+        "wkv": wkv,
+        "ffn_shift": B.update_shift_state(xx2, lengths, lst["ffn_shift"]),
+    }
+    return x, v0, new
+
+
+def _forward(info, params, layers, state, tokens, lengths, rescale):
+    T = tokens.shape[1]
+    if tokens.is_cuda:
+        if T > 1:
+            raise NotImplementedError(
+                "prefill (T > 1) on CUDA needs the slab dequant-GEMM and WKV "
+                "scan kernels of the prefill slice (ROADMAP.md, queue 2); "
+                "feed the prompt one token at a time")
+        torch.backends.cuda.matmul.allow_tf32 = False
+    mask = torch.arange(T, device=tokens.device)[None, :] < lengths[:, None]
+    x = embed_tokens(params, tokens)
+    x = torch.where(mask[..., None], x, 0.0)
+    L = info.num_layer
+    do_rescale = rescale is not None and rescale < L
+    v0 = None
+    news = []
+    for i in range(L):
+        lst = {key: a[i] for key, a in state.items()}
+        x, v0, new = _layer_v7(info, layers[i], lst, x, v0, i, mask, lengths)
+        if do_rescale and (i + 1) % rescale == 0:
+            x = x * 0.5
+        news.append(new)
+    new_state = {key: torch.stack([n[key] for n in news]) for key in state}
+    return x, new_state
+
+
+def forward_chunk(
+    info: ModelInfo,
+    params: dict,
+    state: dict,
+    tokens: torch.Tensor,  # [B, T] int
+    lengths: torch.Tensor,  # [B] int valid token counts
+    *,
+    rescale: int | None = None,
+) -> tuple[torch.Tensor, dict]:
+    """Run one chunk through all layers.
+
+    Returns ``(x, new_state)``: ``x`` is the final residual stream
+    ``[B, T, C]`` in f32 (apply :func:`logits_head` to selected rows);
+    ``new_state`` is a new dict, the input state is left as it was.
+    ``rescale`` halves the residual every N layers, matching a model
+    loaded with the same ``rescale``.
+    """
+    return _forward(info, params, layer_params(params, info.num_layer), state,
+                    tokens, lengths, rescale)

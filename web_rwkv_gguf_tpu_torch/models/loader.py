@@ -1,0 +1,184 @@
+"""Build the RWKV-7 parameter tree from a GGUF reader.
+
+The tree holds the same logical arrays as the JAX package's loader, as
+torch tensors on one device:
+
+- layer params are stacked with a leading ``[L, ...]`` axis (per-layer
+  lists instead when the layers' matrices differ in kind or shape, as in
+  a llama.cpp Q4_K_M file that keeps some matrices in Q6_K);
+- big matrices are :class:`Matrix` (direct-quantized Q4_K / Q6_K, or
+  dense in the model dtype after an f16 round trip);
+- the inner-LoRA adapters are dense in the model dtype; vectors are f32;
+- the embedding table stays f16.
+
+The load computes in numpy and moves each finished array to ``device``
+once.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ..errors import TensorNotFound, UnsupportedFeature
+from .info import ModelVersion, detect_info
+from .matrix import Matrix
+
+
+def _np(reader, name, dtype=np.float32) -> np.ndarray:
+    return np.asarray(reader.tensor(name, dtype))
+
+
+def _stack_matrices(mats: list[Matrix]):
+    """Stack per-layer matrices into one Matrix with a leading L axis, or
+    return the list when their kinds or shapes differ."""
+    kind, shape = mats[0].kind, mats[0].shape
+    if any(m.kind != kind or m.shape != shape or set(m.arrays) != set(mats[0].arrays)
+           for m in mats):
+        return mats
+    return Matrix(kind, shape, {k: torch.stack([m.arrays[k] for m in mats])
+                                for k in mats[0].arrays})
+
+
+def _layer_slice(tree, i):
+    if isinstance(tree, list):
+        return tree[i]
+    if isinstance(tree, dict):
+        return {k: _layer_slice(v, i) for k, v in tree.items()}
+    if isinstance(tree, Matrix):
+        return tree.layer(i)
+    return tree[i]
+
+
+def _has_list(tree) -> bool:
+    if isinstance(tree, list):
+        return True
+    if isinstance(tree, dict):
+        return any(_has_list(v) for v in tree.values())
+    return False
+
+
+def layer_params(params: dict, num_layer: int) -> list[dict]:
+    """Per-layer views of ``params["blocks"]`` (no copies)."""
+    blocks = params["blocks"]
+    if isinstance(blocks, list):
+        return blocks
+    return [_layer_slice(blocks, i) for i in range(num_layer)]
+
+
+def load_model(reader, *, dtype=torch.bfloat16, rescale: int | None = None,
+               device="cuda"):
+    """Load an RWKV-7 model into ``(info, params)`` on ``device``.
+
+    ``dtype`` is the storage type of dense matrices and adapters (bf16 or
+    f32). ``rescale``: the weights of ``att.output`` / ``ffn.value`` at
+    layer i are pre-multiplied by ``2^-(i // rescale)`` (those matrices
+    then load dense) and the forward halves the residual every
+    ``rescale`` layers.
+    """
+    info = detect_info(reader)
+    if info.version != ModelVersion.V7:
+        raise UnsupportedFeature(
+            f"the PyTorch port loads RWKV-7 only, not {info.version.value}")
+    rescale = rescale or 10**9
+    C, L, H, hs = info.num_emb, info.num_layer, info.num_head, info.head_size
+
+    def dev(a: np.ndarray) -> torch.Tensor:
+        return torch.from_numpy(np.require(a, requirements="CW")).to(device)
+
+    def vector(name):
+        return _np(reader, name).reshape(-1)
+
+    def matrix_f32(name):
+        return _np(reader, name)
+
+    def to_dtype(a: np.ndarray) -> torch.Tensor:
+        return dev(a.astype(np.float32)).to(dtype)
+
+    def matrix(name, discount=1.0) -> Matrix:
+        if discount == 1.0:
+            qt = reader.quantized_tensor(name)
+            if qt is not None:
+                return Matrix.from_gguf_blocks(qt[0], qt[1], reader.shape(name),
+                                               device=device)
+        w = matrix_f32(name) * discount
+        # the f16 round trip the reference loader applies to dense weights
+        return Matrix.dense(dev(w.astype(np.float16)).to(dtype))
+
+    def vecs(fmt):
+        return dev(np.stack([vector(fmt.format(i=i)) for i in range(L)]))
+
+    def mats(fmt, discounted=False):
+        return _stack_matrices([
+            matrix(fmt.format(i=i), 2.0 ** -(i // rescale) if discounted else 1.0)
+            for i in range(L)
+        ])
+
+    def adapters(fmt):
+        return to_dtype(np.stack([matrix_f32(fmt.format(i=i)) for i in range(L)]))
+
+    def v7_vec(i, s, default=None):
+        name = f"blocks.{i}.att.{s}"
+        if reader.contains(name):
+            return vector(name)
+        if default is not None:
+            return default
+        raise TensorNotFound(name)
+
+    def ln(prefix):
+        return {"w": vecs(prefix + ".weight"), "b": vecs(prefix + ".bias")}
+
+    zeros_c = np.zeros(C, np.float32)
+    dv = info.custom.v or 1
+    v1 = [np.zeros((dv, C), np.float32) if i == 0
+          else matrix_f32(f"blocks.{i}.att.v1") for i in range(L)]
+    v2 = [np.zeros((C, dv), np.float32) if i == 0
+          else matrix_f32(f"blocks.{i}.att.v2") for i in range(L)]
+    att = {
+        **{f"x_{s}": vecs("blocks.{i}.att.x_" + s) for s in "rwkvag"},
+        "w0": vecs("blocks.{i}.att.w0"),
+        "a0": vecs("blocks.{i}.att.a0"),
+        "v0": dev(np.stack([v7_vec(i, "v0", zeros_c if i == 0 else None)
+                            for i in range(L)])),
+        "w1": adapters("blocks.{i}.att.w1"),
+        "w2": adapters("blocks.{i}.att.w2"),
+        "a1": adapters("blocks.{i}.att.a1"),
+        "a2": adapters("blocks.{i}.att.a2"),
+        "g1": adapters("blocks.{i}.att.g1"),
+        "g2": adapters("blocks.{i}.att.g2"),
+        "v1": to_dtype(np.stack(v1)),
+        "v2": to_dtype(np.stack(v2)),
+        "r_k": dev(np.stack([_np(reader, f"blocks.{i}.att.r_k").reshape(H, hs)
+                             for i in range(L)])),
+        "k_k": vecs("blocks.{i}.att.k_k"),
+        "k_a": vecs("blocks.{i}.att.k_a"),
+        "gn": ln("blocks.{i}.att.ln_x"),
+        "Wk": mats("blocks.{i}.att.key.weight"),
+        "Wv": mats("blocks.{i}.att.value.weight"),
+        "Wr": mats("blocks.{i}.att.receptance.weight"),
+        "Wo": mats("blocks.{i}.att.output.weight", discounted=True),
+    }
+    # the six token-shift mixes stacked for one fused lerp: [L, 6, C]
+    att["x_stack"] = torch.stack([att[f"x_{s}"] for s in "rwkvag"], dim=1)
+    blocks = {
+        "ln1": ln("blocks.{i}.ln1"),
+        "ln2": ln("blocks.{i}.ln2"),
+        "att": att,
+        "ffn": {
+            "x_k": vecs("blocks.{i}.ffn.x_k"),
+            "Wk": mats("blocks.{i}.ffn.key.weight"),
+            "Wv": mats("blocks.{i}.ffn.value.weight", discounted=True),
+        },
+    }
+    if _has_list(blocks):
+        blocks = [_layer_slice(blocks, i) for i in range(L)]
+    params = {
+        "emb": dev(_np(reader, "emb.weight", np.float16)),
+        "ln0": {"w": dev(vector("blocks.0.ln0.weight")),
+                "b": dev(vector("blocks.0.ln0.bias"))},
+        "ln_out": {"w": dev(vector("ln_out.weight")),
+                   "b": dev(vector("ln_out.bias"))},
+        "head": matrix("head.weight"),
+        "blocks": blocks,
+    }
+    return info, params

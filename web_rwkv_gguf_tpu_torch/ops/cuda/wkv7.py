@@ -1,0 +1,104 @@
+"""Fused RWKV-7 attention core for one decode token, and its plain version.
+
+``att_core7_step`` takes the raw per-head projections of one token and
+runs, per (batch lane, head): the decay activation, the kk l2-norm,
+control-k, the delta-rule state update, group norm over the values, the
+r_k bonus and the gate. On a CUDA tensor it launches the hand-written
+kernel ``csrc/att_core7.cu`` (head size 64) or raises; only a tensor on
+the CPU takes the plain version, which is the same composition of the
+``ops`` reference functions and takes any head size.
+"""
+
+from __future__ import annotations
+
+import collections
+import ctypes
+import functools
+
+import torch
+
+from .. import basic as B_
+from .. import wkv as W
+from . import build
+
+HEAD_SIZE = 64  # the head size the kernel takes
+
+
+def att_core7_plain(state, r, w_raw, k_raw, v, a_raw, g, k_k, k_a, gn_w,
+                    gn_b, r_k, mask, eps, l2_eps):
+    """Plain version of :func:`att_core7_step`."""
+    b, h, vdim = v.shape
+    w = W.wkv7_act_w(w_raw)
+    a = torch.sigmoid(a_raw.float())
+    kk = B_.l2_normalize(k_raw * k_k[None], l2_eps)
+    k = k_raw * (1.0 + (a - 1.0) * k_a[None])
+    y0, s1 = W.wkv7_step(
+        state.float(), r[:, None], w[:, None], k[:, None], v[:, None],
+        (-kk)[:, None], (kk * a)[:, None], mask.bool()[:, None],
+    )
+    y = B_.group_norm(y0.reshape(b, h * vdim), gn_w.reshape(-1),
+                      gn_b.reshape(-1), h, eps)
+    y = y + W.wkv7_bonus(r, k, v, r_k).reshape(b, h * vdim)
+    return (y * g.reshape(b, h * vdim)).reshape(b, h, vdim), s1
+
+
+@functools.cache
+def _fn():
+    fn = build.load("att_core7").att_core7
+    fn.argtypes = ([ctypes.c_void_p] * 15 + [ctypes.c_int] * 3
+                   + [ctypes.c_float] * 2 + [ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def att_core7_step(state, r, w_raw, k_raw, v, a_raw, g, k_k, k_a, gn_w, gn_b,
+                   r_k, mask, eps: float, l2_eps: float):
+    """Fused T=1 attention core.
+
+    ``state`` f32 ``[B, H, K, V]``; ``r, w_raw, k_raw, a_raw`` ``[B, H, K]``
+    (w_raw and a_raw before their activations, k_raw before control-k);
+    ``v, g`` ``[B, H, V]`` (g is the final gate); ``k_k, k_a, r_k``
+    ``[H, K]``; ``gn_w, gn_b`` ``[H, V]``; ``mask`` ``[B]`` bool.
+    Returns ``(y [B, H, V] f32, new_state)``: masked lanes keep their
+    state, and their y is unspecified. The input state is not modified.
+    """
+    if not state.is_cuda:
+        return att_core7_plain(state, r, w_raw, k_raw, v, a_raw, g, k_k, k_a,
+                               gn_w, gn_b, r_k, mask, eps, l2_eps)
+    b, h, kdim, vdim = state.shape
+    if kdim != HEAD_SIZE or vdim != HEAD_SIZE:
+        raise ValueError(f"att_core7: the kernel takes head size {HEAD_SIZE}, "
+                         f"got {kdim}x{vdim}")
+    shapes = {"r": (b, h, kdim), "w_raw": (b, h, kdim), "k_raw": (b, h, kdim),
+              "v": (b, h, vdim), "a_raw": (b, h, kdim), "g": (b, h, vdim),
+              "k_k": (h, kdim), "k_a": (h, kdim), "gn_w": (h, vdim),
+              "gn_b": (h, vdim), "r_k": (h, kdim), "mask": (b,)}
+    given = {"r": r, "w_raw": w_raw, "k_raw": k_raw, "v": v, "a_raw": a_raw,
+             "g": g, "k_k": k_k, "k_a": k_a, "gn_w": gn_w, "gn_b": gn_b,
+             "r_k": r_k, "mask": mask}
+    ops = {}
+    for key, a in given.items():
+        if tuple(a.shape) != shapes[key]:
+            raise ValueError(f"att_core7: {key} must be {shapes[key]}, got "
+                             f"{tuple(a.shape)}")
+        if a.device != state.device:
+            raise ValueError(f"att_core7: {key} on {a.device}, state on "
+                             f"{state.device}")
+        ops[key] = a.float().contiguous()
+    st = state.float().contiguous()
+    y = torch.empty(b, h, vdim, dtype=torch.float32, device=state.device)
+    s1 = torch.empty_like(st)
+    with torch.cuda.device(state.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = _fn()(st.data_ptr(), *(ops[key].data_ptr() for key in shapes),
+                    y.data_ptr(), s1.data_ptr(), b, h, kdim, eps, l2_eps,
+                    stream)
+    att_core7_step.launches += 1
+    att_core7_step.shapes[(b, h, kdim)] += 1
+    if err:
+        raise RuntimeError(f"att_core7 launch failed: CUDA error {err}")
+    return y, s1
+
+
+att_core7_step.launches = 0
+att_core7_step.shapes = collections.Counter()  # launches by (B, H, head size)
