@@ -6,15 +6,30 @@ Run from the root of a checkout, with no arguments:
     python3 chip_smoke.py
 
 It builds every CUDA kernel of the port from ``web_rwkv_gguf_tpu_torch/
-ops/cuda/csrc`` with nvcc, holds each kernel against its plain PyTorch
-version at the shapes the decode path gives it and times both, then
-serves two requests on a synthetic RWKV-7 0.1B-width Q4_K_M model
-through the port's entry points (``load_model`` → ``forward_chunk`` →
-``logits_head`` → ``make_generator``), checks the launch counts and the
-outputs, and compares decode steps on the card with the CPU at the same
-widths (two layers, three lanes, one of them frozen for a step). Any failed check raises, so the exit code is not 0.
-The last lines are the card's ``nvidia-smi`` name and power limit, one
-JSON line of per-kernel numbers, and ``{"ok": true, "device": {...}}``.
+ops/cuda/csrc`` with nvcc (one nvcc per source, all started together),
+holds each kernel against its plain PyTorch version at the shapes the
+decode and prefill paths give it and times both (and, where one PyTorch
+call computes the same product, that call). Then, on a synthetic RWKV-7
+0.1B-width Q4_K_M model, it drives the port's main paths, each with
+every kernel's launch count set to 0 just before and checked exactly
+just after:
+
+- serve two requests at batch 1 through ``forward_chunk`` (each prompt
+  prefilled as one chunk) → ``logits_head`` → ``make_generator``, on
+  the loaded params (the per-layer kernels at decode);
+- ``runtime.Engine(num_batch=4)``: ``generate`` on four prompts of
+  different lengths (chunked prefill as the scheduler plans it, then
+  32 greedy tokens on all lanes, each step one launch of the
+  whole-stack decode kernel), then one ``infer`` with a FULL lane.
+
+Last it compares the card with the CPU at the same widths (two layers,
+three lanes): decode steps with a lane frozen, through the per-layer
+kernels and through the whole-stack kernel, and a ragged prefill chunk
+followed by one of 128 tokens; for the prefill it also measures how far
+the card and the CPU each move under one-ulp product changes. Any failed
+check raises, so the exit code is not 0. The last lines are the card's ``nvidia-smi`` name
+and power limit, one JSON line of per-kernel numbers, and
+``{"ok": true, "device": {...}}``.
 
 With no CUDA card, or outside a checkout, it exits non-zero at once and
 prints no result.
@@ -22,6 +37,7 @@ prints no result.
 
 from __future__ import annotations
 
+import collections
 import json
 import math
 import subprocess
@@ -39,6 +55,16 @@ COMPARE_LAYERS = 2  # depth of the card-vs-CPU comparison
 COMPARE_STEPS = [([11, 400, 65535], [1, 1, 1]), ([2041, 9, 3], [1, 1, 0]),
                  ([7, 60000, 5], [1, 1, 1])]
 SEED = 0
+# the Engine phase: four prompts (lengths 300, 77, 40, 9, token ids from
+# ENGINE_SEED), 32 greedy tokens each, then one infer with a FULL lane
+ENGINE_LENGTHS = (300, 77, 40, 9)
+ENGINE_SEED = 7
+ENGINE_TOKENS = 32
+ENGINE_CHUNK = 128  # token_chunk_size
+# the infer call: (tokens, option) per lane; lane 0 asks for every row
+FULL_LANES = ((60, "full"), (3, "last"), (0, "last"), (1, "last"))
+# card-vs-CPU prefill: (T, lengths per lane) of two chunks at B=3
+COMPARE_PREFILL = [(37, (37, 20, 0)), (128, (128, 90, 128))]
 
 # peaks of the card from NVIDIA's data sheets (dense): HBM bytes/s,
 # bf16 tensor-core FLOP/s, f32 (non-tensor) FLOP/s
@@ -48,14 +74,35 @@ PEAKS = {
     "SXM": (3.35e12, 989e12, 67e12),
 }
 GEMV_TOL = 1e-4  # × max|plain|: the same f32 terms summed in another order
+GEMM_TOL = 1e-4  # × max|plain|: the same bf16 products summed in another order
 ATT_TOL = 1e-4  # absolute, on y of the active lanes and on the state
-# × max|CPU| per array, decode steps on the card vs the CPU at L=2. The
-# kernels and cuBLAS sum in another order than the CPU, and the matmuls
-# round their operands to bf16: a last-bit difference upstream can flip
-# one operand's rounding by 2^-8, which moves this random-weight model's
-# logits by up to 1.4e-3 of their max (seen on the CPU alone between a
-# lane run at B=3 and the same lane at B=1). 1e-2 is ~2.5 bf16 steps.
+WKV_TOL = 1e-4  # × max|plain| over y and the state: f32 sums in another order
+# × max|CPU| per array (the WKV state per layer, × that layer's max),
+# card vs CPU at L=2. The kernels and cuBLAS sum in another order than
+# the CPU, and the matmuls round their operands to bf16: a last-bit
+# difference upstream can flip one operand's rounding by 2^-8, which
+# moves this random-weight model's logits by up to 1.4e-3 of their max
+# (seen on the CPU alone between a lane run at B=3 and the same lane at
+# B=1). 1e-2 is ~2.5 bf16 steps. It holds the logits, both shift states
+# and layer 0's WKV state.
 CARD_CPU_TOL = 1e-2
+# × that layer's max, for the WKV state of layers after the first: it
+# sums k·vᵀ over every token of a prefill chunk, so each bf16 operand that
+# a flip in layer 0 changes stays in it, on every token. This run
+# measures that sensitivity itself (sensitivity(), printed beside the
+# check): one-ulp changes of every matmul product move layer 1's WKV
+# state by up to 6.7e-3 of its max on the card alone, and the card sits
+# 1.7e-2 from the CPU there (both deterministic; Findings PR 2).
+CARD_CPU_WKV_TOL = 3e-2
+# one-ulp product changes: noise seeds on the card and on the CPU
+SENSITIVITY_SEEDS = {"cuda": (0, 1, 2, 3), "cpu": (0, 1)}
+# the whole-stack decode kernel against its plain version, × max|plain|
+# per array, layer by layer on the same inputs (each layer launched as a
+# one-layer slice fed from the plain version's chain): one layer's f32
+# sums in another order flip a few of the bf16 roundings of its matmul
+# inputs, each by one bf16 step (2^-8); a layer must stay within one such
+# step of its largest value (seen: up to 1.0e-3, Findings PR 2)
+MEGA_LAYER_TOL = 2.0 ** -8
 L2_FLUSH_BYTES = 100e6  # rotate weight copies over 2× the 50 MB L2
 
 
@@ -126,10 +173,13 @@ def run_kernel_case(torch, case, hbm):
     then time both over rotated input copies; returns the JSON fields."""
     name, kernel, plain = case["name"], case["kernel"], case["plain"]
     args = case["make_args"](0)
-    want = plain(*args)
-    got = kernel(*args)
-    torch.cuda.synchronize()
-    err, limit = case["compare"](got, want)
+    if "check" in case:  # a comparison of its own
+        err, limit = case["check"](args)
+    else:
+        want = plain(*args)
+        got = kernel(*args)
+        torch.cuda.synchronize()
+        err, limit = case["compare"](got, want)
     log(f"  {name}: max_abs_err {err:.3e} (tolerance {limit:.3e})")
     if not err <= limit:
         raise AssertionError(f"{name}: kernel disagrees with its plain version")
@@ -138,21 +188,32 @@ def run_kernel_case(torch, case, hbm):
     ms = time_graph(torch, [lambda a=a: kernel(*a) for a in sets])
     eager_ms = time_eager(torch, [lambda a=a: kernel(*a) for a in sets])
     plain_ms = time_eager(torch, [lambda a=a: plain(*a) for a in sets[:8]])
+    library_ms = None
+    if "library" in case:  # one PyTorch call on the same inputs, in a graph
+        lib_sets = [case["library_args"](a) for a in sets]
+        library_ms = time_graph(torch, [lambda a=a: case["library"](*a) for a in lib_sets])
+        del lib_sets
     bytes_ms = case["nbytes"] / hbm * 1e3
     ops_ms = case["flops"] / case["fpeak"] * 1e3
     bound_by = "bytes" if bytes_ms >= ops_ms else "operations"
     bound_ms = max(bytes_ms, ops_ms)
-    log(f"  {name}: {case['nbytes'] / 1e6:.4f} MB, bound {bound_ms * 1e3:.4f} us "
-        f"({bound_by}), kernel {ms * 1e3:.4f} us in a graph, {eager_ms * 1e3:.4f} us "
-        f"issued eagerly, plain {plain_ms * 1e3:.4f} us, {copies} input copies")
+    lib = "none" if library_ms is None else f"{library_ms * 1e3:.4f} us"
+    log(f"  {name}: {case['nbytes'] / 1e6:.4f} MB, {case['flops'] / 1e9:.4f} GFLOP, "
+        f"bound {bound_ms * 1e3:.4f} us ({bound_by}), kernel {ms * 1e3:.4f} us in a "
+        f"graph, {eager_ms * 1e3:.4f} us issued eagerly, plain {plain_ms * 1e3:.4f} us, "
+        f"library {lib}, {copies} input copies")
     return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-            "bound_by": bound_by, "library_ms": None}
+            "bound_by": bound_by, "library_ms": library_ms}
 
 
-def kernel_cases(torch, mm, core, bf16_peak, f32_peak, dev="cuda"):
-    """The decode path's kernel calls at its shapes: Q4_K gemv at the layer
-    shapes (n = 1 and 8), the Q6_K head gemv (n = 1), and the attention
-    core at B=1 and at B=3 with a masked lane (H=12, hs=64)."""
+def kernel_cases(torch, mm, core, bf16_peak, f32_peak, full_rows, dev="cuda"):
+    """The main paths' kernel calls at their shapes: Q4_K gemv at the layer
+    shapes (n = 1, 4 and 8), the Q6_K head gemv (n = 1 and 4), the
+    attention core at B=1, at B=3 with a masked lane and at B=4 (H=12,
+    hs=64); the Q4_K
+    dequant-GEMM at the layer shapes (n = 4: decode at B=4; 128 and 512:
+    prefill chunks), the Q6_K head GEMM at the FULL call's ``full_rows``,
+    and the WKV scan at T=64 for B=1 and 4 with ragged lengths."""
     dev = torch.device(dev)
 
     def rng(seed):
@@ -168,7 +229,7 @@ def kernel_cases(torch, mm, core, bf16_peak, f32_peak, dev="cuda"):
 
     cases = []
     for m, k in ((768, 768), (3072, 768), (768, 3072)):
-        for n in (1, 8):
+        for n in (1, 4, 8):
             def make(i, m=m, k=k, n=n):
                 ints, floats, normal = rng(1000 * i + m + 7 * k + n)
                 return (normal(n, k).to(torch.bfloat16),
@@ -181,26 +242,27 @@ def kernel_cases(torch, mm, core, bf16_peak, f32_peak, dev="cuda"):
                 plain=mm.q4k_gemv_plain, make_args=make, compare=gemv_compare,
                 nbytes=m * k // 2 + 2 * m * k // 32 + 8 * m * k // 256 + 2 * n * k + 4 * n * m,
                 flops=2 * n * m * k, fpeak=bf16_peak))
-    m, k, n = 65536, 768, 1
-
-    def make_head(i):
-        ints, floats, normal = rng(2000 * i + 1)
-        return (normal(n, k).to(torch.bfloat16), ints(-32, 32, (m, k), torch.int8),
-                ints(-128, 128, (m, k // 16), torch.int8), floats(m, k // 256) * 1e-3)
-    cases.append(dict(
-        name=f"q6k_gemv[m={m},k={k},n={n}]", kernel=mm.q6k_gemv, shape=(n, m, k),
-        plain=mm.q6k_gemv_plain, make_args=make_head, compare=gemv_compare,
-        nbytes=m * k + m * k // 16 + 4 * m * k // 256 + 2 * n * k + 4 * n * m,
-        flops=2 * n * m * k, fpeak=bf16_peak))
+    m, k = 65536, 768
+    for n in (1, 4):
+        def make_head(i, m=m, k=k, n=n):
+            ints, floats, normal = rng(2000 * i + n)
+            return (normal(n, k).to(torch.bfloat16), ints(-32, 32, (m, k), torch.int8),
+                    ints(-128, 128, (m, k // 16), torch.int8), floats(m, k // 256) * 1e-3)
+        cases.append(dict(
+            name=f"q6k_gemv[m={m},k={k},n={n}]", kernel=mm.q6k_gemv, shape=(n, m, k),
+            plain=mm.q6k_gemv_plain, make_args=make_head, compare=gemv_compare,
+            nbytes=m * k + m * k // 16 + 4 * m * k // 256 + 2 * n * k + 4 * n * m,
+            flops=2 * n * m * k, fpeak=bf16_peak))
 
     H, K = 12, 64
-    for B in (1, 3):
-        active = [0] if B == 1 else [0, 2]  # lanes the mask keeps running
+    for B in (1, 3, 4):
+        lanes = {1: [True], 3: [True, False, True], 4: [True] * 4}[B]
+        active = [b for b in range(B) if lanes[b]]  # lanes the mask keeps running
 
-        def make_att(i, B=B):
+        def make_att(i, B=B, lanes=lanes):
             _, _, normal = rng(3000 * i + B)
             f = lambda *s: normal(*s) * 0.5  # noqa: E731
-            mask = torch.tensor([True, False, True][:B], device=dev)
+            mask = torch.tensor(lanes, device=dev)
             return (f(B, H, K, K), f(B, H, K), f(B, H, K), f(B, H, K), f(B, H, K),
                     f(B, H, K), torch.sigmoid(f(B, H, K)), f(H, K), f(H, K),
                     1 + 0.1 * f(H, K), 0.1 * f(H, K), f(H, K), mask, 64e-5, 1e-12)
@@ -218,7 +280,149 @@ def kernel_cases(torch, mm, core, bf16_peak, f32_peak, dev="cuda"):
             # state in and out; r, w, k, a, v, g in and y out; 5 params; mask
             nbytes=4 * (2 * B * H * K * K + 7 * B * H * K + 5 * H * K + B),
             flops=8 * B * H * K * K, fpeak=f32_peak))
+
+    # the dequant-GEMMs; library: torch.matmul of the bf16 x against the
+    # weight dequantized to bf16 ahead of time (for Q4_K bf16(q·s), so it
+    # leaves out the offset term)
+    def q4k_w(args):
+        x, codes, sc6, mn6, d8, dm8 = args
+        s, _ = mm.q4k_scale_products(sc6, mn6, d8, dm8)
+        q = mm.q4k_codes(codes)
+        m, k = q.shape
+        return x, (q.view(m, k // 32, 32) * s[..., None]).view(m, k).to(torch.bfloat16).T
+
+    def q6k_w(args):
+        return args[0], mm.q6k_dequantize(*args[1:]).to(torch.bfloat16).T
+    for m, k in ((768, 768), (3072, 768), (768, 3072)):
+        for n in (4, 128, 512):
+            def make(i, m=m, k=k, n=n):
+                ints, floats, normal = rng(4000 * i + m + 7 * k + n)
+                return (normal(n, k).to(torch.bfloat16),
+                        ints(0, 256, (m, k // 2), torch.uint8),
+                        ints(0, 64, (m, k // 32), torch.uint8),
+                        ints(0, 64, (m, k // 32), torch.uint8),
+                        floats(m, k // 256) * 1e-2, floats(m, k // 256) * 1e-2)
+            cases.append(dict(
+                name=f"q4k_gemm[m={m},k={k},n={n}]", kernel=mm.q4k_gemm, shape=(n, m, k),
+                plain=mm.q4k_gemm_plain, make_args=make, compare=gemm_compare,
+                library=torch.matmul, library_args=q4k_w,
+                nbytes=m * k // 2 + 2 * m * k // 32 + 8 * m * k // 256 + 2 * n * k + 4 * n * m,
+                flops=2 * n * m * k, fpeak=bf16_peak))
+    m, k, n = 65536, 768, full_rows
+
+    def make_head_gemm(i, m=m, k=k, n=n):
+        ints, floats, normal = rng(5000 * i + 1)
+        return (normal(n, k).to(torch.bfloat16), ints(-32, 32, (m, k), torch.int8),
+                ints(-128, 128, (m, k // 16), torch.int8), floats(m, k // 256) * 1e-3)
+    cases.append(dict(
+        name=f"q6k_gemm[m={m},k={k},n={n}]", kernel=mm.q6k_gemm, shape=(n, m, k),
+        plain=mm.q6k_gemm_plain, make_args=make_head_gemm, compare=gemm_compare,
+        library=torch.matmul, library_args=q6k_w,
+        nbytes=m * k + m * k // 16 + 4 * m * k // 256 + 2 * n * k + 4 * n * m,
+        flops=2 * n * m * k, fpeak=bf16_peak))
+
+    T = 64
+    for lens in ((50,), (64, 40, 17, 0)):
+        B = len(lens)
+
+        def make_scan(i, B=B, lens=lens):
+            _, _, normal = rng(6000 * i + B)
+            f = lambda *s: normal(*s) * 0.5  # noqa: E731
+            kk = torch.nn.functional.normalize(f(B, T, H, K), dim=-1)
+            mask = (torch.arange(T, device=dev)[None, :]
+                    < torch.tensor(lens, device=dev)[:, None])
+            return (f(B, H, K, K), f(B, T, H, K),
+                    torch.exp(-0.606531 * torch.sigmoid(f(B, T, H, K))), f(B, T, H, K),
+                    f(B, T, H, K), -kk, kk * torch.sigmoid(f(B, T, H, K)), mask)
+
+        live = sum(lens)
+        cases.append(dict(
+            name=f"wkv7_scan[B={B},T={T},H={H},hs={K},lens={list(lens)}]",
+            kernel=core.wkv7_scan, shape=(B, T, H, K), plain=core.wkv7_scan_plain,
+            make_args=make_scan, compare=scan_compare,
+            # state in and out; r, w, k, v, a, b in and y out; the mask
+            nbytes=4 * (2 * B * H * K * K + 7 * B * T * H * K) + B * T,
+            # 8·K·V per live token (update and y), 2·K·V per padded one (y)
+            flops=(8 * live + 2 * (B * T - live)) * H * K * K, fpeak=f32_peak))
     return cases
+
+
+def clone_tree(tree):
+    """A copy of a tree of tensors in new device memory."""
+    if isinstance(tree, dict):
+        return {k: clone_tree(v) for k, v in tree.items()}
+    if isinstance(tree, tuple):
+        return tuple(clone_tree(v) for v in tree)
+    return tree.clone() if hasattr(tree, "clone") else tree
+
+
+def mega_case(torch, l7, mega, state, x, mask, eps, f32_peak):
+    """The whole-stack decode kernel at the Engine's decode shape: one
+    token for every lane of ``state`` through all layers of ``mega``;
+    input copies beyond the first are clones in new memory."""
+    L, C, H, hs, hidden = (mega[k] for k in ("L", "C", "H", "hs", "hidden"))
+    B = x.shape[0]
+    D = sum(mega["lora_dims"])
+
+    def make(i):
+        if i == 0:
+            return (mega, state, x, mask, None, *eps)
+        return (clone_tree(mega), clone_tree(state), x.clone(), mask, None, *eps)
+
+    def check(args):
+        """Layer by layer: each layer as a one-layer launch on the plain
+        chain's input to it, against the plain version of that layer;
+        then the whole stack in one launch, whose difference from the
+        plain version is reported (it grows with depth, Findings PR 2)."""
+        mega, state, x, mask = args[:4]
+        worst = (-1.0, 0.0, 0.0)
+        x_l, v_first = x, None
+        for i in range(L):
+            m_i = l7.mega_layers(mega, i, i + 1)
+            s_i = {k: v[i:i + 1] for k, v in state.items()}
+            want = l7.layer_scan7_plain(m_i, s_i, x_l, mask, None, *eps, (v_first, i))
+            got = l7.layer_scan7(m_i, s_i, x_l, mask, None, *eps, (v_first, i))
+            pairs = {"x": (got[0], want[0]), "v_first": (got[2], want[2]),
+                     **{k: (got[1][k], want[1][k]) for k in want[1]}}
+            for key, (a, b) in pairs.items():
+                err, lim = (a - b).abs().max().item(), MEGA_LAYER_TOL * b.abs().max().item()
+                if not err <= lim:
+                    raise AssertionError(f"layer_scan7: layer {i}'s {key} off by {err:.3e} "
+                                         f"(tolerance {lim:.3e})")
+                if err / lim > worst[0]:
+                    worst = (err / lim, err, lim)
+            x_l, v_first = want[0], want[2]
+        xg, sg = l7.layer_scan7(*args)
+        xp, sp = l7.layer_scan7_plain(*args)
+        rel = lambda a, b: ((a - b).abs().max() / b.abs().max()).item()  # noqa: E731
+        log(f"  {case['name']}: whole stack in one launch against the plain version, "
+            f"|diff|/max per layer: " + "; ".join(
+                f"{k} " + " ".join(f"{rel(sg[k][i], sp[k][i]):.1e}" for i in range(L))
+                for k in sp) + f"; x {rel(xg, xp):.1e}")
+        if not all(torch.isfinite(t).all() for t in (xg, *sg.values())):
+            raise AssertionError("layer_scan7: non-finite output")
+        return worst[1], worst[2]
+
+    weights = sum(a.numel() * a.element_size() for a in l7._operands(mega, x.device))
+    state_bytes = sum(a.numel() * a.element_size() for a in state.values())
+    case = dict(
+        name=f"layer_scan7[L={L},B={B},C={C},hidden={hidden}]", kernel=l7.layer_scan7,
+        shape=(L, B, C), plain=l7.layer_scan7_plain, make_args=make, check=check,
+        # weights once, state in and out, x in and out, the mask
+        nbytes=weights + 2 * state_bytes + 8 * B * C + 4 * B,
+        flops=2 * B * L * (4 * C * C + 2 * C * hidden + 2 * D * C) + 8 * B * L * H * hs * hs,
+        fpeak=f32_peak)
+    return case
+
+
+def gemm_compare(got, want):
+    return (got - want).abs().max().item(), GEMM_TOL * want.abs().max().item()
+
+
+def scan_compare(got, want):
+    (y1, s1), (y0, s0) = got, want
+    err = max((y1 - y0).abs().max().item(), (s1 - s0).abs().max().item())
+    return err, WKV_TOL * max(y0.abs().max().item(), s0.abs().max().item())
 
 
 # --------------------------------------------------------------------------
@@ -226,25 +430,52 @@ def kernel_cases(torch, mm, core, bf16_peak, f32_peak, dev="cuda"):
 # --------------------------------------------------------------------------
 
 
+COUNTED = ("q4k_gemv", "q4k_gemm", "q6k_gemv", "q6k_gemm", "att_core7_step", "wkv7_scan",
+           "layer_scan7")
+LAYER_MATRICES = (("att", "Wr"), ("att", "Wk"), ("att", "Wv"), ("att", "Wo"),
+                  ("ffn", "Wk"), ("ffn", "Wv"))
+
+
+def matmul_kernel(takes_gemv, mat, n):
+    """The kernel ``Matrix.matmul`` launches for ``mat`` at n rows."""
+    family = "q4k" if mat.kind == "qk" else "q6k"
+    return f"{family}_gemv" if takes_gemv(mat.kind, n, *mat.shape) else f"{family}_gemm"
+
+
+def expected_chunk(takes_gemv, chunked_min_t, layers, B, T):
+    """Launches of one ``forward_chunk`` of B lanes × T tokens, by kernel:
+    each layer's six matrices at n = B·T rows (gemv or GEMM by the gate),
+    and the attention core at T=1, the WKV scan at 2 ≤ T < 128, nothing
+    from T=128 (the chunk-parallel WKV is PyTorch matmuls)."""
+    want = collections.Counter()
+    for blk in layers:
+        for part, name in LAYER_MATRICES:
+            want[matmul_kernel(takes_gemv, blk[part][name], B * T)] += 1
+    if T == 1:
+        want["att_core7_step"] += len(layers)
+    elif T < chunked_min_t:
+        want["wkv7_scan"] += len(layers)
+    return want
+
+
 def serve(torch, models, info, params, prompts, steps):
-    """Answer each prompt at batch 1: the prompt fed one token at a time
+    """Answer each prompt at batch 1: the prompt prefilled as one chunk
     through forward_chunk, its last logits through logits_head and a
     greedy pick, then ``steps`` greedy tokens from make_generator.
-    Returns the tokens per request and the seconds of prompt feeding and
-    of generation."""
+    Returns the tokens per request and the seconds of prefill and of
+    generation."""
     dev = params["emb"].device
     sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
     gen = models.make_generator(info, steps=steps)
     out, t_prompt, t_gen = [], 0.0, 0.0
-    one = torch.ones(1, dtype=torch.long, device=dev)
     for prompt in prompts:
         sync()
         t0 = time.perf_counter()
         state = models.init_state(info, 1, device=dev)
-        for tok in prompt:
-            x, state = models.forward_chunk(info, params, state,
-                                            torch.tensor([[tok]], device=dev), one)
-        logits = models.logits_head(params, x[:, 0])
+        x, state = models.forward_chunk(info, params, state,
+                                        torch.tensor([prompt], device=dev),
+                                        torch.tensor([len(prompt)], device=dev))
+        logits = models.logits_head(params, x[:, -1])
         first = torch.argmax(logits, dim=-1)
         sync()
         t1 = time.perf_counter()
@@ -262,22 +493,19 @@ def serve(torch, models, info, params, prompts, steps):
     return out, t_prompt, t_gen
 
 
-def profile_decode(torch, models, info, params, steps=8):
-    """Device kernel time per decoded token, in all and by kernel, from
-    torch.profiler over ``steps`` generator steps (device-side kernel
-    events only, so no time is counted twice); None where the profiler
-    saw no device time. Also the wall µs per token under the profiler."""
-    from torch.profiler import ProfilerActivity, profile
+def profile(torch, fn, per):
+    """Device kernel time of one ``fn()`` call divided by ``per``, in all
+    and by kernel, from torch.profiler (device-side kernel events only, so
+    no time is counted twice); None where the profiler saw no device time.
+    Also the wall µs under the profiler, divided by ``per``. ``fn`` runs
+    once before, unprofiled."""
+    from torch.profiler import ProfilerActivity, profile as torch_profile
 
-    dev = params["emb"].device
-    gen = models.make_generator(info, steps=steps)
-    state = models.init_state(info, 1, device=dev)
-    tok = torch.tensor([[1]], device=dev)
-    gen(params, state, tok)
+    fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        gen(params, state, tok)
+        fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     rows = []
@@ -288,39 +516,146 @@ def profile_decode(torch, models, info, params, steps=8):
         if us is None:
             us = getattr(ev, "self_cuda_time_total", 0)
         if us > 0:
-            rows.append((us / steps, ev.key, ev.count / steps))
+            rows.append((us / per, ev.key, ev.count / per))
     rows.sort(reverse=True)
     total = sum(r[0] for r in rows)
-    return (total if total > 0 else None), wall / steps * 1e6, rows
+    return (total if total > 0 else None), wall / per * 1e6, rows
 
 
-def compare_card_cpu(torch, models, GgufFile, raw, steps, card="cuda"):
-    """Decode steps on the card and on the CPU from the same file, at the
-    batch the steps give; ``steps`` is a list of (tokens [B], lengths [B]).
-    Returns the largest |card - cpu| / max|cpu| over the logits and each
-    state array."""
-    info, p_gpu = models.load_model(GgufFile(raw), device=card)
-    _, p_cpu = models.load_model(GgufFile(raw), device="cpu")
-    batch = len(steps[0][0])
-    st_g = models.init_state(info, batch, device=card)
-    st_c = models.init_state(info, batch, device="cpu")
-    worst = {}
-    for toks, lens in steps:
-        t, n = torch.tensor(toks)[:, None], torch.tensor(lens)
-        x_g, st_g = models.forward_chunk(info, p_gpu, st_g, t.to(card), n.to(card))
-        x_c, st_c = models.forward_chunk(info, p_cpu, st_c, t, n)
-        live = n > 0  # a zero-length lane's x is unspecified; its state is kept
-        pairs = {"logits": (models.logits_head(p_gpu, x_g[:, 0])[live.to(card)],
-                            models.logits_head(p_cpu, x_c[:, 0])[live])}
-        pairs.update({k: (st_g[k], st_c[k]) for k in st_c})
-        for key, (g, c) in pairs.items():
-            rel = (g.cpu() - c).abs().max().item() / max(c.abs().max().item(), 1e-30)
-            worst[key] = max(worst.get(key, 0.0), rel)
-    return worst
+def log_profile(label, busy, prof_wall_us, rows, wall_us, unit):
+    if busy is None:
+        log(f"profile ({label}): no device time recorded (not measured)")
+        return
+    log(f"profile ({label}): device kernel time {busy:.1f} us/{unit}, "
+        f"{sum(r[2] for r in rows):.1f} kernels/{unit}; busy share "
+        f"{busy / wall_us:.3f} of the unprofiled {wall_us:.1f} us/{unit} "
+        f"({prof_wall_us:.1f} us/{unit} under the profiler)")
+    for us, key, count in rows[:15]:
+        log(f"  {us:9.2f} us/{unit}  x{count:<8.2f} {key[:90]}")
+
+
+def engine_plans(runtime, _bucket, lengths, chunk):
+    """The chunk lengths T (bucketed as the Engine buckets them) that the
+    scheduler plans for prompts of ``lengths``."""
+    inp = runtime.RnnInput([runtime.RnnInputBatch([0] * n) for n in lengths], chunk)
+    Ts = []
+    while inp.num_token:
+        plan = inp.plan()
+        Ts.append(_bucket(max(p.len for p in plan), inp.token_chunk_size))
+        inp.step(plan)
+    return Ts
+
+
+def full_input(runtime, _bucket, rng, vocab):
+    """The FULL-lane infer input, its plan and the head's (padded) row
+    count."""
+    opts = {"full": runtime.RnnOption.FULL, "last": runtime.RnnOption.LAST}
+    inp = runtime.RnnInput(
+        [runtime.RnnInputBatch([int(t) for t in rng.integers(0, vocab, n)], opts[o])
+         for n, o in FULL_LANES], ENGINE_CHUNK)
+    plan = inp.plan()
+    rows = sum(p.len if p.option == runtime.RnnOption.FULL else int(p.len > 0)
+               for p in plan if p.option is not None)
+    return inp, plan, _bucket(rows, 1 << 30)
+
+
+def run_chunks(torch, models, info, params, chunks, device):
+    """Per chunk, on the host: the live lanes' last-token logits and the
+    state; ``chunks`` is a list of (tokens [B, T], lengths [B])."""
+    st = models.init_state(info, len(chunks[0][1]), device=device)
+    out = []
+    for toks, lens in chunks:
+        t = torch.as_tensor(toks, device=device)
+        n = torch.as_tensor(lens, device=device)
+        x, st = models.forward_chunk(info, params, st, t, n)
+        live = (n > 0).nonzero()[:, 0]  # a zero-length lane's x is unspecified
+        logits = models.logits_head(params, x[live, n[live] - 1])
+        out.append({"logits": logits.cpu(), **{k: v.cpu() for k, v in st.items()}})
+    return out
+
+
+def rel_diff(got, want):
+    """Per chunk: max|got - want| / max|want| for the logits and the shift
+    states, and for the WKV state of each layer ("wkv.<layer>") against
+    that layer's max."""
+    per_chunk = []
+    for g, w in zip(got, want):
+        rel = {}
+        for key in w:
+            parts = ([(f"wkv.{i}", g[key][i], w[key][i]) for i in range(w[key].shape[0])]
+                     if key == "wkv" else [(key, g[key], w[key])])
+            for name, a, b in parts:
+                rel[name] = (a - b).abs().max().item() / max(b.abs().max().item(), 1e-30)
+        per_chunk.append(rel)
+    return per_chunk
+
+
+def wkv_max_at(got, want):
+    """Per chunk and layer: the (lane, head) of the largest WKV state
+    difference."""
+    out = []
+    for g, w in zip(got, want):
+        d = (g["wkv"] - w["wkv"]).abs().amax(dim=(3, 4))  # [L, B, H]
+        out.append([divmod(int(d[i].argmax()), d.shape[2]) for i in range(d.shape[0])])
+    return out
+
+
+def card_cpu_limit(key):
+    return CARD_CPU_TOL if key in ("logits", "att_shift", "ffn_shift", "wkv.0") \
+        else CARD_CPU_WKV_TOL
+
+
+def noisy_params(torch, Matrix, params, seed, device):
+    """``params`` with every matrix replaced by one that moves each element
+    of its product by one f32 ulp, up or down (each with probability
+    1/4), from a generator seeded with ``seed``: the size of the
+    differences that another summation order makes, as between the card
+    and the CPU. (Moving the input instead changes almost nothing: the
+    products round their input to bf16 first.)"""
+    gen = torch.Generator(device=device).manual_seed(seed)
+
+    class Noisy(Matrix):
+        def layer(self, i):
+            return Noisy(self.kind, self.shape, {k: a[i] for k, a in self.arrays.items()})
+
+        def matmul(self, x):
+            y = super().matmul(x)
+            u = torch.rand(y.shape, generator=gen, device=y.device)
+            inf = torch.full_like(y, math.inf)
+            return torch.where(u < 0.25, torch.nextafter(y, inf),
+                               torch.where(u < 0.5, torch.nextafter(y, -inf), y))
+
+    def swap(tree):
+        if isinstance(tree, Matrix):
+            return Noisy(tree.kind, tree.shape, tree.arrays)
+        if isinstance(tree, dict):
+            return {k: swap(v) for k, v in tree.items()}
+        if isinstance(tree, list):
+            return [swap(v) for v in tree]
+        return tree
+    return swap(params)
+
+
+def sensitivity(torch, models, Matrix, info, params, chunks, device, clean):
+    """How far the prefill result moves under one-ulp changes of every
+    matmul's product on one device: per noise seed, rel_diff against the
+    clean run and wkv_max_at. Checks first that a rerun is identical to
+    the clean run (the device is deterministic, so every difference
+    comes from the noise)."""
+    again = run_chunks(torch, models, info, params, chunks, device)
+    if any(v != 0.0 for rel in rel_diff(again, clean) for v in rel.values()):
+        raise AssertionError(f"two clean prefill runs on {device} differ")
+    out = {}
+    for seed in SENSITIVITY_SEEDS[device]:
+        noisy = run_chunks(torch, models, info,
+                           noisy_params(torch, Matrix, params, seed, device), chunks, device)
+        out[seed] = (rel_diff(noisy, clean), wkv_max_at(noisy, clean))
+    return out
 
 
 def main() -> int:
     try:
+        import numpy as np
         import torch
     except ImportError:
         print("chip_smoke: PyTorch is not installed", file=sys.stderr)
@@ -329,12 +664,18 @@ def main() -> int:
         print("chip_smoke: no CUDA card; this run needs one", file=sys.stderr)
         return 1
     try:
-        from web_rwkv_gguf_tpu_torch import models
+        from web_rwkv_gguf_tpu_torch import models, runtime
         from web_rwkv_gguf_tpu_torch.gguf import GgufFile
+        from web_rwkv_gguf_tpu_torch.models.forward import WKV7_CHUNKED_MIN_T
+        from web_rwkv_gguf_tpu_torch.models.forward import GN_EPS, L2_EPS, LN_EPS
+        from web_rwkv_gguf_tpu_torch.models.loader import layer_params
+        from web_rwkv_gguf_tpu_torch.models.matrix import Matrix, takes_gemv
         from web_rwkv_gguf_tpu_torch.ops.cuda import build
+        from web_rwkv_gguf_tpu_torch.ops.cuda import layer7 as l7
         from web_rwkv_gguf_tpu_torch.ops.cuda import matmul as mm
         from web_rwkv_gguf_tpu_torch.ops.cuda import wkv7 as core
         from web_rwkv_gguf_tpu_torch.quant.ggml import GgmlDType
+        from web_rwkv_gguf_tpu_torch.runtime.engine import _bucket
         from web_rwkv_gguf_tpu_torch.utils.synthetic import make_v7_gguf
     except ImportError as e:
         print(f"chip_smoke: run from the root of a checkout of the repo ({e})",
@@ -360,14 +701,27 @@ def main() -> int:
                 log(f"  {name}: {line.strip()}")
 
     # ---- kernels against their plain versions -------------------------------
+    rng = np.random.default_rng(ENGINE_SEED)
+    engine_prompts = [[int(t) for t in rng.integers(0, MODEL["n_vocab"], n)]
+                      for n in ENGINE_LENGTHS]
+    full_inp, full_plan, full_rows = full_input(runtime, _bucket, rng, MODEL["n_vocab"])
     log("kernels (each against its plain PyTorch version, same inputs):")
-    entries, cases = [], kernel_cases(torch, mm, core, bf16_peak, f32_peak)
+    entries = []
+    cases = kernel_cases(torch, mm, core, bf16_peak, f32_peak, full_rows)
     sources = {"q4k_gemv": ("web_rwkv_gguf_tpu_torch/ops/cuda/csrc/q4k_gemv.cu",
                             "web_rwkv_gguf_tpu/ops/pallas/matmul.py:793"),
                "q6k_gemv": ("web_rwkv_gguf_tpu_torch/ops/cuda/csrc/q6k_gemv.cu",
                             "web_rwkv_gguf_tpu/ops/pallas/matmul.py:629"),
                "att_core7": ("web_rwkv_gguf_tpu_torch/ops/cuda/csrc/att_core7.cu",
-                             "web_rwkv_gguf_tpu/ops/pallas/wkv7.py:108")}
+                             "web_rwkv_gguf_tpu/ops/pallas/wkv7.py:108"),
+               "q4k_gemm": ("web_rwkv_gguf_tpu_torch/ops/cuda/csrc/qk_gemm.cu",
+                            "web_rwkv_gguf_tpu/ops/pallas/matmul.py:1225"),
+               "q6k_gemm": ("web_rwkv_gguf_tpu_torch/ops/cuda/csrc/qk_gemm.cu",
+                            "web_rwkv_gguf_tpu/ops/pallas/matmul.py:1225"),
+               "wkv7_scan": ("web_rwkv_gguf_tpu_torch/ops/cuda/csrc/wkv7_scan.cu",
+                             "web_rwkv_gguf_tpu/ops/pallas/wkv7.py:176"),
+               "layer_scan7": ("web_rwkv_gguf_tpu_torch/ops/cuda/csrc/layer7.cu",
+                               "web_rwkv_gguf_tpu/ops/pallas/layer7.py:1011")}
     for case in cases:
         fields = run_kernel_case(torch, case, hbm)
         kname = case["name"].split("[")[0]
@@ -375,7 +729,7 @@ def main() -> int:
                         "source": sources[kname][0], "replaces": sources[kname][1],
                         "launches": None, **fields})
 
-    # ---- the main path: two requests on the 0.1B-width Q4_K_M model ---------
+    # ---- the model -----------------------------------------------------------
     t0 = time.perf_counter()
     raw = make_v7_gguf(**MODEL, seed=SEED, quantize=GgmlDType.Q4_K,
                        head_quantize=GgmlDType.Q6_K)
@@ -387,65 +741,221 @@ def main() -> int:
         f"{torch.cuda.memory_allocated() / 1e6:.1f} MB on the card")
     if params["head"].kind != "qk_nomin" or params["blocks"]["att"]["Wk"].kind != "qk":
         raise AssertionError("the model did not load in the Q4_K_M placement")
+    L = info.num_layer
+    counters = {"q4k_gemv": mm.q4k_gemv, "q4k_gemm": mm.q4k_gemm,
+                "q6k_gemv": mm.q6k_gemv, "q6k_gemm": mm.q6k_gemm,
+                "att_core7_step": core.att_core7_step, "wkv7_scan": core.wkv7_scan,
+                "layer_scan7": l7.layer_scan7}
+    path_launches = {}  # main path -> kernel -> launches
+    path_shapes = {}  # main path -> kernel -> Counter of launches by shape
 
-    counters = (mm.q4k_gemv, mm.q6k_gemv, core.att_core7_step)
-    for fn in counters:
-        fn.launches = 0
-        fn.shapes.clear()
-    tokens1, t_prompt, t_gen = serve(torch, models, info, params, PROMPTS, DECODE_STEPS)
-    launches = {fn.__name__: fn.launches for fn in counters}
-    L, n_req = info.num_layer, len(PROMPTS)
-    steps = sum(len(p) for p in PROMPTS) + n_req * DECODE_STEPS  # forward_chunk calls
-    want = {"q4k_gemv": 6 * L * steps, "att_core7_step": L * steps,
-            "q6k_gemv": n_req * (1 + DECODE_STEPS)}
-    log(f"main path launches: {launches} (expected {want}; per decoded token "
-        f"{6 * L} Q4_K, {L} att-core, 1 Q6_K)")
-    if launches != want:
-        raise AssertionError("the main path did not run through every kernel as expected")
-    log(f"main path launches by shape: "
-        + "; ".join(f"{fn.__name__} {dict(fn.shapes)}" for fn in counters))
-    # "launches": the kernel's count over the main path; "launches_at_shape":
-    # those at this entry's shape (0 for a batched shape the B=1 path skips)
-    for entry, case in zip(entries, cases):
-        fn = case["kernel"]
-        entry["launches"] = fn.launches
-        entry["launches_at_shape"] = fn.shapes[case["shape"]]
+    layers = layer_params(params, L)
 
+    def chunk(B, T):
+        return expected_chunk(takes_gemv, WKV7_CHUNKED_MIN_T, layers, B, T)
+
+    def head(n):
+        return {matmul_kernel(takes_gemv, params["head"], n): 1}
+
+    def counted(path, want, drive):
+        """Drive one main path with every count at 0; check the counts."""
+        for fn in counters.values():
+            fn.launches = 0
+            fn.shapes.clear()
+        result = drive()
+        torch.cuda.synchronize()
+        got = {name: fn.launches for name, fn in counters.items()}
+        want = {name: want.get(name, 0) for name in COUNTED}
+        log(f"{path} launches: {got} (expected {want})")
+        log(f"{path} launches by shape: "
+            + "; ".join(f"{k} {dict(fn.shapes)}" for k, fn in counters.items() if fn.shapes))
+        if got != want:
+            raise AssertionError(f"{path} did not run through every kernel as expected")
+        path_launches[path] = got
+        path_shapes[path] = {k: collections.Counter(fn.shapes) for k, fn in counters.items()}
+        return result
+
+    # ---- main path 1: two requests at batch 1 ---------------------------------
+    n_req = len(PROMPTS)
+    want = collections.Counter()
+    for prompt in PROMPTS:
+        want += chunk(1, len(prompt)) + collections.Counter(head(1))
+        for _ in range(DECODE_STEPS):
+            want += chunk(1, 1) + collections.Counter(head(1))
+    tokens1, t_prompt, t_gen = counted(
+        "serve (B=1)", want,
+        lambda: serve(torch, models, info, params, PROMPTS, DECODE_STEPS))
     tokens2, t_prompt2, t_gen2 = serve(torch, models, info, params, PROMPTS, DECODE_STEPS)
     if tokens1 != tokens2:
         raise AssertionError("greedy tokens differ between two runs")
     if not all(0 <= t < info.num_vocab for req in tokens1 for t in req):
         raise AssertionError("token out of range")
     n_dec = n_req * DECODE_STEPS
-    log(f"requests: {n_req} x ({len(PROMPTS[0])} prompt tokens at T=1 + 1 + {DECODE_STEPS} "
-        f"greedy); tokens identical across two runs; first request {tokens1[0][:8]}...")
+    n_prompt = sum(len(p) for p in PROMPTS)
+    log(f"requests: {n_req} x ({len(PROMPTS[0])} prompt tokens in one chunk + 1 + "
+        f"{DECODE_STEPS} greedy); tokens identical across two runs; first request "
+        f"{tokens1[0][:8]}...")
     log(f"eager decode at B=1: {n_dec / t_gen2:.2f} tok/s ({t_gen2 / n_dec * 1e3:.3f} ms/token; "
-        f"first run {n_dec / t_gen:.2f} tok/s), prompt feed {t_prompt2 / (n_req * 8) * 1e3:.3f} "
-        f"ms/token, on {smi}")
+        f"first run {n_dec / t_gen:.2f} tok/s), prompt prefill {t_prompt2 / n_prompt * 1e3:.3f} "
+        f"ms/prompt token (one chunk of {len(PROMPTS[0])}), on {smi}")
 
-    busy, prof_wall_us, rows = profile_decode(torch, models, info, params)
-    if busy is None:
-        log("profile: no device time recorded (not measured)")
-    else:
-        wall_us = t_gen2 / n_dec * 1e6
-        log(f"profile (8 decode steps): device kernel time {busy:.1f} us/token, "
-            f"{sum(r[2] for r in rows):.0f} kernels/token; busy share "
-            f"{busy / wall_us:.3f} of the unprofiled {wall_us:.1f} us/token "
-            f"({prof_wall_us:.1f} us/token under the profiler)")
-        for us, key, count in rows[:15]:
-            log(f"  {us:9.2f} us/token  x{count:<6.1f} {key[:90]}")
+    dstate = models.init_state(info, 1, device="cuda")
+    gen8 = models.make_generator(info, steps=8)
+    busy, prof_wall_us, rows = profile(
+        torch, lambda: gen8(params, dstate, torch.tensor([[1]], device="cuda")), 8)
+    log_profile("8 decode steps at B=1", busy, prof_wall_us, rows,
+                t_gen2 / n_dec * 1e6, "token")
+
+    # ---- main path 2: the Engine at B=4 ----------------------------------------
+    eng = runtime.Engine(info, params, num_batch=len(ENGINE_LENGTHS),
+                         token_chunk_size=ENGINE_CHUNK, device="cuda")
+    B4 = len(ENGINE_LENGTHS)
+    Ts = engine_plans(runtime, _bucket, ENGINE_LENGTHS, ENGINE_CHUNK)
+    decode_steps = -(-(ENGINE_TOKENS - 1) // 32) * 32  # whole 32-token segments
+    want = collections.Counter()
+    for T in Ts:
+        want += chunk(B4, T) + collections.Counter(head(B4))
+    if "mega7" not in eng.params:
+        raise AssertionError("the Engine did not arrange the whole-stack decode blocks")
+    for _ in range(decode_steps):  # each step: one whole-stack launch, the head
+        want += collections.Counter({"layer_scan7": 1}) + collections.Counter(head(B4))
+    log(f"engine: prompts of {list(ENGINE_LENGTHS)} tokens, prefill chunks T={Ts} "
+        f"(token_chunk_size {ENGINE_CHUNK}), then {decode_steps} decode steps at B={B4}, "
+        f"each one launch of the whole-stack kernel")
+    out_gen = counted("engine generate (B=4)", want,
+                      lambda: eng.generate(engine_prompts, ENGINE_TOKENS))
+    if [len(o) for o in out_gen] != [ENGINE_TOKENS] * B4 or not all(
+            0 <= t < info.num_vocab for o in out_gen for t in o):
+        raise AssertionError(f"engine generate returned {[len(o) for o in out_gen]} tokens")
+
+    T_full = _bucket(max(p.len for p in full_plan), ENGINE_CHUNK)
+    want = chunk(B4, T_full) + collections.Counter(head(full_rows))
+    out_full = counted("engine infer with a FULL lane", want, lambda: eng.infer(full_inp))
+    shapes = [tuple(o.shape) for o in out_full]
+    want_shapes = [((p.len if p.option == runtime.RnnOption.FULL else int(p.len > 0)),
+                    info.num_vocab) for p in full_plan]
+    if shapes != want_shapes or not all(np.isfinite(o).all() for o in out_full):
+        raise AssertionError(f"FULL infer returned {shapes}, expected {want_shapes}")
+    log(f"engine infer: lanes {[(n, o) for n, o in FULL_LANES]} in one chunk T={T_full}; "
+        f"logits {shapes}, head at {full_rows} rows")
+
+    # timing: prefill alone (generate of one token), then prefill + 32 steps
+    def run_generate(n_tokens):
+        eng.reset_state()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = eng.generate(engine_prompts, n_tokens)
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    _, t_pre = run_generate(1)
+    out_t, _ = run_generate(1 + decode_steps)
+    if [o[:ENGINE_TOKENS] for o in out_t] != out_gen:
+        raise AssertionError("engine greedy tokens differ between two runs")
+    # decode alone: the Engine's own prefill, then the decode segment that
+    # generate runs (make_generator on the Engine's prepared params), timed
+    eng.reset_state()
+    first, gen = eng._gen_prefill(engine_prompts, 0.0, 0, 0.0, 0)
+    segment = models.make_generator(info, steps=decode_steps)
+    pre_state = eng.state
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    toks, _, _, _, _ = segment(eng.params, pre_state, first, gen)
+    torch.cuda.synchronize()
+    t_dec = time.perf_counter() - t0
+    if [o[1:1 + decode_steps] for o in out_t] != toks.tolist():
+        raise AssertionError("the timed decode segment gave other tokens than generate")
+    n_pre = sum(ENGINE_LENGTHS)
+    log(f"engine prefill: {n_pre / t_pre:.2f} tok/s ({n_pre} prompt tokens in "
+        f"{t_pre * 1e3:.1f} ms, {t_pre / n_pre * 1e3:.3f} ms/prompt token), on {smi}")
+    log(f"engine decode at B={B4}: {B4 * decode_steps / t_dec:.2f} tok/s "
+        f"({t_dec / decode_steps * 1e3:.3f} ms/step, {decode_steps} steps timed alone), "
+        f"on {smi}")
+    busy, prof_wall_us, rows = profile(
+        torch, lambda: (eng.reset_state(), eng.generate(engine_prompts, 1)), n_pre)
+    log_profile(f"engine prefill of {n_pre} prompt tokens", busy, prof_wall_us, rows,
+                t_pre / n_pre * 1e6, "prompt token")
+    busy, prof_wall_us, rows = profile(
+        torch, lambda: segment(eng.params, pre_state, first, None), decode_steps)
+    log_profile(f"engine decode at B={B4}", busy, prof_wall_us, rows,
+                t_dec / decode_steps * 1e6, "step")
+
+    # ---- the whole-stack decode kernel against its plain version ------------
+    # on the Engine's lanes as generate left them, one lane frozen
+    dec_x = models.embed_tokens(params, torch.tensor([[o[-1]] for o in out_gen],
+                                                     device="cuda"))[:, 0]
+    case = mega_case(torch, l7, eng.params["mega7"], clone_tree(eng.state), dec_x,
+                     torch.tensor([1.0, 1.0, 0.0, 1.0], device="cuda"),
+                     (LN_EPS, GN_EPS, L2_EPS), f32_peak)
+    log("whole-stack decode kernel (against its plain version, same inputs):")
+    fields = run_kernel_case(torch, case, hbm)
+    # where its time goes: the device clock after each phase's grid barrier
+    L_, stamps = info.num_layer, []
+    for _ in range(5):
+        ns = torch.zeros(1 + 5 * L_, dtype=torch.int64, device="cuda")
+        l7.layer_scan7(*case["make_args"](0), phase_ns=ns)
+        stamps.append(ns.diff().view(L_, 5).double().mean(0) / 1e3)
+    per_phase = torch.stack(stamps).median(0).values.tolist()
+    log(f"  {case['name']}: µs per layer by phase, each up to its grid barrier, median "
+        f"of 5 launches: " + ", ".join(f"{n} {t:.2f}" for n, t in zip(
+            ("LN1+mix+r/k/v+LoRA down", "LoRA up+attention", "Wo", "LN2+mix+FFN key",
+             "FFN value"), per_phase))
+        + f"; {sum(per_phase) * L_:.1f} µs for {L_} layers")
+    cases.append(case)
+    entries.append({"name": case["name"], "route": "cuda", "source": sources["layer_scan7"][0],
+                    "replaces": sources["layer_scan7"][1], "launches": None, **fields})
+
+    # "launches": the kernel's count over the main paths' runs; by path and
+    # at this entry's shape ("launches_at_shape", 0 for a shape off the paths)
+    for entry, case in zip(entries, cases):
+        kname = case["kernel"].__name__
+        entry["launches"] = sum(p[kname] for p in path_launches.values())
+        entry["launches_by_path"] = {path: p[kname] for path, p in path_launches.items()}
+        entry["launches_at_shape"] = sum(s[kname][case["shape"]]
+                                         for s in path_shapes.values())
 
     # ---- the card against the CPU, same widths, two layers -------------------
     t0 = time.perf_counter()
     raw2 = make_v7_gguf(**{**MODEL, "n_layer": COMPARE_LAYERS}, seed=SEED + 1,
                         quantize=GgmlDType.Q4_K, head_quantize=GgmlDType.Q6_K)
-    worst = compare_card_cpu(torch, models, GgufFile, raw2, COMPARE_STEPS)
-    log(f"card vs CPU, L={COMPARE_LAYERS}, B=3, {len(COMPARE_STEPS)} decode steps "
-        "(lane 2 frozen on the second): max |card-cpu|/max|cpu| "
-        + ", ".join(f"{k} {v:.3e}" for k, v in worst.items())
-        + f" (tolerance {CARD_CPU_TOL}); {time.perf_counter() - t0:.1f} s")
-    if not all(v <= CARD_CPU_TOL for v in worst.values()):
-        raise AssertionError("the card disagrees with the CPU")
+    info2, p_gpu = models.load_model(GgufFile(raw2), device="cuda")
+    _, p_cpu = models.load_model(GgufFile(raw2), device="cpu")
+    decode = [(np.array(toks)[:, None], np.array(lens)) for toks, lens in COMPARE_STEPS]
+    prng = np.random.default_rng(SEED + 2)
+    prefill = [(prng.integers(0, MODEL["n_vocab"], (len(lens), T)), np.array(lens))
+               for T, lens in COMPARE_PREFILL]
+    batch = len(COMPARE_STEPS[0][1])
+    m_gpu = models.prepare_decode(p_gpu, info2, batch)
+    m_cpu = models.prepare_decode(p_cpu, info2, batch)
+    if "mega7" not in m_gpu or "mega7" not in m_cpu:
+        raise AssertionError("the compare model did not take the whole-stack decode blocks")
+    fmt = lambda rel: ", ".join(f"{k} {v:.3e}" for k, v in rel.items())  # noqa: E731
+    for label, chunks, pg, pc in (
+            ("decode steps, per-layer kernels (lane 2 frozen on the second)", decode,
+             p_gpu, p_cpu),
+            ("decode steps, whole-stack kernel (lane 2 frozen on the second)", decode,
+             m_gpu, m_cpu),
+            (f"prefill chunks {COMPARE_PREFILL}", prefill, p_gpu, p_cpu)):
+        card = run_chunks(torch, models, info2, pg, chunks, "cuda")
+        cpu = run_chunks(torch, models, info2, pc, chunks, "cpu")
+        per_chunk = rel_diff(card, cpu)
+        log(f"card vs CPU, L={COMPARE_LAYERS}, B={batch}, {label}: max |card-cpu|/max|cpu| "
+            f"per chunk (tolerance {CARD_CPU_TOL}; wkv of later layers "
+            f"{CARD_CPU_WKV_TOL}):")
+        for i, rel in enumerate(per_chunk):
+            log(f"  chunk {i}: {fmt(rel)}")
+        if chunks is prefill:  # the evidence for the WKV limit, from this run
+            log(f"  largest wkv difference at (lane, head) per layer: "
+                f"{wkv_max_at(card, cpu)}")
+            for dev, p, clean in (("cuda", pg, card), ("cpu", pc, cpu)):
+                for seed, (rels, at) in sensitivity(torch, models, Matrix, info2, p, chunks,
+                                                    dev, clean).items():
+                    for i, rel in enumerate(rels):
+                        log(f"  {dev} alone, one-ulp product changes, seed {seed}, "
+                            f"chunk {i}: {fmt(rel)}; wkv largest at {at[i]}")
+        if not all(v <= card_cpu_limit(k) for rel in per_chunk for k, v in rel.items()):
+            raise AssertionError(f"the card disagrees with the CPU ({label})")
+    log(f"card vs CPU: {time.perf_counter() - t0:.1f} s")
 
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(smi, flush=True)

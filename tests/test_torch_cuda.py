@@ -5,7 +5,10 @@ card. Imports nothing of JAX, so it runs where only PyTorch is installed:
 
 (``--noconftest``: tests/conftest.py sets up JAX). Without a card every
 test here skips. Tolerances: the gemvs sum the same f32 terms in another
-order, atol = 1e-4·max|y|; the attention core, atol = 1e-4.
+order, atol = 1e-4·max|y|; the attention core, atol = 1e-4; the
+dequant-GEMMs multiply the same bf16 weights in another order, atol =
+1e-4·max|y|; the WKV scan, atol = 1e-4·max|plain| on y and the state;
+the whole-stack decode kernel as its test says.
 """
 
 import numpy as np
@@ -101,10 +104,71 @@ def test_att_core7_on_card(card, B):
         assert torch.equal(s1[1], args[0][1])  # the masked lane keeps its state
 
 
+def _q4k_arrays(m, k, seed, dev):
+    raw = _weights(m, k, ggml.quantize_q4_k, seed)
+    return [torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+            for a in (repack.repack_q4_k(raw, m, k)[0], *repack.q4k_scale_factors(raw, m, k))]
+
+
+def _q6k_arrays(m, k, seed, dev):
+    raw = _weights(m, k, ggml.quantize_q6_k, seed)
+    return [torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+            for a in (repack.repack_q6_k(raw, m, k)[0], *repack.q6k_scale_factors(raw, m, k))]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [3, 9, 64, 130])
+@pytest.mark.parametrize("m,k", [(768, 3072), (100, 512)])
+def test_q4k_gemm_on_card(card, m, k, n):
+    """Including ragged M (100 rows) and n (130 rows) edges."""
+    arrays = _q4k_arrays(m, k, m + k + n, card)
+    x = _x(n, k, n, card)
+    before = mm.q4k_gemm.launches
+    got = mm.q4k_gemm(x, *arrays)
+    assert mm.q4k_gemm.launches == before + 1
+    _close(got, mm.q4k_gemm_plain(x, *arrays), 1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [6, 64])
+def test_q6k_gemm_on_card(card, n):
+    m, k = 1000, 768
+    arrays = _q6k_arrays(m, k, n, card)
+    x = _x(n, k, n + 2, card)
+    before = mm.q6k_gemm.launches
+    got = mm.q6k_gemm(x, *arrays)
+    assert mm.q6k_gemm.launches == before + 1
+    _close(got, mm.q6k_gemm_plain(x, *arrays), 1e-4)
+
+
+def _wkv_args(B, T, lens, dev, seed=0):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    f = lambda *s: torch.randn(*s, generator=g, device=dev) * 0.5  # noqa: E731
+    H, K = 12, 64
+    kk = torch.nn.functional.normalize(f(B, T, H, K), dim=-1)
+    mask = torch.arange(T, device=dev)[None, :] < torch.tensor(lens, device=dev)[:, None]
+    return (f(B, H, K, K), f(B, T, H, K), torch.exp(-0.606531 * torch.sigmoid(f(B, T, H, K))),
+            f(B, T, H, K), f(B, T, H, K), -kk, kk * torch.sigmoid(f(B, T, H, K)), mask)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lens", [(2,), (37, 20, 0)])
+def test_wkv7_scan_on_card(card, lens):
+    args = _wkv_args(len(lens), max(lens), lens, card)
+    before = core.wkv7_scan.launches
+    y1, s1 = core.wkv7_scan(*args)
+    assert core.wkv7_scan.launches == before + 1
+    y0, s0 = core.wkv7_scan_plain(*args)
+    _close(y1, y0, 1e-4)
+    _close(s1, s0, 1e-4)
+    if 0 in lens:
+        assert torch.equal(s1[lens.index(0)], args[0][lens.index(0)])
+
+
 @pytest.mark.cuda
 def test_forward_refuses_what_this_slice_does_not_run_on_the_card(card):
-    """Prefill (T > 1) and a Q4_K matrix without whole 256-element
-    super-blocks per row raise on the card instead of running plain code."""
+    """A Q4_K matrix without whole 256-element super-blocks per row raises
+    on the card, at decode and at prefill, instead of running plain code."""
     from web_rwkv_gguf_tpu_torch.errors import UnsupportedTensorType
     from web_rwkv_gguf_tpu_torch.gguf import GgufFile
     from web_rwkv_gguf_tpu_torch.models import forward_chunk, init_state, load_model
@@ -114,9 +178,79 @@ def test_forward_refuses_what_this_slice_does_not_run_on_the_card(card):
                        quantize=ggml.GgmlDType.Q4_K, seed=3)
     info, params = load_model(GgufFile(raw), device=card)
     state = init_state(info, 1, device=card)
-    with pytest.raises(NotImplementedError):
-        forward_chunk(info, params, state, torch.tensor([[1, 2]], device=card),
-                      torch.tensor([2], device=card))
-    with pytest.raises(UnsupportedTensorType):  # ffn.value is [256, 384]
-        forward_chunk(info, params, state, torch.tensor([[1]], device=card),
-                      torch.tensor([1], device=card))
+    for toks in ([[1]], [[1, 2, 3]]):  # ffn.value is [256, 384]
+        with pytest.raises(UnsupportedTensorType):
+            forward_chunk(info, params, state, torch.tensor(toks, device=card),
+                          torch.tensor([len(toks[0])], device=card))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T", [5, 128])
+def test_prefill_routes_through_the_kernels_on_card(card, T):
+    """A prefill chunk on the card: every quantized matmul runs the
+    dequant-GEMM, the WKV the scan kernel below T=128 and the
+    chunk-parallel form from it; logits and state match the CPU within
+    the card-vs-CPU tolerance of chip_smoke.py (1e-2·max|CPU|)."""
+    from web_rwkv_gguf_tpu_torch.gguf import GgufFile
+    from web_rwkv_gguf_tpu_torch.models import forward_chunk, init_state, load_model, logits_head
+    from web_rwkv_gguf_tpu_torch.utils.synthetic import make_v7_gguf
+
+    raw = make_v7_gguf(n_layer=2, n_emb=256, head_size=64, n_vocab=512, n_hidden=1024,
+                       quantize=ggml.GgmlDType.Q4_K, head_quantize=ggml.GgmlDType.Q6_K,
+                       seed=4)
+    toks = torch.from_numpy(np.random.default_rng(T).integers(0, 512, (2, T)))
+    lens = torch.tensor([T, T - 3])
+    out = {}
+    for dev in ("cpu", card):
+        info, params = load_model(GgufFile(raw), device=dev)
+        counts = (mm.q4k_gemm.launches, core.wkv7_scan.launches)
+        x, st = forward_chunk(info, params, init_state(info, 2, device=dev),
+                              toks.to(dev), lens.to(dev))
+        launched = (mm.q4k_gemm.launches - counts[0], core.wkv7_scan.launches - counts[1])
+        logits = logits_head(params, x[torch.arange(2), lens.to(dev) - 1])
+        out[str(dev)] = (launched, logits.cpu(), {k: v.cpu() for k, v in st.items()})
+    (l_cpu, lg_cpu, st_cpu), (l_gpu, lg_gpu, st_gpu) = out["cpu"], out[str(card)]
+    assert l_cpu == (0, 0)
+    assert l_gpu == (6 * 2, 2 if T < 128 else 0)
+    _close(lg_gpu, lg_cpu, 1e-2)
+    for key in st_cpu:
+        _close(st_gpu[key], st_cpu[key], 1e-2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B", [1, 3, 9])
+def test_layer_scan7_on_card(card, B):
+    """The whole-stack decode kernel against its plain version on a
+    two-layer model from a random state, one lane frozen at B ≥ 3: layer
+    0's states at 1e-4·max (f32 sums in another order), every output at
+    1e-2·max (the bf16 operand flips that layer 0 passes on, as in
+    chip_smoke.py); the frozen lane's state is kept exactly."""
+    from web_rwkv_gguf_tpu_torch.gguf import GgufFile
+    from web_rwkv_gguf_tpu_torch.models import embed_tokens, load_model, prepare_decode
+    from web_rwkv_gguf_tpu_torch.models.forward import GN_EPS, L2_EPS, LN_EPS
+    from web_rwkv_gguf_tpu_torch.ops.cuda import layer7
+    from web_rwkv_gguf_tpu_torch.utils.synthetic import make_v7_gguf
+
+    raw = make_v7_gguf(n_layer=2, n_emb=256, head_size=64, n_vocab=512, n_hidden=1024,
+                       quantize=ggml.GgmlDType.Q4_K, head_quantize=ggml.GgmlDType.Q6_K,
+                       seed=6)
+    info, params = load_model(GgufFile(raw), device=card)
+    mega = prepare_decode(params, info, B)["mega7"]
+    g = torch.Generator(device=card).manual_seed(B)
+    f = lambda *s: torch.randn(*s, generator=g, device=card) * 0.5  # noqa: E731
+    L, C, H = info.num_layer, info.num_emb, info.num_head
+    state = {"att_shift": f(L, B, C), "wkv": f(L, B, H, 64, 64), "ffn_shift": f(L, B, C)}
+    x = embed_tokens(params, torch.arange(B, device=card)[:, None] * 7 + 1)[:, 0]
+    mask = torch.ones(B, device=card)
+    if B >= 3:
+        mask[1] = 0.0
+    before = layer7.layer_scan7.launches
+    x1, s1 = layer7.layer_scan7(mega, state, x, mask, None, LN_EPS, GN_EPS, L2_EPS)
+    assert layer7.layer_scan7.launches == before + 1
+    x0, s0 = layer7.layer_scan7_plain(mega, state, x, mask, None, LN_EPS, GN_EPS, L2_EPS)
+    for key in s0:
+        _close(s1[key][0], s0[key][0], 1e-4)
+        _close(s1[key], s0[key], 1e-2)
+        if B >= 3:
+            assert torch.equal(s1[key][:, 1], state[key][:, 1])
+    _close(x1, x0, 1e-2)

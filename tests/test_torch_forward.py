@@ -100,12 +100,19 @@ F32_CHUNKS = [
 
 
 def test_forward_f32_matches_jax(f32_models):
-    """Padded T=5 prefill, then T=1 steps: x, logits and every state array."""
+    """Padded T=5 prefill, then T=1 steps: x at every valid position,
+    logits and every state array. x at a padded position is unspecified:
+    the JAX package's own WKV routes differ there (its XLA reference reads
+    y from the discarded update, its Pallas scan, which the port's scan
+    follows, from the kept state)."""
     jax_model, port_model = f32_models
-    for jx, x, jst, st in _run_both(jax_model, port_model, F32_CHUNKS, 2):
-        _close(x, jx, F32_TOL)
-        _close(logits_head(port_model[1], x[:, -1]),
-               jax_logits_head(jax_model[1], jx[:, -1]), F32_TOL)
+    for (toks, lens), (jx, x, jst, st) in zip(
+            F32_CHUNKS, _run_both(jax_model, port_model, F32_CHUNKS, 2)):
+        valid = np.arange(toks.shape[1])[None, :] < lens[:, None]
+        _close(x.numpy()[valid], np.asarray(jx)[valid], F32_TOL)
+        last = np.maximum(lens - 1, 0)  # each lane's last valid position
+        _close(logits_head(port_model[1], x[np.arange(2), last]),
+               jax_logits_head(jax_model[1], jx[np.arange(2), last]), F32_TOL)
         for key in jst:
             _close(st[key], jst[key], F32_TOL)
 

@@ -13,6 +13,7 @@ Layer map:
   quant/     block formats, numpy dequant, repack into logical arrays
   ops/       plain ops (basic, wkv) and the CUDA kernels (ops/cuda)
   models/    metadata, matrices, loader, forward, generation
+  runtime/   chunk scheduler and the inference Engine
   utils/     synthetic model files
 """
 

@@ -3,14 +3,20 @@
 Padding tokens (``t >= lengths[b]``) never touch recurrent state. The
 layers run in a Python loop over per-layer views of the parameters.
 
-Routing in this slice:
+Routing, as in the JAX package (on the CPU each kernel wrapper takes its
+plain version):
 
-- T = 1 (decode): every quantized matrix goes through the gemv kernels
-  and every layer's attention core through the fused att-core kernel
-  (``ops/cuda``); on the CPU those wrappers take their plain versions.
-- T > 1 (prefill): the CPU runs the composed plain path (the delta rule
-  token by token). On CUDA it raises: prefill needs the slab GEMM and WKV
-  scan kernels, queue 2 of ROADMAP.md.
+- T = 1 (decode) with params prepared by ``loader.prepare_decode`` (the
+  Engine's) and at most ``MAX_SCAN_BATCH`` lanes: every layer in one
+  launch of the whole-stack kernel ``ops/cuda/layer7``;
+- quantized matmuls: the gemv kernels or the dequant-GEMM, by the row
+  count (``Matrix.matmul``);
+- T = 1 otherwise: each layer's attention core is the fused att-core
+  kernel;
+- 2 ≤ T < 128: the WKV runs as the scan kernel ``wkv7_scan``, the rest
+  of the attention core as PyTorch ops;
+- T ≥ 128: the WKV runs as the chunk-parallel ``ops/wkv_chunked``
+  (PyTorch matmuls).
 
 Dense matrices and the inner-LoRA adapters multiply with ``torch.matmul``
 in f32 (bf16 operands where the weights are bf16); TF32 is switched off
@@ -23,13 +29,18 @@ import torch
 
 from ..ops import basic as B
 from ..ops import wkv as W
-from ..ops.cuda.wkv7 import att_core7_step
+from ..ops.cuda.layer7 import MAX_SCAN_BATCH, layer_scan7
+from ..ops.cuda.wkv7 import att_core7_step, wkv7_scan
+from ..ops.wkv_chunked import wkv7_chunked
 from .info import ModelInfo
 from .loader import layer_params
 
 LN_EPS = 1e-5
 GN_EPS = 64.0e-5
 L2_EPS = 1.0e-12
+# chunks of at least this many tokens take the chunk-parallel WKV, shorter
+# ones the scan kernel (the JAX package's crossover, models/forward.py)
+WKV7_CHUNKED_MIN_T = 128
 
 
 def init_state(info: ModelInfo, batch: int, device="cuda") -> dict:
@@ -73,15 +84,22 @@ def _lora(x, w_a, w_b, mid_act=None):
     return z.to(w_b.dtype).float() @ w_b.float().T
 
 
+def _wkv7(state, r, w, k, v, a, b, mask):
+    """The delta rule over a chunk, routed by its length T."""
+    if r.shape[1] >= WKV7_CHUNKED_MIN_T:
+        return wkv7_chunked(state, r, w, k, v, a, b, mask)
+    return wkv7_scan(state, r, w, k, v, a, b, mask)
+
+
 def _att_core_composed(att, H, lst_wkv, r, w_in, k, v, a_in, g, mask):
-    """The attention core over a chunk of T tokens from the reference ops:
-    activations, control-k, the delta rule, group norm, bonus, gate."""
+    """The attention core over a chunk of T tokens: activations,
+    control-k, the delta rule (:func:`_wkv7`), group norm, bonus, gate."""
     a = torch.sigmoid(a_in)
     kk = _flat(B.l2_normalize(_heads(k * att["k_k"], H), L2_EPS))
     k = k * (1.0 + (a - 1.0) * att["k_a"])
     rh, wh, kh, vh = (_heads(t, H) for t in (r, W.wkv7_act_w(w_in), k, v))
     kkh = _heads(kk, H)
-    y, wkv = W.wkv7(lst_wkv, rh, wh, kh, vh, -kkh, kkh * _heads(a, H), mask)
+    y, wkv = _wkv7(lst_wkv, rh, wh, kh, vh, -kkh, kkh * _heads(a, H), mask)
     y = B.group_norm(_flat(y), att["gn"]["w"], att["gn"]["b"], H, GN_EPS)
     y = y + _flat(W.wkv7_bonus(rh, kh, vh, att["r_k"]))
     return y * g, wkv
@@ -138,17 +156,17 @@ def _layer_v7(info, blk, lst, x, v0, layer_idx, mask, lengths):
 def _forward(info, params, layers, state, tokens, lengths, rescale):
     T = tokens.shape[1]
     if tokens.is_cuda:
-        if T > 1:
-            raise NotImplementedError(
-                "prefill (T > 1) on CUDA needs the slab dequant-GEMM and WKV "
-                "scan kernels of the prefill slice (ROADMAP.md, queue 2); "
-                "feed the prompt one token at a time")
         torch.backends.cuda.matmul.allow_tf32 = False
     mask = torch.arange(T, device=tokens.device)[None, :] < lengths[:, None]
     x = embed_tokens(params, tokens)
     x = torch.where(mask[..., None], x, 0.0)
     L = info.num_layer
     do_rescale = rescale is not None and rescale < L
+    if T == 1 and "mega7" in params and tokens.shape[0] <= MAX_SCAN_BATCH:
+        xo, new_state = layer_scan7(params["mega7"], state, x[:, 0], mask[:, 0],
+                                    rescale if do_rescale else None, LN_EPS, GN_EPS,
+                                    L2_EPS)
+        return xo[:, None], new_state
     v0 = None
     news = []
     for i in range(L):
@@ -173,7 +191,8 @@ def forward_chunk(
     """Run one chunk through all layers.
 
     Returns ``(x, new_state)``: ``x`` is the final residual stream
-    ``[B, T, C]`` in f32 (apply :func:`logits_head` to selected rows);
+    ``[B, T, C]`` in f32 (apply :func:`logits_head` to selected rows; x
+    at a padded position is unspecified);
     ``new_state`` is a new dict, the input state is left as it was.
     ``rescale`` halves the residual every N layers, matching a model
     loaded with the same ``rescale``.

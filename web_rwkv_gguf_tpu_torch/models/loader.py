@@ -21,6 +21,7 @@ import numpy as np
 import torch
 
 from ..errors import TensorNotFound, UnsupportedFeature
+from ..ops.cuda.layer7 import MAX_SCAN_BATCH, prep_decode7
 from .info import ModelVersion, detect_info
 from .matrix import Matrix
 
@@ -64,6 +65,20 @@ def layer_params(params: dict, num_layer: int) -> list[dict]:
     if isinstance(blocks, list):
         return blocks
     return [_layer_slice(blocks, i) for i in range(num_layer)]
+
+
+def prepare_decode(params: dict, info, batch_hint: int = 1) -> dict:
+    """Params with the whole-stack decode blocks attached as
+    ``params["mega7"]`` (``ops/cuda/layer7.prep_decode7``), so that a T=1
+    forward of up to ``MAX_SCAN_BATCH`` lanes runs as one kernel launch,
+    as the JAX package's ``prepare_decode`` arranges it for its Engine.
+    Params it cannot arrange (a batch above the limit, per-layer blocks,
+    layer matrices that are not Q4_K with whole super-blocks) come back
+    unchanged. Idempotent."""
+    if "mega7" in params or batch_hint > MAX_SCAN_BATCH:
+        return params
+    mega = prep_decode7(params, info)
+    return params if mega is None else {**params, "mega7": mega}
 
 
 def load_model(reader, *, dtype=torch.bfloat16, rescale: int | None = None,

@@ -25,10 +25,31 @@ import torch
 
 from ..errors import LoaderError, UnsupportedTensorType
 from ..ops.cuda.matmul import (
-    q4k_dequantize, q4k_gemv, q6k_dequantize, q6k_gemv,
+    MAX_GEMV_ROWS, q4k_codes, q4k_dequantize, q4k_gemm, q4k_gemv,
+    q6k_dequantize, q6k_gemm, q6k_gemv, slab_matmul_plain,
 )
 from ..quant import repack
 from ..quant.ggml import GgmlDType
+
+
+def _gemv_tiles(m: int, kdim: int) -> bool:
+    """Whether the JAX package's gemv finds an M tiling for the matrix
+    (``ops/pallas/matmul.py::_gemv_block_m``; kdim = code bytes per row)."""
+    if any(m % c == 0 and c * kdim <= (2 << 20) for c in (4096, 2048, 1024, 512)):
+        return True
+    return m % 8 == 0 and m <= 4096 and m * kdim <= (2 << 20)
+
+
+def takes_gemv(kind: str, n: int, m: int, k: int) -> bool:
+    """The JAX package's ``quant_matmul`` gate (ops/pallas/matmul.py:
+    1281-1287) for the port's kinds: n rows of x go to the gemv (exact
+    f32 weights) only at a small n·groups; every other call goes to the
+    dequant-GEMM (bf16-rounded weights). Following it keeps the port in
+    the JAX package's numerics class at every n."""
+    g = k // (32 if kind == "qk" else 16)
+    kdim = k // 2 if kind == "qk" else k
+    return (n <= MAX_GEMV_ROWS and n * g <= 256 and _gemv_tiles(m, kdim)
+            and (kind != "qk" or g % 2 == 0) and n * g * kdim * 2 <= (4 << 20))
 
 
 @dataclass
@@ -88,19 +109,22 @@ class Matrix:
         if self.kind == "dense":
             return a["w"].float()
         m, k = self.dims()
-        if self.kind == "qk":
-            if "sc6" in a:
-                return q4k_dequantize(a["codes"], a["sc6"], a["mn6"], a["d8"], a["dm8"])
-            codes = a["codes"]
-            q = torch.cat([codes & 0x0F, codes >> 4], dim=1).float().view(m, k // 32, 32)
-            return (q * a["scales"][..., None] - a["mins"][..., None]).view(m, k)
-        if self.kind == "qk_nomin":
-            if "q6s" in a:
-                return q6k_dequantize(a["codes"], a["q6s"], a["q6d"])
-            g = k // a["scales"].shape[-1]
-            q = a["codes"].float().view(m, k // g, g)
-            return (q * a["scales"][..., None]).view(m, k)
+        if self.kind == "qk" and "sc6" in a:
+            return q4k_dequantize(a["codes"], a["sc6"], a["mn6"], a["d8"], a["dm8"])
+        if self.kind == "qk_nomin" and "q6s" in a:
+            return q6k_dequantize(a["codes"], a["q6s"], a["q6d"])
+        if self.kind in ("qk", "qk_nomin"):
+            g = a["scales"].shape[-1]
+            w = self._codes().view(m, g, k // g) * a["scales"][..., None]
+            if "mins" in a:
+                w = w - a["mins"][..., None]
+            return w.view(m, k)
         raise LoaderError(f"unknown matrix kind {self.kind}")
+
+    def _codes(self) -> torch.Tensor:
+        """The f32 codes ``[M, K]`` of a quantized single-layer matrix."""
+        codes = self.arrays["codes"]
+        return q4k_codes(codes) if self.kind == "qk" else codes.float()
 
     def matmul(self, x: torch.Tensor) -> torch.Tensor:
         """``y[..., m] = Σ_k x[..., k] W[m, k]``, f32 result, for a
@@ -108,9 +132,10 @@ class Matrix:
 
         Dense weights multiply in f32 after rounding x to the weight's
         dtype (a bf16 weight gives bf16 operands and an f32 product, not
-        a bf16 one). Quantized kinds go through the gemv kernels
-        (``ops/cuda/matmul.py``); on the CPU those take their plain
-        versions at any row count.
+        a bf16 one). Quantized kinds go through the gemv kernels where
+        :func:`takes_gemv` says so and through the dequant-GEMM kernels
+        otherwise (``ops/cuda/matmul.py``); on the CPU those take their
+        plain versions.
         """
         m, k = self.dims()
         lead = x.shape[:-1]
@@ -122,14 +147,20 @@ class Matrix:
                 y = x2.float() @ w.T
             else:
                 y = x2.to(w.dtype).float() @ w.float().T
-        elif self.kind == "qk" and "sc6" in a:
-            y = q4k_gemv(x2, a["codes"], a["sc6"], a["mn6"], a["d8"], a["dm8"])
-        elif self.kind == "qk_nomin" and "q6s" in a:
-            y = q6k_gemv(x2, a["codes"], a["q6s"], a["q6d"])
-        elif x.is_cuda:
-            raise UnsupportedTensorType(
-                f"{self.kind} matrix [{m}, {k}]: K-quant rows that do not hold "
-                "whole 256-element super-blocks have no CUDA kernel yet")
         else:
-            y = x2.to(torch.bfloat16).float() @ self.dequantize().T
+            gemv = takes_gemv(self.kind, x2.shape[0], m, k)
+            if self.kind == "qk" and "sc6" in a:
+                y = (q4k_gemv if gemv else q4k_gemm)(
+                    x2, a["codes"], a["sc6"], a["mn6"], a["d8"], a["dm8"])
+            elif self.kind == "qk_nomin" and "q6s" in a:
+                y = (q6k_gemv if gemv else q6k_gemm)(
+                    x2, a["codes"], a["q6s"], a["q6d"])
+            elif x.is_cuda:
+                raise UnsupportedTensorType(
+                    f"{self.kind} matrix [{m}, {k}]: K-quant rows that do not "
+                    "hold whole 256-element super-blocks have no CUDA kernel yet")
+            elif gemv:
+                y = x2.to(torch.bfloat16).float() @ self.dequantize().T
+            else:
+                y = slab_matmul_plain(x2, self._codes(), a["scales"], a.get("mins"))
         return y.reshape(lead + (m,))

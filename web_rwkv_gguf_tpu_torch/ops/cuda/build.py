@@ -21,7 +21,7 @@ from pathlib import Path
 
 CSRC = Path(__file__).with_name("csrc")
 BUILD_DIR = Path(__file__).with_name("_build")
-KERNELS = ("q4k_gemv", "q6k_gemv", "att_core7")  # one csrc/<name>.cu each
+KERNELS = ("q4k_gemv", "q6k_gemv", "att_core7", "qk_gemm", "wkv7_scan", "layer7")  # csrc/<name>.cu
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",

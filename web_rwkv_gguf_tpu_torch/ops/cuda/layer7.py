@@ -1,0 +1,258 @@
+"""The whole-stack RWKV-7 decode step (T = 1) as one kernel launch.
+
+``layer_scan7`` runs every layer of one decode token for B ≤
+``MAX_SCAN_BATCH`` lanes in one cooperative launch of
+``csrc/layer7.cu``; ``layer_scan7_plain`` computes the same function
+with plain PyTorch ops. Both take the stacked blocks of
+:func:`prep_decode7`, the counterpart of the JAX package's
+``ops/pallas/layer7.prep_decode7``: views of the loaded layer-stacked
+parameters, plus the inner-LoRA pairs concatenated and rounded to bf16
+(``down`` ``[L, D, C]`` = w1 | a1 | g1 | v1, ``up`` ``[L, C, D]``).
+
+Numerics follow the JAX kernel at its defaults: every quantized matrix
+multiplies the bf16-rounded input by its exact f32 weight (the gemv
+class, at every B — where the composed per-layer path sends the FFN
+value matrix at B ≥ 3 to the bf16-weight GEMM), the LoRA pairs take
+bf16 operands with f32 products, the rest is f32.
+
+With ``v0_carry`` both run a contiguous slice of the stack
+(:func:`mega_layers`), as the JAX kernel's pipeline-stage mode does.
+
+On a CUDA tensor :func:`layer_scan7` launches the kernel or raises; only
+a tensor on the CPU takes the plain version.
+"""
+
+from __future__ import annotations
+
+import collections
+import ctypes
+import functools
+
+import torch
+
+from .. import basic as B_
+from . import build
+from .matmul import q4k_gemv_plain
+from .wkv7 import HEAD_SIZE, att_core7_plain
+
+MAX_SCAN_BATCH = 16  # lanes one launch takes (the JAX package's limit too)
+_MATRICES = (("att", "Wr"), ("att", "Wk"), ("att", "Wv"), ("att", "Wo"),
+             ("ffn", "Wk"), ("ffn", "Wv"))
+_FACTORS = ("codes", "sc6", "mn6", "d8", "dm8")
+
+
+def prep_decode7(params: dict, info) -> dict | None:
+    """The stacked decode blocks of a loaded model, or None when the
+    model is not one the kernel takes: per-layer (list) blocks, a layer
+    matrix that is not Q4_K with whole 256-element super-blocks, or a
+    LoRA rank that is not a multiple of 8."""
+    blocks = params.get("blocks")
+    if not isinstance(blocks, dict):
+        return None
+    mats = {}
+    for part, name in _MATRICES:
+        m = blocks[part][name]
+        if getattr(m, "kind", None) != "qk" or "sc6" not in m.arrays:
+            return None
+        mats[f"{part}.{name}"] = tuple(m.arrays[k] for k in _FACTORS)
+    att, ffn = blocks["att"], blocks["ffn"]
+    bf = torch.bfloat16
+    pairs = (("w1", "w2"), ("a1", "a2"), ("g1", "g2"), ("v1", "v2"))
+    if any(att[d].shape[-2] % 8 for d, _ in pairs):
+        return None
+    return {
+        "L": info.num_layer, "C": info.num_emb, "H": info.num_head,
+        "hs": info.head_size, "hidden": blocks["ffn"]["Wk"].shape[0],
+        "lora_dims": tuple(int(att[d].shape[-2]) for d, _ in pairs),
+        "ln1": (blocks["ln1"]["w"], blocks["ln1"]["b"]),
+        "ln2": (blocks["ln2"]["w"], blocks["ln2"]["b"]),
+        "x_stack": att["x_stack"],
+        "vecs": {k: att[k] for k in ("w0", "a0", "v0", "k_k", "k_a")} | {"ffn_xk": ffn["x_k"]},
+        "gn": (att["gn"]["w"], att["gn"]["b"]),
+        "r_k": att["r_k"],
+        "down": torch.cat([att[d].to(bf) for d, _ in pairs], dim=1).contiguous(),
+        "up": torch.cat([att[u].to(bf) for _, u in pairs], dim=2).contiguous(),
+        "mats": mats,
+    }
+
+
+def mega_layers(mega: dict, lo: int, hi: int) -> dict:
+    """Layers ``lo:hi`` of the decode blocks (views, no copies)."""
+    def cut(t):
+        if isinstance(t, dict):
+            return {k: cut(v) for k, v in t.items()}
+        if isinstance(t, tuple):
+            return tuple(cut(v) for v in t)
+        return t[lo:hi] if isinstance(t, torch.Tensor) else t
+    return {**cut(mega), "L": hi - lo}
+
+
+def layer_scan7_plain(mega, state, x, mask, rescale, eps_ln, eps_gn, eps_l2,
+                      v0_carry=None):
+    """Plain version of :func:`layer_scan7`."""
+    L, H = mega["L"], mega["H"]
+    v_first, first = v0_carry if v0_carry is not None else (None, 0)
+    offs = [0]
+    for d in mega["lora_dims"]:
+        offs.append(offs[-1] + d)
+    vec = mega["vecs"]
+    keep = mask.bool()[:, None]
+    x = x.float()
+    bsz, C = x.shape
+    news = {k: [] for k in ("att_shift", "wkv", "ffn_shift")}
+
+    def heads(t):
+        return t.reshape(bsz, H, -1)
+
+    for i in range(L):
+        def mat(name, xin, i=i):
+            return q4k_gemv_plain(xin, *(a[i] for a in mega["mats"][name]))
+
+        down, up = mega["down"][i].float(), mega["up"][i].float()
+
+        def lora(xin, j, act=None, down=down, up=up):
+            z = xin.to(torch.bfloat16).float() @ down[offs[j]:offs[j + 1]].T
+            if act is not None:
+                z = act(z)
+            return z.to(torch.bfloat16).float() @ up[:, offs[j]:offs[j + 1]].T
+
+        xx = B_.layer_norm(x, mega["ln1"][0][i], mega["ln1"][1][i], eps_ln)
+        sh = state["att_shift"][i]
+        mixed = xx[:, None] + mega["x_stack"][i][None] * (sh - xx)[:, None]
+        rx, wx, kx, vx, ax, gx = mixed.unbind(1)
+        r, k, v = mat("att.Wr", rx), mat("att.Wk", kx), mat("att.Wv", vx)
+        w_in = vec["w0"][i] + lora(wx, 0, torch.tanh)
+        a_in = vec["a0"][i] + lora(ax, 1)
+        g = lora(gx, 2, torch.sigmoid)
+        if first + i == 0:
+            v_first = v
+        else:
+            v = v + torch.sigmoid(vec["v0"][i] + lora(vx, 3)) * (v_first - v)
+        y, wkv = att_core7_plain(
+            state["wkv"][i], heads(r), heads(w_in), heads(k), heads(v), heads(a_in),
+            heads(g), vec["k_k"][i].reshape(H, -1), vec["k_a"][i].reshape(H, -1),
+            mega["gn"][0][i].reshape(H, -1), mega["gn"][1][i].reshape(H, -1),
+            mega["r_k"][i], mask, eps_gn, eps_l2)
+        x = x + mat("att.Wo", y.reshape(bsz, C))
+        xx2 = B_.layer_norm(x, mega["ln2"][0][i], mega["ln2"][1][i], eps_ln)
+        fsh = state["ffn_shift"][i]
+        kx2 = xx2 + vec["ffn_xk"][i] * (fsh - xx2)
+        x = x + mat("ffn.Wv", B_.squared_relu(mat("ffn.Wk", kx2)))
+        if rescale and (first + i + 1) % rescale == 0:
+            x = x * 0.5
+        news["att_shift"].append(torch.where(keep, xx, sh))
+        news["wkv"].append(wkv)
+        news["ffn_shift"].append(torch.where(keep, xx2, fsh))
+    new = {k: torch.stack(v) for k, v in news.items()}
+    return (x, new) if v0_carry is None else (x, new, v_first)
+
+
+@functools.cache
+def _fn():
+    fn = build.load("layer7").layer_scan7
+    fn.argtypes = [ctypes.c_void_p] * 4
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _operands(mega, dev):
+    """The kernel's parameter operands in its order, each checked against
+    the shape and type the kernel reads."""
+    L, C, hidden = mega["L"], mega["C"], mega["hidden"]
+    D = sum(mega["lora_dims"])
+    vec = mega["vecs"]
+    f32, bf, u8 = torch.float32, torch.bfloat16, torch.uint8
+    want = [(a, f32, L * C) for a in (*mega["ln1"], *mega["ln2"])]
+    want.append((mega["x_stack"], f32, L * 6 * C))
+    want += [(vec[k], f32, L * C) for k in ("w0", "a0", "v0", "k_k", "k_a", "ffn_xk")]
+    want += [(a, f32, L * C) for a in (*mega["gn"], mega["r_k"])]
+    want += [(mega["down"], bf, L * D * C), (mega["up"], bf, L * C * D)]
+    for part, name in _MATRICES:
+        m, k = {"ffn.Wk": (hidden, C), "ffn.Wv": (C, hidden)}.get(f"{part}.{name}", (C, C))
+        sizes = (m * k // 2, m * k // 32, m * k // 32, m * k // 256, m * k // 256)
+        for a, dt, n in zip(mega["mats"][f"{part}.{name}"], (u8, u8, u8, f32, f32), sizes):
+            want.append((a, dt, L * n))
+    for a, dt, n in want:
+        if a.dtype != dt or a.numel() != n or a.device != dev:
+            raise ValueError(f"layer_scan7: a parameter is {a.dtype} {tuple(a.shape)} on "
+                             f"{a.device}, want {dt} of {n} elements on {dev}")
+        if not a.is_contiguous() or a.data_ptr() % 16:
+            raise ValueError("layer_scan7: every parameter must be contiguous and "
+                             "16-byte aligned")
+    return [a for a, _, _ in want]
+
+
+def layer_scan7(mega, state, x, mask, rescale, eps_ln, eps_gn, eps_l2, v0_carry=None,
+                phase_ns=None):
+    """One decode token through every layer.
+
+    ``state``: layer-stacked ``att_shift`` / ``ffn_shift`` ``[L, B, C]``
+    and ``wkv`` ``[L, B, H, K, V]``; ``x`` ``[B, C]`` the ln0-normalized
+    input; ``mask`` ``[B]`` (0 freezes a lane's state); ``rescale``
+    halves the residual after every ``rescale``-th layer (None: never).
+    Returns ``(x [B, C], new_state)`` in f32; the input state is left as
+    it was. ``v0_carry = (v_first [B, C] or None, first_layer)`` runs
+    ``mega`` as the slice of the stack from global layer ``first_layer``
+    (``v_first``, layer 0's v, is needed when that is not 0) and returns
+    ``(x, new_state, v_first)``. ``phase_ns``, an int64 tensor of
+    ``1 + 5·L`` on the card, receives the device clock (ns) at the start
+    and after each of every layer's five phases (the kernel only; the
+    plain version leaves it untouched)."""
+    if not x.is_cuda:
+        return layer_scan7_plain(mega, state, x, mask, rescale, eps_ln, eps_gn, eps_l2,
+                                 v0_carry)
+    L, C, H, hs, hidden = (mega[k] for k in ("L", "C", "H", "hs", "hidden"))
+    bsz = x.shape[0]
+    if hs != HEAD_SIZE or C % 256 or hidden % 256 or not 1 <= bsz <= MAX_SCAN_BATCH:
+        raise ValueError(f"layer_scan7: the kernel takes head size {HEAD_SIZE}, C and "
+                         f"hidden multiples of 256 and 1..{MAX_SCAN_BATCH} lanes; got "
+                         f"head size {hs}, C={C}, hidden={hidden}, B={bsz}")
+    dev = x.device
+    ops = _operands(mega, dev)
+    v_first, first = v0_carry if v0_carry is not None else (None, 0)
+    if first > 0 and (v_first is None or tuple(v_first.shape) != (bsz, C)
+                      or v_first.device != dev):
+        raise ValueError(f"layer_scan7: a slice from layer {first} needs layer 0's v "
+                         f"[{bsz}, {C}] on {dev}")
+    want = {"att_shift": (L, bsz, C), "ffn_shift": (L, bsz, C), "wkv": (L, bsz, H, hs, hs)}
+    st = {}
+    for key, shape in want.items():
+        a = state[key]
+        if tuple(a.shape) != shape or a.device != dev:
+            raise ValueError(f"layer_scan7: state {key} must be {shape} on {dev}, got "
+                             f"{tuple(a.shape)} on {a.device}")
+        st[key] = a.float().contiguous()
+    out = {key: torch.empty_like(a) for key, a in st.items()}
+    x_io = x.float().contiguous().clone()
+    m = mask.float().contiguous()
+    D = mega["down"].shape[1]
+    bf, f32 = torch.bfloat16, torch.float32
+    scratch = [torch.empty(3, bsz, C, dtype=f32, device=dev),
+               torch.empty(bsz, D, dtype=bf, device=dev),
+               (torch.empty(bsz, C, dtype=f32, device=dev) if v_first is None
+                else v_first.float().contiguous().clone()),
+               torch.empty(bsz, C, dtype=bf, device=dev),
+               torch.empty(bsz, hidden, dtype=bf, device=dev)]
+    ptrs = [a.data_ptr() for a in ops] + [
+        st["att_shift"].data_ptr(), st["ffn_shift"].data_ptr(), st["wkv"].data_ptr(),
+        out["att_shift"].data_ptr(), out["ffn_shift"].data_ptr(), out["wkv"].data_ptr(),
+        m.data_ptr(), x_io.data_ptr(), *(a.data_ptr() for a in scratch)]
+    if phase_ns is not None:
+        if (phase_ns.dtype != torch.int64 or phase_ns.numel() != 1 + 5 * L
+                or phase_ns.device != dev):
+            raise ValueError(f"layer_scan7: phase_ns must be int64 [{1 + 5 * L}] on {dev}")
+    ptrs.append(0 if phase_ns is None else phase_ns.data_ptr())
+    ints = [L, bsz, C, H, hidden, D, *mega["lora_dims"], rescale or 0, first]
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = _fn()((ctypes.c_void_p * len(ptrs))(*ptrs), (ctypes.c_int * 12)(*ints),
+                    (ctypes.c_float * 3)(eps_ln, eps_gn, eps_l2), stream)
+    layer_scan7.launches += 1
+    layer_scan7.shapes[(L, bsz, C)] += 1
+    if err:
+        raise RuntimeError(f"layer_scan7 launch failed: CUDA error {err}")
+    return (x_io, out) if v0_carry is None else (x_io, out, scratch[2])
+
+
+layer_scan7.launches = 0
+layer_scan7.shapes = collections.Counter()  # launches by (L, B, C)

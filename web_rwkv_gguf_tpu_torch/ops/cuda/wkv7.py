@@ -1,12 +1,15 @@
-"""Fused RWKV-7 attention core for one decode token, and its plain version.
+"""RWKV-7 attention kernels and their plain versions.
 
-``att_core7_step`` takes the raw per-head projections of one token and
-runs, per (batch lane, head): the decay activation, the kk l2-norm,
-control-k, the delta-rule state update, group norm over the values, the
-r_k bonus and the gate. On a CUDA tensor it launches the hand-written
-kernel ``csrc/att_core7.cu`` (head size 64) or raises; only a tensor on
-the CPU takes the plain version, which is the same composition of the
-``ops`` reference functions and takes any head size.
+- ``att_core7_step``: the fused attention core of one decode token. Per
+  (batch lane, head): the decay activation, the kk l2-norm, control-k,
+  the delta-rule state update, group norm over the values, the r_k
+  bonus and the gate (``csrc/att_core7.cu``).
+- ``wkv7_scan``: the delta rule over a chunk of 2 ≤ T < 128 prefill
+  tokens, with the state kept on chip (``csrc/wkv7_scan.cu``).
+
+On a CUDA tensor each launches its hand-written kernel (head size 64) or
+raises; only a tensor on the CPU takes the plain version, which takes any
+head size.
 """
 
 from __future__ import annotations
@@ -102,3 +105,73 @@ def att_core7_step(state, r, w_raw, k_raw, v, a_raw, g, k_k, k_a, gn_w, gn_b,
 
 att_core7_step.launches = 0
 att_core7_step.shapes = collections.Counter()  # launches by (B, H, head size)
+
+
+def wkv7_scan_plain(state, r, w, k, v, a, b, mask):
+    """Plain version of :func:`wkv7_scan`: pre-mask, then the delta rule
+    token by token."""
+    m = mask.bool()[..., None, None]
+    w = torch.where(m, w.float(), 1.0)
+    k = k.float() * m
+    b = b.float() * m
+    r, v, a = r.float(), v.float(), a.float()
+    S = state.float()
+    ys = []
+    for t in range(r.shape[1]):
+        sa = torch.einsum("bhk,bhkv->bhv", a[:, t], S)
+        S = (w[:, t, ..., None] * S + k[:, t, ..., None] * v[:, t, :, None, :]
+             + b[:, t, ..., None] * sa[:, :, None, :])
+        ys.append(torch.einsum("bhk,bhkv->bhv", r[:, t], S))
+    return torch.stack(ys, dim=1), S
+
+
+@functools.cache
+def _scan_fn():
+    fn = build.load("wkv7_scan").wkv7_scan
+    fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def wkv7_scan(state, r, w, k, v, a, b, mask):
+    """The V7 delta rule over a chunk, with the layouts of the JAX
+    package's ``wkv7_pallas``: ``state`` ``[B, H, K, V]``; ``r, w, k, a,
+    b`` ``[B, T, H, K]`` (w already activated); ``v`` ``[B, T, H, V]``;
+    ``mask`` ``[B, T]`` bool. Returns ``(y [B, T, H, V], new_state)``,
+    f32. Padded tokens leave the state as it was (w ← 1, k ← 0, b ← 0
+    there); y at a padded token is read from that unchanged state. The
+    input state is not modified."""
+    if not state.is_cuda:
+        return wkv7_scan_plain(state, r, w, k, v, a, b, mask)
+    bsz, h, kdim, vdim = state.shape
+    if kdim != HEAD_SIZE or vdim != HEAD_SIZE:
+        raise ValueError(f"wkv7_scan: the kernel takes head size {HEAD_SIZE}, "
+                         f"got {kdim}x{vdim}")
+    t = r.shape[1]
+    given = {"r": r, "w": w, "k": k, "v": v, "a": a, "b": b, "mask": mask}
+    ops = {}
+    for key, x in given.items():
+        want = (bsz, t) if key == "mask" else (bsz, t, h, kdim)
+        if tuple(x.shape) != want:
+            raise ValueError(f"wkv7_scan: {key} must be {want}, got "
+                             f"{tuple(x.shape)}")
+        if x.device != state.device:
+            raise ValueError(f"wkv7_scan: {key} on {x.device}, state on "
+                             f"{state.device}")
+        ops[key] = (x.to(torch.uint8) if key == "mask" else x.float()).contiguous()
+    st = state.float().contiguous()
+    y = torch.empty(bsz, t, h, vdim, dtype=torch.float32, device=state.device)
+    s1 = torch.empty_like(st)
+    with torch.cuda.device(state.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = _scan_fn()(st.data_ptr(), *(ops[key].data_ptr() for key in given),
+                         y.data_ptr(), s1.data_ptr(), bsz, t, h, kdim, stream)
+    wkv7_scan.launches += 1
+    wkv7_scan.shapes[(bsz, t, h, kdim)] += 1
+    if err:
+        raise RuntimeError(f"wkv7_scan launch failed: CUDA error {err}")
+    return y, s1
+
+
+wkv7_scan.launches = 0
+wkv7_scan.shapes = collections.Counter()  # launches by (B, T, H, head size)

@@ -1,5 +1,6 @@
 """RWKV-7 WKV recurrence in plain PyTorch — the ground truth of the port's
-attention-core kernel and the CPU prefill path.
+attention-core kernel (the chunk forms are ``ops/cuda/wkv7.wkv7_scan_plain``
+and ``ops/wkv_chunked``).
 
 Layout ``[B, T, ...]`` with a validity mask: masked (padding) steps
 leave the recurrent state untouched. The state is one matrix S[K, V] per
@@ -30,19 +31,6 @@ def wkv7_step(state, r, w, k, v, a, b, mask):
     y = torch.einsum("bhk,bhkv->bhv", rr, s_n)
     s = torch.where(mask[:, 0][:, None, None, None], s_n, state)
     return y[:, None], s
-
-
-def wkv7(state, r, w, k, v, a, b, mask):
-    """The delta rule over a chunk of T tokens, one :func:`wkv7_step` per
-    token (a plain Python loop over T: the CPU prefill path of this
-    slice). Returns ``(y [B, T, H, V], new_state)``."""
-    ys = []
-    for t in range(r.shape[1]):
-        sl = slice(t, t + 1)
-        y, state = wkv7_step(state, r[:, sl], w[:, sl], k[:, sl], v[:, sl],
-                             a[:, sl], b[:, sl], mask[:, sl])
-        ys.append(y)
-    return torch.cat(ys, dim=1), state
 
 
 def wkv7_act_w(w_in: torch.Tensor) -> torch.Tensor:
