@@ -9,11 +9,14 @@ It builds every CUDA kernel of the port from ``web_rwkv_gguf_tpu_torch/
 ops/cuda/csrc`` with nvcc (one nvcc per source, all started together),
 holds each kernel against its plain PyTorch version at the shapes the
 decode and prefill paths give it and times both (and, where one PyTorch
-call computes the same product, that call). Then, on a synthetic RWKV-7
-0.1B-width Q4_K_M model, it drives the port's main paths, each with
-every kernel's launch count set to 0 just before and checked exactly
-just after:
+call computes the same product, that call). Then it drives the port's
+main paths on two synthetic Q4_K_M models, each path with every
+kernel's launch count set to 0 just before and checked exactly just
+after:
 
+- RWKV-7 at the 0.1B widths, and RWKV-6 at the World 1.6B widths (full
+  depth; its file is built in a worker process while the RWKV-7 phases
+  run);
 - serve two requests at batch 1 through ``forward_chunk`` (each prompt
   prefilled as one chunk) → ``logits_head`` → ``make_generator``, on
   the loaded params (the per-layer kernels at decode);
@@ -22,14 +25,15 @@ just after:
   32 greedy tokens on all lanes, each step one launch of the
   whole-stack decode kernel), then one ``infer`` with a FULL lane.
 
-Last it compares the card with the CPU at the same widths (two layers,
-three lanes): decode steps with a lane frozen, through the per-layer
-kernels and through the whole-stack kernel, and a ragged prefill chunk
-followed by one of 128 tokens; for the prefill it also measures how far
-the card and the CPU each move under one-ulp product changes. Any failed
-check raises, so the exit code is not 0. The last lines are the card's ``nvidia-smi`` name
-and power limit, one JSON line of per-kernel numbers, and
-``{"ok": true, "device": {...}}``.
+For each model it holds the whole-stack decode kernel against its plain
+version layer by layer, and compares the card with the CPU at the same
+widths (two layers, three lanes): decode steps with a lane frozen,
+through the per-layer kernels and through the whole-stack kernel, and a
+ragged prefill chunk followed by one of 128 tokens; for the prefill it
+also measures how far the card and the CPU each move under one-ulp
+product changes (decode steps and prefill, on the per-layer path). Any failed check raises, so the exit code is not 0.
+The last lines are the card's ``nvidia-smi`` name and power limit, one
+JSON line of per-kernel numbers, and ``{"ok": true, "device": {...}}``.
 
 With no CUDA card, or outside a checkout, it exits non-zero at once and
 prints no result.
@@ -40,6 +44,7 @@ from __future__ import annotations
 import collections
 import json
 import math
+import multiprocessing
 import subprocess
 import sys
 import time
@@ -66,6 +71,14 @@ FULL_LANES = ((60, "full"), (3, "last"), (0, "last"), (1, "last"))
 # card-vs-CPU prefill: (T, lengths per lane) of two chunks at B=3
 COMPARE_PREFILL = [(37, (37, 20, 0)), (128, (128, 90, 128))]
 
+# RWKV-6 World 1.6B widths (BlinkDL's RWKV-x060-World-1B6: L=24, C=2048,
+# head 64, V=65536, hidden int(3.5·C // 32 · 32); time-mix and decay
+# LoRA ranks 32 and 64 from RWKV-LM's v6 model.py), Q4_K layers, Q6_K
+# head, random weights from SEED6, full depth
+MODEL6 = dict(n_layer=24, n_emb=2048, head_size=64, n_vocab=65536, n_hidden=7168,
+              rank_tm=32, rank_td=64)
+SEED6 = 10
+
 # peaks of the card from NVIDIA's data sheets (dense): HBM bytes/s,
 # bf16 tensor-core FLOP/s, f32 (non-tensor) FLOP/s
 PEAKS = {
@@ -84,7 +97,12 @@ WKV_TOL = 1e-4  # × max|plain| over y and the state: f32 sums in another order
 # moves this random-weight model's logits by up to 1.4e-3 of their max
 # (seen on the CPU alone between a lane run at B=3 and the same lane at
 # B=1). 1e-2 is ~2.5 bf16 steps. It holds the logits, both shift states
-# and layer 0's WKV state.
+# and layer 0's WKV state. The RWKV-6 model at the 1.6B widths sits
+# closest to it: there a one-ulp change can flip bf16 roundings of the
+# squared-ReLU key in layer 0's FFN, which moves layer 1's att_shift by
+# 2e-3 of its max on the CPU alone; the run measures this for its decode
+# steps and its prefill (sensitivity(), printed beside the check; PERF.md,
+# Findings).
 CARD_CPU_TOL = 1e-2
 # × that layer's max, for the WKV state of layers after the first: it
 # sums k·vᵀ over every token of a prefill chunk, so each bf16 operand that
@@ -92,7 +110,7 @@ CARD_CPU_TOL = 1e-2
 # measures that sensitivity itself (sensitivity(), printed beside the
 # check): one-ulp changes of every matmul product move layer 1's WKV
 # state by up to 6.7e-3 of its max on the card alone, and the card sits
-# 1.7e-2 from the CPU there (both deterministic; Findings PR 2).
+# 1.7e-2 from the CPU there (both deterministic; PERF.md, Findings).
 CARD_CPU_WKV_TOL = 3e-2
 # one-ulp product changes: noise seeds on the card and on the CPU
 SENSITIVITY_SEEDS = {"cuda": (0, 1, 2, 3), "cpu": (0, 1)}
@@ -101,7 +119,7 @@ SENSITIVITY_SEEDS = {"cuda": (0, 1, 2, 3), "cpu": (0, 1)}
 # one-layer slice fed from the plain version's chain): one layer's f32
 # sums in another order flip a few of the bf16 roundings of its matmul
 # inputs, each by one bf16 step (2^-8); a layer must stay within one such
-# step of its largest value (seen: up to 1.0e-3, Findings PR 2)
+# step of its largest value (seen: up to 1.0e-3; PERF.md, Findings)
 MEGA_LAYER_TOL = 2.0 ** -8
 L2_FLUSH_BYTES = 100e6  # rotate weight copies over 2× the 50 MB L2
 
@@ -206,53 +224,75 @@ def run_kernel_case(torch, case, hbm):
             "bound_by": bound_by, "library_ms": library_ms}
 
 
-def kernel_cases(torch, mm, core, bf16_peak, f32_peak, full_rows, dev="cuda"):
-    """The main paths' kernel calls at their shapes: Q4_K gemv at the layer
-    shapes (n = 1, 4 and 8), the Q6_K head gemv (n = 1 and 4), the
-    attention core at B=1, at B=3 with a masked lane and at B=4 (H=12,
-    hs=64); the Q4_K
-    dequant-GEMM at the layer shapes (n = 4: decode at B=4; 128 and 512:
-    prefill chunks), the Q6_K head GEMM at the FULL call's ``full_rows``,
-    and the WKV scan at T=64 for B=1 and 4 with ragged lengths."""
-    dev = torch.device(dev)
+def _rng(torch, dev, seed):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    ints = lambda lo, hi, s, dt: torch.randint(  # noqa: E731
+        lo, hi, s, generator=g, device=dev, dtype=dt)
+    floats = lambda *s: torch.rand(*s, generator=g, device=dev)  # noqa: E731
+    normal = lambda *s: torch.randn(*s, generator=g, device=dev)  # noqa: E731
+    return ints, floats, normal
 
-    def rng(seed):
-        g = torch.Generator(device=dev).manual_seed(seed)
-        ints = lambda lo, hi, s, dt: torch.randint(  # noqa: E731
-            lo, hi, s, generator=g, device=dev, dtype=dt)
-        floats = lambda *s: torch.rand(*s, generator=g, device=dev)  # noqa: E731
-        normal = lambda *s: torch.randn(*s, generator=g, device=dev)  # noqa: E731
-        return ints, floats, normal
 
-    def gemv_compare(got, want):
-        return (got - want).abs().max().item(), GEMV_TOL * want.abs().max().item()
+def gemv_compare(got, want):
+    return (got - want).abs().max().item(), GEMV_TOL * want.abs().max().item()
 
-    cases = []
-    for m, k in ((768, 768), (3072, 768), (768, 3072)):
-        for n in (1, 4, 8):
-            def make(i, m=m, k=k, n=n):
-                ints, floats, normal = rng(1000 * i + m + 7 * k + n)
-                return (normal(n, k).to(torch.bfloat16),
-                        ints(0, 256, (m, k // 2), torch.uint8),
-                        ints(0, 64, (m, k // 32), torch.uint8),
-                        ints(0, 64, (m, k // 32), torch.uint8),
-                        floats(m, k // 256) * 1e-2, floats(m, k // 256) * 1e-2)
-            cases.append(dict(
-                name=f"q4k_gemv[m={m},k={k},n={n}]", kernel=mm.q4k_gemv, shape=(n, m, k),
-                plain=mm.q4k_gemv_plain, make_args=make, compare=gemv_compare,
+
+def q4k_case(torch, mm, op, m, k, n, seed, bf16_peak, dev="cuda"):
+    """``op`` ("gemv" or "gemm") of the Q4_K kernels at [m, k] with n rows.
+    The library yardstick (both ops): torch.matmul of the bf16 x against
+    the weight dequantized to bf16 ahead of time (bf16(q·s), without the
+    offset term)."""
+    def make(i):
+        ints, floats, normal = _rng(torch, dev, seed + 1000 * i)
+        return (normal(n, k).to(torch.bfloat16), ints(0, 256, (m, k // 2), torch.uint8),
+                ints(0, 64, (m, k // 32), torch.uint8), ints(0, 64, (m, k // 32), torch.uint8),
+                floats(m, k // 256) * 1e-2, floats(m, k // 256) * 1e-2)
+
+    def q4k_w(args):
+        x, codes, sc6, mn6, d8, dm8 = args
+        s, _ = mm.q4k_scale_products(sc6, mn6, d8, dm8)
+        q = mm.q4k_codes(codes)
+        return x, (q.view(m, k // 32, 32) * s[..., None]).view(m, k).to(torch.bfloat16).T
+
+    case = dict(name=f"q4k_{op}[m={m},k={k},n={n}]", kernel=getattr(mm, f"q4k_{op}"),
+                shape=(n, m, k), plain=getattr(mm, f"q4k_{op}_plain"), make_args=make,
+                compare=gemv_compare if op == "gemv" else gemm_compare,
                 nbytes=m * k // 2 + 2 * m * k // 32 + 8 * m * k // 256 + 2 * n * k + 4 * n * m,
-                flops=2 * n * m * k, fpeak=bf16_peak))
-    m, k = 65536, 768
-    for n in (1, 4):
-        def make_head(i, m=m, k=k, n=n):
-            ints, floats, normal = rng(2000 * i + n)
-            return (normal(n, k).to(torch.bfloat16), ints(-32, 32, (m, k), torch.int8),
-                    ints(-128, 128, (m, k // 16), torch.int8), floats(m, k // 256) * 1e-3)
-        cases.append(dict(
-            name=f"q6k_gemv[m={m},k={k},n={n}]", kernel=mm.q6k_gemv, shape=(n, m, k),
-            plain=mm.q6k_gemv_plain, make_args=make_head, compare=gemv_compare,
-            nbytes=m * k + m * k // 16 + 4 * m * k // 256 + 2 * n * k + 4 * n * m,
-            flops=2 * n * m * k, fpeak=bf16_peak))
+                flops=2 * n * m * k, fpeak=bf16_peak, library=torch.matmul,
+                library_args=q4k_w)
+    return case
+
+
+def q6k_case(torch, mm, op, m, k, n, seed, bf16_peak, dev="cuda"):
+    """``op`` of the Q6_K kernels (the head) at [m, k] with n rows; the
+    library yardstick as for Q4_K, on the whole dequantized weight."""
+    def make(i):
+        ints, floats, normal = _rng(torch, dev, seed + 1000 * i)
+        return (normal(n, k).to(torch.bfloat16), ints(-32, 32, (m, k), torch.int8),
+                ints(-128, 128, (m, k // 16), torch.int8), floats(m, k // 256) * 1e-3)
+
+    case = dict(name=f"q6k_{op}[m={m},k={k},n={n}]", kernel=getattr(mm, f"q6k_{op}"),
+                shape=(n, m, k), plain=getattr(mm, f"q6k_{op}_plain"), make_args=make,
+                compare=gemv_compare if op == "gemv" else gemm_compare,
+                nbytes=m * k + m * k // 16 + 4 * m * k // 256 + 2 * n * k + 4 * n * m,
+                flops=2 * n * m * k, fpeak=bf16_peak, library=torch.matmul,
+                library_args=lambda a: (a[0], mm.q6k_dequantize(*a[1:]).to(torch.bfloat16).T))
+    return case
+
+
+def kernel_cases(torch, mm, core, bf16_peak, f32_peak, full_rows, dev="cuda"):
+    """The RWKV-7 main paths' kernel calls at their shapes (0.1B widths):
+    Q4_K gemv at the layer shapes (n = 1, 4 and 8), the Q6_K head gemv
+    (n = 1 and 4), the attention core at B=1, at B=3 with a masked lane
+    and at B=4 (H=12, hs=64); the Q4_K dequant-GEMM at the layer shapes
+    (n = 4: decode at B=4; 128 and 512: prefill chunks), the Q6_K head
+    GEMM at the FULL call's ``full_rows``, and the WKV scan at T=64 for
+    B=1 and 4 with ragged lengths."""
+    dev = torch.device(dev)
+    layer_shapes = ((768, 768), (3072, 768), (768, 3072))
+    cases = [q4k_case(torch, mm, "gemv", m, k, n, m + 7 * k + n, bf16_peak)
+             for m, k in layer_shapes for n in (1, 4, 8)]
+    cases += [q6k_case(torch, mm, "gemv", 65536, 768, n, 2000 + n, bf16_peak) for n in (1, 4)]
 
     H, K = 12, 64
     for B in (1, 3, 4):
@@ -260,7 +300,7 @@ def kernel_cases(torch, mm, core, bf16_peak, f32_peak, full_rows, dev="cuda"):
         active = [b for b in range(B) if lanes[b]]  # lanes the mask keeps running
 
         def make_att(i, B=B, lanes=lanes):
-            _, _, normal = rng(3000 * i + B)
+            _, _, normal = _rng(torch, dev, 3000 * i + B)
             f = lambda *s: normal(*s) * 0.5  # noqa: E731
             mask = torch.tensor(lanes, device=dev)
             return (f(B, H, K, K), f(B, H, K), f(B, H, K), f(B, H, K), f(B, H, K),
@@ -281,52 +321,16 @@ def kernel_cases(torch, mm, core, bf16_peak, f32_peak, full_rows, dev="cuda"):
             nbytes=4 * (2 * B * H * K * K + 7 * B * H * K + 5 * H * K + B),
             flops=8 * B * H * K * K, fpeak=f32_peak))
 
-    # the dequant-GEMMs; library: torch.matmul of the bf16 x against the
-    # weight dequantized to bf16 ahead of time (for Q4_K bf16(q·s), so it
-    # leaves out the offset term)
-    def q4k_w(args):
-        x, codes, sc6, mn6, d8, dm8 = args
-        s, _ = mm.q4k_scale_products(sc6, mn6, d8, dm8)
-        q = mm.q4k_codes(codes)
-        m, k = q.shape
-        return x, (q.view(m, k // 32, 32) * s[..., None]).view(m, k).to(torch.bfloat16).T
-
-    def q6k_w(args):
-        return args[0], mm.q6k_dequantize(*args[1:]).to(torch.bfloat16).T
-    for m, k in ((768, 768), (3072, 768), (768, 3072)):
-        for n in (4, 128, 512):
-            def make(i, m=m, k=k, n=n):
-                ints, floats, normal = rng(4000 * i + m + 7 * k + n)
-                return (normal(n, k).to(torch.bfloat16),
-                        ints(0, 256, (m, k // 2), torch.uint8),
-                        ints(0, 64, (m, k // 32), torch.uint8),
-                        ints(0, 64, (m, k // 32), torch.uint8),
-                        floats(m, k // 256) * 1e-2, floats(m, k // 256) * 1e-2)
-            cases.append(dict(
-                name=f"q4k_gemm[m={m},k={k},n={n}]", kernel=mm.q4k_gemm, shape=(n, m, k),
-                plain=mm.q4k_gemm_plain, make_args=make, compare=gemm_compare,
-                library=torch.matmul, library_args=q4k_w,
-                nbytes=m * k // 2 + 2 * m * k // 32 + 8 * m * k // 256 + 2 * n * k + 4 * n * m,
-                flops=2 * n * m * k, fpeak=bf16_peak))
-    m, k, n = 65536, 768, full_rows
-
-    def make_head_gemm(i, m=m, k=k, n=n):
-        ints, floats, normal = rng(5000 * i + 1)
-        return (normal(n, k).to(torch.bfloat16), ints(-32, 32, (m, k), torch.int8),
-                ints(-128, 128, (m, k // 16), torch.int8), floats(m, k // 256) * 1e-3)
-    cases.append(dict(
-        name=f"q6k_gemm[m={m},k={k},n={n}]", kernel=mm.q6k_gemm, shape=(n, m, k),
-        plain=mm.q6k_gemm_plain, make_args=make_head_gemm, compare=gemm_compare,
-        library=torch.matmul, library_args=q6k_w,
-        nbytes=m * k + m * k // 16 + 4 * m * k // 256 + 2 * n * k + 4 * n * m,
-        flops=2 * n * m * k, fpeak=bf16_peak))
+    cases += [q4k_case(torch, mm, "gemm", m, k, n, 4000 + m + 7 * k + n, bf16_peak)
+              for m, k in layer_shapes for n in (4, 128, 512)]
+    cases.append(q6k_case(torch, mm, "gemm", 65536, 768, full_rows, 5001, bf16_peak))
 
     T = 64
     for lens in ((50,), (64, 40, 17, 0)):
         B = len(lens)
 
         def make_scan(i, B=B, lens=lens):
-            _, _, normal = rng(6000 * i + B)
+            _, _, normal = _rng(torch, dev, 6000 * i + B)
             f = lambda *s: normal(*s) * 0.5  # noqa: E731
             kk = torch.nn.functional.normalize(f(B, T, H, K), dim=-1)
             mask = (torch.arange(T, device=dev)[None, :]
@@ -347,6 +351,48 @@ def kernel_cases(torch, mm, core, bf16_peak, f32_peak, full_rows, dev="cuda"):
     return cases
 
 
+def kernel_cases6(torch, mm, wkv6, bf16_peak, f32_peak, full_rows, dev="cuda"):
+    """The RWKV-6 main paths' kernel calls at the 1.6B widths (C=2048,
+    hidden 7168, H=32): the Q4_K gemv at n = 1 (the B=1 serve's decode),
+    the Q4_K GEMM at n = 512 (an Engine chunk of T=128 at B=4), the Q6_K
+    head gemv at n = 1 and GEMM at n = 4 (the Engine's decode step: at
+    K=2048 the gate sends n ≥ 3 to the GEMM) and at the FULL call's
+    ``full_rows``; the V6 WKV scan at T=64 for B=1 and 4 with ragged
+    lengths."""
+    dev = torch.device(dev)
+    layer_shapes = ((2048, 2048), (7168, 2048), (2048, 7168))
+    cases = [q4k_case(torch, mm, "gemv", m, k, 1, 7000 + m + 7 * k, bf16_peak)
+             for m, k in layer_shapes]
+    cases += [q4k_case(torch, mm, "gemm", m, k, 512, 7500 + m + 7 * k, bf16_peak)
+              for m, k in layer_shapes]
+    cases.append(q6k_case(torch, mm, "gemv", 65536, 2048, 1, 8001, bf16_peak))
+    cases += [q6k_case(torch, mm, "gemm", 65536, 2048, n, 8100 + n, bf16_peak)
+              for n in (4, full_rows)]
+
+    H, K, T = 32, 64, 64
+    for lens in ((50,), (64, 40, 17, 0)):
+        B = len(lens)
+
+        def make_scan(i, B=B, lens=lens):
+            _, _, normal = _rng(torch, dev, 9000 * i + B)
+            f = lambda *s: normal(*s) * 0.5  # noqa: E731
+            mask = (torch.arange(T, device=dev)[None, :]
+                    < torch.tensor(lens, device=dev)[:, None])
+            return (f(B, H, K, K), f(B, T, H, K), f(B, T, H, K), f(B, T, H, K), f(H, K),
+                    torch.exp(-torch.exp(f(B, T, H, K))), mask)
+
+        live = sum(lens)
+        cases.append(dict(
+            name=f"wkv6_scan[B={B},T={T},H={H},hs={K},lens={list(lens)}]",
+            kernel=wkv6.wkv6_scan, shape=(B, T, H, K), plain=wkv6.wkv6_scan_plain,
+            make_args=make_scan, compare=scan_compare,
+            # state in and out; r, k, v, w in and y out; u; the mask
+            nbytes=4 * (2 * B * H * K * K + 5 * B * T * H * K + H * K) + B * T,
+            # 6·K·V per live token (update and y), 2·K·V per padded one (y)
+            flops=(6 * live + 2 * (B * T - live)) * H * K * K, fpeak=f32_peak))
+    return cases
+
+
 def clone_tree(tree):
     """A copy of a tree of tensors in new device memory."""
     if isinstance(tree, dict):
@@ -356,63 +402,93 @@ def clone_tree(tree):
     return tree.clone() if hasattr(tree, "clone") else tree
 
 
-def mega_case(torch, l7, mega, state, x, mask, eps, f32_peak):
-    """The whole-stack decode kernel at the Engine's decode shape: one
-    token for every lane of ``state`` through all layers of ``mega``;
-    input copies beyond the first are clones in new memory."""
+def mega_case(torch, mod, mega, state, x, mask, eps, f32_peak):
+    """The whole-stack decode kernel of ``mod`` (``ops/cuda/layer7`` or
+    ``ops/cuda/layer56``) at a decode shape: one token for every lane of
+    ``state`` through all layers of ``mega``; input copies beyond the
+    first are clones in new memory."""
+    v7 = hasattr(mod, "layer_scan7")
+    scan, plain = ((mod.layer_scan7, mod.layer_scan7_plain) if v7
+                   else (mod.layer_scan56, mod.layer_scan56_plain))
     L, C, H, hs, hidden = (mega[k] for k in ("L", "C", "H", "hs", "hidden"))
     B = x.shape[0]
-    D = sum(mega["lora_dims"])
 
     def make(i):
         if i == 0:
             return (mega, state, x, mask, None, *eps)
         return (clone_tree(mega), clone_tree(state), x.clone(), mask, None, *eps)
 
+    def one_layer(fn, i, x_l, v_first):
+        """Layer i alone, as a one-layer slice: (x, state, carry)."""
+        m_i = mod.mega_layers(mega, i, i + 1)
+        s_i = {k: v[i:i + 1] for k, v in state.items()}
+        if v7:
+            return fn(m_i, s_i, x_l, mask, None, *eps, (v_first, i))
+        return (*fn(m_i, s_i, x_l, mask, None, *eps, i), None)
+
     def check(args):
         """Layer by layer: each layer as a one-layer launch on the plain
         chain's input to it, against the plain version of that layer;
         then the whole stack in one launch, whose difference from the
-        plain version is reported (it grows with depth, Findings PR 2)."""
-        mega, state, x, mask = args[:4]
+        plain version is reported (it grows with depth; PERF.md, Findings)."""
         worst = (-1.0, 0.0, 0.0)
         x_l, v_first = x, None
         for i in range(L):
-            m_i = l7.mega_layers(mega, i, i + 1)
-            s_i = {k: v[i:i + 1] for k, v in state.items()}
-            want = l7.layer_scan7_plain(m_i, s_i, x_l, mask, None, *eps, (v_first, i))
-            got = l7.layer_scan7(m_i, s_i, x_l, mask, None, *eps, (v_first, i))
-            pairs = {"x": (got[0], want[0]), "v_first": (got[2], want[2]),
-                     **{k: (got[1][k], want[1][k]) for k in want[1]}}
+            want = one_layer(plain, i, x_l, v_first)
+            got = one_layer(scan, i, x_l, v_first)
+            pairs = {"x": (got[0], want[0]), **{k: (got[1][k], want[1][k]) for k in want[1]}}
+            if v7:
+                pairs["v_first"] = (got[2], want[2])
             for key, (a, b) in pairs.items():
                 err, lim = (a - b).abs().max().item(), MEGA_LAYER_TOL * b.abs().max().item()
                 if not err <= lim:
-                    raise AssertionError(f"layer_scan7: layer {i}'s {key} off by {err:.3e} "
-                                         f"(tolerance {lim:.3e})")
+                    raise AssertionError(f"{scan.__name__}: layer {i}'s {key} off by "
+                                         f"{err:.3e} (tolerance {lim:.3e})")
                 if err / lim > worst[0]:
                     worst = (err / lim, err, lim)
             x_l, v_first = want[0], want[2]
-        xg, sg = l7.layer_scan7(*args)
-        xp, sp = l7.layer_scan7_plain(*args)
+        xg, sg = scan(*args)
+        xp, sp = plain(*args)
         rel = lambda a, b: ((a - b).abs().max() / b.abs().max()).item()  # noqa: E731
         log(f"  {case['name']}: whole stack in one launch against the plain version, "
             f"|diff|/max per layer: " + "; ".join(
                 f"{k} " + " ".join(f"{rel(sg[k][i], sp[k][i]):.1e}" for i in range(L))
                 for k in sp) + f"; x {rel(xg, xp):.1e}")
         if not all(torch.isfinite(t).all() for t in (xg, *sg.values())):
-            raise AssertionError("layer_scan7: non-finite output")
+            raise AssertionError(f"{scan.__name__}: non-finite output")
         return worst[1], worst[2]
 
-    weights = sum(a.numel() * a.element_size() for a in l7._operands(mega, x.device))
+    weights = sum(a.numel() * a.element_size() for a in mod._operands(mega, x.device))
     state_bytes = sum(a.numel() * a.element_size() for a in state.values())
+    if v7:
+        D = sum(mega["lora_dims"])
+        macs = 4 * C * C + 2 * C * hidden + 2 * D * C  # per lane and layer
+        wkv_flops = 8 * H * hs * hs
+    else:  # r, k, v, g, Wo, FFN receptance; FFN key and value; the adapters
+        macs = 6 * C * C + 2 * C * hidden + 10 * mega["R"] * C + 2 * mega["D"] * C
+        wkv_flops = 6 * H * hs * hs
     case = dict(
-        name=f"layer_scan7[L={L},B={B},C={C},hidden={hidden}]", kernel=l7.layer_scan7,
-        shape=(L, B, C), plain=l7.layer_scan7_plain, make_args=make, check=check,
+        name=f"{scan.__name__}[L={L},B={B},C={C},hidden={hidden}]", kernel=scan,
+        shape=(L, B, C), plain=plain, make_args=make, check=check,
         # weights once, state in and out, x in and out, the mask
         nbytes=weights + 2 * state_bytes + 8 * B * C + 4 * B,
-        flops=2 * B * L * (4 * C * C + 2 * C * hidden + 2 * D * C) + 8 * B * L * H * hs * hs,
-        fpeak=f32_peak)
+        flops=B * L * (2 * macs + wkv_flops), fpeak=f32_peak)
     return case
+
+
+def phase_times(torch, case, n_phases, names):
+    """µs per layer by phase of the whole-stack kernel (the device clock
+    after each grid barrier), median of 5 launches; logged."""
+    L = case["shape"][0]
+    stamps = []
+    for _ in range(5):
+        ns = torch.zeros(1 + n_phases * L, dtype=torch.int64, device="cuda")
+        case["kernel"](*case["make_args"](0), phase_ns=ns)
+        stamps.append(ns.diff().view(L, n_phases).double().mean(0) / 1e3)
+    per_phase = torch.stack(stamps).median(0).values.tolist()
+    log(f"  {case['name']}: µs per layer by phase, each up to its grid barrier, median "
+        f"of 5 launches: " + ", ".join(f"{n} {t:.2f}" for n, t in zip(names, per_phase))
+        + f"; {sum(per_phase) * L:.1f} µs for {L} layers, {n_phases * L} barriers")
 
 
 def gemm_compare(got, want):
@@ -431,9 +507,13 @@ def scan_compare(got, want):
 
 
 COUNTED = ("q4k_gemv", "q4k_gemm", "q6k_gemv", "q6k_gemm", "att_core7_step", "wkv7_scan",
-           "layer_scan7")
-LAYER_MATRICES = (("att", "Wr"), ("att", "Wk"), ("att", "Wv"), ("att", "Wo"),
-                  ("ffn", "Wk"), ("ffn", "Wv"))
+           "layer_scan7", "wkv6_scan", "layer_scan56")
+LAYER_MATRICES = {
+    "v7": (("att", "Wr"), ("att", "Wk"), ("att", "Wv"), ("att", "Wo"), ("ffn", "Wk"),
+           ("ffn", "Wv")),
+    "v6": (("att", "Wr"), ("att", "Wk"), ("att", "Wv"), ("att", "Wg"), ("att", "Wo"),
+           ("ffn", "Wk"), ("ffn", "Wv"), ("ffn", "Wr")),
+}
 
 
 def matmul_kernel(takes_gemv, mat, n):
@@ -442,20 +522,37 @@ def matmul_kernel(takes_gemv, mat, n):
     return f"{family}_gemv" if takes_gemv(mat.kind, n, *mat.shape) else f"{family}_gemm"
 
 
-def expected_chunk(takes_gemv, chunked_min_t, layers, B, T):
-    """Launches of one ``forward_chunk`` of B lanes × T tokens, by kernel:
-    each layer's six matrices at n = B·T rows (gemv or GEMM by the gate),
-    and the attention core at T=1, the WKV scan at 2 ≤ T < 128, nothing
-    from T=128 (the chunk-parallel WKV is PyTorch matmuls)."""
+def expected_chunk(takes_gemv, chunked_min_t, version, layers, B, T):
+    """Launches of one ``forward_chunk`` of B lanes × T tokens on the
+    per-layer path, by kernel: each layer's matrices (six for RWKV-7,
+    eight for RWKV-6) at n = B·T rows (gemv or GEMM by the gate); for
+    RWKV-7 the attention core at T=1 and the WKV scan at 2 ≤ T < 128, for
+    RWKV-6 its WKV scan below T=128 (T=1 included); nothing from T=128
+    (the chunk-parallel WKV is PyTorch matmuls)."""
     want = collections.Counter()
     for blk in layers:
-        for part, name in LAYER_MATRICES:
+        for part, name in LAYER_MATRICES[version]:
             want[matmul_kernel(takes_gemv, blk[part][name], B * T)] += 1
-    if T == 1:
+    if version == "v6":
+        if T < chunked_min_t:
+            want["wkv6_scan"] += len(layers)
+    elif T == 1:
         want["att_core7_step"] += len(layers)
     elif T < chunked_min_t:
         want["wkv7_scan"] += len(layers)
     return want
+
+
+def build_v6_file(model, seed):
+    """The bytes of a synthetic RWKV-6 Q4_K_M file and the seconds its
+    build took (run in a worker process)."""
+    from web_rwkv_gguf_tpu_torch.quant.ggml import GgmlDType
+    from web_rwkv_gguf_tpu_torch.utils.synthetic import make_v6_gguf
+
+    t0 = time.perf_counter()
+    raw = make_v6_gguf(**model, seed=seed, quantize=GgmlDType.Q4_K,
+                       head_quantize=GgmlDType.Q6_K)
+    return raw, time.perf_counter() - t0
 
 
 def serve(torch, models, info, params, prompts, steps):
@@ -637,14 +734,14 @@ def noisy_params(torch, Matrix, params, seed, device):
 
 
 def sensitivity(torch, models, Matrix, info, params, chunks, device, clean):
-    """How far the prefill result moves under one-ulp changes of every
-    matmul's product on one device: per noise seed, rel_diff against the
+    """How far the result of ``chunks`` moves under one-ulp changes of
+    every matmul's product on one device: per noise seed, rel_diff against the
     clean run and wkv_max_at. Checks first that a rerun is identical to
     the clean run (the device is deterministic, so every difference
     comes from the noise)."""
     again = run_chunks(torch, models, info, params, chunks, device)
     if any(v != 0.0 for rel in rel_diff(again, clean) for v in rel.values()):
-        raise AssertionError(f"two clean prefill runs on {device} differ")
+        raise AssertionError(f"two clean runs on {device} differ")
     out = {}
     for seed in SENSITIVITY_SEEDS[device]:
         noisy = run_chunks(torch, models, info,
@@ -664,23 +761,40 @@ def main() -> int:
         print("chip_smoke: no CUDA card; this run needs one", file=sys.stderr)
         return 1
     try:
-        from web_rwkv_gguf_tpu_torch import models, runtime
-        from web_rwkv_gguf_tpu_torch.gguf import GgufFile
-        from web_rwkv_gguf_tpu_torch.models.forward import WKV7_CHUNKED_MIN_T
-        from web_rwkv_gguf_tpu_torch.models.forward import GN_EPS, L2_EPS, LN_EPS
-        from web_rwkv_gguf_tpu_torch.models.loader import layer_params
-        from web_rwkv_gguf_tpu_torch.models.matrix import Matrix, takes_gemv
-        from web_rwkv_gguf_tpu_torch.ops.cuda import build
-        from web_rwkv_gguf_tpu_torch.ops.cuda import layer7 as l7
-        from web_rwkv_gguf_tpu_torch.ops.cuda import matmul as mm
-        from web_rwkv_gguf_tpu_torch.ops.cuda import wkv7 as core
-        from web_rwkv_gguf_tpu_torch.quant.ggml import GgmlDType
-        from web_rwkv_gguf_tpu_torch.runtime.engine import _bucket
-        from web_rwkv_gguf_tpu_torch.utils.synthetic import make_v7_gguf
+        import web_rwkv_gguf_tpu_torch  # noqa: F401
     except ImportError as e:
         print(f"chip_smoke: run from the root of a checkout of the repo ({e})",
               file=sys.stderr)
         return 1
+    # the RWKV-6 files are built in worker processes while the RWKV-7
+    # phases run; every worker is stopped on the way out
+    workers = multiprocessing.get_context("spawn").Pool(2)
+    try:
+        files6 = {"full": workers.apply_async(build_v6_file, (MODEL6, SEED6)),
+                  "compare": workers.apply_async(
+                      build_v6_file, ({**MODEL6, "n_layer": COMPARE_LAYERS}, SEED6 + 1))}
+        return run(np, torch, files6)
+    finally:
+        workers.terminate()
+        workers.join()
+
+
+def run(np, torch, files6) -> int:
+    from web_rwkv_gguf_tpu_torch import models, runtime
+    from web_rwkv_gguf_tpu_torch.gguf import GgufFile
+    from web_rwkv_gguf_tpu_torch.models.forward import WKV7_CHUNKED_MIN_T
+    from web_rwkv_gguf_tpu_torch.models.forward import GN_EPS, L2_EPS, LN_EPS
+    from web_rwkv_gguf_tpu_torch.models.loader import layer_params
+    from web_rwkv_gguf_tpu_torch.models.matrix import Matrix, takes_gemv
+    from web_rwkv_gguf_tpu_torch.ops.cuda import build
+    from web_rwkv_gguf_tpu_torch.ops.cuda import layer7 as l7
+    from web_rwkv_gguf_tpu_torch.ops.cuda import layer56 as l56
+    from web_rwkv_gguf_tpu_torch.ops.cuda import matmul as mm
+    from web_rwkv_gguf_tpu_torch.ops.cuda import wkv6
+    from web_rwkv_gguf_tpu_torch.ops.cuda import wkv7 as core
+    from web_rwkv_gguf_tpu_torch.quant.ggml import GgmlDType
+    from web_rwkv_gguf_tpu_torch.runtime.engine import _bucket
+    from web_rwkv_gguf_tpu_torch.utils.synthetic import make_v7_gguf
 
     t_start = time.perf_counter()
     torch.backends.cuda.matmul.allow_tf32 = False  # f32 products stay f32
@@ -707,7 +821,8 @@ def main() -> int:
     full_inp, full_plan, full_rows = full_input(runtime, _bucket, rng, MODEL["n_vocab"])
     log("kernels (each against its plain PyTorch version, same inputs):")
     entries = []
-    cases = kernel_cases(torch, mm, core, bf16_peak, f32_peak, full_rows)
+    cases = (kernel_cases(torch, mm, core, bf16_peak, f32_peak, full_rows)
+             + kernel_cases6(torch, mm, wkv6, bf16_peak, f32_peak, full_rows))
     sources = {"q4k_gemv": ("web_rwkv_gguf_tpu_torch/ops/cuda/csrc/q4k_gemv.cu",
                             "web_rwkv_gguf_tpu/ops/pallas/matmul.py:793"),
                "q6k_gemv": ("web_rwkv_gguf_tpu_torch/ops/cuda/csrc/q6k_gemv.cu",
@@ -721,41 +836,27 @@ def main() -> int:
                "wkv7_scan": ("web_rwkv_gguf_tpu_torch/ops/cuda/csrc/wkv7_scan.cu",
                              "web_rwkv_gguf_tpu/ops/pallas/wkv7.py:176"),
                "layer_scan7": ("web_rwkv_gguf_tpu_torch/ops/cuda/csrc/layer7.cu",
-                               "web_rwkv_gguf_tpu/ops/pallas/layer7.py:1011")}
-    for case in cases:
-        fields = run_kernel_case(torch, case, hbm)
-        kname = case["name"].split("[")[0]
-        entries.append({"name": case["name"], "route": "cuda",
-                        "source": sources[kname][0], "replaces": sources[kname][1],
-                        "launches": None, **fields})
+                               "web_rwkv_gguf_tpu/ops/pallas/layer7.py:1011"),
+               "wkv6_scan": ("web_rwkv_gguf_tpu_torch/ops/cuda/csrc/wkv6_scan.cu",
+                             "web_rwkv_gguf_tpu/ops/pallas/wkv456.py:46"),
+               "layer_scan56": ("web_rwkv_gguf_tpu_torch/ops/cuda/csrc/layer56.cu",
+                                "web_rwkv_gguf_tpu/ops/pallas/layer56.py:445")}
 
-    # ---- the model -----------------------------------------------------------
-    t0 = time.perf_counter()
-    raw = make_v7_gguf(**MODEL, seed=SEED, quantize=GgmlDType.Q4_K,
-                       head_quantize=GgmlDType.Q6_K)
-    log(f"model file: {len(raw) / 1e6:.1f} MB written in {time.perf_counter() - t0:.1f} s")
-    t0 = time.perf_counter()
-    info, params = models.load_model(GgufFile(raw), device="cuda")
-    torch.cuda.synchronize()
-    log(f"load_model on cuda: {time.perf_counter() - t0:.1f} s; "
-        f"{torch.cuda.memory_allocated() / 1e6:.1f} MB on the card")
-    if params["head"].kind != "qk_nomin" or params["blocks"]["att"]["Wk"].kind != "qk":
-        raise AssertionError("the model did not load in the Q4_K_M placement")
-    L = info.num_layer
+    def add_entry(case, fields):
+        kname = case["name"].split("[")[0]
+        entries.append({"name": case["name"], "route": "cuda", "source": sources[kname][0],
+                        "replaces": sources[kname][1], "launches": None, **fields})
+
+    for case in cases:
+        add_entry(case, run_kernel_case(torch, case, hbm))
+
     counters = {"q4k_gemv": mm.q4k_gemv, "q4k_gemm": mm.q4k_gemm,
                 "q6k_gemv": mm.q6k_gemv, "q6k_gemm": mm.q6k_gemm,
                 "att_core7_step": core.att_core7_step, "wkv7_scan": core.wkv7_scan,
-                "layer_scan7": l7.layer_scan7}
+                "layer_scan7": l7.layer_scan7, "wkv6_scan": wkv6.wkv6_scan,
+                "layer_scan56": l56.layer_scan56}
     path_launches = {}  # main path -> kernel -> launches
     path_shapes = {}  # main path -> kernel -> Counter of launches by shape
-
-    layers = layer_params(params, L)
-
-    def chunk(B, T):
-        return expected_chunk(takes_gemv, WKV7_CHUNKED_MIN_T, layers, B, T)
-
-    def head(n):
-        return {matmul_kernel(takes_gemv, params["head"], n): 1}
 
     def counted(path, want, drive):
         """Drive one main path with every count at 0; check the counts."""
@@ -775,135 +876,238 @@ def main() -> int:
         path_shapes[path] = {k: collections.Counter(fn.shapes) for k, fn in counters.items()}
         return result
 
-    # ---- main path 1: two requests at batch 1 ---------------------------------
-    n_req = len(PROMPTS)
-    want = collections.Counter()
-    for prompt in PROMPTS:
-        want += chunk(1, len(prompt)) + collections.Counter(head(1))
-        for _ in range(DECODE_STEPS):
-            want += chunk(1, 1) + collections.Counter(head(1))
-    tokens1, t_prompt, t_gen = counted(
-        "serve (B=1)", want,
-        lambda: serve(torch, models, info, params, PROMPTS, DECODE_STEPS))
-    tokens2, t_prompt2, t_gen2 = serve(torch, models, info, params, PROMPTS, DECODE_STEPS)
-    if tokens1 != tokens2:
-        raise AssertionError("greedy tokens differ between two runs")
-    if not all(0 <= t < info.num_vocab for req in tokens1 for t in req):
-        raise AssertionError("token out of range")
-    n_dec = n_req * DECODE_STEPS
-    n_prompt = sum(len(p) for p in PROMPTS)
-    log(f"requests: {n_req} x ({len(PROMPTS[0])} prompt tokens in one chunk + 1 + "
-        f"{DECODE_STEPS} greedy); tokens identical across two runs; first request "
-        f"{tokens1[0][:8]}...")
-    log(f"eager decode at B=1: {n_dec / t_gen2:.2f} tok/s ({t_gen2 / n_dec * 1e3:.3f} ms/token; "
-        f"first run {n_dec / t_gen:.2f} tok/s), prompt prefill {t_prompt2 / n_prompt * 1e3:.3f} "
-        f"ms/prompt token (one chunk of {len(PROMPTS[0])}), on {smi}")
+    def drive(tag, version, info, params):
+        """The main paths of one model: two requests at B=1 on the loaded
+        params (the per-layer kernels), then the Engine at B=4 (chunked
+        prefill, decode through the whole-stack kernel, one FULL infer),
+        timed and profiled; then the whole-stack kernel against its plain
+        version on the Engine's lanes."""
+        L = info.num_layer
+        layers = layer_params(params, L)
+        mega_key, scan_mod = ("mega7", l7) if version == "v7" else ("mega56", l56)
+        scan_name = "layer_scan7" if version == "v7" else "layer_scan56"
 
-    dstate = models.init_state(info, 1, device="cuda")
-    gen8 = models.make_generator(info, steps=8)
-    busy, prof_wall_us, rows = profile(
-        torch, lambda: gen8(params, dstate, torch.tensor([[1]], device="cuda")), 8)
-    log_profile("8 decode steps at B=1", busy, prof_wall_us, rows,
-                t_gen2 / n_dec * 1e6, "token")
+        def chunk(B, T):
+            return expected_chunk(takes_gemv, WKV7_CHUNKED_MIN_T, version, layers, B, T)
 
-    # ---- main path 2: the Engine at B=4 ----------------------------------------
-    eng = runtime.Engine(info, params, num_batch=len(ENGINE_LENGTHS),
-                         token_chunk_size=ENGINE_CHUNK, device="cuda")
-    B4 = len(ENGINE_LENGTHS)
-    Ts = engine_plans(runtime, _bucket, ENGINE_LENGTHS, ENGINE_CHUNK)
-    decode_steps = -(-(ENGINE_TOKENS - 1) // 32) * 32  # whole 32-token segments
-    want = collections.Counter()
-    for T in Ts:
-        want += chunk(B4, T) + collections.Counter(head(B4))
-    if "mega7" not in eng.params:
-        raise AssertionError("the Engine did not arrange the whole-stack decode blocks")
-    for _ in range(decode_steps):  # each step: one whole-stack launch, the head
-        want += collections.Counter({"layer_scan7": 1}) + collections.Counter(head(B4))
-    log(f"engine: prompts of {list(ENGINE_LENGTHS)} tokens, prefill chunks T={Ts} "
-        f"(token_chunk_size {ENGINE_CHUNK}), then {decode_steps} decode steps at B={B4}, "
-        f"each one launch of the whole-stack kernel")
-    out_gen = counted("engine generate (B=4)", want,
-                      lambda: eng.generate(engine_prompts, ENGINE_TOKENS))
-    if [len(o) for o in out_gen] != [ENGINE_TOKENS] * B4 or not all(
-            0 <= t < info.num_vocab for o in out_gen for t in o):
-        raise AssertionError(f"engine generate returned {[len(o) for o in out_gen]} tokens")
+        def head(n):
+            return collections.Counter({matmul_kernel(takes_gemv, params["head"], n): 1})
 
-    T_full = _bucket(max(p.len for p in full_plan), ENGINE_CHUNK)
-    want = chunk(B4, T_full) + collections.Counter(head(full_rows))
-    out_full = counted("engine infer with a FULL lane", want, lambda: eng.infer(full_inp))
-    shapes = [tuple(o.shape) for o in out_full]
-    want_shapes = [((p.len if p.option == runtime.RnnOption.FULL else int(p.len > 0)),
-                    info.num_vocab) for p in full_plan]
-    if shapes != want_shapes or not all(np.isfinite(o).all() for o in out_full):
-        raise AssertionError(f"FULL infer returned {shapes}, expected {want_shapes}")
-    log(f"engine infer: lanes {[(n, o) for n, o in FULL_LANES]} in one chunk T={T_full}; "
-        f"logits {shapes}, head at {full_rows} rows")
+        # ---- main path: two requests at batch 1 ----------------------------
+        want = collections.Counter()
+        for prompt in PROMPTS:
+            want += chunk(1, len(prompt)) + head(1)
+            for _ in range(DECODE_STEPS):
+                want += chunk(1, 1) + head(1)
+        tokens1, t_prompt, t_gen = counted(
+            f"{tag} serve (B=1)", want,
+            lambda: serve(torch, models, info, params, PROMPTS, DECODE_STEPS))
+        tokens2, t_prompt2, t_gen2 = serve(torch, models, info, params, PROMPTS, DECODE_STEPS)
+        if tokens1 != tokens2:
+            raise AssertionError(f"{tag}: greedy tokens differ between two runs")
+        if not all(0 <= t < info.num_vocab for req in tokens1 for t in req):
+            raise AssertionError(f"{tag}: token out of range")
+        n_dec = len(PROMPTS) * DECODE_STEPS
+        n_prompt = sum(len(p) for p in PROMPTS)
+        log(f"{tag} requests: {len(PROMPTS)} x ({len(PROMPTS[0])} prompt tokens in one chunk "
+            f"+ 1 + {DECODE_STEPS} greedy); tokens identical across two runs; first request "
+            f"{tokens1[0][:8]}...")
+        log(f"{tag} eager decode at B=1: {n_dec / t_gen2:.2f} tok/s "
+            f"({t_gen2 / n_dec * 1e3:.3f} ms/token; first run {n_dec / t_gen:.2f} tok/s), "
+            f"prompt prefill {t_prompt2 / n_prompt * 1e3:.3f} ms/prompt token (one chunk of "
+            f"{len(PROMPTS[0])}), on {smi}")
+        dstate = models.init_state(info, 1, device="cuda")
+        gen8 = models.make_generator(info, steps=8)
+        busy, prof_wall_us, rows = profile(
+            torch, lambda: gen8(params, dstate, torch.tensor([[1]], device="cuda")), 8)
+        log_profile(f"{tag} 8 decode steps at B=1", busy, prof_wall_us, rows,
+                    t_gen2 / n_dec * 1e6, "token")
 
-    # timing: prefill alone (generate of one token), then prefill + 32 steps
-    def run_generate(n_tokens):
+        # ---- main path: the Engine at B=4 ----------------------------------
+        eng = runtime.Engine(info, params, num_batch=len(ENGINE_LENGTHS),
+                             token_chunk_size=ENGINE_CHUNK, device="cuda")
+        B4 = len(ENGINE_LENGTHS)
+        Ts = engine_plans(runtime, _bucket, ENGINE_LENGTHS, ENGINE_CHUNK)
+        decode_steps = -(-(ENGINE_TOKENS - 1) // 32) * 32  # whole 32-token segments
+        want = collections.Counter()
+        for T in Ts:
+            want += chunk(B4, T) + head(B4)
+        if mega_key not in eng.params:
+            raise AssertionError(f"{tag}: the Engine did not arrange the whole-stack blocks")
+        for _ in range(decode_steps):  # each step: one whole-stack launch, the head
+            want += collections.Counter({scan_name: 1}) + head(B4)
+        log(f"{tag} engine: prompts of {list(ENGINE_LENGTHS)} tokens, prefill chunks T={Ts} "
+            f"(token_chunk_size {ENGINE_CHUNK}), then {decode_steps} decode steps at B={B4}, "
+            f"each one launch of the whole-stack kernel and the head "
+            f"({matmul_kernel(takes_gemv, params['head'], B4)} at n={B4})")
+        out_gen = counted(f"{tag} engine generate (B=4)", want,
+                          lambda: eng.generate(engine_prompts, ENGINE_TOKENS))
+        if [len(o) for o in out_gen] != [ENGINE_TOKENS] * B4 or not all(
+                0 <= t < info.num_vocab for o in out_gen for t in o):
+            raise AssertionError(f"{tag}: engine generate returned "
+                                 f"{[len(o) for o in out_gen]} tokens")
+
+        T_full = _bucket(max(p.len for p in full_plan), ENGINE_CHUNK)
+        want = chunk(B4, T_full) + head(full_rows)
+        inp = runtime.RnnInput([runtime.RnnInputBatch(list(b.tokens), b.option)
+                                for b in full_inp.batches], ENGINE_CHUNK)
+        out_full = counted(f"{tag} engine infer with a FULL lane", want, lambda: eng.infer(inp))
+        shapes = [tuple(o.shape) for o in out_full]
+        want_shapes = [((p.len if p.option == runtime.RnnOption.FULL else int(p.len > 0)),
+                        info.num_vocab) for p in full_plan]
+        if shapes != want_shapes or not all(np.isfinite(o).all() for o in out_full):
+            raise AssertionError(f"{tag}: FULL infer returned {shapes}, expected {want_shapes}")
+        log(f"{tag} engine infer: lanes {[(n, o) for n, o in FULL_LANES]} in one chunk "
+            f"T={T_full}; logits {shapes}, head at {full_rows} rows")
+
+        # timing: prefill alone (generate of one token), then prefill + 32 steps
+        def run_generate(n_tokens):
+            eng.reset_state()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = eng.generate(engine_prompts, n_tokens)
+            torch.cuda.synchronize()
+            return out, time.perf_counter() - t0
+
+        _, t_pre = run_generate(1)
+        out_t, _ = run_generate(1 + decode_steps)
+        if [o[:ENGINE_TOKENS] for o in out_t] != out_gen:
+            raise AssertionError(f"{tag}: engine greedy tokens differ between two runs")
+        # decode alone: the Engine's own prefill, then the decode segment that
+        # generate runs (make_generator on the Engine's prepared params), timed
         eng.reset_state()
+        first, gen = eng._gen_prefill(engine_prompts, 0.0, 0, 0.0, 0)
+        segment = models.make_generator(info, steps=decode_steps)
+        pre_state = eng.state
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        out = eng.generate(engine_prompts, n_tokens)
+        toks, _, _, _, _ = segment(eng.params, pre_state, first, gen)
         torch.cuda.synchronize()
-        return out, time.perf_counter() - t0
+        t_dec = time.perf_counter() - t0
+        if [o[1:1 + decode_steps] for o in out_t] != toks.tolist():
+            raise AssertionError(f"{tag}: the timed decode segment gave other tokens than "
+                                 "generate")
+        n_pre = sum(ENGINE_LENGTHS)
+        log(f"{tag} engine prefill: {n_pre / t_pre:.2f} tok/s ({n_pre} prompt tokens in "
+            f"{t_pre * 1e3:.1f} ms, {t_pre / n_pre * 1e3:.3f} ms/prompt token), on {smi}")
+        log(f"{tag} engine decode at B={B4}: {B4 * decode_steps / t_dec:.2f} tok/s "
+            f"({t_dec / decode_steps * 1e3:.3f} ms/step, {decode_steps} steps timed alone), "
+            f"on {smi}")
+        busy, prof_wall_us, rows = profile(
+            torch, lambda: (eng.reset_state(), eng.generate(engine_prompts, 1)), n_pre)
+        log_profile(f"{tag} engine prefill of {n_pre} prompt tokens", busy, prof_wall_us, rows,
+                    t_pre / n_pre * 1e6, "prompt token")
+        busy, prof_wall_us, rows = profile(
+            torch, lambda: segment(eng.params, pre_state, first, None), decode_steps)
+        log_profile(f"{tag} engine decode at B={B4}", busy, prof_wall_us, rows,
+                    t_dec / decode_steps * 1e6, "step")
 
-    _, t_pre = run_generate(1)
-    out_t, _ = run_generate(1 + decode_steps)
-    if [o[:ENGINE_TOKENS] for o in out_t] != out_gen:
-        raise AssertionError("engine greedy tokens differ between two runs")
-    # decode alone: the Engine's own prefill, then the decode segment that
-    # generate runs (make_generator on the Engine's prepared params), timed
-    eng.reset_state()
-    first, gen = eng._gen_prefill(engine_prompts, 0.0, 0, 0.0, 0)
-    segment = models.make_generator(info, steps=decode_steps)
-    pre_state = eng.state
-    torch.cuda.synchronize()
+        # ---- the whole-stack decode kernel against its plain version --------
+        # on the Engine's lanes as generate left them, one lane frozen; the
+        # RWKV-6 kernel also at B = 1 and 16 (lanes repeated)
+        dec_x = models.embed_tokens(params, torch.tensor([[o[-1]] for o in out_gen],
+                                                         device="cuda"))[:, 0]
+        mask = torch.tensor([1.0, 1.0, 0.0, 1.0], device="cuda")
+        eps = (LN_EPS, GN_EPS, L2_EPS) if version == "v7" else (LN_EPS, GN_EPS)
+        names = (("LN1+mix+r/k/v+LoRA down", "LoRA up+attention", "Wo", "LN2+mix+FFN key",
+                  "FFN value") if version == "v7" else l56.PHASES)
+        log(f"{tag} whole-stack decode kernel (against its plain version, same inputs, "
+            f"layer by layer):")
+        for B in ((4,) if version == "v7" else (4, 1, 16)):
+            lanes = torch.arange(B, device="cuda") % B4
+            case = mega_case(torch, scan_mod, eng.params[mega_key],
+                             {k: v[:, lanes].contiguous() for k, v in eng.state.items()},
+                             dec_x[lanes], mask if B == B4 else torch.ones(B, device="cuda"),
+                             eps, f32_peak)
+            add_entry(case, run_kernel_case(torch, case, hbm))
+            cases.append(case)
+            phase_times(torch, case, len(names), names)
+
+    def card_vs_cpu(tag, info2, p_gpu, p_cpu):
+        """The card against the CPU, same widths, two layers, three lanes."""
+        decode = [(np.array(toks)[:, None], np.array(lens)) for toks, lens in COMPARE_STEPS]
+        prng = np.random.default_rng(SEED + 2)
+        prefill = [(prng.integers(0, MODEL["n_vocab"], (len(lens), T)), np.array(lens))
+                   for T, lens in COMPARE_PREFILL]
+        batch = len(COMPARE_STEPS[0][1])
+        mega_key = "mega7" if info2.version.value == "v7" else "mega56"
+        m_gpu = models.prepare_decode(p_gpu, info2, batch)
+        m_cpu = models.prepare_decode(p_cpu, info2, batch)
+        if mega_key not in m_gpu or mega_key not in m_cpu:
+            raise AssertionError(f"{tag}: the compare model did not take the whole-stack "
+                                 "decode blocks")
+        fmt = lambda rel: ", ".join(f"{k} {v:.3e}" for k, v in rel.items())  # noqa: E731
+        for label, chunks, pg, pc in (
+                ("decode steps, per-layer kernels (lane 2 frozen on the second)", decode,
+                 p_gpu, p_cpu),
+                ("decode steps, whole-stack kernel (lane 2 frozen on the second)", decode,
+                 m_gpu, m_cpu),
+                (f"prefill chunks {COMPARE_PREFILL}", prefill, p_gpu, p_cpu)):
+            card = run_chunks(torch, models, info2, pg, chunks, "cuda")
+            cpu = run_chunks(torch, models, info2, pc, chunks, "cpu")
+            per_chunk = rel_diff(card, cpu)
+            log(f"{tag} card vs CPU, L={COMPARE_LAYERS}, B={batch}, {label}: max "
+                f"|card-cpu|/max|cpu| per chunk (tolerance {CARD_CPU_TOL}; wkv of later "
+                f"layers {CARD_CPU_WKV_TOL}):")
+            for i, rel in enumerate(per_chunk):
+                log(f"  chunk {i}: {fmt(rel)}")
+            if pg is p_gpu:  # the evidence for the limits, from this run
+                log(f"  largest wkv difference at (lane, head) per layer: "
+                    f"{wkv_max_at(card, cpu)}")
+                for dev, p, clean in (("cuda", pg, card), ("cpu", pc, cpu)):
+                    for seed, (rels, at) in sensitivity(torch, models, Matrix, info2, p,
+                                                        chunks, dev, clean).items():
+                        for i, rel in enumerate(rels):
+                            log(f"  {dev} alone, one-ulp product changes, seed {seed}, "
+                                f"chunk {i}: {fmt(rel)}; wkv largest at {at[i]}")
+            if not all(v <= card_cpu_limit(k) for rel in per_chunk for k, v in rel.items()):
+                raise AssertionError(f"{tag}: the card disagrees with the CPU ({label})")
+
+    # ---- RWKV-7, 0.1B widths ---------------------------------------------------
     t0 = time.perf_counter()
-    toks, _, _, _, _ = segment(eng.params, pre_state, first, gen)
+    raw = make_v7_gguf(**MODEL, seed=SEED, quantize=GgmlDType.Q4_K,
+                       head_quantize=GgmlDType.Q6_K)
+    log(f"v7 model file: {len(raw) / 1e6:.1f} MB written in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    info, params = models.load_model(GgufFile(raw), device="cuda")
     torch.cuda.synchronize()
-    t_dec = time.perf_counter() - t0
-    if [o[1:1 + decode_steps] for o in out_t] != toks.tolist():
-        raise AssertionError("the timed decode segment gave other tokens than generate")
-    n_pre = sum(ENGINE_LENGTHS)
-    log(f"engine prefill: {n_pre / t_pre:.2f} tok/s ({n_pre} prompt tokens in "
-        f"{t_pre * 1e3:.1f} ms, {t_pre / n_pre * 1e3:.3f} ms/prompt token), on {smi}")
-    log(f"engine decode at B={B4}: {B4 * decode_steps / t_dec:.2f} tok/s "
-        f"({t_dec / decode_steps * 1e3:.3f} ms/step, {decode_steps} steps timed alone), "
-        f"on {smi}")
-    busy, prof_wall_us, rows = profile(
-        torch, lambda: (eng.reset_state(), eng.generate(engine_prompts, 1)), n_pre)
-    log_profile(f"engine prefill of {n_pre} prompt tokens", busy, prof_wall_us, rows,
-                t_pre / n_pre * 1e6, "prompt token")
-    busy, prof_wall_us, rows = profile(
-        torch, lambda: segment(eng.params, pre_state, first, None), decode_steps)
-    log_profile(f"engine decode at B={B4}", busy, prof_wall_us, rows,
-                t_dec / decode_steps * 1e6, "step")
+    log(f"v7 load_model on cuda: {time.perf_counter() - t0:.1f} s; "
+        f"{torch.cuda.memory_allocated() / 1e6:.1f} MB on the card")
+    if params["head"].kind != "qk_nomin" or params["blocks"]["att"]["Wk"].kind != "qk":
+        raise AssertionError("v7: the model did not load in the Q4_K_M placement")
+    drive("v7", "v7", info, params)
+    del raw, info, params
+    t0 = time.perf_counter()
+    raw2 = make_v7_gguf(**{**MODEL, "n_layer": COMPARE_LAYERS}, seed=SEED + 1,
+                        quantize=GgmlDType.Q4_K, head_quantize=GgmlDType.Q6_K)
+    info2 = models.load_model(GgufFile(raw2), device="cuda")
+    card_vs_cpu("v7", info2[0], info2[1], models.load_model(GgufFile(raw2), device="cpu")[1])
+    log(f"v7 card vs CPU: {time.perf_counter() - t0:.1f} s")
+    del raw2, info2
 
-    # ---- the whole-stack decode kernel against its plain version ------------
-    # on the Engine's lanes as generate left them, one lane frozen
-    dec_x = models.embed_tokens(params, torch.tensor([[o[-1]] for o in out_gen],
-                                                     device="cuda"))[:, 0]
-    case = mega_case(torch, l7, eng.params["mega7"], clone_tree(eng.state), dec_x,
-                     torch.tensor([1.0, 1.0, 0.0, 1.0], device="cuda"),
-                     (LN_EPS, GN_EPS, L2_EPS), f32_peak)
-    log("whole-stack decode kernel (against its plain version, same inputs):")
-    fields = run_kernel_case(torch, case, hbm)
-    # where its time goes: the device clock after each phase's grid barrier
-    L_, stamps = info.num_layer, []
-    for _ in range(5):
-        ns = torch.zeros(1 + 5 * L_, dtype=torch.int64, device="cuda")
-        l7.layer_scan7(*case["make_args"](0), phase_ns=ns)
-        stamps.append(ns.diff().view(L_, 5).double().mean(0) / 1e3)
-    per_phase = torch.stack(stamps).median(0).values.tolist()
-    log(f"  {case['name']}: µs per layer by phase, each up to its grid barrier, median "
-        f"of 5 launches: " + ", ".join(f"{n} {t:.2f}" for n, t in zip(
-            ("LN1+mix+r/k/v+LoRA down", "LoRA up+attention", "Wo", "LN2+mix+FFN key",
-             "FFN value"), per_phase))
-        + f"; {sum(per_phase) * L_:.1f} µs for {L_} layers")
-    cases.append(case)
-    entries.append({"name": case["name"], "route": "cuda", "source": sources["layer_scan7"][0],
-                    "replaces": sources["layer_scan7"][1], "launches": None, **fields})
+    # ---- RWKV-6, World 1.6B widths, full depth --------------------------------
+    t0 = time.perf_counter()
+    raw, t_file = files6["full"].get()
+    log(f"v6 model file: {len(raw) / 1e6:.1f} MB built in {t_file:.1f} s in a worker "
+        f"process ({MODEL6}); waited {time.perf_counter() - t0:.1f} s for it")
+    t0 = time.perf_counter()
+    info, params = models.load_model(GgufFile(raw), device="cuda")
+    del raw
+    torch.cuda.synchronize()
+    log(f"v6 load_model on cuda: {time.perf_counter() - t0:.1f} s; "
+        f"{torch.cuda.memory_allocated() / 1e6:.1f} MB on the card; {info}")
+    att = params["blocks"]["att"]
+    if (info.version.value != "v6" or params["head"].kind != "qk_nomin"
+            or any(att[k].kind != "qk" for k in ("Wk", "Wv", "Wr", "Wg", "Wo"))):
+        raise AssertionError("v6: the model did not load as RWKV-6 in the Q4_K_M placement")
+    drive("v6", "v6", info, params)
+    del info, params, att
+    t0 = time.perf_counter()
+    raw2, t_file = files6["compare"].get()
+    info2, p_gpu = models.load_model(GgufFile(raw2), device="cuda")
+    card_vs_cpu("v6", info2, p_gpu, models.load_model(GgufFile(raw2), device="cpu")[1])
+    log(f"v6 card vs CPU: {time.perf_counter() - t0:.1f} s (its file built in "
+        f"{t_file:.1f} s in a worker process)")
 
     # "launches": the kernel's count over the main paths' runs; by path and
     # at this entry's shape ("launches_at_shape", 0 for a shape off the paths)
@@ -913,49 +1117,6 @@ def main() -> int:
         entry["launches_by_path"] = {path: p[kname] for path, p in path_launches.items()}
         entry["launches_at_shape"] = sum(s[kname][case["shape"]]
                                          for s in path_shapes.values())
-
-    # ---- the card against the CPU, same widths, two layers -------------------
-    t0 = time.perf_counter()
-    raw2 = make_v7_gguf(**{**MODEL, "n_layer": COMPARE_LAYERS}, seed=SEED + 1,
-                        quantize=GgmlDType.Q4_K, head_quantize=GgmlDType.Q6_K)
-    info2, p_gpu = models.load_model(GgufFile(raw2), device="cuda")
-    _, p_cpu = models.load_model(GgufFile(raw2), device="cpu")
-    decode = [(np.array(toks)[:, None], np.array(lens)) for toks, lens in COMPARE_STEPS]
-    prng = np.random.default_rng(SEED + 2)
-    prefill = [(prng.integers(0, MODEL["n_vocab"], (len(lens), T)), np.array(lens))
-               for T, lens in COMPARE_PREFILL]
-    batch = len(COMPARE_STEPS[0][1])
-    m_gpu = models.prepare_decode(p_gpu, info2, batch)
-    m_cpu = models.prepare_decode(p_cpu, info2, batch)
-    if "mega7" not in m_gpu or "mega7" not in m_cpu:
-        raise AssertionError("the compare model did not take the whole-stack decode blocks")
-    fmt = lambda rel: ", ".join(f"{k} {v:.3e}" for k, v in rel.items())  # noqa: E731
-    for label, chunks, pg, pc in (
-            ("decode steps, per-layer kernels (lane 2 frozen on the second)", decode,
-             p_gpu, p_cpu),
-            ("decode steps, whole-stack kernel (lane 2 frozen on the second)", decode,
-             m_gpu, m_cpu),
-            (f"prefill chunks {COMPARE_PREFILL}", prefill, p_gpu, p_cpu)):
-        card = run_chunks(torch, models, info2, pg, chunks, "cuda")
-        cpu = run_chunks(torch, models, info2, pc, chunks, "cpu")
-        per_chunk = rel_diff(card, cpu)
-        log(f"card vs CPU, L={COMPARE_LAYERS}, B={batch}, {label}: max |card-cpu|/max|cpu| "
-            f"per chunk (tolerance {CARD_CPU_TOL}; wkv of later layers "
-            f"{CARD_CPU_WKV_TOL}):")
-        for i, rel in enumerate(per_chunk):
-            log(f"  chunk {i}: {fmt(rel)}")
-        if chunks is prefill:  # the evidence for the WKV limit, from this run
-            log(f"  largest wkv difference at (lane, head) per layer: "
-                f"{wkv_max_at(card, cpu)}")
-            for dev, p, clean in (("cuda", pg, card), ("cpu", pc, cpu)):
-                for seed, (rels, at) in sensitivity(torch, models, Matrix, info2, p, chunks,
-                                                    dev, clean).items():
-                    for i, rel in enumerate(rels):
-                        log(f"  {dev} alone, one-ulp product changes, seed {seed}, "
-                            f"chunk {i}: {fmt(rel)}; wkv largest at {at[i]}")
-        if not all(v <= card_cpu_limit(k) for rel in per_chunk for k, v in rel.items()):
-            raise AssertionError(f"the card disagrees with the CPU ({label})")
-    log(f"card vs CPU: {time.perf_counter() - t0:.1f} s")
 
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(smi, flush=True)

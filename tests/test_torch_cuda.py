@@ -7,8 +7,8 @@ card. Imports nothing of JAX, so it runs where only PyTorch is installed:
 test here skips. Tolerances: the gemvs sum the same f32 terms in another
 order, atol = 1e-4·max|y|; the attention core, atol = 1e-4; the
 dequant-GEMMs multiply the same bf16 weights in another order, atol =
-1e-4·max|y|; the WKV scan, atol = 1e-4·max|plain| on y and the state;
-the whole-stack decode kernel as its test says.
+1e-4·max|y|; the WKV scans (V7 and V6), atol = 1e-4·max|plain| on y and
+the state; the whole-stack decode kernels as their tests say.
 """
 
 import numpy as np
@@ -254,3 +254,139 @@ def test_layer_scan7_on_card(card, B):
         if B >= 3:
             assert torch.equal(s1[key][:, 1], state[key][:, 1])
     _close(x1, x0, 1e-2)
+
+
+def _wkv6_args(B, T, lens, dev, seed=0):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    f = lambda *s: torch.randn(*s, generator=g, device=dev) * 0.5  # noqa: E731
+    H, K = 12, 64
+    mask = torch.arange(T, device=dev)[None, :] < torch.tensor(lens, device=dev)[:, None]
+    return (f(B, H, K, K), f(B, T, H, K), f(B, T, H, K), f(B, T, H, K), f(H, K),
+            torch.exp(-torch.exp(f(B, T, H, K))), mask)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lens", [(1, 0, 1), (2,), (37, 20, 0)])
+def test_wkv6_scan_on_card(card, lens):
+    """The V6 WKV scan against its plain version, atol = 1e-4·max|plain|
+    on y (live positions) and the state; a lane of length 0 keeps its
+    state exactly."""
+    from web_rwkv_gguf_tpu_torch.ops.cuda import wkv6
+
+    args = _wkv6_args(len(lens), max(lens), lens, card)
+    before = wkv6.wkv6_scan.launches
+    y1, s1 = wkv6.wkv6_scan(*args)
+    assert wkv6.wkv6_scan.launches == before + 1
+    y0, s0 = wkv6.wkv6_scan_plain(*args)
+    mask = args[-1]
+    _close(y1[mask], y0[mask], 1e-4)
+    _close(s1, s0, 1e-4)
+    if 0 in lens:
+        assert torch.equal(s1[lens.index(0)], args[0][lens.index(0)])
+
+
+def _v6_model(card, seed=6):
+    from web_rwkv_gguf_tpu_torch.gguf import GgufFile
+    from web_rwkv_gguf_tpu_torch.models import load_model
+    from web_rwkv_gguf_tpu_torch.utils.synthetic import make_v6_gguf
+
+    raw = make_v6_gguf(n_layer=2, n_emb=256, head_size=64, n_vocab=512, n_hidden=1024,
+                       rank_tm=32, rank_td=64, quantize=ggml.GgmlDType.Q4_K,
+                       head_quantize=ggml.GgmlDType.Q6_K, seed=seed)
+    return raw, load_model(GgufFile(raw), device=card)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B", [1, 3, 9])
+def test_layer_scan56_on_card(card, B):
+    """The whole-stack V6 decode kernel against its plain version on a
+    two-layer model (ranks 32/64) from a random state, one lane frozen at
+    B ≥ 3: each layer as a one-layer slice on the plain chain's input,
+    every output at 2^-8·max of that layer (one bf16 step: the f32 sums
+    in another order flip a few bf16 operand roundings, as chip_smoke.py
+    holds it); the frozen lane's state is kept exactly."""
+    from web_rwkv_gguf_tpu_torch.models import embed_tokens, prepare_decode
+    from web_rwkv_gguf_tpu_torch.models.forward import GN_EPS, LN_EPS
+    from web_rwkv_gguf_tpu_torch.ops.cuda import layer56
+
+    _, (info, params) = _v6_model(card)
+    mega = prepare_decode(params, info, B)["mega56"]
+    g = torch.Generator(device=card).manual_seed(B)
+    f = lambda *s: torch.randn(*s, generator=g, device=card) * 0.5  # noqa: E731
+    L, C, H = info.num_layer, info.num_emb, info.num_head
+    state = {"att_shift": f(L, B, C), "wkv": f(L, B, H, 64, 64), "ffn_shift": f(L, B, C)}
+    x = embed_tokens(params, torch.arange(B, device=card)[:, None] * 7 + 1)[:, 0]
+    mask = torch.ones(B, device=card)
+    if B >= 3:
+        mask[1] = 0.0
+    before = layer56.layer_scan56.launches
+    for i in range(L):
+        m_i = layer56.mega_layers(mega, i, i + 1)
+        s_i = {k: v[i:i + 1] for k, v in state.items()}
+        x1, s1 = layer56.layer_scan56(m_i, s_i, x, mask, None, LN_EPS, GN_EPS, first_layer=i)
+        x0, s0 = layer56.layer_scan56_plain(m_i, s_i, x, mask, None, LN_EPS, GN_EPS, i)
+        live = mask > 0
+        _close(x1[live], x0[live], 2.0 ** -8)
+        for key in s0:
+            _close(s1[key], s0[key], 2.0 ** -8)
+            if B >= 3:
+                assert torch.equal(s1[key][:, 1], s_i[key][:, 1])
+        x = x0
+    assert layer56.layer_scan56.launches == before + L
+
+
+@pytest.mark.cuda
+def test_v6_kernels_refuse_what_they_do_not_take(card):
+    from web_rwkv_gguf_tpu_torch.models import prepare_decode
+    from web_rwkv_gguf_tpu_torch.ops.cuda import layer56, wkv6
+
+    args = list(_wkv6_args(1, 4, (4,), card))
+    with pytest.raises(ValueError):  # head size 32
+        wkv6.wkv6_scan(args[0][..., :32, :32].contiguous(),
+                       *(a[..., :32].contiguous() for a in args[1:6]), args[6])
+    with pytest.raises(ValueError):  # u of the wrong shape
+        wkv6.wkv6_scan(*args[:4], args[4][:6], *args[5:])
+    _, (info, params) = _v6_model(card)
+    mega = prepare_decode(params, info, 1)["mega56"]
+    L, C, H = info.num_layer, info.num_emb, info.num_head
+    z = lambda *s: torch.zeros(*s, device=card)  # noqa: E731
+    state = {"att_shift": z(L, 17, C), "wkv": z(L, 17, H, 64, 64), "ffn_shift": z(L, 17, C)}
+    with pytest.raises(ValueError):  # 17 lanes
+        layer56.layer_scan56(mega, state, z(17, C), z(17), None, 1e-5, 64e-5)
+    bad = {**mega, "tm_w2": mega["tm_w2"].transpose(-1, -2)}  # not contiguous
+    state1 = {k: v[:, :1] for k, v in state.items()}
+    with pytest.raises(ValueError):
+        layer56.layer_scan56(bad, state1, z(1, C), z(1), None, 1e-5, 64e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T", [1, 5, 128])
+def test_v6_forward_routes_through_the_kernels_on_card(card, T):
+    """A V6 chunk on the card through the per-layer path: the quantized
+    matmuls on the Q4_K kernels (8 per layer), the WKV on the scan kernel
+    below T=128 (at T=1 too) and on the chunk-parallel form from it;
+    logits and state match the CPU within chip_smoke.py's card-vs-CPU
+    tolerance (1e-2·max|CPU|)."""
+    from web_rwkv_gguf_tpu_torch.gguf import GgufFile
+    from web_rwkv_gguf_tpu_torch.models import forward_chunk, init_state, load_model, logits_head
+    from web_rwkv_gguf_tpu_torch.ops.cuda import wkv6
+
+    raw, _ = _v6_model(card, seed=4)
+    toks = torch.from_numpy(np.random.default_rng(T).integers(0, 512, (2, T)))
+    lens = torch.tensor([T, max(T - 3, 1)])
+    out = {}
+    for dev in ("cpu", card):
+        info, params = load_model(GgufFile(raw), device=dev)
+        counts = (mm.q4k_gemv.launches + mm.q4k_gemm.launches, wkv6.wkv6_scan.launches)
+        x, st = forward_chunk(info, params, init_state(info, 2, device=dev), toks.to(dev),
+                              lens.to(dev))
+        launched = (mm.q4k_gemv.launches + mm.q4k_gemm.launches - counts[0],
+                    wkv6.wkv6_scan.launches - counts[1])
+        logits = logits_head(params, x[torch.arange(2), lens.to(dev) - 1])
+        out[str(dev)] = (launched, logits.cpu(), {k: v.cpu() for k, v in st.items()})
+    (l_cpu, lg_cpu, st_cpu), (l_gpu, lg_gpu, st_gpu) = out["cpu"], out[str(card)]
+    assert l_cpu == (0, 0)
+    assert l_gpu == (8 * 2, 2 if T < 128 else 0)
+    _close(lg_gpu, lg_cpu, 1e-2)
+    for key in st_cpu:
+        _close(st_gpu[key], st_cpu[key], 1e-2)

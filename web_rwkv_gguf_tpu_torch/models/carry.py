@@ -22,7 +22,7 @@ from .matrix import Matrix
 
 TPU_MATRIX_KEYS = frozenset(
     {"stq", "mnq", "sd", "sdm", "scq", "sdn", "st", "mnt"})
-TPU_PARAM_KEYS = frozenset({"Wrkv_g", "mega7", "lora_down", "lora_up"})
+TPU_PARAM_KEYS = frozenset({"Wrkv_g", "mega7", "mega56", "lora_down", "lora_up"})
 
 
 def _tensor(a, device) -> torch.Tensor:

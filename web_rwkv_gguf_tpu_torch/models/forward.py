@@ -1,4 +1,4 @@
-"""RWKV-7 forward over ``[B, T]`` token chunks, eagerly in PyTorch.
+"""RWKV-7 and RWKV-6 forward over ``[B, T]`` token chunks, eagerly in PyTorch.
 
 Padding tokens (``t >= lengths[b]``) never touch recurrent state. The
 layers run in a Python loop over per-layer views of the parameters.
@@ -8,13 +8,16 @@ plain version):
 
 - T = 1 (decode) with params prepared by ``loader.prepare_decode`` (the
   Engine's) and at most ``MAX_SCAN_BATCH`` lanes: every layer in one
-  launch of the whole-stack kernel ``ops/cuda/layer7``;
+  launch of the whole-stack kernel, ``ops/cuda/layer7`` for RWKV-7,
+  ``ops/cuda/layer56`` for RWKV-6;
 - quantized matmuls: the gemv kernels or the dequant-GEMM, by the row
   count (``Matrix.matmul``);
-- T = 1 otherwise: each layer's attention core is the fused att-core
-  kernel;
-- 2 ≤ T < 128: the WKV runs as the scan kernel ``wkv7_scan``, the rest
-  of the attention core as PyTorch ops;
+- RWKV-7 at T = 1 otherwise: each layer's attention core is the fused
+  att-core kernel; RWKV-6 at T = 1 otherwise: the WKV is the scan kernel
+  ``wkv6_scan`` (where the JAX package runs an XLA step), so no plain
+  version sits on a card path;
+- 2 ≤ T < 128: the WKV runs as the scan kernel (``wkv7_scan``,
+  ``wkv6_scan``), the rest of the layer as PyTorch ops;
 - T ≥ 128: the WKV runs as the chunk-parallel ``ops/wkv_chunked``
   (PyTorch matmuls).
 
@@ -30,22 +33,26 @@ import torch
 from ..ops import basic as B
 from ..ops import wkv as W
 from ..ops.cuda.layer7 import MAX_SCAN_BATCH, layer_scan7
+from ..ops.cuda.layer56 import layer_scan56
+from ..ops.cuda.wkv6 import wkv6_scan
 from ..ops.cuda.wkv7 import att_core7_step, wkv7_scan
-from ..ops.wkv_chunked import wkv7_chunked
-from .info import ModelInfo
+from ..ops.wkv_chunked import wkv6_chunked, wkv7_chunked
+from .info import ModelInfo, ModelVersion
 from .loader import layer_params
 
 LN_EPS = 1e-5
 GN_EPS = 64.0e-5
 L2_EPS = 1.0e-12
 # chunks of at least this many tokens take the chunk-parallel WKV, shorter
-# ones the scan kernel (the JAX package's crossover, models/forward.py)
+# ones the scan kernel (the JAX package's crossover, models/forward.py;
+# V6 uses it too)
 WKV7_CHUNKED_MIN_T = 128
 
 
 def init_state(info: ModelInfo, batch: int, device="cuda") -> dict:
     """Zero recurrent state, layer-stacked: shifts ``[L, B, C]`` and the
-    WKV matrices ``[L, B, H, hs, hs]``, all f32."""
+    WKV matrices ``[L, B, H, hs, hs]``, all f32 (the same for RWKV-7 and
+    RWKV-6)."""
     L, C, H, hs = info.num_layer, info.num_emb, info.num_head, info.head_size
     z = lambda *s: torch.zeros(s, dtype=torch.float32, device=device)  # noqa: E731
     return {
@@ -89,6 +96,13 @@ def _wkv7(state, r, w, k, v, a, b, mask):
     if r.shape[1] >= WKV7_CHUNKED_MIN_T:
         return wkv7_chunked(state, r, w, k, v, a, b, mask)
     return wkv7_scan(state, r, w, k, v, a, b, mask)
+
+
+def _wkv6(state, r, k, v, u, w, mask):
+    """The V6 recurrence over a chunk, routed by its length T."""
+    if r.shape[1] >= WKV7_CHUNKED_MIN_T:
+        return wkv6_chunked(state, r, k, v, u, w, mask)
+    return wkv6_scan(state, r, k, v, u, w, mask)
 
 
 def _att_core_composed(att, H, lst_wkv, r, w_in, k, v, a_in, g, mask):
@@ -153,6 +167,37 @@ def _layer_v7(info, blk, lst, x, v0, layer_idx, mask, lengths):
     return x, v0, new
 
 
+def _layer_v6(info, blk, lst, x, mask, lengths):
+    H = info.num_head
+    att, ffn = blk["att"], blk["ffn"]
+    xx = B.layer_norm(x, blk["ln1"]["w"], blk["ln1"]["b"], LN_EPS)
+    sh = lst["att_shift"]
+    wx, kx, vx, rx, gx = B.ddlerp(xx, sh, att["mix_x"], att["time_mix"], att["tm_w1"],
+                                  att["tm_w2"]).unbind(2)
+    k = att["Wk"].matmul(kx)
+    v = att["Wv"].matmul(vx)
+    r = att["Wr"].matmul(rx)
+    g = att["Wg"].matmul(gx)
+    w = B.stable_exp(att["time_decay"] + _lora(wx, att["td_w1"], att["td_w2"], torch.tanh))
+    y, wkv = _wkv6(lst["wkv"], _heads(r, H), _heads(k, H), _heads(v, H), att["time_first"],
+                   _heads(w, H), mask)
+    y = B.group_norm(_flat(y), att["gn"]["w"], att["gn"]["b"], H, GN_EPS)
+    x = x + att["Wo"].matmul(y * (g * torch.sigmoid(g)))
+
+    xx2 = B.layer_norm(x, blk["ln2"]["w"], blk["ln2"]["b"], LN_EPS)
+    kx2 = B.token_shift(xx2, lst["ffn_shift"], ffn["mix_k"], reversed_mix=True)
+    rx2 = B.token_shift(xx2, lst["ffn_shift"], ffn["mix_r"], reversed_mix=True)
+    vf = ffn["Wv"].matmul(B.squared_relu(ffn["Wk"].matmul(kx2)))
+    x = x + torch.sigmoid(ffn["Wr"].matmul(rx2)) * vf
+
+    new = {
+        "att_shift": B.update_shift_state(xx, lengths, sh),
+        "wkv": wkv,
+        "ffn_shift": B.update_shift_state(xx2, lengths, lst["ffn_shift"]),
+    }
+    return x, new
+
+
 def _forward(info, params, layers, state, tokens, lengths, rescale):
     T = tokens.shape[1]
     if tokens.is_cuda:
@@ -162,16 +207,24 @@ def _forward(info, params, layers, state, tokens, lengths, rescale):
     x = torch.where(mask[..., None], x, 0.0)
     L = info.num_layer
     do_rescale = rescale is not None and rescale < L
-    if T == 1 and "mega7" in params and tokens.shape[0] <= MAX_SCAN_BATCH:
-        xo, new_state = layer_scan7(params["mega7"], state, x[:, 0], mask[:, 0],
-                                    rescale if do_rescale else None, LN_EPS, GN_EPS,
-                                    L2_EPS)
-        return xo[:, None], new_state
+    if T == 1 and tokens.shape[0] <= MAX_SCAN_BATCH:
+        if "mega7" in params:
+            xo, new_state = layer_scan7(params["mega7"], state, x[:, 0], mask[:, 0],
+                                        rescale if do_rescale else None, LN_EPS, GN_EPS,
+                                        L2_EPS)
+            return xo[:, None], new_state
+        if "mega56" in params:
+            xo, new_state = layer_scan56(params["mega56"], state, x[:, 0], mask[:, 0],
+                                         rescale if do_rescale else None, LN_EPS, GN_EPS)
+            return xo[:, None], new_state
     v0 = None
     news = []
     for i in range(L):
         lst = {key: a[i] for key, a in state.items()}
-        x, v0, new = _layer_v7(info, layers[i], lst, x, v0, i, mask, lengths)
+        if info.version == ModelVersion.V6:
+            x, new = _layer_v6(info, layers[i], lst, x, mask, lengths)
+        else:
+            x, v0, new = _layer_v7(info, layers[i], lst, x, v0, i, mask, lengths)
         if do_rescale and (i + 1) % rescale == 0:
             x = x * 0.5
         news.append(new)

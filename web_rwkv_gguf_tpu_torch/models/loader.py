@@ -1,4 +1,4 @@
-"""Build the RWKV-7 parameter tree from a GGUF reader.
+"""Build the RWKV-7 or RWKV-6 parameter tree from a GGUF reader.
 
 The tree holds the same logical arrays as the JAX package's loader, as
 torch tensors on one device:
@@ -8,7 +8,8 @@ torch tensors on one device:
   a llama.cpp Q4_K_M file that keeps some matrices in Q6_K);
 - big matrices are :class:`Matrix` (direct-quantized Q4_K / Q6_K, or
   dense in the model dtype after an f16 round trip);
-- the inner-LoRA adapters are dense in the model dtype; vectors are f32;
+- the adapters (V7's inner LoRAs, V6's ``tm_w1`` / ``tm_w2`` /
+  ``td_w1`` / ``td_w2``) are dense in the model dtype; vectors are f32;
 - the embedding table stays f16.
 
 The load computes in numpy and moves each finished array to ``device``
@@ -22,6 +23,7 @@ import torch
 
 from ..errors import TensorNotFound, UnsupportedFeature
 from ..ops.cuda.layer7 import MAX_SCAN_BATCH, prep_decode7
+from ..ops.cuda.layer56 import prep_decode56
 from .info import ModelVersion, detect_info
 from .matrix import Matrix
 
@@ -68,22 +70,26 @@ def layer_params(params: dict, num_layer: int) -> list[dict]:
 
 
 def prepare_decode(params: dict, info, batch_hint: int = 1) -> dict:
-    """Params with the whole-stack decode blocks attached as
-    ``params["mega7"]`` (``ops/cuda/layer7.prep_decode7``), so that a T=1
+    """Params with the whole-stack decode blocks attached, so that a T=1
     forward of up to ``MAX_SCAN_BATCH`` lanes runs as one kernel launch,
-    as the JAX package's ``prepare_decode`` arranges it for its Engine.
+    as the JAX package's ``prepare_decode`` arranges it for its Engine:
+    ``params["mega7"]`` for RWKV-7 (``ops/cuda/layer7.prep_decode7``),
+    ``params["mega56"]`` for RWKV-6 (``ops/cuda/layer56.prep_decode56``).
     Params it cannot arrange (a batch above the limit, per-layer blocks,
     layer matrices that are not Q4_K with whole super-blocks) come back
     unchanged. Idempotent."""
-    if "mega7" in params or batch_hint > MAX_SCAN_BATCH:
+    if "mega7" in params or "mega56" in params or batch_hint > MAX_SCAN_BATCH:
         return params
-    mega = prep_decode7(params, info)
-    return params if mega is None else {**params, "mega7": mega}
+    if info.version == ModelVersion.V7:
+        mega = prep_decode7(params, info)
+        return params if mega is None else {**params, "mega7": mega}
+    mega = prep_decode56(params, info)
+    return params if mega is None else {**params, "mega56": mega}
 
 
 def load_model(reader, *, dtype=torch.bfloat16, rescale: int | None = None,
                device="cuda"):
-    """Load an RWKV-7 model into ``(info, params)`` on ``device``.
+    """Load an RWKV-7 or RWKV-6 model into ``(info, params)`` on ``device``.
 
     ``dtype`` is the storage type of dense matrices and adapters (bf16 or
     f32). ``rescale``: the weights of ``att.output`` / ``ffn.value`` at
@@ -92,9 +98,11 @@ def load_model(reader, *, dtype=torch.bfloat16, rescale: int | None = None,
     ``rescale`` layers.
     """
     info = detect_info(reader)
-    if info.version != ModelVersion.V7:
+    if info.version not in (ModelVersion.V7, ModelVersion.V6):
         raise UnsupportedFeature(
-            f"the PyTorch port loads RWKV-7 only, not {info.version.value}")
+            f"the PyTorch port loads RWKV-7 and RWKV-6, not {info.version.value}: RWKV-5 "
+            "and RWKV-4 come with the slice that ports wkv4_pallas and the V5/V4 bodies "
+            "of layer_scan56 (ROADMAP.md, Next, item 1)")
     rescale = rescale or 10**9
     C, L, H, hs = info.num_emb, info.num_layer, info.num_head, info.head_size
 
@@ -132,6 +140,59 @@ def load_model(reader, *, dtype=torch.bfloat16, rescale: int | None = None,
     def adapters(fmt):
         return to_dtype(np.stack([matrix_f32(fmt.format(i=i)) for i in range(L)]))
 
+    def ln(prefix):
+        return {"w": vecs(prefix + ".weight"), "b": vecs(prefix + ".bias")}
+
+    if info.version == ModelVersion.V6:
+        # the five static mixes stacked in (w, k, v, r, g) order: [L, 5, C]
+        time_mix = np.stack([np.stack([vector(f"blocks.{i}.att.time_mix_{s}")
+                                       for s in "wkvrg"]) for i in range(L)])
+        att = {
+            "time_decay": vecs("blocks.{i}.att.time_decay"),  # raw: the forward activates it
+            "time_first": vecs("blocks.{i}.att.time_first").reshape(L, H, hs),
+            "mix_x": vecs("blocks.{i}.att.time_mix_x"),
+            "time_mix": dev(time_mix),
+            "tm_w1": adapters("blocks.{i}.att.time_mix_w1"),  # [L, 5R, C]
+            "tm_w2": adapters("blocks.{i}.att.time_mix_w2"),  # [L, 5, C, R]
+            "td_w1": adapters("blocks.{i}.att.time_decay_w1"),  # [L, D, C]
+            "td_w2": adapters("blocks.{i}.att.time_decay_w2"),  # [L, C, D]
+            "gn": ln("blocks.{i}.att.ln_x"),
+            "Wk": mats("blocks.{i}.att.key.weight"),
+            "Wv": mats("blocks.{i}.att.value.weight"),
+            "Wr": mats("blocks.{i}.att.receptance.weight"),
+            "Wg": mats("blocks.{i}.att.gate.weight"),
+            "Wo": mats("blocks.{i}.att.output.weight", discounted=True),
+        }
+        ffn = {
+            "mix_k": vecs("blocks.{i}.ffn.time_mix_k"),
+            "mix_r": vecs("blocks.{i}.ffn.time_mix_r"),
+            "Wk": mats("blocks.{i}.ffn.key.weight"),
+            "Wv": mats("blocks.{i}.ffn.value.weight", discounted=True),
+            "Wr": mats("blocks.{i}.ffn.receptance.weight"),
+        }
+    else:
+        att, ffn = _v7_blocks(reader, info, vector, matrix_f32, to_dtype, dev, vecs, mats,
+                              adapters, ln)
+    blocks = {"ln1": ln("blocks.{i}.ln1"), "ln2": ln("blocks.{i}.ln2"), "att": att,
+              "ffn": ffn}
+    if _has_list(blocks):
+        blocks = [_layer_slice(blocks, i) for i in range(L)]
+    params = {
+        "emb": dev(_np(reader, "emb.weight", np.float16)),
+        "ln0": {"w": dev(vector("blocks.0.ln0.weight")),
+                "b": dev(vector("blocks.0.ln0.bias"))},
+        "ln_out": {"w": dev(vector("ln_out.weight")),
+                   "b": dev(vector("ln_out.bias"))},
+        "head": matrix("head.weight"),
+        "blocks": blocks,
+    }
+    return info, params
+
+
+def _v7_blocks(reader, info, vector, matrix_f32, to_dtype, dev, vecs, mats, adapters, ln):
+    """RWKV-7's attention and FFN stacks (``load_model``'s helpers)."""
+    C, L, H, hs = info.num_emb, info.num_layer, info.num_head, info.head_size
+
     def v7_vec(i, s, default=None):
         name = f"blocks.{i}.att.{s}"
         if reader.contains(name):
@@ -139,9 +200,6 @@ def load_model(reader, *, dtype=torch.bfloat16, rescale: int | None = None,
         if default is not None:
             return default
         raise TensorNotFound(name)
-
-    def ln(prefix):
-        return {"w": vecs(prefix + ".weight"), "b": vecs(prefix + ".bias")}
 
     zeros_c = np.zeros(C, np.float32)
     dv = info.custom.v or 1
@@ -175,25 +233,9 @@ def load_model(reader, *, dtype=torch.bfloat16, rescale: int | None = None,
     }
     # the six token-shift mixes stacked for one fused lerp: [L, 6, C]
     att["x_stack"] = torch.stack([att[f"x_{s}"] for s in "rwkvag"], dim=1)
-    blocks = {
-        "ln1": ln("blocks.{i}.ln1"),
-        "ln2": ln("blocks.{i}.ln2"),
-        "att": att,
-        "ffn": {
-            "x_k": vecs("blocks.{i}.ffn.x_k"),
-            "Wk": mats("blocks.{i}.ffn.key.weight"),
-            "Wv": mats("blocks.{i}.ffn.value.weight", discounted=True),
-        },
+    ffn = {
+        "x_k": vecs("blocks.{i}.ffn.x_k"),
+        "Wk": mats("blocks.{i}.ffn.key.weight"),
+        "Wv": mats("blocks.{i}.ffn.value.weight", discounted=True),
     }
-    if _has_list(blocks):
-        blocks = [_layer_slice(blocks, i) for i in range(L)]
-    params = {
-        "emb": dev(_np(reader, "emb.weight", np.float16)),
-        "ln0": {"w": dev(vector("blocks.0.ln0.weight")),
-                "b": dev(vector("blocks.0.ln0.bias"))},
-        "ln_out": {"w": dev(vector("ln_out.weight")),
-                   "b": dev(vector("ln_out.bias"))},
-        "head": matrix("head.weight"),
-        "blocks": blocks,
-    }
-    return info, params
+    return att, ffn

@@ -50,6 +50,11 @@ def squared_relu(x: torch.Tensor) -> torch.Tensor:
     return p * p
 
 
+def stable_exp(x: torch.Tensor) -> torch.Tensor:
+    """exp(-exp(x)): the V5/V6 decay activation."""
+    return torch.exp(-torch.exp(x.float()))
+
+
 def _previous(x: torch.Tensor, shift_state: torch.Tensor) -> torch.Tensor:
     """x shifted one token later along T, the shift state filling t=0."""
     return torch.cat([shift_state[:, None, :], x[:, :-1, :]], dim=1)
@@ -82,6 +87,26 @@ def token_shift_multi(
     ``[B, T, S, C]`` (V7's six shifts in r, w, k, v, a, g order)."""
     x_prev = _previous(x, shift_state)
     return lerp(x[:, :, None, :], x_prev[:, :, None, :], mixes[None, None])
+
+
+def ddlerp(
+    x: torch.Tensor,  # [B, T, C]
+    shift_state: torch.Tensor,  # [B, C]
+    mix_x: torch.Tensor,  # [C]
+    time_mix: torch.Tensor,  # [5, C] static mixes (w, k, v, r, g)
+    w1: torch.Tensor,  # [5R, C] adapter down
+    w2: torch.Tensor,  # [5, C, R] adapter up
+) -> torch.Tensor:
+    """RWKV-6's data-dependent token shift: ``[B, T, 5, C]``, the w, k, v,
+    r and g inputs. A reversed shift with ``mix_x`` feeds a rank-R tanh
+    adapter whose outputs, plus ``time_mix``, are five per-token mixes of
+    reversed shifts. The adapter products take operands in the weights'
+    dtype and sum in f32."""
+    x_prev = _previous(x, shift_state)
+    sx = lerp(x, x_prev, mix_x)
+    z = torch.tanh(sx.to(w1.dtype).float() @ w1.float().T).unflatten(-1, (5, -1))
+    mix = torch.einsum("btfr,fcr->btfc", z.to(w2.dtype).float(), w2.float()) + time_mix
+    return lerp(x[:, :, None, :], x_prev[:, :, None, :], mix)
 
 
 def update_shift_state(

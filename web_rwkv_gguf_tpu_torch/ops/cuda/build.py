@@ -2,7 +2,8 @@
 
 Each source compiles with ``nvcc`` for ``sm_90a`` into a shared library
 with a plain C interface (no PyTorch headers, so a build takes seconds,
-not minutes). A library is named after its source's content hash and
+not minutes). A library is named after the content hash of its source
+and of the shared headers (``csrc/*.cuh``), and
 lands in ``_build/`` beside this file (listed in ``.gitignore``), so a
 changed source rebuilds and an unchanged one loads at once. Nothing is
 built when the module is imported: :func:`build` runs on first use, or
@@ -21,7 +22,8 @@ from pathlib import Path
 
 CSRC = Path(__file__).with_name("csrc")
 BUILD_DIR = Path(__file__).with_name("_build")
-KERNELS = ("q4k_gemv", "q6k_gemv", "att_core7", "qk_gemm", "wkv7_scan", "layer7")  # csrc/<name>.cu
+KERNELS = ("q4k_gemv", "q6k_gemv", "att_core7", "qk_gemm", "wkv7_scan", "layer7",
+           "wkv6_scan", "layer56")  # csrc/<name>.cu
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -42,6 +44,7 @@ def nvcc() -> str:
 def library_path(name: str) -> Path:
     """Where the library of kernel ``name`` lives once built."""
     src = (CSRC / f"{name}.cu").read_bytes()
+    src += b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
     digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"{name}-{digest[:16]}.so"
 

@@ -1,13 +1,16 @@
-"""RWKV-7 WKV recurrence in plain PyTorch — the ground truth of the port's
-attention-core kernel (the chunk forms are ``ops/cuda/wkv7.wkv7_scan_plain``
-and ``ops/wkv_chunked``).
+"""RWKV-7 and RWKV-6 WKV recurrences in plain PyTorch — the ground truth
+of the port's WKV kernels (the chunk forms are
+``ops/cuda/wkv7.wkv7_scan_plain``, ``ops/cuda/wkv6.wkv6_scan_plain`` and
+``ops/wkv_chunked``).
 
 Layout ``[B, T, ...]`` with a validity mask: masked (padding) steps
 leave the recurrent state untouched. The state is one matrix S[K, V] per
 head (K indexes key channels, V value channels).
 
-    sa = Sᵀa;  S ← diag(w)S + k vᵀ + b saᵀ;  y = Sᵀr
-    with a = -kk, b = kk ∘ a_ctrl, w = exp(-exp(-0.5)·sigmoid(w_in))
+    V7: sa = Sᵀa;  S ← diag(w)S + k vᵀ + b saᵀ;  y = Sᵀr
+        with a = -kk, b = kk ∘ a_ctrl, w = exp(-exp(-0.5)·sigmoid(w_in))
+    V6: y = Sᵀr + (Σ_k r·u·k) v;  S ← diag(w)S + k vᵀ
+        with w = exp(-exp(w_raw)) per token and u (time_first) per head
 """
 
 from __future__ import annotations
@@ -43,3 +46,27 @@ def wkv7_bonus(r, k, v, r_k):
     ``r, k`` [B, T, H, K], ``v`` [B, T, H, V], ``r_k`` [H, K]."""
     s = (r.float() * k.float() * r_k.float()).sum(dim=-1)
     return s[..., None] * v.float()
+
+
+def wkv6(state, r, k, v, u, w, mask):
+    """The V6 recurrence token by token. ``state`` [B, H, K, V]; ``r, k,
+    w`` [B, T, H, K] (w activated); ``v`` [B, T, H, V]; ``u`` [H, K];
+    ``mask`` [B, T] bool. Returns ``(y [B, T, H, V], new_state)``."""
+    S = state.float()
+    ys = []
+    for t in range(r.shape[1]):
+        y, S = wkv6_step(S, r[:, t:t + 1], k[:, t:t + 1], v[:, t:t + 1], u,
+                         w[:, t:t + 1], mask[:, t:t + 1])
+        ys.append(y[:, 0])
+    return torch.stack(ys, dim=1), S
+
+
+def wkv6_step(state, r, k, v, u, w, mask):
+    """One token of :func:`wkv6` (T = 1 inputs); the masked lanes keep
+    their state."""
+    rr, kk, vv, ww = (t[:, 0].float() for t in (r, k, v, w))
+    kv = kk[..., :, None] * vv[..., None, :]
+    y = torch.einsum("bhk,bhkv->bhv", rr, u.float()[..., :, None] * kv + state)
+    s_n = ww[..., :, None] * state + kv
+    s = torch.where(mask[:, 0][:, None, None, None], s_n, state)
+    return y[:, None], s

@@ -1,5 +1,5 @@
-"""Synthetic random-weight RWKV-7 model files, in the GGUF layout a
-converter writes — used by tests and by ``chip_smoke.py``."""
+"""Synthetic random-weight RWKV-7 and RWKV-6 model files, in the GGUF
+layout a converter writes — used by tests and by ``chip_smoke.py``."""
 
 from __future__ import annotations
 
@@ -98,4 +98,63 @@ def make_v7_gguf(
         add(f"{p}.channel_mix_lerp_k.weight", r(n_emb))
         add(f"{p}.channel_mix_key.weight", r(n_hidden, n_emb), q=True)
         add(f"{p}.channel_mix_value.weight", r(n_emb, n_hidden), q=True)
+    return w.tobytes()
+
+
+def make_v6_gguf(
+    *, n_layer=2, n_emb=16, head_size=4, n_vocab=32, n_hidden=None, rank_tm=4,
+    rank_td=8, seed=0, quantize=None, head_quantize=None,
+):
+    """Bytes of an RWKV-6 GGUF file with weights drawn from ``seed``
+    (the draws, names and order of the JAX package's ``make_v6_gguf``).
+
+    ``quantize`` selects the block type of the eight layer matrices and
+    the head; ``head_quantize`` overrides it for the head, so
+    ``quantize=Q4_K, head_quantize=Q6_K`` writes the Q4_K_M placement."""
+    n_hidden = n_hidden or 4 * n_emb
+    n_head = n_emb // head_size
+    rng = np.random.default_rng(seed)
+    w = GgufWriter()
+    w.add_metadata("rwkv6.wkv.head_size", head_size)
+
+    def r(*shape, scale=0.5):
+        return (rng.normal(size=shape) * scale).astype(np.float32)
+
+    def uniform():
+        return rng.uniform(0, 1, n_emb).astype(np.float32)
+
+    def addq(name, arr):
+        w.add_tensor(name, arr, quantize=quantize)
+
+    w.add_tensor("token_embd.weight", r(n_vocab, n_emb))
+    w.add_tensor("token_embd_norm.weight", 1.0 + r(n_emb, scale=0.1))
+    w.add_tensor("token_embd_norm.bias", r(n_emb, scale=0.1))
+    w.add_tensor("output_norm.weight", 1.0 + r(n_emb, scale=0.1))
+    w.add_tensor("output_norm.bias", r(n_emb, scale=0.1))
+    w.add_tensor("output.weight", r(n_vocab, n_emb),
+                 quantize=head_quantize if head_quantize is not None else quantize)
+    for i in range(n_layer):
+        p = f"blk.{i}"
+        w.add_tensor(f"{p}.attn_norm.weight", 1.0 + r(n_emb, scale=0.1))
+        w.add_tensor(f"{p}.attn_norm.bias", r(n_emb, scale=0.1))
+        w.add_tensor(f"{p}.ffn_norm.weight", 1.0 + r(n_emb, scale=0.1))
+        w.add_tensor(f"{p}.ffn_norm.bias", r(n_emb, scale=0.1))
+        w.add_tensor(f"{p}.attn_time_decay", r(n_head, head_size))
+        w.add_tensor(f"{p}.attn_time_first", r(n_head, head_size))
+        w.add_tensor(f"{p}.attn_time_mix_x", uniform())
+        for s in "wkvrg":
+            w.add_tensor(f"{p}.attn_time_mix_{s}", uniform())
+        w.add_tensor(f"{p}.attn_time_mix_w1", r(5 * rank_tm, n_emb, scale=0.1))
+        w.add_tensor(f"{p}.attn_time_mix_w2", r(5, n_emb, rank_tm, scale=0.1))
+        w.add_tensor(f"{p}.attn_time_decay_w1", r(rank_td, n_emb, scale=0.1))
+        w.add_tensor(f"{p}.attn_time_decay_w2", r(n_emb, rank_td, scale=0.1))
+        for name in ("attn_k", "attn_v", "attn_r", "attn_g", "attn_output"):
+            addq(f"{p}.{name}.weight", r(n_emb, n_emb))
+        w.add_tensor(f"{p}.attn_ln_x.weight", 1.0 + r(n_emb, scale=0.1))
+        w.add_tensor(f"{p}.attn_ln_x.bias", r(n_emb, scale=0.1))
+        w.add_tensor(f"{p}.ffn_time_mix_k", uniform())
+        w.add_tensor(f"{p}.ffn_time_mix_r", uniform())
+        addq(f"{p}.ffn_k.weight", r(n_hidden, n_emb))
+        addq(f"{p}.ffn_v.weight", r(n_emb, n_hidden))
+        addq(f"{p}.ffn_r.weight", r(n_emb, n_emb))
     return w.tobytes()
