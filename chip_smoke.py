@@ -10,13 +10,14 @@ ops/cuda/csrc`` with nvcc (one nvcc per source, all started together),
 holds each kernel against its plain PyTorch version at the shapes the
 decode and prefill paths give it and times both (and, where one PyTorch
 call computes the same product, that call). Then it drives the port's
-main paths on two synthetic Q4_K_M models, each path with every
-kernel's launch count set to 0 just before and checked exactly just
-after:
+main paths on four synthetic Q4_K_M models, one after the other, each
+path with every kernel's launch count set to 0 just before and checked
+exactly just after:
 
-- RWKV-7 at the 0.1B widths, and RWKV-6 at the World 1.6B widths (full
-  depth; its file is built in a worker process while the RWKV-7 phases
-  run);
+- RWKV-7 at the 0.1B widths, RWKV-6 at the World 1.6B widths, RWKV-5 at
+  the World 0.4B widths and RWKV-4 at the World 0.1B widths (table
+  ``MODELS``; full depth; the files are built in worker processes while
+  the kernels build);
 - serve two requests at batch 1 through ``forward_chunk`` (each prompt
   prefilled as one chunk) → ``logits_head`` → ``make_generator``, on
   the loaded params (the per-layer kernels at decode);
@@ -29,9 +30,10 @@ For each model it holds the whole-stack decode kernel against its plain
 version layer by layer, and compares the card with the CPU at the same
 widths (two layers, three lanes): decode steps with a lane frozen,
 through the per-layer kernels and through the whole-stack kernel, and a
-ragged prefill chunk followed by one of 128 tokens; for the prefill it
-also measures how far the card and the CPU each move under one-ulp
-product changes (decode steps and prefill, on the per-layer path). Any failed check raises, so the exit code is not 0.
+ragged prefill chunk followed by one of 128 tokens; it also measures how
+far the card and the CPU each move under one-ulp product changes
+(decode steps and prefill, on the per-layer path). Every comparison of
+a model prints before a failed one raises, so the exit code is not 0.
 The last lines are the card's ``nvidia-smi`` name and power limit, one
 JSON line of per-kernel numbers, and ``{"ok": true, "device": {...}}``.
 
@@ -49,17 +51,58 @@ import subprocess
 import sys
 import time
 
-# model under test: RWKV-7 0.1B widths (L=12, C=768, head 64, V=65536,
-# hidden 4·C, LoRA ranks w/a/g/v 64/64/128/32), Q4_K layers, Q6_K head
-MODEL = dict(n_layer=12, n_emb=768, head_size=64, n_vocab=65536, n_hidden=3072,
-             lora_w=64, lora_a=64, lora_g=128, lora_v=32)
+VOCAB = 65536  # every model's vocabulary
+_V6_MATRICES = (("att", "Wr"), ("att", "Wk"), ("att", "Wv"), ("att", "Wg"), ("att", "Wo"),
+                ("ffn", "Wk"), ("ffn", "Wv"), ("ffn", "Wr"))
+# The models under test, in the order they run: each a synthetic file in the
+# Q4_K_M placement (Q4_K layers, Q6_K head) at full depth with random
+# weights from its seed (the card-vs-CPU model at COMPARE_LAYERS layers from
+# seed + 1). "matrices" are a layer's quantized matrices; "wkv" the kernel
+# that runs a layer's WKV in a per-layer forward chunk at T = 1, at
+# 2 <= T < 128 and at T >= 128 (None: the chunk-parallel form, PyTorch
+# matmuls); "mega" the whole-stack decode blocks and their kernel, held
+# layer by layer at each of "mega_batches" lanes. MODEL_CASES holds each
+# model's kernel cases.
+MODELS = {
+    # RWKV-7 0.1B widths (L=12, C=768, head 64, hidden 4·C, LoRA ranks
+    # w/a/g/v 64/64/128/32)
+    "v7": dict(make="make_v7_gguf", seed=0,
+               widths=dict(n_layer=12, n_emb=768, head_size=64, n_vocab=VOCAB, n_hidden=3072,
+                           lora_w=64, lora_a=64, lora_g=128, lora_v=32),
+               matrices=(("att", "Wr"), ("att", "Wk"), ("att", "Wv"), ("att", "Wo"),
+                         ("ffn", "Wk"), ("ffn", "Wv")),
+               wkv=("att_core7_step", "wkv7_scan", None), mega=("mega7", "layer_scan7"),
+               mega_batches=(4,)),
+    # RWKV-6 World 1.6B widths (BlinkDL's RWKV-x060-World-1B6: L=24, C=2048,
+    # head 64, hidden int(3.5·C // 32 · 32); time-mix and decay LoRA ranks 32
+    # and 64 from RWKV-LM's v6 model.py)
+    "v6": dict(make="make_v6_gguf", seed=10,
+               widths=dict(n_layer=24, n_emb=2048, head_size=64, n_vocab=VOCAB, n_hidden=7168,
+                           rank_tm=32, rank_td=64),
+               matrices=_V6_MATRICES, wkv=("wkv6_scan", "wkv6_scan", None),
+               mega=("mega56", "layer_scan56"), mega_batches=(4, 1, 16)),
+    # RWKV-5 World 0.4B widths (BlinkDL's RWKV-5-World-0.4B-v2: L=24, C=1024,
+    # head 64, hidden int(3.5·C // 32 · 32) from RWKV-LM's v5 train.py); the
+    # WKV is RWKV-6's with the static decay broadcast over the tokens
+    "v5": dict(make="make_v5_gguf", seed=20,
+               widths=dict(n_layer=24, n_emb=1024, head_size=64, n_vocab=VOCAB, n_hidden=3584),
+               matrices=_V6_MATRICES, wkv=("wkv6_scan", "wkv6_scan", None),
+               mega=("mega56", "layer_scan56"), mega_batches=(4, 1, 16)),
+    # RWKV-4 World 0.1B widths (BlinkDL's RWKV-4-World-0.1B: L=12, C=768,
+    # hidden 4·C); no chunk-parallel WKV: the scan at every T
+    "v4": dict(make="make_v4_gguf", seed=30,
+               widths=dict(n_layer=12, n_emb=768, n_vocab=VOCAB, n_hidden=3072),
+               matrices=(("att", "Wr"), ("att", "Wk"), ("att", "Wv"), ("att", "Wo"),
+                         ("ffn", "Wk"), ("ffn", "Wv"), ("ffn", "Wr")),
+               wkv=("wkv4_scan",) * 3, mega=("mega56", "layer_scan56"),
+               mega_batches=(4, 1, 16)),
+}
 PROMPTS = ([11, 2041, 7, 65000, 310, 42, 9, 1234], [5, 5, 60000, 88, 901, 3, 77, 12])
 DECODE_STEPS = 32
 COMPARE_LAYERS = 2  # depth of the card-vs-CPU comparison
 # its decode steps at B=3: (token per lane, length per lane)
 COMPARE_STEPS = [([11, 400, 65535], [1, 1, 1]), ([2041, 9, 3], [1, 1, 0]),
                  ([7, 60000, 5], [1, 1, 1])]
-SEED = 0
 # the Engine phase: four prompts (lengths 300, 77, 40, 9, token ids from
 # ENGINE_SEED), 32 greedy tokens each, then one infer with a FULL lane
 ENGINE_LENGTHS = (300, 77, 40, 9)
@@ -70,14 +113,7 @@ ENGINE_CHUNK = 128  # token_chunk_size
 FULL_LANES = ((60, "full"), (3, "last"), (0, "last"), (1, "last"))
 # card-vs-CPU prefill: (T, lengths per lane) of two chunks at B=3
 COMPARE_PREFILL = [(37, (37, 20, 0)), (128, (128, 90, 128))]
-
-# RWKV-6 World 1.6B widths (BlinkDL's RWKV-x060-World-1B6: L=24, C=2048,
-# head 64, V=65536, hidden int(3.5·C // 32 · 32); time-mix and decay
-# LoRA ranks 32 and 64 from RWKV-LM's v6 model.py), Q4_K layers, Q6_K
-# head, random weights from SEED6, full depth
-MODEL6 = dict(n_layer=24, n_emb=2048, head_size=64, n_vocab=65536, n_hidden=7168,
-              rank_tm=32, rank_td=64)
-SEED6 = 10
+COMPARE_SEED = 2  # its prefill tokens
 
 # peaks of the card from NVIDIA's data sheets (dense): HBM bytes/s,
 # bf16 tensor-core FLOP/s, f32 (non-tensor) FLOP/s
@@ -112,6 +148,15 @@ CARD_CPU_TOL = 1e-2
 # state by up to 6.7e-3 of its max on the card alone, and the card sits
 # 1.7e-2 from the CPU there (both deterministic; PERF.md, Findings).
 CARD_CPU_WKV_TOL = 3e-2
+# RWKV-4's state (aa, bb, pp) is held, at the same limits, as what its
+# output depends on: y = σ(r)·(aa/bb + e^{u+k-z}·v) / (1 + e^{u+k-z})
+# with z = pp + ln bb, so the past's weighted mean of v, aa/bb, and the
+# log of its total weight, z (and pp itself, absolutely over the entries
+# off the F32_MIN sentinel). aa and bb alone are not held: they weigh each
+# past token by e^{k-pp}, so a shift δ of the leading token's k (|k| up to
+# ~50 on these random weights) moves both by about δ of their size while
+# aa/bb and z barely move (PERF.md, Findings).
+V4_VIEWS = ("aa/bb", "pp", "pp+ln bb")
 # one-ulp product changes: noise seeds on the card and on the CPU
 SENSITIVITY_SEEDS = {"cuda": (0, 1, 2, 3), "cpu": (0, 1)}
 # the whole-stack decode kernel against its plain version, × max|plain|
@@ -121,6 +166,11 @@ SENSITIVITY_SEEDS = {"cuda": (0, 1, 2, 3), "cpu": (0, 1)}
 # inputs, each by one bf16 step (2^-8); a layer must stay within one such
 # step of its largest value (seen: up to 1.0e-3; PERF.md, Findings)
 MEGA_LAYER_TOL = 2.0 ** -8
+# × max|x|: a layer's x from the whole-stack kernel (versions 6 to 4)
+# against the same layer replayed in plain PyTorch on the kernel's own
+# staged operands (its bf16 inputs to Wo and the FFN value, its f32 FFN
+# receptance), where only the order of f32 sums differs
+MEGA_REPLAY_TOL = 1e-4
 L2_FLUSH_BYTES = 100e6  # rotate weight copies over 2× the 50 MB L2
 
 
@@ -280,15 +330,16 @@ def q6k_case(torch, mm, op, m, k, n, seed, bf16_peak, dev="cuda"):
     return case
 
 
-def kernel_cases(torch, mm, core, bf16_peak, f32_peak, full_rows, dev="cuda"):
+def kernel_cases(torch, k, bf16_peak, f32_peak, full_rows, dev="cuda"):
     """The RWKV-7 main paths' kernel calls at their shapes (0.1B widths):
     Q4_K gemv at the layer shapes (n = 1, 4 and 8), the Q6_K head gemv
     (n = 1 and 4), the attention core at B=1, at B=3 with a masked lane
     and at B=4 (H=12, hs=64); the Q4_K dequant-GEMM at the layer shapes
     (n = 4: decode at B=4; 128 and 512: prefill chunks), the Q6_K head
     GEMM at the FULL call's ``full_rows``, and the WKV scan at T=64 for
-    B=1 and 4 with ragged lengths."""
+    B=1 and 4 with ragged lengths. ``k``: the kernel modules by name."""
     dev = torch.device(dev)
+    mm, core = k["matmul"], k["wkv7"]
     layer_shapes = ((768, 768), (3072, 768), (768, 3072))
     cases = [q4k_case(torch, mm, "gemv", m, k, n, m + 7 * k + n, bf16_peak)
              for m, k in layer_shapes for n in (1, 4, 8)]
@@ -351,7 +402,7 @@ def kernel_cases(torch, mm, core, bf16_peak, f32_peak, full_rows, dev="cuda"):
     return cases
 
 
-def kernel_cases6(torch, mm, wkv6, bf16_peak, f32_peak, full_rows, dev="cuda"):
+def kernel_cases6(torch, k, bf16_peak, f32_peak, full_rows, dev="cuda"):
     """The RWKV-6 main paths' kernel calls at the 1.6B widths (C=2048,
     hidden 7168, H=32): the Q4_K gemv at n = 1 (the B=1 serve's decode),
     the Q4_K GEMM at n = 512 (an Engine chunk of T=128 at B=4), the Q6_K
@@ -360,6 +411,7 @@ def kernel_cases6(torch, mm, wkv6, bf16_peak, f32_peak, full_rows, dev="cuda"):
     ``full_rows``; the V6 WKV scan at T=64 for B=1 and 4 with ragged
     lengths."""
     dev = torch.device(dev)
+    mm, wkv6 = k["matmul"], k["wkv6"]
     layer_shapes = ((2048, 2048), (7168, 2048), (2048, 7168))
     cases = [q4k_case(torch, mm, "gemv", m, k, 1, 7000 + m + 7 * k, bf16_peak)
              for m, k in layer_shapes]
@@ -393,6 +445,107 @@ def kernel_cases6(torch, mm, wkv6, bf16_peak, f32_peak, full_rows, dev="cuda"):
     return cases
 
 
+def kernel_cases5(torch, k, bf16_peak, f32_peak, full_rows, dev="cuda"):
+    """The RWKV-5 main paths' kernel shapes at the World 0.4B widths
+    (C=1024, hidden 3584, H=16): the Q4_K gemv at n = 1 (the B=1 serve's
+    decode) and 4, the Q4_K GEMM at n = 512 (an Engine chunk of T=128 at
+    B=4), the Q6_K head gemv at n = 1 and 4 (at K=1024 the gate keeps n ≤
+    4 on the gemv) and GEMM at the FULL call's ``full_rows``; the V6 WKV
+    scan as the V5 path calls it (``forward._wkv5``: the static decay [H,
+    K] expanded over [B, T, H, K]) at B=1 for T = 1 (the serve's decode)
+    and 8 (its prompts), and at B=4, T=64 with ragged lengths (an Engine
+    chunk)."""
+    mm, wkv6 = k["matmul"], k["wkv6"]
+    dev = torch.device(dev)
+    layer_shapes = ((1024, 1024), (3584, 1024), (1024, 3584))
+    cases = [q4k_case(torch, mm, "gemv", m, kk, n, 11000 + m + 7 * kk + n, bf16_peak, dev)
+             for m, kk in layer_shapes for n in (1, 4)]
+    cases += [q4k_case(torch, mm, "gemm", m, kk, 512, 11500 + m + 7 * kk, bf16_peak, dev)
+              for m, kk in layer_shapes]
+    cases += [q6k_case(torch, mm, "gemv", 65536, 1024, n, 12000 + n, bf16_peak, dev)
+              for n in (1, 4)]
+    cases.append(q6k_case(torch, mm, "gemm", 65536, 1024, full_rows, 12100, bf16_peak, dev))
+
+    H, K = 16, 64
+    for T, lens in ((1, (1,)), (8, (8,)), (64, (64, 40, 17, 0))):
+        B = len(lens)
+
+        def make_scan(i, B=B, T=T, lens=lens):
+            _, _, normal = _rng(torch, dev, 14000 * i + B + T)
+            f = lambda *s: normal(*s) * 0.5  # noqa: E731
+            mask = (torch.arange(T, device=dev)[None, :]
+                    < torch.tensor(lens, device=dev)[:, None])
+            return (f(B, H, K, K), f(B, T, H, K), f(B, T, H, K), f(B, T, H, K), f(H, K),
+                    torch.exp(-torch.exp(f(H, K))).expand(B, T, H, K), mask)
+
+        live = sum(lens)
+        cases.append(dict(
+            name=f"wkv6_scan[B={B},T={T},H={H},hs={K},lens={list(lens)},w static]",
+            kernel=wkv6.wkv6_scan, shape=(B, T, H, K), plain=wkv6.wkv6_scan_plain,
+            make_args=make_scan, compare=scan_compare,
+            # state in and out; r, k, v in and y out; the static w and u; the mask
+            nbytes=4 * (2 * B * H * K * K + 4 * B * T * H * K + 2 * H * K) + B * T,
+            flops=(6 * live + 2 * (B * T - live)) * H * K * K, fpeak=f32_peak))
+    return cases
+
+
+def kernel_cases4(torch, k, bf16_peak, f32_peak, full_rows, dev="cuda"):
+    """The RWKV-4 main paths' new kernel: the V4 WKV scan at the World 0.1B
+    width (C=768) at B=1, T=64; B=4, T=64 with lengths (64, 40, 17, 0);
+    and B=4, T=128 (its matrices have the RWKV-7 0.1B shapes, held in
+    kernel_cases). Lane 0 starts from the initial state (pp at F32_MIN),
+    the others from a random one."""
+    from web_rwkv_gguf_tpu_torch.ops.wkv import F32_MIN
+
+    wkv4 = k["wkv4"]
+    dev = torch.device(dev)
+    C = 768
+    cases = []
+    for T, lens in ((64, (64,)), (64, (64, 40, 17, 0)), (128, (128,) * 4)):
+        B = len(lens)
+
+        def make_scan(i, B=B, T=T, lens=lens):
+            _, _, normal = _rng(torch, dev, 13000 * i + B + T)
+            f = lambda *s: normal(*s) * 0.5  # noqa: E731
+            state = torch.stack([f(B, C), f(B, C).abs() + 0.1, f(B, C)], dim=-1)
+            state[0] = torch.tensor([0.0, 0.0, F32_MIN], device=dev)
+            mask = (torch.arange(T, device=dev)[None, :]
+                    < torch.tensor(lens, device=dev)[:, None])
+            return (state, f(B, T, C), f(B, T, C), f(B, T, C), f(C), -torch.exp(f(C)), mask)
+
+        def compare(got, want, lens=lens):
+            (y1, s1), (y0, s0) = got, want
+            mask = (torch.arange(y0.shape[1], device=dev)[None, :]
+                    < torch.tensor(lens, device=dev)[:, None])
+            sentinel = s0[..., 2] == F32_MIN
+            if not torch.equal(s1[..., 2][sentinel], s0[..., 2][sentinel]):
+                return math.inf, 0.0  # a lane left or lost the sentinel
+            frozen = [b for b, n in enumerate(lens) if n == 0]
+            if frozen and not torch.equal(s1[frozen], s0[frozen]):
+                return math.inf, 0.0  # a lane of length 0 changed its state
+            pp1, pp0 = s1[..., 2][~sentinel], s0[..., 2][~sentinel]
+            err = max((y1[mask] - y0[mask]).abs().max().item(),
+                      (s1[..., :2] - s0[..., :2]).abs().max().item(),
+                      (pp1 - pp0).abs().max().item())
+            return err, WKV_TOL * max(y0[mask].abs().max().item(),
+                                      s0[..., :2].abs().max().item(), pp0.abs().max().item())
+
+        live = sum(lens)
+        cases.append(dict(
+            name=f"wkv4_scan[B={B},T={T},C={C},lens={list(lens)}]", kernel=wkv4.wkv4_scan,
+            shape=(B, T, C), plain=wkv4.wkv4_scan_plain, make_args=make_scan,
+            compare=compare,
+            # k, v, r in and y out; the state in and out; u, w; the mask
+            nbytes=4 * (4 * B * T * C + 2 * 3 * B * C + 2 * C) + B * T,
+            # ~25 flops per live (token, channel): the output and the update
+            flops=25 * live * C, fpeak=f32_peak))
+    return cases
+
+
+MODEL_CASES = {"v7": kernel_cases, "v6": kernel_cases6, "v5": kernel_cases5,
+               "v4": kernel_cases4}
+
+
 def clone_tree(tree):
     """A copy of a tree of tensors in new device memory."""
     if isinstance(tree, dict):
@@ -411,6 +564,7 @@ def mega_case(torch, mod, mega, state, x, mask, eps, f32_peak):
     scan, plain = ((mod.layer_scan7, mod.layer_scan7_plain) if v7
                    else (mod.layer_scan56, mod.layer_scan56_plain))
     L, C, H, hs, hidden = (mega[k] for k in ("L", "C", "H", "hs", "hidden"))
+    version = 7 if v7 else mega["version"]
     B = x.shape[0]
 
     def make(i):
@@ -418,35 +572,52 @@ def mega_case(torch, mod, mega, state, x, mask, eps, f32_peak):
             return (mega, state, x, mask, None, *eps)
         return (clone_tree(mega), clone_tree(state), x.clone(), mask, None, *eps)
 
-    def one_layer(fn, i, x_l, v_first):
-        """Layer i alone, as a one-layer slice: (x, state, carry)."""
+    def one_layer(fn, i, x_l, v_first, staged=None):
+        """Layer i alone, as a one-layer slice: (x, state, carry); for
+        versions 6 to 4 ``staged`` receives the layer's staged operands."""
         m_i = mod.mega_layers(mega, i, i + 1)
         s_i = {k: v[i:i + 1] for k, v in state.items()}
         if v7:
             return fn(m_i, s_i, x_l, mask, None, *eps, (v_first, i))
-        return (*fn(m_i, s_i, x_l, mask, None, *eps, i), None)
+        return (*fn(m_i, s_i, x_l, mask, None, *eps, i, staged=staged), None)
 
     def check(args):
         """Layer by layer: each layer as a one-layer launch on the plain
-        chain's input to it, against the plain version of that layer;
-        then the whole stack in one launch, whose difference from the
-        plain version is reported (it grows with depth; PERF.md, Findings)."""
-        worst = (-1.0, 0.0, 0.0)
+        chain's input to it, against the plain version of that layer (and,
+        for versions 6 to 4, the layer's x replayed from the kernel's own
+        staged operands, at MEGA_REPLAY_TOL; the worst layer's difference
+        traced to its staged operands by attribute()); then the whole
+        stack in one launch, whose difference from the plain version is
+        reported (it grows with depth; PERF.md, Findings)."""
+        worst = (-1.0, 0.0, 0.0, None)
+        replay_worst = 0.0
         x_l, v_first = x, None
         for i in range(L):
-            want = one_layer(plain, i, x_l, v_first)
-            got = one_layer(scan, i, x_l, v_first)
+            st_p, st_k = ({}, {}) if not v7 else (None, None)
+            want = one_layer(plain, i, x_l, v_first, st_p)
+            got = one_layer(scan, i, x_l, v_first, st_k)
             pairs = {"x": (got[0], want[0]), **{k: (got[1][k], want[1][k]) for k in want[1]}}
             if v7:
                 pairs["v_first"] = (got[2], want[2])
+            else:
+                rep = replay_x(mega, i, x_l, st_k)
+                rel = ((rep - got[0]).abs().max() / got[0].abs().max()).item()
+                if not rel <= MEGA_REPLAY_TOL:
+                    raise AssertionError(f"{scan.__name__}: layer {i}'s x is {rel:.3e} of its "
+                                         f"max from its replay on the kernel's staged operands")
+                replay_worst = max(replay_worst, rel)
             for key, (a, b) in pairs.items():
                 err, lim = (a - b).abs().max().item(), MEGA_LAYER_TOL * b.abs().max().item()
                 if not err <= lim:
                     raise AssertionError(f"{scan.__name__}: layer {i}'s {key} off by "
                                          f"{err:.3e} (tolerance {lim:.3e})")
                 if err / lim > worst[0]:
-                    worst = (err / lim, err, lim)
+                    worst = (err / lim, err, lim, (i, key, a, b, x_l, st_p, st_k, got[0], want[0]))
             x_l, v_first = want[0], want[2]
+        if not v7:
+            log(f"  {case['name']}: every layer's x within {replay_worst:.2e} of its max of "
+                f"its replay on the kernel's staged operands (tolerance {MEGA_REPLAY_TOL})")
+            attribute(torch, case["name"], mega, *worst[3])
         xg, sg = scan(*args)
         xp, sp = plain(*args)
         rel = lambda a, b: ((a - b).abs().max() / b.abs().max()).item()  # noqa: E731
@@ -458,28 +629,98 @@ def mega_case(torch, mod, mega, state, x, mask, eps, f32_peak):
             raise AssertionError(f"{scan.__name__}: non-finite output")
         return worst[1], worst[2]
 
-    weights = sum(a.numel() * a.element_size() for a in mod._operands(mega, x.device))
+    ops = mod._operands(mega, x.device)
+    weights = sum(a.numel() * a.element_size()
+                  for a in (ops.values() if isinstance(ops, dict) else ops))
     state_bytes = sum(a.numel() * a.element_size() for a in state.values())
+    # multiply-adds per lane and layer; the WKV step's flops
     if v7:
         D = sum(mega["lora_dims"])
-        macs = 4 * C * C + 2 * C * hidden + 2 * D * C  # per lane and layer
+        macs = 4 * C * C + 2 * C * hidden + 2 * D * C
         wkv_flops = 8 * H * hs * hs
-    else:  # r, k, v, g, Wo, FFN receptance; FFN key and value; the adapters
+    elif version == 4:  # r, k, v, Wo, FFN receptance; FFN key and value
+        macs = 5 * C * C + 2 * C * hidden
+        wkv_flops = 25 * C
+    else:  # r, k, v, g, Wo, FFN receptance; FFN key and value; V6's adapters
         macs = 6 * C * C + 2 * C * hidden + 10 * mega["R"] * C + 2 * mega["D"] * C
         wkv_flops = 6 * H * hs * hs
+    tag = "" if v7 else f"version={version},"
     case = dict(
-        name=f"{scan.__name__}[L={L},B={B},C={C},hidden={hidden}]", kernel=scan,
-        shape=(L, B, C), plain=plain, make_args=make, check=check,
+        name=f"{scan.__name__}[{tag}L={L},B={B},C={C},hidden={hidden}]", kernel=scan,
+        shape=(L, B, C) if v7 else (version, L, B, C), L=L, plain=plain, make_args=make,
+        check=check,
         # weights once, state in and out, x in and out, the mask
         nbytes=weights + 2 * state_bytes + 8 * B * C + 4 * B,
         flops=B * L * (2 * macs + wkv_flops), fpeak=f32_peak)
     return case
 
 
+def _layer_mat(mega, i):
+    """Layer i's quantized product by matrix name, in plain PyTorch."""
+    from web_rwkv_gguf_tpu_torch.ops.cuda.matmul import q4k_gemv_plain
+
+    return lambda name, a: q4k_gemv_plain(a.float(), *(f[i] for f in mega["mats"][name]))
+
+
+def replay_x(mega, i, x_in, st):
+    """Layer i's output x (versions 6 to 4, no rescale) computed from the
+    operands ``st`` that a one-layer launch staged: x + Wo·y, then
+    + σ(rf)·(FFN value · khid)."""
+    mat = _layer_mat(mega, i)
+    x = x_in.float() + mat("att.Wo", st["y"])
+    return x + st["rf"].sigmoid() * mat("ffn.Wv", st["khid"])
+
+
+def attribute(torch, name, mega, i, key, got, want, x_in, st_p, st_k, x_got, x_want):
+    """Log where a whole-stack case's worst difference from its plain
+    version sits (layer i, array ``key``) and what it comes from: which of
+    the layer's staged operands differ between the kernel and the plain
+    version (the bf16 inputs to Wo and to the FFN value, element by
+    element; the f32 projections, × their max), and at x's largest
+    difference in that layer its part from Wo, its part from the FFN
+    value, and the largest move there of one differing element of the FFN
+    value's bf16 input alone."""
+    mat = _layer_mat(mega, i)
+    d = (got - want).abs()
+    at = tuple(int(j) for j in torch.unravel_index(d.argmax(), d.shape))
+    words = [f"worst: layer {i}'s {key} at {at}, kernel {got[at].item():.7g}, plain "
+             f"{want[at].item():.7g}"]
+    for op in ("y", "khid"):
+        a, b = st_k[op].float(), st_p[op].float()
+        diff = a != b
+        n = int(diff.sum())
+        big = (a - b).abs().max().item()
+        words.append(f"{op} (bf16) differs in {n} of {a.numel()} elements, at most by {big:.4g}")
+    proj = "rk" if mega["version"] == 4 else "rkvg"  # version 4 stages no v
+    for j, p in enumerate(proj):
+        a, b = st_k["rkvg"][j], st_p["rkvg"][j]
+        words.append(f"{p} {((a - b).abs().max() / b.abs().max()).item():.2e}")
+    words.append(f"rf {((st_k['rf'] - st_p['rf']).abs().max() / st_p['rf'].abs().max()).item():.2e}")
+    dx = (x_got - x_want).abs()
+    b_, c = (int(j) for j in torch.unravel_index(dx.argmax(), dx.shape))
+    wo = mat("att.Wo", st_k["y"]) - mat("att.Wo", st_p["y"])
+    ffn = (st_k["rf"].sigmoid() * mat("ffn.Wv", st_k["khid"])
+           - st_p["rf"].sigmoid() * mat("ffn.Wv", st_p["khid"]))
+    words.append(f"x at ({b_}, {c}) off by {(x_got - x_want)[b_, c].item():.4g}: Wo part "
+                 f"{wo[b_, c].item():.4g}, FFN value part {ffn[b_, c].item():.4g}")
+    flips = (st_k["khid"][b_] != st_p["khid"][b_]).nonzero()[:, 0][:4096]
+    if flips.numel():
+        one = torch.zeros(flips.numel(), st_k["khid"].shape[1], device=flips.device)
+        one[torch.arange(flips.numel(), device=flips.device), flips] = (
+            st_k["khid"][b_, flips].float() - st_p["khid"][b_, flips].float())
+        move = mat("ffn.Wv", one)[:, c] * st_k["rf"][b_, c].sigmoid()
+        j = int(move.abs().argmax())
+        words.append(f"its largest single khid flip (element {int(flips[j])}, plain "
+                     f"{st_p['khid'][b_, flips[j]].item():.6g}, kernel "
+                     f"{st_k['khid'][b_, flips[j]].item():.6g}) moves it by "
+                     f"{move[j].item():.4g}")
+    log(f"  {name}: " + "; ".join(words))
+
+
 def phase_times(torch, case, n_phases, names):
     """µs per layer by phase of the whole-stack kernel (the device clock
     after each grid barrier), median of 5 launches; logged."""
-    L = case["shape"][0]
+    L = case["L"]
     stamps = []
     for _ in range(5):
         ns = torch.zeros(1 + n_phases * L, dtype=torch.int64, device="cuda")
@@ -507,13 +748,7 @@ def scan_compare(got, want):
 
 
 COUNTED = ("q4k_gemv", "q4k_gemm", "q6k_gemv", "q6k_gemm", "att_core7_step", "wkv7_scan",
-           "layer_scan7", "wkv6_scan", "layer_scan56")
-LAYER_MATRICES = {
-    "v7": (("att", "Wr"), ("att", "Wk"), ("att", "Wv"), ("att", "Wo"), ("ffn", "Wk"),
-           ("ffn", "Wv")),
-    "v6": (("att", "Wr"), ("att", "Wk"), ("att", "Wv"), ("att", "Wg"), ("att", "Wo"),
-           ("ffn", "Wk"), ("ffn", "Wv"), ("ffn", "Wr")),
-}
+           "layer_scan7", "wkv6_scan", "layer_scan56", "wkv4_scan")
 
 
 def matmul_kernel(takes_gemv, mat, n):
@@ -522,36 +757,37 @@ def matmul_kernel(takes_gemv, mat, n):
     return f"{family}_gemv" if takes_gemv(mat.kind, n, *mat.shape) else f"{family}_gemm"
 
 
-def expected_chunk(takes_gemv, chunked_min_t, version, layers, B, T):
+def expected_chunk(takes_gemv, chunked_min_t, spec, layers, B, T):
     """Launches of one ``forward_chunk`` of B lanes × T tokens on the
-    per-layer path, by kernel: each layer's matrices (six for RWKV-7,
-    eight for RWKV-6) at n = B·T rows (gemv or GEMM by the gate); for
-    RWKV-7 the attention core at T=1 and the WKV scan at 2 ≤ T < 128, for
-    RWKV-6 its WKV scan below T=128 (T=1 included); nothing from T=128
-    (the chunk-parallel WKV is PyTorch matmuls)."""
+    per-layer path, by kernel: each layer's matrices (``spec["matrices"]``:
+    six for RWKV-7, eight for RWKV-6 and -5, seven for RWKV-4) at n = B·T
+    rows (gemv or GEMM by the gate), and each layer's WKV kernel at this T
+    (``spec["wkv"]``: for RWKV-7 the attention core at T=1 and the scan at
+    2 ≤ T < 128, for RWKV-6 and -5 the V6 scan below T=128, T=1 included,
+    for RWKV-4 its scan at every T; from T=128 the chunk-parallel WKV is
+    PyTorch matmuls)."""
     want = collections.Counter()
     for blk in layers:
-        for part, name in LAYER_MATRICES[version]:
+        for part, name in spec["matrices"]:
             want[matmul_kernel(takes_gemv, blk[part][name], B * T)] += 1
-    if version == "v6":
-        if T < chunked_min_t:
-            want["wkv6_scan"] += len(layers)
-    elif T == 1:
-        want["att_core7_step"] += len(layers)
-    elif T < chunked_min_t:
-        want["wkv7_scan"] += len(layers)
+    at_1, below, above = spec["wkv"]
+    wkv = at_1 if T == 1 else (below if T < chunked_min_t else above)
+    if wkv is not None:
+        want[wkv] += len(layers)
     return want
 
 
-def build_v6_file(model, seed):
-    """The bytes of a synthetic RWKV-6 Q4_K_M file and the seconds its
-    build took (run in a worker process)."""
+def build_file(tag, n_layer, seed):
+    """The bytes of model ``tag``'s synthetic Q4_K_M file at ``n_layer``
+    layers and the seconds its build took (run in a worker process)."""
     from web_rwkv_gguf_tpu_torch.quant.ggml import GgmlDType
-    from web_rwkv_gguf_tpu_torch.utils.synthetic import make_v6_gguf
+    from web_rwkv_gguf_tpu_torch.utils import synthetic
 
+    spec = MODELS[tag]
     t0 = time.perf_counter()
-    raw = make_v6_gguf(**model, seed=seed, quantize=GgmlDType.Q4_K,
-                       head_quantize=GgmlDType.Q6_K)
+    raw = getattr(synthetic, spec["make"])(**{**spec["widths"], "n_layer": n_layer}, seed=seed,
+                                           quantize=GgmlDType.Q4_K,
+                                           head_quantize=GgmlDType.Q6_K)
     return raw, time.perf_counter() - t0
 
 
@@ -671,35 +907,75 @@ def run_chunks(torch, models, info, params, chunks, device):
     return out
 
 
+RECURRENT = ("wkv", *V4_VIEWS)  # the WKV states, held layer by layer
+
+
+def held(chunk):
+    """The arrays of one chunk's result that the comparison holds: all as
+    they are, but RWKV-4's aa and bb as V4_VIEWS (nan or -inf where pp
+    holds the sentinel: a lane that has not run)."""
+    if "aa" not in chunk:
+        return chunk
+    out = {k: v for k, v in chunk.items() if k not in ("aa", "bb")}
+    out["aa/bb"] = chunk["aa"] / chunk["bb"]
+    out["pp+ln bb"] = chunk["pp"] + chunk["bb"].log()
+    return out
+
+
 def rel_diff(got, want):
     """Per chunk: max|got - want| / max|want| for the logits and the shift
-    states, and for the WKV state of each layer ("wkv.<layer>") against
-    that layer's max."""
+    states, and for each WKV state array of each layer ("wkv.<layer>";
+    RWKV-4's "aa/bb.<layer>", "pp.<layer>", "pp+ln bb.<layer>") against
+    that layer's max. RWKV-4's views are held over the entries that left
+    the F32_MIN sentinel (a lane that has not run keeps it, which would
+    make a relative check empty); a sentinel entry of pp that differs, or
+    a view that is not finite, counts as inf."""
+    from web_rwkv_gguf_tpu_torch.ops.wkv import F32_MIN
+
     per_chunk = []
     for g, w in zip(got, want):
+        g, w = held(g), held(w)
         rel = {}
         for key in w:
-            parts = ([(f"wkv.{i}", g[key][i], w[key][i]) for i in range(w[key].shape[0])]
-                     if key == "wkv" else [(key, g[key], w[key])])
-            for name, a, b in parts:
-                rel[name] = (a - b).abs().max().item() / max(b.abs().max().item(), 1e-30)
+            parts = ([(f"{key}.{i}", i, g[key][i], w[key][i]) for i in range(w[key].shape[0])]
+                     if key in RECURRENT else [(key, None, g[key], w[key])])
+            for name, i, a, b in parts:
+                if key in V4_VIEWS:
+                    sentinel = w["pp"][i] == F32_MIN
+                    if not bool((g["pp"][i][sentinel] == F32_MIN).all()):
+                        rel[name] = math.inf
+                        continue
+                    a, b = a[~sentinel], b[~sentinel]
+                if b.numel() == 0:
+                    rel[name] = 0.0
+                    continue
+                d = (a - b).abs().max().item() / max(b.abs().max().item(), 1e-30)
+                rel[name] = d if math.isfinite(d) else math.inf
         per_chunk.append(rel)
     return per_chunk
 
 
 def wkv_max_at(got, want):
     """Per chunk and layer: the (lane, head) of the largest WKV state
-    difference."""
+    difference (RWKV-7 to -5), or the (lane, channel) of the largest aa/bb
+    difference (RWKV-4)."""
     out = []
     for g, w in zip(got, want):
-        d = (g["wkv"] - w["wkv"]).abs().amax(dim=(3, 4))  # [L, B, H]
+        g, w = held(g), held(w)
+        key = "wkv" if "wkv" in w else "aa/bb"
+        d = (g[key] - w[key]).abs().nan_to_num(0.0)
+        d = d.amax(dim=(3, 4)) if key == "wkv" else d  # [L, B, H] or [L, B, C]
         out.append([divmod(int(d[i].argmax()), d.shape[2]) for i in range(d.shape[0])])
     return out
 
 
 def card_cpu_limit(key):
-    return CARD_CPU_TOL if key in ("logits", "att_shift", "ffn_shift", "wkv.0") \
-        else CARD_CPU_WKV_TOL
+    """The shifts, the logits and layer 0's WKV state at CARD_CPU_TOL, later
+    layers' WKV state at CARD_CPU_WKV_TOL."""
+    name, _, layer = key.partition(".")
+    if name not in RECURRENT or layer == "0":
+        return CARD_CPU_TOL
+    return CARD_CPU_WKV_TOL
 
 
 def noisy_params(torch, Matrix, params, seed, device):
@@ -766,20 +1042,22 @@ def main() -> int:
         print(f"chip_smoke: run from the root of a checkout of the repo ({e})",
               file=sys.stderr)
         return 1
-    # the RWKV-6 files are built in worker processes while the RWKV-7
-    # phases run; every worker is stopped on the way out
+    # the model files are built in worker processes while the kernels
+    # build; every worker is stopped on the way out
     workers = multiprocessing.get_context("spawn").Pool(2)
     try:
-        files6 = {"full": workers.apply_async(build_v6_file, (MODEL6, SEED6)),
-                  "compare": workers.apply_async(
-                      build_v6_file, ({**MODEL6, "n_layer": COMPARE_LAYERS}, SEED6 + 1))}
-        return run(np, torch, files6)
+        files = {tag: {"full": workers.apply_async(
+                           build_file, (tag, spec["widths"]["n_layer"], spec["seed"])),
+                       "compare": workers.apply_async(
+                           build_file, (tag, COMPARE_LAYERS, spec["seed"] + 1))}
+                 for tag, spec in MODELS.items()}
+        return run(np, torch, files)
     finally:
         workers.terminate()
         workers.join()
 
 
-def run(np, torch, files6) -> int:
+def run(np, torch, files) -> int:
     from web_rwkv_gguf_tpu_torch import models, runtime
     from web_rwkv_gguf_tpu_torch.gguf import GgufFile
     from web_rwkv_gguf_tpu_torch.models.forward import WKV7_CHUNKED_MIN_T
@@ -790,11 +1068,9 @@ def run(np, torch, files6) -> int:
     from web_rwkv_gguf_tpu_torch.ops.cuda import layer7 as l7
     from web_rwkv_gguf_tpu_torch.ops.cuda import layer56 as l56
     from web_rwkv_gguf_tpu_torch.ops.cuda import matmul as mm
-    from web_rwkv_gguf_tpu_torch.ops.cuda import wkv6
+    from web_rwkv_gguf_tpu_torch.ops.cuda import wkv4, wkv6
     from web_rwkv_gguf_tpu_torch.ops.cuda import wkv7 as core
-    from web_rwkv_gguf_tpu_torch.quant.ggml import GgmlDType
     from web_rwkv_gguf_tpu_torch.runtime.engine import _bucket
-    from web_rwkv_gguf_tpu_torch.utils.synthetic import make_v7_gguf
 
     t_start = time.perf_counter()
     torch.backends.cuda.matmul.allow_tf32 = False  # f32 products stay f32
@@ -814,15 +1090,23 @@ def run(np, torch, files6) -> int:
             if "registers" in line or "spill" in line:
                 log(f"  {name}: {line.strip()}")
 
+    # every model file before the first timed phase, so that no file build
+    # or transfer shares the host with the timings
+    t0 = time.perf_counter()
+    for tag in MODELS:
+        for f in files[tag].values():
+            f.wait()
+    log(f"model files: waited {time.perf_counter() - t0:.1f} s for the worker processes")
+
     # ---- kernels against their plain versions -------------------------------
     rng = np.random.default_rng(ENGINE_SEED)
-    engine_prompts = [[int(t) for t in rng.integers(0, MODEL["n_vocab"], n)]
-                      for n in ENGINE_LENGTHS]
-    full_inp, full_plan, full_rows = full_input(runtime, _bucket, rng, MODEL["n_vocab"])
+    engine_prompts = [[int(t) for t in rng.integers(0, VOCAB, n)] for n in ENGINE_LENGTHS]
+    full_inp, full_plan, full_rows = full_input(runtime, _bucket, rng, VOCAB)
     log("kernels (each against its plain PyTorch version, same inputs):")
     entries = []
-    cases = (kernel_cases(torch, mm, core, bf16_peak, f32_peak, full_rows)
-             + kernel_cases6(torch, mm, wkv6, bf16_peak, f32_peak, full_rows))
+    kmods = {"matmul": mm, "wkv7": core, "wkv6": wkv6, "wkv4": wkv4}
+    cases = [case for tag in MODELS
+             for case in MODEL_CASES[tag](torch, kmods, bf16_peak, f32_peak, full_rows)]
     sources = {"q4k_gemv": ("web_rwkv_gguf_tpu_torch/ops/cuda/csrc/q4k_gemv.cu",
                             "web_rwkv_gguf_tpu/ops/pallas/matmul.py:793"),
                "q6k_gemv": ("web_rwkv_gguf_tpu_torch/ops/cuda/csrc/q6k_gemv.cu",
@@ -840,7 +1124,9 @@ def run(np, torch, files6) -> int:
                "wkv6_scan": ("web_rwkv_gguf_tpu_torch/ops/cuda/csrc/wkv6_scan.cu",
                              "web_rwkv_gguf_tpu/ops/pallas/wkv456.py:46"),
                "layer_scan56": ("web_rwkv_gguf_tpu_torch/ops/cuda/csrc/layer56.cu",
-                                "web_rwkv_gguf_tpu/ops/pallas/layer56.py:445")}
+                                "web_rwkv_gguf_tpu/ops/pallas/layer56.py:445"),
+               "wkv4_scan": ("web_rwkv_gguf_tpu_torch/ops/cuda/csrc/wkv4_scan.cu",
+                             "web_rwkv_gguf_tpu/ops/pallas/wkv456.py:143")}
 
     def add_entry(case, fields):
         kname = case["name"].split("[")[0]
@@ -854,7 +1140,7 @@ def run(np, torch, files6) -> int:
                 "q6k_gemv": mm.q6k_gemv, "q6k_gemm": mm.q6k_gemm,
                 "att_core7_step": core.att_core7_step, "wkv7_scan": core.wkv7_scan,
                 "layer_scan7": l7.layer_scan7, "wkv6_scan": wkv6.wkv6_scan,
-                "layer_scan56": l56.layer_scan56}
+                "layer_scan56": l56.layer_scan56, "wkv4_scan": wkv4.wkv4_scan}
     path_launches = {}  # main path -> kernel -> launches
     path_shapes = {}  # main path -> kernel -> Counter of launches by shape
 
@@ -876,7 +1162,7 @@ def run(np, torch, files6) -> int:
         path_shapes[path] = {k: collections.Counter(fn.shapes) for k, fn in counters.items()}
         return result
 
-    def drive(tag, version, info, params):
+    def drive(tag, spec, info, params):
         """The main paths of one model: two requests at B=1 on the loaded
         params (the per-layer kernels), then the Engine at B=4 (chunked
         prefill, decode through the whole-stack kernel, one FULL infer),
@@ -884,11 +1170,11 @@ def run(np, torch, files6) -> int:
         version on the Engine's lanes."""
         L = info.num_layer
         layers = layer_params(params, L)
-        mega_key, scan_mod = ("mega7", l7) if version == "v7" else ("mega56", l56)
-        scan_name = "layer_scan7" if version == "v7" else "layer_scan56"
+        mega_key, scan_name = spec["mega"]
+        scan_mod = l7 if mega_key == "mega7" else l56
 
         def chunk(B, T):
-            return expected_chunk(takes_gemv, WKV7_CHUNKED_MIN_T, version, layers, B, T)
+            return expected_chunk(takes_gemv, WKV7_CHUNKED_MIN_T, spec, layers, B, T)
 
         def head(n):
             return collections.Counter({matmul_kernel(takes_gemv, params["head"], n): 1})
@@ -1003,17 +1289,18 @@ def run(np, torch, files6) -> int:
                     t_dec / decode_steps * 1e6, "step")
 
         # ---- the whole-stack decode kernel against its plain version --------
-        # on the Engine's lanes as generate left them, one lane frozen; the
-        # RWKV-6 kernel also at B = 1 and 16 (lanes repeated)
+        # on the Engine's lanes as generate left them, one lane frozen, at
+        # each of the model's batches (lanes repeated)
         dec_x = models.embed_tokens(params, torch.tensor([[o[-1]] for o in out_gen],
                                                          device="cuda"))[:, 0]
         mask = torch.tensor([1.0, 1.0, 0.0, 1.0], device="cuda")
-        eps = (LN_EPS, GN_EPS, L2_EPS) if version == "v7" else (LN_EPS, GN_EPS)
+        v7 = mega_key == "mega7"
+        eps = (LN_EPS, GN_EPS, L2_EPS) if v7 else (LN_EPS, GN_EPS)
         names = (("LN1+mix+r/k/v+LoRA down", "LoRA up+attention", "Wo", "LN2+mix+FFN key",
-                  "FFN value") if version == "v7" else l56.PHASES)
+                  "FFN value") if v7 else l56.PHASES[eng.params[mega_key]["version"]])
         log(f"{tag} whole-stack decode kernel (against its plain version, same inputs, "
             f"layer by layer):")
-        for B in ((4,) if version == "v7" else (4, 1, 16)):
+        for B in spec["mega_batches"]:
             lanes = torch.arange(B, device="cuda") % B4
             case = mega_case(torch, scan_mod, eng.params[mega_key],
                              {k: v[:, lanes].contiguous() for k, v in eng.state.items()},
@@ -1023,20 +1310,21 @@ def run(np, torch, files6) -> int:
             cases.append(case)
             phase_times(torch, case, len(names), names)
 
-    def card_vs_cpu(tag, info2, p_gpu, p_cpu):
+    def card_vs_cpu(tag, spec, info2, p_gpu, p_cpu):
         """The card against the CPU, same widths, two layers, three lanes."""
         decode = [(np.array(toks)[:, None], np.array(lens)) for toks, lens in COMPARE_STEPS]
-        prng = np.random.default_rng(SEED + 2)
-        prefill = [(prng.integers(0, MODEL["n_vocab"], (len(lens), T)), np.array(lens))
+        prng = np.random.default_rng(COMPARE_SEED)
+        prefill = [(prng.integers(0, VOCAB, (len(lens), T)), np.array(lens))
                    for T, lens in COMPARE_PREFILL]
         batch = len(COMPARE_STEPS[0][1])
-        mega_key = "mega7" if info2.version.value == "v7" else "mega56"
+        mega_key = spec["mega"][0]
         m_gpu = models.prepare_decode(p_gpu, info2, batch)
         m_cpu = models.prepare_decode(p_cpu, info2, batch)
         if mega_key not in m_gpu or mega_key not in m_cpu:
             raise AssertionError(f"{tag}: the compare model did not take the whole-stack "
                                  "decode blocks")
         fmt = lambda rel: ", ".join(f"{k} {v:.3e}" for k, v in rel.items())  # noqa: E731
+        failed = []  # every comparison runs and prints before a failure raises
         for label, chunks, pg, pc in (
                 ("decode steps, per-layer kernels (lane 2 frozen on the second)", decode,
                  p_gpu, p_cpu),
@@ -1047,67 +1335,55 @@ def run(np, torch, files6) -> int:
             cpu = run_chunks(torch, models, info2, pc, chunks, "cpu")
             per_chunk = rel_diff(card, cpu)
             log(f"{tag} card vs CPU, L={COMPARE_LAYERS}, B={batch}, {label}: max "
-                f"|card-cpu|/max|cpu| per chunk (tolerance {CARD_CPU_TOL}; wkv of later "
-                f"layers {CARD_CPU_WKV_TOL}):")
+                f"|card-cpu|/max|cpu| per chunk (tolerance {CARD_CPU_TOL}; WKV state of "
+                f"later layers {CARD_CPU_WKV_TOL}):")
             for i, rel in enumerate(per_chunk):
                 log(f"  chunk {i}: {fmt(rel)}")
             if pg is p_gpu:  # the evidence for the limits, from this run
-                log(f"  largest wkv difference at (lane, head) per layer: "
+                log(f"  largest WKV state difference at (lane, head or channel) per layer: "
                     f"{wkv_max_at(card, cpu)}")
                 for dev, p, clean in (("cuda", pg, card), ("cpu", pc, cpu)):
                     for seed, (rels, at) in sensitivity(torch, models, Matrix, info2, p,
                                                         chunks, dev, clean).items():
                         for i, rel in enumerate(rels):
                             log(f"  {dev} alone, one-ulp product changes, seed {seed}, "
-                                f"chunk {i}: {fmt(rel)}; wkv largest at {at[i]}")
+                                f"chunk {i}: {fmt(rel)}; largest at {at[i]}")
+            if chunks is prefill:  # a fault for scale: lane 1 one token short
+                (toks0, lens0), *rest = prefill
+                short = run_chunks(torch, models, info2, pc,
+                                   [(toks0, lens0 - (np.arange(len(lens0)) == 1))] + rest, "cpu")
+                for i, rel in enumerate(rel_diff(short, cpu)):
+                    log(f"  a fault for scale, cpu alone, lane 1's last token of chunk 0 "
+                        f"left out, chunk {i}: {fmt(rel)}")
             if not all(v <= card_cpu_limit(k) for rel in per_chunk for k, v in rel.items()):
-                raise AssertionError(f"{tag}: the card disagrees with the CPU ({label})")
+                failed.append(label)
+        if failed:
+            raise AssertionError(f"{tag}: the card disagrees with the CPU ({failed})")
 
-    # ---- RWKV-7, 0.1B widths ---------------------------------------------------
-    t0 = time.perf_counter()
-    raw = make_v7_gguf(**MODEL, seed=SEED, quantize=GgmlDType.Q4_K,
-                       head_quantize=GgmlDType.Q6_K)
-    log(f"v7 model file: {len(raw) / 1e6:.1f} MB written in {time.perf_counter() - t0:.1f} s")
-    t0 = time.perf_counter()
-    info, params = models.load_model(GgufFile(raw), device="cuda")
-    torch.cuda.synchronize()
-    log(f"v7 load_model on cuda: {time.perf_counter() - t0:.1f} s; "
-        f"{torch.cuda.memory_allocated() / 1e6:.1f} MB on the card")
-    if params["head"].kind != "qk_nomin" or params["blocks"]["att"]["Wk"].kind != "qk":
-        raise AssertionError("v7: the model did not load in the Q4_K_M placement")
-    drive("v7", "v7", info, params)
-    del raw, info, params
-    t0 = time.perf_counter()
-    raw2 = make_v7_gguf(**{**MODEL, "n_layer": COMPARE_LAYERS}, seed=SEED + 1,
-                        quantize=GgmlDType.Q4_K, head_quantize=GgmlDType.Q6_K)
-    info2 = models.load_model(GgufFile(raw2), device="cuda")
-    card_vs_cpu("v7", info2[0], info2[1], models.load_model(GgufFile(raw2), device="cpu")[1])
-    log(f"v7 card vs CPU: {time.perf_counter() - t0:.1f} s")
-    del raw2, info2
-
-    # ---- RWKV-6, World 1.6B widths, full depth --------------------------------
-    t0 = time.perf_counter()
-    raw, t_file = files6["full"].get()
-    log(f"v6 model file: {len(raw) / 1e6:.1f} MB built in {t_file:.1f} s in a worker "
-        f"process ({MODEL6}); waited {time.perf_counter() - t0:.1f} s for it")
-    t0 = time.perf_counter()
-    info, params = models.load_model(GgufFile(raw), device="cuda")
-    del raw
-    torch.cuda.synchronize()
-    log(f"v6 load_model on cuda: {time.perf_counter() - t0:.1f} s; "
-        f"{torch.cuda.memory_allocated() / 1e6:.1f} MB on the card; {info}")
-    att = params["blocks"]["att"]
-    if (info.version.value != "v6" or params["head"].kind != "qk_nomin"
-            or any(att[k].kind != "qk" for k in ("Wk", "Wv", "Wr", "Wg", "Wo"))):
-        raise AssertionError("v6: the model did not load as RWKV-6 in the Q4_K_M placement")
-    drive("v6", "v6", info, params)
-    del info, params, att
-    t0 = time.perf_counter()
-    raw2, t_file = files6["compare"].get()
-    info2, p_gpu = models.load_model(GgufFile(raw2), device="cuda")
-    card_vs_cpu("v6", info2, p_gpu, models.load_model(GgufFile(raw2), device="cpu")[1])
-    log(f"v6 card vs CPU: {time.perf_counter() - t0:.1f} s (its file built in "
-        f"{t_file:.1f} s in a worker process)")
+    for tag, spec in MODELS.items():
+        raw, t_file = files[tag]["full"].get()
+        log(f"{tag} model file: {len(raw) / 1e6:.1f} MB built in {t_file:.1f} s in a worker "
+            f"process ({spec['widths']}, seed {spec['seed']})")
+        t0 = time.perf_counter()
+        info, params = models.load_model(GgufFile(raw), device="cuda")
+        del raw
+        torch.cuda.synchronize()
+        log(f"{tag} load_model on cuda: {time.perf_counter() - t0:.1f} s; "
+            f"{torch.cuda.memory_allocated() / 1e6:.1f} MB on the card; {info}")
+        blocks = params["blocks"]
+        if (info.version.value != tag or params["head"].kind != "qk_nomin"
+                or any(blocks[p][n].kind != "qk" for p, n in spec["matrices"])):
+            raise AssertionError(f"{tag}: the model did not load in the Q4_K_M placement")
+        drive(tag, spec, info, params)
+        del info, params, blocks
+        t0 = time.perf_counter()
+        raw2, t_file = files[tag]["compare"].get()
+        info2, p_gpu = models.load_model(GgufFile(raw2), device="cuda")
+        card_vs_cpu(tag, spec, info2, p_gpu, models.load_model(GgufFile(raw2), device="cpu")[1])
+        log(f"{tag} card vs CPU: {time.perf_counter() - t0:.1f} s (its file built in "
+            f"{t_file:.1f} s in a worker process)")
+        del raw2, info2, p_gpu
+        torch.cuda.empty_cache()
 
     # "launches": the kernel's count over the main paths' runs; by path and
     # at this entry's shape ("launches_at_shape", 0 for a shape off the paths)

@@ -7,7 +7,7 @@ card. Imports nothing of JAX, so it runs where only PyTorch is installed:
 test here skips. Tolerances: the gemvs sum the same f32 terms in another
 order, atol = 1e-4·max|y|; the attention core, atol = 1e-4; the
 dequant-GEMMs multiply the same bf16 weights in another order, atol =
-1e-4·max|y|; the WKV scans (V7 and V6), atol = 1e-4·max|plain| on y and
+1e-4·max|y|; the WKV scans (V7, V6 and V4), atol = 1e-4·max|plain| on y and
 the state; the whole-stack decode kernels as their tests say.
 """
 
@@ -390,3 +390,182 @@ def test_v6_forward_routes_through_the_kernels_on_card(card, T):
     _close(lg_gpu, lg_cpu, 1e-2)
     for key in st_cpu:
         _close(st_gpu[key], st_cpu[key], 1e-2)
+
+
+def _wkv4_args(B, T, lens, dev, seed=0):
+    """V4 scan inputs; lane 0 starts from the initial state (pp at
+    F32_MIN), the others from a random one."""
+    from web_rwkv_gguf_tpu_torch.ops.wkv import F32_MIN
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    f = lambda *s: torch.randn(*s, generator=g, device=dev) * 0.5  # noqa: E731
+    C = 768
+    state = torch.stack([f(B, C), f(B, C).abs() + 0.1, f(B, C)], dim=-1)
+    state[0] = torch.tensor([0.0, 0.0, F32_MIN], device=dev)
+    mask = torch.arange(T, device=dev)[None, :] < torch.tensor(lens, device=dev)[:, None]
+    return (state, f(B, T, C), f(B, T, C), f(B, T, C), f(C), -torch.exp(f(C)), mask)
+
+
+def _close_pp(got, want, rel):
+    """pp against the plain version: absolute, at rel·max|pp| over the
+    entries that left the F32_MIN sentinel (a relative check over the
+    sentinel would hold nothing); the sentinel entries equal."""
+    from web_rwkv_gguf_tpu_torch.ops.wkv import F32_MIN
+
+    sentinel = want == F32_MIN
+    assert torch.equal(got[sentinel], want[sentinel])
+    _close(got[~sentinel], want[~sentinel], rel)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lens", [(1, 0, 1), (2,), (64, 40, 17, 0), (128, 128)])
+def test_wkv4_scan_on_card(card, lens):
+    """The V4 WKV scan against its plain version: y at live positions,
+    aa and bb at 1e-4·max|plain|, pp absolutely (_close_pp); a lane of
+    length 0 keeps its state bit for bit."""
+    from web_rwkv_gguf_tpu_torch.ops.cuda import wkv4
+
+    args = _wkv4_args(len(lens), max(lens), lens, card)
+    before = wkv4.wkv4_scan.launches
+    y1, s1 = wkv4.wkv4_scan(*args)
+    assert wkv4.wkv4_scan.launches == before + 1
+    y0, s0 = wkv4.wkv4_scan_plain(*args)
+    mask = args[-1]
+    _close(y1[mask], y0[mask], 1e-4)
+    _close(s1[..., :2], s0[..., :2], 1e-4)
+    _close_pp(s1[..., 2], s0[..., 2], 1e-4)
+    if 0 in lens:
+        assert torch.equal(s1[lens.index(0)], args[0][lens.index(0)])
+
+
+def _v45_model(card, version, seed=6):
+    from web_rwkv_gguf_tpu_torch.gguf import GgufFile
+    from web_rwkv_gguf_tpu_torch.models import load_model
+    from web_rwkv_gguf_tpu_torch.utils.synthetic import make_v4_gguf, make_v5_gguf
+
+    kw = dict(n_layer=2, n_emb=256, n_vocab=512, n_hidden=1024, quantize=ggml.GgmlDType.Q4_K,
+              head_quantize=ggml.GgmlDType.Q6_K, seed=seed)
+    raw = make_v5_gguf(head_size=64, **kw) if version == 5 else make_v4_gguf(**kw)
+    return raw, load_model(GgufFile(raw), device=card)
+
+
+def _random_state56(info, B, dev, seed):
+    """A random decode state for a V6/V5 (wkv) or V4 (aa, bb, pp) model;
+    for V4 lane 0's pp at the F32_MIN sentinel."""
+    from web_rwkv_gguf_tpu_torch.ops.wkv import F32_MIN
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    f = lambda *s: torch.randn(*s, generator=g, device=dev) * 0.5  # noqa: E731
+    L, C, H = info.num_layer, info.num_emb, info.num_head
+    state = {"att_shift": f(L, B, C), "ffn_shift": f(L, B, C)}
+    if info.version.value == "v4":
+        state.update({"aa": f(L, B, C), "bb": f(L, B, C).abs() + 0.1, "pp": f(L, B, C)})
+        state["pp"][:, 0] = F32_MIN
+    else:
+        state["wkv"] = f(L, B, H, 64, 64)
+    return state
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B", [1, 3, 9])
+@pytest.mark.parametrize("version", [5, 4])
+def test_layer_scan56_v5_v4_on_card(card, version, B):
+    """The whole-stack decode kernel's version-5 and version-4 bodies
+    against their plain versions on a two-layer model, from a random
+    state, one lane frozen at B ≥ 3: each layer as a one-layer slice on
+    the plain chain's input, every output at 2^-8·max of that layer (as
+    test_layer_scan56_on_card; pp absolutely, _close_pp); the frozen
+    lane's state is kept bit for bit."""
+    from web_rwkv_gguf_tpu_torch.models import embed_tokens, prepare_decode
+    from web_rwkv_gguf_tpu_torch.models.forward import GN_EPS, LN_EPS
+    from web_rwkv_gguf_tpu_torch.ops.cuda import layer56
+
+    _, (info, params) = _v45_model(card, version)
+    mega = prepare_decode(params, info, B)["mega56"]
+    assert mega["version"] == version
+    state = _random_state56(info, B, card, B)
+    x = embed_tokens(params, torch.arange(B, device=card)[:, None] * 7 + 1)[:, 0]
+    mask = torch.ones(B, device=card)
+    if B >= 3:
+        mask[1] = 0.0
+    before = layer56.layer_scan56.launches
+    for i in range(info.num_layer):
+        m_i = layer56.mega_layers(mega, i, i + 1)
+        s_i = {k: v[i:i + 1] for k, v in state.items()}
+        x1, s1 = layer56.layer_scan56(m_i, s_i, x, mask, None, LN_EPS, GN_EPS, first_layer=i)
+        x0, s0 = layer56.layer_scan56_plain(m_i, s_i, x, mask, None, LN_EPS, GN_EPS, i)
+        live = mask > 0
+        _close(x1[live], x0[live], 2.0 ** -8)
+        for key in s0:
+            if key == "pp":
+                _close_pp(s1[key], s0[key], 2.0 ** -8)
+            else:
+                _close(s1[key], s0[key], 2.0 ** -8)
+            if B >= 3:
+                assert torch.equal(s1[key][:, 1], s_i[key][:, 1])
+        x = x0
+    assert layer56.layer_scan56.launches == before + info.num_layer
+
+
+@pytest.mark.cuda
+def test_v4_kernels_refuse_what_they_do_not_take(card):
+    from web_rwkv_gguf_tpu_torch.models import init_state, prepare_decode
+    from web_rwkv_gguf_tpu_torch.ops.cuda import layer56, wkv4
+
+    args = list(_wkv4_args(1, 4, (4,), card))
+    with pytest.raises(ValueError):  # u of the wrong shape
+        wkv4.wkv4_scan(*args[:4], args[4][:6], *args[5:])
+    with pytest.raises(ValueError):  # a state without its three rows
+        wkv4.wkv4_scan(args[0][..., :2], *args[1:])
+    _, (info, params) = _v45_model(card, 4)
+    mega = prepare_decode(params, info, 1)["mega56"]
+    state = init_state(info, 17, device=card)
+    z = lambda *s: torch.zeros(*s, device=card)  # noqa: E731
+    with pytest.raises(ValueError):  # 17 lanes
+        layer56.layer_scan56(mega, state, z(17, 256), z(17), None, 1e-5, 64e-5)
+    with pytest.raises(ValueError):  # a V6 state on a V4 model
+        layer56.layer_scan56(mega, {"att_shift": z(2, 1, 256), "ffn_shift": z(2, 1, 256),
+                                    "wkv": z(2, 1, 4, 64, 64)}, z(1, 256), z(1), None,
+                             1e-5, 64e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T", [1, 5, 128])
+@pytest.mark.parametrize("version", [5, 4])
+def test_v5_v4_forward_routes_through_the_kernels_on_card(card, version, T):
+    """A V5 or V4 chunk on the card through the per-layer path: the
+    quantized matmuls on the Q4_K kernels (8 per layer for V5, 7 for V4),
+    the V5 WKV on ``wkv6_scan`` below T=128 (T=1 included) and on the
+    chunk-parallel form from it, the V4 WKV on ``wkv4_scan`` at every T;
+    logits and state match the CPU within chip_smoke.py's card-vs-CPU
+    limits: 1e-2·max|CPU| for the logits, the shifts and layer 0's WKV
+    state, 3e-2 of the layer's max for layer 1's (V4's aa and bb weigh
+    tokens by e^k, so a bf16 operand flip upstream that moves k moves
+    them by that factor; pp is finite here, every lane has run)."""
+    from web_rwkv_gguf_tpu_torch.gguf import GgufFile
+    from web_rwkv_gguf_tpu_torch.models import forward_chunk, init_state, load_model, logits_head
+    from web_rwkv_gguf_tpu_torch.ops.cuda import wkv4, wkv6
+
+    raw, _ = _v45_model(card, version, seed=4)
+    scan = wkv6.wkv6_scan if version == 5 else wkv4.wkv4_scan
+    toks = torch.from_numpy(np.random.default_rng(T).integers(0, 512, (2, T)))
+    lens = torch.tensor([T, max(T - 3, 1)])
+    out = {}
+    for dev in ("cpu", card):
+        info, params = load_model(GgufFile(raw), device=dev)
+        counts = (mm.q4k_gemv.launches + mm.q4k_gemm.launches, scan.launches)
+        x, st = forward_chunk(info, params, init_state(info, 2, device=dev), toks.to(dev),
+                              lens.to(dev))
+        launched = (mm.q4k_gemv.launches + mm.q4k_gemm.launches - counts[0],
+                    scan.launches - counts[1])
+        logits = logits_head(params, x[torch.arange(2), lens.to(dev) - 1])
+        out[str(dev)] = (launched, logits.cpu(), {k: v.cpu() for k, v in st.items()})
+    (l_cpu, lg_cpu, st_cpu), (l_gpu, lg_gpu, st_gpu) = out["cpu"], out[str(card)]
+    assert l_cpu == (0, 0)
+    n_mat = 8 if version == 5 else 7
+    assert l_gpu == (n_mat * 2, 2 if version == 4 or T < 128 else 0)
+    _close(lg_gpu, lg_cpu, 1e-2)
+    for key in st_cpu:
+        for i in range(info.num_layer):
+            later = i > 0 and "shift" not in key
+            _close(st_gpu[key][i], st_cpu[key][i], 3e-2 if later else 1e-2)

@@ -13,7 +13,7 @@ from web_rwkv_gguf_tpu.gguf import GgufFile as JaxGgufFile
 from web_rwkv_gguf_tpu.models import load_model as jax_load_model
 from web_rwkv_gguf_tpu.quant.ggml import GgmlDType as JaxGgmlDType
 from web_rwkv_gguf_tpu.utils.synthetic import make_v7_gguf as jax_make_v7_gguf
-from web_rwkv_gguf_tpu_torch.errors import UnsupportedFeature
+from web_rwkv_gguf_tpu_torch.errors import InvalidVersion
 from web_rwkv_gguf_tpu_torch.gguf import GgufFile
 from web_rwkv_gguf_tpu_torch.models import Matrix, load_model, params_from_numpy
 from web_rwkv_gguf_tpu_torch.quant import ggml, repack
@@ -186,7 +186,12 @@ def test_mixed_layer_kinds_load_per_layer():
 
 
 def test_loader_refuses_other_versions():
-    from web_rwkv_gguf_tpu.utils.synthetic import make_v4_gguf
+    """Every RWKV version the JAX package loads (V4-V7) loads; a file whose
+    tensors name no version is refused with a typed error."""
+    from web_rwkv_gguf_tpu_torch.gguf import GgufWriter
 
-    with pytest.raises(UnsupportedFeature):
-        load_model(GgufFile(make_v4_gguf()), device="cpu")
+    w = GgufWriter()
+    w.add_tensor("token_embd.weight", np.zeros((8, 16), np.float32))
+    w.add_tensor("blk.0.ffn_k.weight", np.zeros((64, 16), np.float32))
+    with pytest.raises(InvalidVersion):
+        load_model(GgufFile(w.tobytes()), device="cpu")

@@ -47,9 +47,7 @@ from web_rwkv_gguf_tpu.ops.pallas.wkv456 import wkv6_pallas
 from web_rwkv_gguf_tpu.ops.wkv_chunked import wkv6_chunked as jax_wkv6_chunked
 from web_rwkv_gguf_tpu.quant.ggml import GgmlDType as JaxGgmlDType
 from web_rwkv_gguf_tpu.runtime import Engine as JaxEngine
-from web_rwkv_gguf_tpu.utils.synthetic import make_v4_gguf, make_v5_gguf
 from web_rwkv_gguf_tpu.utils.synthetic import make_v6_gguf as jax_make_v6_gguf
-from web_rwkv_gguf_tpu_torch.errors import UnsupportedFeature
 from web_rwkv_gguf_tpu_torch.gguf import GgufFile
 from web_rwkv_gguf_tpu_torch.models import (
     Matrix, forward_chunk, init_state, load_model, logits_head, params_from_numpy,
@@ -181,12 +179,6 @@ def test_load_model_matches_jax(name):
         assert params["head"].kind == "qk_nomin"
         assert {att[k].kind for k in ("Wk", "Wv", "Wr", "Wg", "Wo")} == {"qk"}
         assert att["tm_w2"].dtype == torch.bfloat16
-
-
-@pytest.mark.parametrize("make", [make_v5_gguf, make_v4_gguf], ids=["v5", "v4"])
-def test_v5_and_v4_files_raise(make):
-    with pytest.raises(UnsupportedFeature, match="layer_scan56"):
-        load_model(GgufFile(make()), device="cpu")
 
 
 def test_params_from_numpy_drops_mega56():

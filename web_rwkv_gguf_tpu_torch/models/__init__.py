@@ -1,4 +1,4 @@
-"""RWKV-7 model: metadata, weight matrices, loader, forward, generation."""
+"""RWKV-7, -6, -5 and -4 models: metadata, weight matrices, loader, forward, generation."""
 
 from .info import ModelInfo, ModelVersion, detect_info  # noqa: F401
 from .matrix import Matrix  # noqa: F401

@@ -1,4 +1,5 @@
-"""RWKV-7 and RWKV-6 forward over ``[B, T]`` token chunks, eagerly in PyTorch.
+"""RWKV-7, -6, -5 and -4 forward over ``[B, T]`` token chunks, eagerly in
+PyTorch.
 
 Padding tokens (``t >= lengths[b]``) never touch recurrent state. The
 layers run in a Python loop over per-layer views of the parameters.
@@ -9,7 +10,7 @@ plain version):
 - T = 1 (decode) with params prepared by ``loader.prepare_decode`` (the
   Engine's) and at most ``MAX_SCAN_BATCH`` lanes: every layer in one
   launch of the whole-stack kernel, ``ops/cuda/layer7`` for RWKV-7,
-  ``ops/cuda/layer56`` for RWKV-6;
+  ``ops/cuda/layer56`` for RWKV-6, -5 and -4;
 - quantized matmuls: the gemv kernels or the dequant-GEMM, by the row
   count (``Matrix.matmul``);
 - RWKV-7 at T = 1 otherwise: each layer's attention core is the fused
@@ -19,7 +20,11 @@ plain version):
 - 2 ≤ T < 128: the WKV runs as the scan kernel (``wkv7_scan``,
   ``wkv6_scan``), the rest of the layer as PyTorch ops;
 - T ≥ 128: the WKV runs as the chunk-parallel ``ops/wkv_chunked``
-  (PyTorch matmuls).
+  (PyTorch matmuls);
+- RWKV-5 runs RWKV-6's WKV routes with its static decay broadcast over
+  the tokens (``wkv6_scan`` at T < 128, T = 1 included, where the JAX
+  package runs an XLA step); RWKV-4 has no chunk-parallel form, so its
+  WKV is the scan kernel ``wkv4_scan`` at every T.
 
 Dense matrices and the inner-LoRA adapters multiply with ``torch.matmul``
 in f32 (bf16 operands where the weights are bf16); TF32 is switched off
@@ -34,6 +39,7 @@ from ..ops import basic as B
 from ..ops import wkv as W
 from ..ops.cuda.layer7 import MAX_SCAN_BATCH, layer_scan7
 from ..ops.cuda.layer56 import layer_scan56
+from ..ops.cuda.wkv4 import wkv4_scan
 from ..ops.cuda.wkv6 import wkv6_scan
 from ..ops.cuda.wkv7 import att_core7_step, wkv7_scan
 from ..ops.wkv_chunked import wkv6_chunked, wkv7_chunked
@@ -50,11 +56,16 @@ WKV7_CHUNKED_MIN_T = 128
 
 
 def init_state(info: ModelInfo, batch: int, device="cuda") -> dict:
-    """Zero recurrent state, layer-stacked: shifts ``[L, B, C]`` and the
-    WKV matrices ``[L, B, H, hs, hs]``, all f32 (the same for RWKV-7 and
-    RWKV-6)."""
+    """Zero recurrent state, layer-stacked, all f32: shifts ``[L, B, C]``
+    and the WKV matrices ``[L, B, H, hs, hs]`` (RWKV-7, -6 and -5); for
+    RWKV-4 the shifts and its per-channel ``aa``, ``bb`` and ``pp``
+    ``[L, B, C]``, pp at ``F32_MIN``."""
     L, C, H, hs = info.num_layer, info.num_emb, info.num_head, info.head_size
     z = lambda *s: torch.zeros(s, dtype=torch.float32, device=device)  # noqa: E731
+    if info.version == ModelVersion.V4:
+        return {"att_shift": z(L, batch, C), "aa": z(L, batch, C), "bb": z(L, batch, C),
+                "pp": torch.full((L, batch, C), W.F32_MIN, device=device),
+                "ffn_shift": z(L, batch, C)}
     return {
         "att_shift": z(L, batch, C),
         "wkv": z(L, batch, H, hs, hs),
@@ -103,6 +114,12 @@ def _wkv6(state, r, k, v, u, w, mask):
     if r.shape[1] >= WKV7_CHUNKED_MIN_T:
         return wkv6_chunked(state, r, k, v, u, w, mask)
     return wkv6_scan(state, r, k, v, u, w, mask)
+
+
+def _wkv5(state, r, k, v, u, w, mask):
+    """The V5 recurrence over a chunk: V6's routes with the static decay
+    ``w`` [H, K] broadcast over the tokens."""
+    return _wkv6(state, r, k, v, u, w.expand(r.shape), mask)
 
 
 def _att_core_composed(att, H, lst_wkv, r, w_in, k, v, a_in, g, mask):
@@ -198,6 +215,61 @@ def _layer_v6(info, blk, lst, x, mask, lengths):
     return x, new
 
 
+def _ffn_v4(ffn, xx2, shift, lengths):
+    """The RWKV-5 and RWKV-4 FFN: non-reversed shifts, the squared-ReLU
+    key, the sigmoid receptance gate. Returns ``(out, new_shift)``."""
+    kx = B.token_shift(xx2, shift, ffn["mix_k"], reversed_mix=False)
+    rx = B.token_shift(xx2, shift, ffn["mix_r"], reversed_mix=False)
+    vf = ffn["Wv"].matmul(B.squared_relu(ffn["Wk"].matmul(kx)))
+    out = torch.sigmoid(ffn["Wr"].matmul(rx)) * vf
+    return out, B.update_shift_state(xx2, lengths, shift)
+
+
+def _layer_v5(info, blk, lst, x, mask, lengths):
+    H = info.num_head
+    att, ffn = blk["att"], blk["ffn"]
+    xx = B.layer_norm(x, blk["ln1"]["w"], blk["ln1"]["b"], LN_EPS)
+    sh = lst["att_shift"]
+    kx, vx, rx, gx = (B.token_shift(xx, sh, att["mix_" + s], reversed_mix=False)
+                      for s in "kvrg")
+    k = att["Wk"].matmul(kx)
+    v = att["Wv"].matmul(vx)
+    r = att["Wr"].matmul(rx)
+    g = att["Wg"].matmul(gx)
+    y, wkv = _wkv5(lst["wkv"], _heads(r, H), _heads(k, H), _heads(v, H), att["time_first"],
+                   att["time_decay"], mask)
+    y = B.group_norm(_flat(y), att["gn"]["w"], att["gn"]["b"], H, GN_EPS)
+    x = x + att["Wo"].matmul(y * (g * torch.sigmoid(g)))
+
+    xx2 = B.layer_norm(x, blk["ln2"]["w"], blk["ln2"]["b"], LN_EPS)
+    out, ffn_shift = _ffn_v4(ffn, xx2, lst["ffn_shift"], lengths)
+    new = {"att_shift": B.update_shift_state(xx, lengths, sh), "wkv": wkv,
+           "ffn_shift": ffn_shift}
+    return x + out, new
+
+
+def _layer_v4(info, blk, lst, x, mask, lengths):
+    att, ffn = blk["att"], blk["ffn"]
+    xx = B.layer_norm(x, blk["ln1"]["w"], blk["ln1"]["b"], LN_EPS)
+    sh = lst["att_shift"]
+    kx, vx, rx = (B.token_shift(xx, sh, att["mix_" + s], reversed_mix=False) for s in "kvr")
+    k = att["Wk"].matmul(kx)
+    v = att["Wv"].matmul(vx)
+    r = att["Wr"].matmul(rx)
+    state4 = torch.stack([lst["aa"], lst["bb"], lst["pp"]], dim=-1)
+    y, state4 = wkv4_scan(state4, k, v, r, att["time_first"], att["time_decay"], mask)
+    x = x + att["Wo"].matmul(y)
+
+    xx2 = B.layer_norm(x, blk["ln2"]["w"], blk["ln2"]["b"], LN_EPS)
+    out, ffn_shift = _ffn_v4(ffn, xx2, lst["ffn_shift"], lengths)
+    new = {"att_shift": B.update_shift_state(xx, lengths, sh), "aa": state4[..., 0],
+           "bb": state4[..., 1], "pp": state4[..., 2], "ffn_shift": ffn_shift}
+    return x + out, new
+
+
+_LAYERS = {ModelVersion.V6: _layer_v6, ModelVersion.V5: _layer_v5, ModelVersion.V4: _layer_v4}
+
+
 def _forward(info, params, layers, state, tokens, lengths, rescale):
     T = tokens.shape[1]
     if tokens.is_cuda:
@@ -221,10 +293,10 @@ def _forward(info, params, layers, state, tokens, lengths, rescale):
     news = []
     for i in range(L):
         lst = {key: a[i] for key, a in state.items()}
-        if info.version == ModelVersion.V6:
-            x, new = _layer_v6(info, layers[i], lst, x, mask, lengths)
-        else:
+        if info.version == ModelVersion.V7:
             x, v0, new = _layer_v7(info, layers[i], lst, x, v0, i, mask, lengths)
+        else:
+            x, new = _LAYERS[info.version](info, layers[i], lst, x, mask, lengths)
         if do_rescale and (i + 1) % rescale == 0:
             x = x * 0.5
         news.append(new)

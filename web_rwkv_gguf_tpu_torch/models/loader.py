@@ -1,4 +1,4 @@
-"""Build the RWKV-7 or RWKV-6 parameter tree from a GGUF reader.
+"""Build the RWKV-7, -6, -5 or -4 parameter tree from a GGUF reader.
 
 The tree holds the same logical arrays as the JAX package's loader, as
 torch tensors on one device:
@@ -9,7 +9,9 @@ torch tensors on one device:
 - big matrices are :class:`Matrix` (direct-quantized Q4_K / Q6_K, or
   dense in the model dtype after an f16 round trip);
 - the adapters (V7's inner LoRAs, V6's ``tm_w1`` / ``tm_w2`` /
-  ``td_w1`` / ``td_w2``) are dense in the model dtype; vectors are f32;
+  ``td_w1`` / ``td_w2``) are dense in the model dtype; vectors are f32
+  (V5's decay activated at load as exp(-exp(raw)) per head, V4's as
+  -exp(raw) per channel);
 - the embedding table stays f16.
 
 The load computes in numpy and moves each finished array to ``device``
@@ -21,7 +23,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..errors import TensorNotFound, UnsupportedFeature
+from ..errors import TensorNotFound
 from ..ops.cuda.layer7 import MAX_SCAN_BATCH, prep_decode7
 from ..ops.cuda.layer56 import prep_decode56
 from .info import ModelVersion, detect_info
@@ -74,7 +76,8 @@ def prepare_decode(params: dict, info, batch_hint: int = 1) -> dict:
     forward of up to ``MAX_SCAN_BATCH`` lanes runs as one kernel launch,
     as the JAX package's ``prepare_decode`` arranges it for its Engine:
     ``params["mega7"]`` for RWKV-7 (``ops/cuda/layer7.prep_decode7``),
-    ``params["mega56"]`` for RWKV-6 (``ops/cuda/layer56.prep_decode56``).
+    ``params["mega56"]`` for RWKV-6, -5 and -4
+    (``ops/cuda/layer56.prep_decode56``).
     Params it cannot arrange (a batch above the limit, per-layer blocks,
     layer matrices that are not Q4_K with whole super-blocks) come back
     unchanged. Idempotent."""
@@ -89,7 +92,7 @@ def prepare_decode(params: dict, info, batch_hint: int = 1) -> dict:
 
 def load_model(reader, *, dtype=torch.bfloat16, rescale: int | None = None,
                device="cuda"):
-    """Load an RWKV-7 or RWKV-6 model into ``(info, params)`` on ``device``.
+    """Load an RWKV-7, -6, -5 or -4 model into ``(info, params)`` on ``device``.
 
     ``dtype`` is the storage type of dense matrices and adapters (bf16 or
     f32). ``rescale``: the weights of ``att.output`` / ``ffn.value`` at
@@ -98,11 +101,6 @@ def load_model(reader, *, dtype=torch.bfloat16, rescale: int | None = None,
     ``rescale`` layers.
     """
     info = detect_info(reader)
-    if info.version not in (ModelVersion.V7, ModelVersion.V6):
-        raise UnsupportedFeature(
-            f"the PyTorch port loads RWKV-7 and RWKV-6, not {info.version.value}: RWKV-5 "
-            "and RWKV-4 come with the slice that ports wkv4_pallas and the V5/V4 bodies "
-            "of layer_scan56 (ROADMAP.md, Next, item 1)")
     rescale = rescale or 10**9
     C, L, H, hs = info.num_emb, info.num_layer, info.num_head, info.head_size
 
@@ -157,12 +155,25 @@ def load_model(reader, *, dtype=torch.bfloat16, rescale: int | None = None,
             "td_w1": adapters("blocks.{i}.att.time_decay_w1"),  # [L, D, C]
             "td_w2": adapters("blocks.{i}.att.time_decay_w2"),  # [L, C, D]
             "gn": ln("blocks.{i}.att.ln_x"),
-            "Wk": mats("blocks.{i}.att.key.weight"),
-            "Wv": mats("blocks.{i}.att.value.weight"),
-            "Wr": mats("blocks.{i}.att.receptance.weight"),
-            "Wg": mats("blocks.{i}.att.gate.weight"),
-            "Wo": mats("blocks.{i}.att.output.weight", discounted=True),
+            **_att_matrices(mats, gate=True),
         }
+    elif info.version == ModelVersion.V7:
+        att, ffn = _v7_blocks(reader, info, vector, matrix_f32, to_dtype, dev, vecs, mats,
+                              adapters, ln)
+    else:
+        raw_decay = np.stack([vector(f"blocks.{i}.att.time_decay") for i in range(L)])
+        v5 = info.version == ModelVersion.V5
+        att = {f"mix_{s}": vecs("blocks.{i}.att.time_mix_" + s)
+               for s in ("kvrg" if v5 else "kvr")}
+        if v5:  # per head, the decay activated at load: exp(-exp(raw))
+            att["time_decay"] = dev(np.exp(-np.exp(raw_decay)).reshape(L, H, hs))
+            att["time_first"] = vecs("blocks.{i}.att.time_first").reshape(L, H, hs)
+            att["gn"] = ln("blocks.{i}.att.ln_x")
+        else:  # per channel, the decay as -exp(raw)
+            att["time_decay"] = dev(-np.exp(raw_decay))
+            att["time_first"] = vecs("blocks.{i}.att.time_first")
+        att.update(_att_matrices(mats, gate=v5))
+    if info.version != ModelVersion.V7:
         ffn = {
             "mix_k": vecs("blocks.{i}.ffn.time_mix_k"),
             "mix_r": vecs("blocks.{i}.ffn.time_mix_r"),
@@ -170,9 +181,6 @@ def load_model(reader, *, dtype=torch.bfloat16, rescale: int | None = None,
             "Wv": mats("blocks.{i}.ffn.value.weight", discounted=True),
             "Wr": mats("blocks.{i}.ffn.receptance.weight"),
         }
-    else:
-        att, ffn = _v7_blocks(reader, info, vector, matrix_f32, to_dtype, dev, vecs, mats,
-                              adapters, ln)
     blocks = {"ln1": ln("blocks.{i}.ln1"), "ln2": ln("blocks.{i}.ln2"), "att": att,
               "ffn": ffn}
     if _has_list(blocks):
@@ -187,6 +195,14 @@ def load_model(reader, *, dtype=torch.bfloat16, rescale: int | None = None,
         "blocks": blocks,
     }
     return info, params
+
+
+def _att_matrices(mats, gate: bool) -> dict:
+    """The attention matrices of RWKV-6, -5 (``gate``) and -4."""
+    names = ("key", "value", "receptance") + (("gate",) if gate else ())
+    out = {"W" + n[0]: mats(f"blocks.{{i}}.att.{n}.weight") for n in names}
+    out["Wo"] = mats("blocks.{i}.att.output.weight", discounted=True)
+    return out
 
 
 def _v7_blocks(reader, info, vector, matrix_f32, to_dtype, dev, vecs, mats, adapters, ln):

@@ -1,13 +1,13 @@
-// Whole-stack RWKV-6 decode step (T = 1) as ONE kernel launch, Hopper sm_90a.
+// Whole-stack RWKV-6, -5 and -4 decode step (T = 1) as ONE kernel launch,
+// Hopper sm_90a.
 //
 // Replaces: web_rwkv_gguf_tpu/ops/pallas/layer56.py::layer_scan56 (def at line
 // 445, pallas_call at line 548; kernel body _layer_scan56_kernel at 64-283),
-// with its static `version` = 6. (The bodies for versions 5 and 4 are not
-// ported yet.)
+// with each of its static versions 6, 5 and 4 (the template parameter V).
 //
-// Per layer l, for B <= 16 lanes (the residual x [B, C] is carried in place;
-// Q(.) is a Q4_K gemv of the bf16-rounded input, bf(.) a bf16 adapter
-// product with f32 sums):
+// Version 6. Per layer l, for B <= 16 lanes (the residual x [B, C] is
+// carried in place; Q(.) is a Q4_K gemv of the bf16-rounded input, bf(.) a
+// bf16 adapter product with f32 sums):
 //   xx = LN1(x); sx = xx + mix_x (sh - xx)
 //   z = bf16(tanh(bf(tm_w1 sx)));  mix_s = bf(tm_w2[s] z_s) + time_mix[s]
 //   w, k, v, r, g inputs: xx + mix_s (sh - xx)
@@ -28,6 +28,24 @@
 // four adapters take bf16 operands and accumulate in f32 (their tanh outputs
 // rounded to bf16 before the up product), everything else is f32 with IEEE
 // expf (no fast math: StableExp and the group norm stay exact to f32).
+//
+// Version 5 is version 6 without the adapters: the four inputs are static
+// mixes sh + mix_s (xx - sh) (not reversed), the decay w is static per
+// channel (activated at load), the FFN shifts are not reversed either:
+//   r, k, v, g = Q(sh + mix (xx - sh));  per head the same WKV, group norm
+//   and silu(g) gate;  x += Q(Wo y);
+//   xx2 = LN2(x); x += sigmoid(Q(Wr (fsh + mix_r (xx2 - fsh)))) *
+//                    Q(Wv relu(Q(Wk (fsh + mix_k (xx2 - fsh))))^2)
+// Version 4 has one per-channel state (aa, bb, pp) in place of the heads,
+// no gate and no group norm:
+//   r, k, v = Q(sh + mix (xx - sh));  q = max(pp, u + k);
+//   y = sigmoid(r) (e^{pp-q} aa + e^{u+k-q} v) / (e^{pp-q} bb + e^{u+k-q});
+//   q' = max(w + pp, k);  aa <- e^{w+pp-q'} aa + e^{k-q'} v;
+//   bb <- e^{w+pp-q'} bb + e^{k-q'};  pp <- q'   (w = -exp(decay));
+//   x += Q(Wo y); the FFN of version 5.
+// Version 4's state is written by a select (new or old), as the JAX kernel
+// writes it: pp holds the F32_MIN sentinel, next to which a blend
+// S + m (S_new - S) would round S_new away.
 //
 // Bound on this card: the weights are read once per token (8 Q4_K matrices,
 // ~30.7 MB per layer at the 1.6B widths, plus 0.9 MB of bf16 adapters) and
@@ -53,6 +71,17 @@
 //   6. LN2 and the FFN shifts, the FFN key with relu^2 and the FFN
 //      receptance, their inputs staged in turn;
 //   7. the FFN value, x += sigmoid(rf) * vf, and the rescale.
+// Versions 5 and 4 need fewer phases (their mixes are static, so each block
+// can form a mixed input from LN1 and the shift state alone):
+//   1. LN1, the static mixes and the Q4_K projections r, k, v (and g), each
+//      input staged in shared memory in turn. Version 4 then runs the WKV
+//      step of channel m in the warp that computed row m of all three: the
+//      rows of a projection go to warps by (block, warp) alone, so that warp
+//      owns row m in each pass, and reads back its own r and k;
+//   2. (version 5) per (lane, head), the attention of phase 4 above with the
+//      static decay, the group norm and the gate;
+//   then Wo, LN2 with the FFN key and receptance, and the FFN value, as
+//   phases 5-7 above: five phases per layer for version 5, four for 4.
 // Each phase asks L2 to prefetch what a later phase reads from device memory.
 // Data produced inside the launch is read with ld.global.cg (L2, never a
 // stale L1 line); weights and parameters are read-only and may use L1. What
@@ -71,21 +100,22 @@ namespace {
 
 constexpr int kHs = 64;                 // head size the attention phase takes
 constexpr int kParts = kThreads / kHs;  // threads per value column in phase 4
-constexpr int kPhases = 7;
 // rows of the mixed-input scratch [5, B, C]: the order of time_mix
 constexpr int kInW = 0, kInK = 1, kInV = 2, kInR = 3, kInG = 4;
 
 struct Args {
   const float *ln1_w, *ln1_b, *ln2_w, *ln2_b;  // [L, C]
-  const float *mix_x, *decay, *first;           // [L, C]; first: time_first [L, H, 64]
+  // [L, C]; decay: raw (V6), exp(-exp(raw)) (V5) or -exp(raw) (V4); first:
+  // time_first ([L, H, 64] for V6 and V5); mix_x: V6 only
+  const float *mix_x, *decay, *first;
   const float *gn_w, *gn_b, *ffn_mk, *ffn_mr;   // [L, C]
-  const float* time_mix;                        // [L, 5, C]: w, k, v, r, g
-  const __nv_bfloat16* tm_w1;                   // [L, 5R, C]
-  const __nv_bfloat16* tm_w2;                   // [L, 5, C, R]
-  const __nv_bfloat16* td_w1;                   // [L, D, C]
-  const __nv_bfloat16* td_w2;                   // [L, C, D]
-  Q4K wr, wk, wv, wg, wo, fk, fv, fr;
-  const float *ash_in, *fsh_in, *wkv_in;        // [L, B, C] x2, [L, B, H, 64, 64]
+  const float* time_mix;                        // [L, 5, C]: w, k, v, r, g (V6)
+  const __nv_bfloat16* tm_w1;                   // [L, 5R, C] (V6)
+  const __nv_bfloat16* tm_w2;                   // [L, 5, C, R] (V6)
+  const __nv_bfloat16* td_w1;                   // [L, D, C] (V6)
+  const __nv_bfloat16* td_w2;                   // [L, C, D] (V6)
+  Q4K wr, wk, wv, wg, wo, fk, fv, fr;           // no wg for V4
+  const float *ash_in, *fsh_in, *wkv_in;        // [L, B, C] x2, [L, B, H, 64, 64] (V6, V5)
   float *ash_out, *fsh_out, *wkv_out;
   const float* mask;                            // [B], 0 or 1
   float* x;                                     // [B, C], in and out
@@ -97,7 +127,10 @@ struct Args {
   __nv_bfloat16* y;                             // [B, C] scratch
   __nv_bfloat16* khid;                          // [B, hidden] scratch
   float* rf;                                    // [B, C] scratch: FFN receptance
-  unsigned long long* phase_ns;                 // [1 + 7 L] or null: trace
+  unsigned long long* phase_ns;                 // [1 + P L] or null: trace
+  const float *mix_k, *mix_v, *mix_r, *mix_g;   // [L, C] static mixes (V5, V4; no g in V4)
+  const float *aa_in, *bb_in, *pp_in;           // [L, B, C] (V4)
+  float *aa_out, *bb_out, *pp_out;
   int L, B, C, H, hidden, R, D, rescale, first_layer;
   float eps_ln, eps_gn;
 };
@@ -237,8 +270,9 @@ __device__ void phase_proj(const Args& a, int l, __nv_bfloat16* xs) {
 // the head with a quarter of the work: decay-rank chunks part, part + 4, ...
 // and the key rows [16 part, 16 part + 16) of the state; shared memory sums
 // the four quarters.
+template <int V>
 __device__ void phase_att(const Args& a, int l, float* smem) {
-  const int C = a.C, B = a.B, H = a.H, D = a.D;
+  const int C = a.C, B = a.B, H = a.H, D = V == 6 ? a.D : 0;
   prefetch_q4k(a.fk, l, a.hidden, C);  // for phases 6 and 7
   prefetch_q4k(a.fr, l, C, C);
   prefetch_q4k(a.fv, l, C, a.hidden);
@@ -255,25 +289,31 @@ __device__ void phase_att(const Args& a, int l, float* smem) {
     const int c = h * kHs + t;  // this thread's channel
     const size_t lc = (size_t)l * C + c;
     const size_t bc = (size_t)b * C + c;
-    for (int j = threadIdx.x; j < D; j += kThreads) {
-      s_dz[j] = __bfloat162float(__ldcg(a.dz + (size_t)b * D + j));
-    }
-    __syncthreads();
-    {  // a quarter of channel c's decay up-projection, 8 bf16 per load
-      const uint4* w8p = reinterpret_cast<const uint4*>(a.td_w2 + lc * D);
-      float p = 0.f;
-      for (int q = part; q < D / 8; q += kParts) {
-        float w8[8];
-        bf16x8(__ldg(w8p + q), w8);
-#pragma unroll
-        for (int e = 0; e < 8; ++e) p += w8[e] * s_dz[8 * q + e];
+    if constexpr (V == 6) {
+      for (int j = threadIdx.x; j < D; j += kThreads) {
+        s_dz[j] = __bfloat162float(__ldcg(a.dz + (size_t)b * D + j));
       }
-      s_part[part * kHs + t] = p;
+      __syncthreads();
+      {  // a quarter of channel c's decay up-projection, 8 bf16 per load
+        const uint4* w8p = reinterpret_cast<const uint4*>(a.td_w2 + lc * D);
+        float p = 0.f;
+        for (int q = part; q < D / 8; q += kParts) {
+          float w8[8];
+          bf16x8(__ldg(w8p + q), w8);
+#pragma unroll
+          for (int e = 0; e < 8; ++e) p += w8[e] * s_dz[8 * q + e];
+        }
+        s_part[part * kHs + t] = p;
+      }
+      __syncthreads();
     }
-    __syncthreads();
     if (part == 0) {
-      const float up = s_part[t] + s_part[kHs + t] + s_part[2 * kHs + t] + s_part[3 * kHs + t];
-      s_w[t] = expf(-expf(up + a.decay[lc]));  // StableExp
+      if constexpr (V == 6) {
+        const float up = s_part[t] + s_part[kHs + t] + s_part[2 * kHs + t] + s_part[3 * kHs + t];
+        s_w[t] = expf(-expf(up + a.decay[lc]));  // StableExp
+      } else {
+        s_w[t] = a.decay[lc];  // activated at load
+      }
       s_r[t] = __ldcg(a.rkvg + bc);
       s_k[t] = __ldcg(a.rkvg + (size_t)B * C + bc);
       s_u[t] = a.first[lc];
@@ -307,6 +347,86 @@ __device__ void phase_att(const Args& a, int l, float* smem) {
   }
 }
 
+// Version 4's WKV step of channel m for every lane, run by lane 0 of the warp
+// that computed row m of r, k (in rkvg, written by this thread) and v (acc).
+template <int NB>
+__device__ void wkv4_row(const Args& a, int l, int m, const float* acc) {
+  const int C = a.C, B = a.B;
+  const float u = __ldg(a.first + (size_t)l * C + m);
+  const float w = __ldg(a.decay + (size_t)l * C + m);
+#pragma unroll
+  for (int t = 0; t < NB; ++t) {
+    if (t < B) {
+      const size_t bc = (size_t)t * C + m, st = ((size_t)l * B + t) * C + m;
+      const float r = __ldcg(a.rkvg + bc), k = __ldcg(a.rkvg + (size_t)B * C + bc);
+      const float v = acc[t];
+      const float aa = __ldg(a.aa_in + st), bb = __ldg(a.bb_in + st), pp = __ldg(a.pp_in + st);
+      const float ww = u + k;
+      const float q = fmaxf(pp, ww);
+      const float e1 = expf(pp - q), e2 = expf(ww - q);
+      a.y[bc] = __float2bfloat16_rn(sigmoid_f32(r) * (e1 * aa + e2 * v) / (e1 * bb + e2));
+      const float ww2 = w + pp;
+      const float q2 = fmaxf(ww2, k);
+      const float f1 = expf(ww2 - q2), f2 = expf(k - q2);
+      const bool live = a.mask[t] > 0.f;  // a select: pp may hold F32_MIN
+      a.aa_out[st] = live ? f1 * aa + f2 * v : aa;
+      a.bb_out[st] = live ? f1 * bb + f2 : bb;
+      a.pp_out[st] = live ? q2 : pp;
+    }
+  }
+}
+
+// Phase 1 of versions 5 and 4: LN1 and the att shift state (block 0 writes
+// it); then per projection (r, k, v, and g for V5) its static mix
+// sh + mix (xx - sh) staged in shared memory as bf16 and its Q4_K rows. In
+// version 4 the v pass ends with the WKV step of each row (wkv4_row).
+template <int V, int NB>
+__device__ void phase_static_proj(const Args& a, int l, unsigned char* smem) {
+  const int C = a.C, B = a.B;
+  constexpr int kProj = V == 4 ? 3 : 4;
+  if constexpr (V == 5) {  // for phase 2
+    prefetch_l2(a.wkv_in + (size_t)l * B * C * kHs, (size_t)B * C * kHs * 4);
+  }
+  prefetch_q4k(a.wo, l, C, C);
+  float* rows = reinterpret_cast<float*>(smem);
+  __nv_bfloat16* xs = reinterpret_cast<__nv_bfloat16*>(smem + (size_t)B * C * 4);
+  layer_norm_rows(a.x, B, C, a.eps_ln, a.ln1_w + (size_t)l * C, a.ln1_b + (size_t)l * C,
+                  rows);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  float acc[NB];
+  for (int j = 0; j < kProj; ++j) {  // r, k, v, g
+    const Q4K& w = j == 0 ? a.wr : (j == 1 ? a.wk : (j == 2 ? a.wv : a.wg));
+    const float* mixv = j == 0 ? a.mix_r : (j == 1 ? a.mix_k : (j == 2 ? a.mix_v : a.mix_g));
+    if (j > 0) __syncthreads();  // the previous projection's readers of xs are done
+    for (int c = threadIdx.x; c < C; c += blockDim.x) {
+      const float mix = __ldg(mixv + (size_t)l * C + c);
+#pragma unroll
+      for (int b = 0; b < NB; ++b) {
+        if (b < B) {
+          const size_t i = (size_t)b * C + c;
+          const float sh = __ldg(a.ash_in + (size_t)l * B * C + i);
+          const float xx = rows[i];
+          if (j == 0 && blockIdx.x == 0) {
+            a.ash_out[(size_t)l * B * C + i] = blend(a.mask[b], xx, sh);
+          }
+          xs[i] = __float2bfloat16_rn(sh + mix * (xx - sh));
+        }
+      }
+    }
+    __syncthreads();
+    for (int m = blockIdx.x * kWarps + warp; m < C; m += gridDim.x * kWarps) {
+      q4k_row<NB>(w, l, C, m, C, xs, B, acc);
+      if (lane == 0) {
+        if (V == 4 && j == 2) {
+          wkv4_row<NB>(a, l, m, acc);
+        } else {
+          for (int t = 0; t < B; ++t) a.rkvg[((size_t)j * B + t) * C + m] = acc[t];
+        }
+      }
+    }
+  }
+}
+
 // Phase 5: Wo over y, the residual add.
 template <int NB>
 __device__ void phase_wo(const Args& a, int l, __nv_bfloat16* xs) {
@@ -327,7 +447,7 @@ __device__ void phase_wo(const Args& a, int l, __nv_bfloat16* xs) {
 
 // Phase 6: LN2, the FFN shift state (block 0 writes it); the FFN key over
 // its shifted input with relu^2 -> khid, then the FFN receptance -> rf.
-template <int NB>
+template <int V, int NB>
 __device__ void phase_ffn_in(const Args& a, int l, unsigned char* smem) {
   const int C = a.C, B = a.B;
   float* rows = reinterpret_cast<float*>(smem);
@@ -350,7 +470,8 @@ __device__ void phase_ffn_in(const Args& a, int l, unsigned char* smem) {
           if (j == 0 && blockIdx.x == 0) {
             a.fsh_out[(size_t)l * B * C + i] = blend(a.mask[b], xx, fsh);
           }
-          xs[i] = __float2bfloat16_rn(xx + mix * (fsh - xx));
+          // reversed for V6 (xx + mix (fsh - xx)), not for V5 and V4
+          xs[i] = __float2bfloat16_rn(V == 6 ? xx + mix * (fsh - xx) : fsh + mix * (xx - fsh));
         }
       }
     }
@@ -377,11 +498,18 @@ __device__ void phase_ffn_in(const Args& a, int l, unsigned char* smem) {
 }
 
 // Phase 7: the FFN value over khid, x += sigmoid(rf) * vf, the rescale.
-template <int NB>
+template <int V, int NB>
 __device__ void phase_ffn_out(const Args& a, int l, __nv_bfloat16* xs) {
   const int C = a.C, B = a.B;
   if (l + 1 < a.L) {  // for the next layer's phase 1
-    prefetch_l2(a.tm_w1 + (size_t)(l + 1) * 5 * a.R * C, (size_t)5 * a.R * C * 2);
+    if constexpr (V == 6) {
+      prefetch_l2(a.tm_w1 + (size_t)(l + 1) * 5 * a.R * C, (size_t)5 * a.R * C * 2);
+    } else {
+      prefetch_q4k(a.wr, l + 1, C, C);
+      prefetch_q4k(a.wk, l + 1, C, C);
+      prefetch_q4k(a.wv, l + 1, C, C);
+      if constexpr (V == 5) prefetch_q4k(a.wg, l + 1, C, C);
+    }
   }
   const bool half_x = a.rescale > 0 && (a.first_layer + l + 1) % a.rescale == 0;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
@@ -399,7 +527,7 @@ __device__ void phase_ffn_out(const Args& a, int l, __nv_bfloat16* xs) {
   }
 }
 
-template <int NB>
+template <int V, int NB>
 __global__ void __launch_bounds__(kThreads)
 layer56_kernel(const Args a) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -417,68 +545,93 @@ layer56_kernel(const Args a) {
   if (stamp) a.phase_ns[n] = globaltimer_ns();
   ++n;
   for (int l = 0; l < a.L; ++l) {
-    phase_shift<NB>(a, l, smem_raw);
-    done();
-    phase_mix<NB>(a, l, smem);
-    done();
-    phase_proj<NB>(a, l, xs);
-    done();
-    phase_att(a, l, smem);
-    done();
+    if constexpr (V == 6) {
+      phase_shift<NB>(a, l, smem_raw);
+      done();
+      phase_mix<NB>(a, l, smem);
+      done();
+      phase_proj<NB>(a, l, xs);
+      done();
+      phase_att<6>(a, l, smem);
+      done();
+    } else {
+      phase_static_proj<V, NB>(a, l, smem_raw);
+      done();
+      if constexpr (V == 5) {
+        phase_att<5>(a, l, smem);
+        done();
+      }
+    }
     phase_wo<NB>(a, l, xs);
     done();
-    phase_ffn_in<NB>(a, l, smem_raw);
+    phase_ffn_in<V, NB>(a, l, smem_raw);
     done();
-    phase_ffn_out<NB>(a, l, xs);
+    phase_ffn_out<V, NB>(a, l, xs);
     done();
   }
 }
 
+template <int V>
 size_t smem_bytes(const Args& a) {
   const size_t B = a.B, C = a.C;
-  size_t s = B * C * 6;                                                   // phases 1, 6
-  s = s > B * 5 * a.R * 4 ? s : B * 5 * a.R * 4;                          // phase 2
-  s = s > B * a.hidden * 2 ? s : B * a.hidden * 2;                        // phase 7
-  const size_t att = ((size_t)kWarps + a.D + (size_t)(4 + kParts) * kHs) * 4;  // phase 4
+  size_t s = B * C * 6;                                                   // LN + staged input
+  s = s > B * a.hidden * 2 ? s : B * a.hidden * 2;                        // FFN value
+  if (V == 6) s = s > B * 5 * a.R * 4 ? s : B * 5 * a.R * 4;             // phase 2
+  if (V == 4) return s;
+  const size_t D = V == 6 ? a.D : 0;
+  const size_t att = ((size_t)kWarps + D + (size_t)(4 + kParts) * kHs) * 4;  // attention
   return s > att ? s : att;
 }
 
-template <int NB>
+template <int V, int NB>
 cudaError_t launch(const Args& a, cudaStream_t stream) {
-  const size_t smem = smem_bytes(a);
+  const size_t smem = smem_bytes<V>(a);
   if (smem > (size_t)kMaxSmem) return cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(
-      layer56_kernel<NB>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      layer56_kernel<V, NB>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   int dev = 0, sms = 0, per_sm = 0;
   if ((err = cudaGetDevice(&dev)) != cudaSuccess) return err;
   if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
     return err;
-  if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, layer56_kernel<NB>,
+  if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, layer56_kernel<V, NB>,
                                                            kThreads, smem)) != cudaSuccess)
     return err;
   if (per_sm < 1) return cudaErrorInvalidConfiguration;
   const int blocks = sms * (per_sm < 2 ? per_sm : 2);
   void* params[] = {const_cast<Args*>(&a)};
-  err = cudaLaunchCooperativeKernel(reinterpret_cast<void*>(layer56_kernel<NB>), blocks,
+  err = cudaLaunchCooperativeKernel(reinterpret_cast<void*>(layer56_kernel<V, NB>), blocks,
                                     kThreads, params, smem, stream);
   if (err != cudaSuccess) return err;
   return cudaGetLastError();
 }
 
+template <int V>
+cudaError_t launch_version(const Args& a, cudaStream_t s) {
+  if (a.B == 1) return launch<V, 1>(a, s);
+  if (a.B == 2) return launch<V, 2>(a, s);
+  if (a.B <= 4) return launch<V, 4>(a, s);
+  if (a.B <= 8) return launch<V, 8>(a, s);
+  return launch<V, 16>(a, s);
+}
+
 }  // namespace
 
-// ptrs: 73 device pointers in the order of the fields of Args above (ln1_w,
+// ptrs: 83 device pointers in the order of the fields of Args above (ln1_w,
 // ln1_b, ln2_w, ln2_b, mix_x, decay, first, gn_w, gn_b, ffn_mk, ffn_mr,
 // time_mix, tm_w1, tm_w2, td_w1, td_w2, then codes/sc6/mn6/d8/dm8 of Wr, Wk,
 // Wv, Wg, Wo, FFN key, FFN value, FFN receptance, then ash_in, fsh_in,
 // wkv_in, ash_out, fsh_out, wkv_out, mask, x, then the scratch xx, z, mixed,
-// rkvg, dz, y, khid, rf, then phase_ns, null or u64 [1 + 7 L] that receives
-// the %globaltimer at the start and after each phase's barrier); ints: L, B,
-// C, H, hidden, R (time-mix rank), D (decay rank), rescale (0 for none),
-// first_layer; floats: eps_ln, eps_gn. Every array contiguous and 16-byte
-// aligned, C and hidden multiples of 256, C == H * 64, R and D multiples of
-// 8, 1 <= B <= 16. Returns the cudaError_t of the launch.
+// rkvg, dz, y, khid, rf, then phase_ns, null or u64 [1 + P L] that receives
+// the %globaltimer at the start and after each phase's barrier (P = 7, 5, 4
+// phases per layer for versions 6, 5, 4), then mix_k, mix_v, mix_r, mix_g,
+// aa_in, bb_in, pp_in, aa_out, bb_out, pp_out); a pointer a version does not
+// read is null (see Args). ints: L, B, C, H, hidden, R (time-mix rank), D
+// (decay rank), rescale (0 for none), first_layer, version (6, 5 or 4);
+// floats: eps_ln, eps_gn. Every array contiguous and 16-byte aligned, C and
+// hidden multiples of 256, 1 <= B <= 16; for versions 6 and 5 C == H * 64;
+// for version 6 R and D multiples of 8. Returns the cudaError_t of the
+// launch.
 extern "C" int layer_scan56(const void* const* ptrs, const int* ints, const float* floats,
                             void* stream) {
   Args a;
@@ -524,6 +677,16 @@ extern "C" int layer_scan56(const void* const* ptrs, const int* ints, const floa
   a.khid = take<__nv_bfloat16*>(ptrs, i);
   a.rf = take<float*>(ptrs, i);
   a.phase_ns = take<unsigned long long*>(ptrs, i);
+  a.mix_k = take<const float*>(ptrs, i);
+  a.mix_v = take<const float*>(ptrs, i);
+  a.mix_r = take<const float*>(ptrs, i);
+  a.mix_g = take<const float*>(ptrs, i);
+  a.aa_in = take<const float*>(ptrs, i);
+  a.bb_in = take<const float*>(ptrs, i);
+  a.pp_in = take<const float*>(ptrs, i);
+  a.aa_out = take<float*>(ptrs, i);
+  a.bb_out = take<float*>(ptrs, i);
+  a.pp_out = take<float*>(ptrs, i);
   a.L = ints[0];
   a.B = ints[1];
   a.C = ints[2];
@@ -535,13 +698,14 @@ extern "C" int layer_scan56(const void* const* ptrs, const int* ints, const floa
   a.first_layer = ints[8];
   a.eps_ln = floats[0];
   a.eps_gn = floats[1];
-  if (a.B < 1 || a.B > kMaxB || a.C % 256 || a.hidden % 256 || a.C != a.H * kHs || a.L < 1 ||
-      a.R < 8 || a.R % 8 || a.D < 8 || a.D % 8 || a.first_layer < 0 || a.rescale < 0)
+  const int version = ints[9];
+  if (a.B < 1 || a.B > kMaxB || a.C % 256 || a.hidden % 256 || a.L < 1 || a.first_layer < 0 ||
+      a.rescale < 0 || (version != 4 && a.C != a.H * kHs) ||
+      (version == 6 && (a.R < 8 || a.R % 8 || a.D < 8 || a.D % 8)))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (a.B == 1) return (int)launch<1>(a, s);
-  if (a.B == 2) return (int)launch<2>(a, s);
-  if (a.B <= 4) return (int)launch<4>(a, s);
-  if (a.B <= 8) return (int)launch<8>(a, s);
-  return (int)launch<16>(a, s);
+  if (version == 6) return (int)launch_version<6>(a, s);
+  if (version == 5) return (int)launch_version<5>(a, s);
+  if (version == 4) return (int)launch_version<4>(a, s);
+  return (int)cudaErrorInvalidValue;
 }

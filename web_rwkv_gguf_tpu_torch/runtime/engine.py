@@ -24,7 +24,7 @@ import torch
 from ..errors import EngineError, TensorError, UnsupportedFeature
 from ..models.forward import forward_chunk, init_state, logits_head
 from ..models.generate import make_generator, make_sampler
-from ..models.info import ModelInfo
+from ..models.info import ModelInfo, ModelVersion
 from ..models.loader import prepare_decode
 from .scheduler import RnnInput, RnnInputBatch, RnnOption
 
@@ -94,6 +94,10 @@ class Engine:
         self.rescale = rescale
         self.device = torch.device(device)
         # pretrained time_state: [L, H, K, V], broadcast over the lanes
+        if initial_wkv is not None and info.version == ModelVersion.V4:
+            raise UnsupportedFeature(
+                "initial_wkv (pretrained time_state) needs a matrix-state model "
+                "(V5/V6/V7); V4 carries per-channel (aa, bb, pp) state")
         self._initial_wkv = initial_wkv
         self.state = self._fresh_state()
 

@@ -1,4 +1,4 @@
-"""Synthetic random-weight RWKV-7 and RWKV-6 model files, in the GGUF
+"""Synthetic random-weight RWKV-7, -6, -5 and -4 model files, in the GGUF
 layout a converter writes — used by tests and by ``chip_smoke.py``."""
 
 from __future__ import annotations
@@ -152,6 +152,108 @@ def make_v6_gguf(
             addq(f"{p}.{name}.weight", r(n_emb, n_emb))
         w.add_tensor(f"{p}.attn_ln_x.weight", 1.0 + r(n_emb, scale=0.1))
         w.add_tensor(f"{p}.attn_ln_x.bias", r(n_emb, scale=0.1))
+        w.add_tensor(f"{p}.ffn_time_mix_k", uniform())
+        w.add_tensor(f"{p}.ffn_time_mix_r", uniform())
+        addq(f"{p}.ffn_k.weight", r(n_hidden, n_emb))
+        addq(f"{p}.ffn_v.weight", r(n_emb, n_hidden))
+        addq(f"{p}.ffn_r.weight", r(n_emb, n_emb))
+    return w.tobytes()
+
+
+def make_v5_gguf(*, n_layer=2, n_emb=16, head_size=4, n_vocab=32, n_hidden=None, seed=0,
+                 quantize=None, head_quantize=None):
+    """Bytes of an RWKV-5 GGUF file with weights drawn from ``seed`` (the
+    draws, names and order of the JAX package's ``make_v5_gguf``, which
+    writes every tensor in f32).
+
+    ``quantize`` selects the block type of the eight layer matrices and
+    the head; ``head_quantize`` overrides it for the head. With neither,
+    the bytes are the JAX package's."""
+    n_hidden = n_hidden or 4 * n_emb
+    n_head = n_emb // head_size
+    rng = np.random.default_rng(seed)
+    w = GgufWriter()
+
+    def r(*shape, scale=0.5):
+        return (rng.normal(size=shape) * scale).astype(np.float32)
+
+    def uniform():
+        return rng.uniform(0, 1, n_emb).astype(np.float32)
+
+    def addq(name, arr):
+        w.add_tensor(name, arr, quantize=quantize)
+
+    w.add_tensor("token_embd.weight", r(n_vocab, n_emb))
+    w.add_tensor("token_embd_norm.weight", 1.0 + r(n_emb, scale=0.1))
+    w.add_tensor("token_embd_norm.bias", r(n_emb, scale=0.1))
+    w.add_tensor("output_norm.weight", 1.0 + r(n_emb, scale=0.1))
+    w.add_tensor("output_norm.bias", r(n_emb, scale=0.1))
+    w.add_tensor("output.weight", r(n_vocab, n_emb),
+                 quantize=head_quantize if head_quantize is not None else quantize)
+    for i in range(n_layer):
+        p = f"blk.{i}"
+        w.add_tensor(f"{p}.attn_norm.weight", 1.0 + r(n_emb, scale=0.1))
+        w.add_tensor(f"{p}.attn_norm.bias", r(n_emb, scale=0.1))
+        w.add_tensor(f"{p}.ffn_norm.weight", 1.0 + r(n_emb, scale=0.1))
+        w.add_tensor(f"{p}.ffn_norm.bias", r(n_emb, scale=0.1))
+        w.add_tensor(f"{p}.attn_time_decay", r(n_head, head_size))
+        w.add_tensor(f"{p}.attn_time_first", r(n_head, head_size))
+        for s in "kvrg":
+            w.add_tensor(f"{p}.attn_time_mix_{s}", uniform())
+        for name in ("attn_k", "attn_v", "attn_r", "attn_g", "attn_output"):
+            addq(f"{p}.{name}.weight", r(n_emb, n_emb))
+        w.add_tensor(f"{p}.attn_ln_x.weight", 1.0 + r(n_emb, scale=0.1))
+        w.add_tensor(f"{p}.attn_ln_x.bias", r(n_emb, scale=0.1))
+        w.add_tensor(f"{p}.ffn_time_mix_k", uniform())
+        w.add_tensor(f"{p}.ffn_time_mix_r", uniform())
+        addq(f"{p}.ffn_k.weight", r(n_hidden, n_emb))
+        addq(f"{p}.ffn_v.weight", r(n_emb, n_hidden))
+        addq(f"{p}.ffn_r.weight", r(n_emb, n_emb))
+    return w.tobytes()
+
+
+def make_v4_gguf(*, n_layer=2, n_emb=16, n_vocab=32, n_hidden=None, seed=0, quantize=None,
+                 head_quantize=None):
+    """Bytes of an RWKV-4 GGUF file with weights drawn from ``seed`` (the
+    draws, names and order of the JAX package's ``make_v4_gguf``).
+
+    ``quantize`` selects the block type of the seven layer matrices and
+    the head; ``head_quantize`` overrides it for the head. Without
+    ``head_quantize``, the bytes are the JAX package's for the same
+    ``quantize``."""
+    n_hidden = n_hidden or 4 * n_emb
+    rng = np.random.default_rng(seed)
+    w = GgufWriter()
+    w.add_metadata("general.architecture", "rwkv")
+
+    def r(*shape, scale=0.5):
+        return (rng.normal(size=shape) * scale).astype(np.float32)
+
+    def uniform():
+        return rng.uniform(0, 1, n_emb).astype(np.float32)
+
+    def addq(name, arr):
+        w.add_tensor(name, arr, quantize=quantize)
+
+    w.add_tensor("token_embd.weight", r(n_vocab, n_emb))
+    w.add_tensor("token_embd_norm.weight", 1.0 + r(n_emb, scale=0.1))
+    w.add_tensor("token_embd_norm.bias", r(n_emb, scale=0.1))
+    w.add_tensor("output_norm.weight", 1.0 + r(n_emb, scale=0.1))
+    w.add_tensor("output_norm.bias", r(n_emb, scale=0.1))
+    w.add_tensor("output.weight", r(n_vocab, n_emb),
+                 quantize=head_quantize if head_quantize is not None else quantize)
+    for i in range(n_layer):
+        p = f"blk.{i}"
+        w.add_tensor(f"{p}.attn_norm.weight", 1.0 + r(n_emb, scale=0.1))
+        w.add_tensor(f"{p}.attn_norm.bias", r(n_emb, scale=0.1))
+        w.add_tensor(f"{p}.ffn_norm.weight", 1.0 + r(n_emb, scale=0.1))
+        w.add_tensor(f"{p}.ffn_norm.bias", r(n_emb, scale=0.1))
+        w.add_tensor(f"{p}.attn_time_decay", r(n_emb))
+        w.add_tensor(f"{p}.attn_time_first", r(n_emb))
+        for s in "kvr":
+            w.add_tensor(f"{p}.attn_time_mix_{s}", uniform())
+        for name in ("attn_k", "attn_v", "attn_r", "attn_output"):
+            addq(f"{p}.{name}.weight", r(n_emb, n_emb))
         w.add_tensor(f"{p}.ffn_time_mix_k", uniform())
         w.add_tensor(f"{p}.ffn_time_mix_r", uniform())
         addq(f"{p}.ffn_k.weight", r(n_hidden, n_emb))
