@@ -1,0 +1,121 @@
+#!/usr/bin/env python3
+"""Trace of one lane of chip_smoke.py's whole-stack check for an RWKV-7
+model at B=1.
+
+chip_smoke holds ``layer_scan7`` layer by layer, each layer a one-layer
+launch on the plain version's chain, on the Engine's lanes as its timing
+phases leave them (the prompts prefilled; the token each lane generated
+last). This script rebuilds that state for ``chip_smoke.MODELS[tag]``
+(default ``v7q5``), runs lane 0 alone (B=1) down the plain chain, and at
+every layer prints, as shares of MEGA_LAYER_TOL (one bf16 step of each
+array's max): the kernel against the plain version, and the plain
+version with every quantized product moved by one f32 ulp (noise seeds 0
+to 3, as chip_smoke's ``sensitivity()``) against the plain version, and
+the plain version on the CPU (the same function, every sum in the CPU's
+order: the LoRA products and the attention core's too) against it on the
+card: how far the order of f32 sums alone moves that layer at that
+input. Needs one CUDA card; from the repo root:
+
+    python3 scripts/torch_trace_lane.py [tag]
+"""
+
+import math
+import os
+import sys
+
+import numpy as np
+import torch
+
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+
+import chip_smoke as cs  # noqa: E402
+from web_rwkv_gguf_tpu_torch import models, runtime  # noqa: E402
+from web_rwkv_gguf_tpu_torch.gguf import GgufFile  # noqa: E402
+from web_rwkv_gguf_tpu_torch.models.forward import GN_EPS, L2_EPS, LN_EPS  # noqa: E402
+from web_rwkv_gguf_tpu_torch.ops.cuda import build, layer7  # noqa: E402
+
+NOISE_SEEDS = (0, 1, 2, 3)
+
+
+def shares(got, want):
+    """Per array of a one-layer result (x, the state, v_first), max|got -
+    want| over MEGA_LAYER_TOL·max|want|; the largest and its array."""
+    a = {"x": got[0], "v_first": got[2], **got[1]}
+    b = {"x": want[0], "v_first": want[2], **want[1]}
+    s = {k: (a[k] - b[k]).abs().max().item()
+         / (cs.MEGA_LAYER_TOL * max(b[k].abs().max().item(), 1e-30)) for k in b}
+    k = max(s, key=s.get)
+    return f"{s[k]:.3f} ({k})"
+
+
+def to_cpu(tree):
+    if isinstance(tree, dict):
+        return {k: to_cpu(v) for k, v in tree.items()}
+    if isinstance(tree, tuple):
+        return tuple(to_cpu(v) for v in tree)
+    return tree.cpu() if isinstance(tree, torch.Tensor) else tree
+
+
+def noisy_slot(seed):
+    """layer7.slot_gemv_plain with each product element moved one f32 ulp up
+    or down (probability 1/4 each), from a generator seeded with seed."""
+    real = layer7.slot_gemv_plain
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+
+    def slot(desc, ops, i, x):
+        y = real(desc, ops, i, x)
+        u = torch.rand(y.shape, generator=gen, device=y.device)
+        inf = torch.full_like(y, math.inf)
+        return torch.where(u < 0.25, torch.nextafter(y, inf),
+                           torch.where(u < 0.5, torch.nextafter(y, -inf), y))
+    return slot
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("torch_trace_lane: no CUDA card", file=sys.stderr)
+        return 1
+    torch.backends.cuda.matmul.allow_tf32 = False
+    tag = sys.argv[1] if len(sys.argv) > 1 else "v7q5"
+    spec = cs.MODELS[tag]
+    build.build()
+    raw, _ = cs.build_file(tag, spec["widths"]["n_layer"], spec["seed"])
+    info, params = models.load_model(GgufFile(raw), device="cuda")
+    rng = np.random.default_rng(cs.ENGINE_SEED)
+    prompts = [[int(t) for t in rng.integers(0, cs.VOCAB, n)] for n in cs.ENGINE_LENGTHS]
+    eng = runtime.Engine(info, params, num_batch=len(prompts), token_chunk_size=cs.ENGINE_CHUNK,
+                         device="cuda")
+    out = eng.generate(prompts, cs.ENGINE_TOKENS)
+    eng.reset_state()
+    eng.generate(prompts, 1)  # the state chip_smoke's check starts from
+    mega = eng.params["mega7"]
+    x = models.embed_tokens(params, torch.tensor([[out[0][-1]]], device="cuda"))[:, 0]
+    state = {k: v[:, :1].contiguous() for k, v in eng.state.items()}
+    mask = torch.ones(1, device="cuda")
+    eps = (LN_EPS, GN_EPS, L2_EPS)
+    real = layer7.slot_gemv_plain
+    x_l, v_first = x, None
+    for i in range(mega["L"]):
+        m_i = layer7.mega_layers(mega, i, i + 1)
+        s_i = {k: v[i:i + 1] for k, v in state.items()}
+        args = (m_i, s_i, x_l, mask, None, *eps, (v_first, i))
+        want = layer7.layer_scan7_plain(*args)
+        got = layer7.layer_scan7(*args)
+        noisy = []
+        for seed in NOISE_SEEDS:
+            layer7.slot_gemv_plain = noisy_slot(seed)
+            try:
+                noisy.append(shares(layer7.layer_scan7_plain(*args), want))
+            finally:
+                layer7.slot_gemv_plain = real
+        on_cpu = layer7.layer_scan7_plain(*to_cpu(args))
+        print(f"{tag} lane 0 at B=1, layer {i}, share of MEGA_LAYER_TOL: kernel against plain "
+              f"{shares(got, want)}; plain on the CPU against plain on the card "
+              f"{shares(to_cpu(on_cpu), to_cpu(want))}; plain with one-ulp product changes "
+              f"against plain, seeds {NOISE_SEEDS}: {', '.join(noisy)}", flush=True)
+        x_l, v_first = want[0], want[2]
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -167,21 +167,28 @@ def test_wkv7_scan_on_card(card, lens):
 
 @pytest.mark.cuda
 def test_forward_refuses_what_this_slice_does_not_run_on_the_card(card):
-    """A Q4_K matrix without whole 256-element super-blocks per row raises
-    on the card, at decode and at prefill, instead of running plain code."""
-    from web_rwkv_gguf_tpu_torch.errors import UnsupportedTensorType
+    """A Q4_K matrix without whole 256-element super-blocks per row, which
+    earlier slices refused on the card, now runs there through the
+    f32-scale kernels (``qs_gemv`` at decode, ``qs_gemm`` at prefill) and
+    matches the CPU at chip_smoke.py's card-vs-CPU limit (1e-2·max)."""
     from web_rwkv_gguf_tpu_torch.gguf import GgufFile
     from web_rwkv_gguf_tpu_torch.models import forward_chunk, init_state, load_model
     from web_rwkv_gguf_tpu_torch.utils.synthetic import make_v7_gguf
 
     raw = make_v7_gguf(n_layer=1, n_emb=256, head_size=64, n_vocab=64, n_hidden=384,
                        quantize=ggml.GgmlDType.Q4_K, seed=3)
-    info, params = load_model(GgufFile(raw), device=card)
-    state = init_state(info, 1, device=card)
-    for toks in ([[1]], [[1, 2, 3]]):  # ffn.value is [256, 384]
-        with pytest.raises(UnsupportedTensorType):
-            forward_chunk(info, params, state, torch.tensor(toks, device=card),
-                          torch.tensor([len(toks[0])], device=card))
+    # ffn.value is [256, 384]: the gemv at T=1, the GEMM at T=32 (n·groups = 384)
+    for toks, kernel in (([[1]], mm.qs_gemv), ([list(range(1, 33))], mm.qs_gemm)):
+        out = []
+        for dev in ("cpu", card):
+            info, params = load_model(GgufFile(raw), device=dev)
+            before = kernel.launches
+            x, _ = forward_chunk(info, params, init_state(info, 1, device=dev),
+                                 torch.tensor(toks, device=dev),
+                                 torch.tensor([len(toks[0])], device=dev))
+            out.append((kernel.launches - before, x.cpu()))
+        assert out[0][0] == 0 and out[1][0] == 1
+        _close(out[1][1], out[0][1], 1e-2)
 
 
 @pytest.mark.cuda
@@ -569,3 +576,134 @@ def test_v5_v4_forward_routes_through_the_kernels_on_card(card, version, T):
         for i in range(info.num_layer):
             later = i > 0 and "shift" not in key
             _close(st_gpu[key][i], st_cpu[key][i], 3e-2 if later else 1e-2)
+
+
+# the forms of the f32-scale and Q5_K/Q2_K kernels: (block type, M, K)
+QS_FORMS = [("Q8_0", 2048, 2048), ("Q4_0", 768, 768), ("Q4_1", 256, 96), ("Q5_0", 768, 3072),
+            ("Q5_1", 768, 768), ("Q4_K", 256, 384), ("Q6_K", 256, 384), ("Q3_K", 256, 384)]
+QKB_FORMS = [("Q5_K", 768, 768), ("Q5_K", 3072, 768), ("Q2_K", 768, 768)]
+
+
+def _matrix(kind, m, k, seed, dev):
+    from web_rwkv_gguf_tpu_torch.models import Matrix
+
+    q = getattr(ggml, f"quantize_{kind.lower()}")
+    return Matrix.from_gguf_blocks(ggml.GgmlDType[kind], _weights(m, k, q, seed), (m, k),
+                                   device=dev)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("op,n", [("gemv", 1), ("gemv", 3), ("gemv", 8), ("gemm", 3),
+                                  ("gemm", 64), ("gemm", 130)])
+@pytest.mark.parametrize("kind,m,k", QS_FORMS)
+def test_qs_kernels_on_card(card, kind, m, k, op, n):
+    """``qs_gemv`` / ``qs_gemm`` against their plain versions over every
+    f32-scale form: i8 bytes per 32 (Q8_0) and per 16 (Q6_K, Q3_K rows
+    without whole super-blocks), u8 bytes with offsets (Q5_0, Q5_1, Q4_1
+    at K=96, an odd multiple of 32), nibbles with offsets (Q4_0, Q4_K at
+    K=384)."""
+    mat = _matrix(kind, m, k, m + k, card)
+    a = mat.arrays
+    assert "scales" in a
+    kernel, plain = getattr(mm, f"qs_{op}"), getattr(mm, f"qs_{op}_plain")
+    x = _x(n, k, n, card)
+    before = kernel.launches
+    got = kernel(x, a["codes"], a["scales"], a.get("mins"))
+    assert kernel.launches == before + 1
+    _close(got, plain(x, a["codes"], a["scales"], a.get("mins")), 1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("op,n", [("gemv", 1), ("gemv", 4), ("gemv", 8), ("gemm", 3),
+                                  ("gemm", 64), ("gemm", 130)])
+@pytest.mark.parametrize("kind,m,k", QKB_FORMS)
+def test_qkb_kernels_on_card(card, kind, m, k, op, n):
+    """``qkb_gemv`` / ``qkb_gemm`` against their plain versions (Q5_K's
+    32-groups, Q2_K's 16-groups)."""
+    a = _matrix(kind, m, k, m + k, card).arrays
+    kernel, plain = getattr(mm, f"qkb_{op}"), getattr(mm, f"qkb_{op}_plain")
+    args = (_x(n, k, n, card), *(a[key] for key in ("codes", "sc6", "mn6", "d8", "dm8")))
+    before = kernel.launches
+    got = kernel(*args)
+    assert kernel.launches == before + 1
+    _close(got, plain(*args), 1e-4)
+
+
+@pytest.mark.cuda
+def test_qs_kernels_sign_extend_on_card(card):
+    """Q8_0 codes −128 and −127 multiply as signed on the gemv and the
+    GEMM (a file may hold −128)."""
+    codes = torch.zeros(8, 64, dtype=torch.int8, device=card)
+    codes[0, 0], codes[0, 1], codes[1, 5] = -128, -127, 127
+    scales = torch.full((8, 2), 0.5, device=card)
+    x = torch.zeros(2, 64, device=card)
+    x[:, 0], x[:, 1], x[:, 5] = 1.0, 2.0, 4.0
+    for fn in (mm.qs_gemv, mm.qs_gemm):
+        y = fn(x, codes, scales)
+        assert y[0, 0].item() == 0.5 * (-128 - 2 * 127) and y[0, 1].item() == 0.5 * 127 * 4
+
+
+@pytest.mark.cuda
+def test_qs_kernels_refuse_what_they_do_not_take(card):
+    a = _matrix("Q8_0", 256, 512, 1, card).arrays
+    x = _x(9, 512, 0, card)
+    with pytest.raises(ValueError):  # 9 rows on the gemv
+        mm.qs_gemv(x, a["codes"], a["scales"])
+    with pytest.raises(ValueError):  # groups of 64
+        mm.qs_gemm(x, a["codes"], a["scales"][:, :8].contiguous())
+    with pytest.raises(ValueError):  # nibbles of another dtype
+        mm.qs_gemm(x, a["codes"][:, :256].contiguous(), a["scales"][:, :16].contiguous())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B", [1, 3, 9])
+@pytest.mark.parametrize("version,kind", [("v7", "Q5_K"), ("v7", "Q8_0"), ("v6", "Q5_K"),
+                                          ("v6", "Q8_0"), ("v7", "Q2_K"), ("v6", "Q5_1")])
+def test_layer_scan_stack_forms_on_card(card, version, kind, B):
+    """The whole-stack decode kernels on Q5_K / Q2_K (native byte-kind
+    slots) and Q8_0 / Q5_1 (f32-scale byte slots) stacks against their
+    plain versions, from a random state, one lane frozen at B ≥ 3: each
+    layer as a one-layer slice on the plain chain's input, every output at
+    2^-8·max of that layer (as test_layer_scan56_on_card); the frozen
+    lane's state is kept exactly."""
+    from web_rwkv_gguf_tpu_torch.gguf import GgufFile
+    from web_rwkv_gguf_tpu_torch.models import embed_tokens, load_model, prepare_decode
+    from web_rwkv_gguf_tpu_torch.models.forward import GN_EPS, L2_EPS, LN_EPS
+    from web_rwkv_gguf_tpu_torch.ops.cuda import layer7, layer56
+    from web_rwkv_gguf_tpu_torch.utils.synthetic import make_v6_gguf, make_v7_gguf
+
+    kw = dict(n_layer=2, n_emb=256, head_size=64, n_vocab=512, n_hidden=1024,
+              quantize=ggml.GgmlDType[kind], head_quantize=ggml.GgmlDType.Q6_K, seed=8)
+    raw = (make_v7_gguf(**kw) if version == "v7"
+           else make_v6_gguf(**kw, rank_tm=32, rank_td=64))
+    info, params = load_model(GgufFile(raw), device=card)
+    v7 = version == "v7"
+    mega = prepare_decode(params, info, B)["mega7" if v7 else "mega56"]
+    state = _random_state56(info, B, card, B)
+    x = embed_tokens(params, torch.arange(B, device=card)[:, None] * 7 + 1)[:, 0]
+    mask = torch.ones(B, device=card)
+    if B >= 3:
+        mask[1] = 0.0
+    mod = layer7 if v7 else layer56
+    scan = layer7.layer_scan7 if v7 else layer56.layer_scan56
+    before, v_first = scan.launches, None
+    for i in range(info.num_layer):
+        m_i = mod.mega_layers(mega, i, i + 1)
+        s_i = {k: v[i:i + 1] for k, v in state.items()}
+        if v7:
+            eps = (LN_EPS, GN_EPS, L2_EPS)
+            x1, s1, _ = layer7.layer_scan7(m_i, s_i, x, mask, None, *eps, (v_first, i))
+            x0, s0, v_first = layer7.layer_scan7_plain(m_i, s_i, x, mask, None, *eps,
+                                                       (v_first, i))
+        else:
+            x1, s1 = layer56.layer_scan56(m_i, s_i, x, mask, None, LN_EPS, GN_EPS,
+                                          first_layer=i)
+            x0, s0 = layer56.layer_scan56_plain(m_i, s_i, x, mask, None, LN_EPS, GN_EPS, i)
+        live = mask > 0
+        _close(x1[live], x0[live], 2.0 ** -8)
+        for key in s0:
+            _close(s1[key], s0[key], 2.0 ** -8)
+            if B >= 3:
+                assert torch.equal(s1[key][:, 1], s_i[key][:, 1])
+        x = x0
+    assert scan.launches == before + info.num_layer

@@ -113,7 +113,7 @@ def test_matmul_routes_as_quant_matmul(jax_gemv_calls, port_calls, kind, m, k, n
     assert bool(jax_gemv_calls) == gemv
     pm = port_matrix.Matrix.from_gguf_blocks(_dtype(kind, ggml.GgmlDType), raw, (m, k),
                                              device="cpu")
-    assert port_matrix.takes_gemv(kind, n, m, k) == gemv
+    assert pm.takes_gemv(n) == gemv
     got = pm.matmul(torch.from_numpy(x)).numpy()
     family = "q4k" if kind == "qk" else "q6k"
     assert port_calls == [f"{family}_{'gemv' if gemv else 'gemm'}"]

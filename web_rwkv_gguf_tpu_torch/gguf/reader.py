@@ -28,6 +28,7 @@ from pathlib import Path
 import numpy as np
 
 from ..quant.ggml import (
+    DIRECT_TYPES,
     GGML_BLOCK_SIZES,
     GGML_TYPE_SIZES,
     GgmlDType,
@@ -429,8 +430,11 @@ class GgufFile:
     def quantized_tensor(self, name: str) -> tuple[GgmlDType, np.ndarray] | None:
         """Raw quantized blocks for direct-quantized load, or None.
 
-        The port's gemv kernels read Q4_K and Q6_K blocks; every other
-        block type returns None and loads through dequantization.
+        Every block type that ``Matrix.from_gguf_blocks`` repacks
+        (:data:`DIRECT_TYPES`: Q8_0, Q4_0, Q4_1, Q5_0, Q5_1 and Q2_K to
+        Q6_K) comes back as ``(dtype, raw bytes)``; any other type, and a
+        slice of a fused tensor, returns None and loads through
+        dequantization.
         """
         if self._fused_slice(name) is not None:
             return None
@@ -438,6 +442,6 @@ class GgufFile:
         if gname is None:
             return None
         info = self.tensors[gname]
-        if info.dtype not in (GgmlDType.Q4_K, GgmlDType.Q6_K):
+        if info.dtype not in DIRECT_TYPES:
             return None
         return info.dtype, self._raw(info)

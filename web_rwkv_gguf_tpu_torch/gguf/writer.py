@@ -13,7 +13,8 @@ from io import BytesIO
 
 import numpy as np
 
-from ..quant.ggml import GgmlDType, quantize_q4_k, quantize_q6_k
+from ..quant import ggml as _ggml
+from ..quant.ggml import GgmlDType
 from .reader import GGUF_DEFAULT_ALIGNMENT, GGUF_MAGIC
 from ..errors import UnsupportedTensorType
 
@@ -104,12 +105,10 @@ class GgufWriter:
         if quantize is None:
             ggml = _NUMPY_TO_GGML[array.dtype]
             data = array.tobytes()
-        elif quantize == GgmlDType.Q4_K:
-            ggml = GgmlDType.Q4_K
-            data = quantize_q4_k(array.astype(np.float32).reshape(-1))
-        elif quantize == GgmlDType.Q6_K:
-            ggml = GgmlDType.Q6_K
-            data = quantize_q6_k(array.astype(np.float32).reshape(-1))
+        elif quantize in _ggml.DIRECT_TYPES:  # every type quant/ggml.py quantizes
+            ggml = quantize
+            fn = getattr(_ggml, f"quantize_{quantize.name.lower()}")
+            data = fn(array.astype(np.float32).reshape(-1))
         else:
             raise UnsupportedTensorType(f"unsupported quantization target: {quantize!r}")
         self._tensors.append((name, dims_gguf, ggml, data))

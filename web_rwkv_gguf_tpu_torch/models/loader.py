@@ -6,8 +6,10 @@ torch tensors on one device:
 - layer params are stacked with a leading ``[L, ...]`` axis (per-layer
   lists instead when the layers' matrices differ in kind or shape, as in
   a llama.cpp Q4_K_M file that keeps some matrices in Q6_K);
-- big matrices are :class:`Matrix` (direct-quantized Q4_K / Q6_K, or
-  dense in the model dtype after an f16 round trip);
+- big matrices are :class:`Matrix` (direct-quantized from any block
+  type ``GgufFile.quantized_tensor`` returns — Q8_0, Q4_0, Q4_1, Q5_0,
+  Q5_1, Q2_K to Q6_K — or dense in the model dtype after an f16 round
+  trip);
 - the adapters (V7's inner LoRAs, V6's ``tm_w1`` / ``tm_w2`` /
   ``td_w1`` / ``td_w2``) are dense in the model dtype; vectors are f32
   (V5's decay activated at load as exp(-exp(raw)) per head, V4's as
@@ -79,8 +81,11 @@ def prepare_decode(params: dict, info, batch_hint: int = 1) -> dict:
     ``params["mega56"]`` for RWKV-6, -5 and -4
     (``ops/cuda/layer56.prep_decode56``).
     Params it cannot arrange (a batch above the limit, per-layer blocks,
-    layer matrices that are not Q4_K with whole super-blocks) come back
-    unchanged. Idempotent."""
+    a layer matrix of a form the whole-stack kernels do not take:
+    ``layer7.stack_matrix`` takes Q4_K and Q5_K / Q2_K with whole
+    super-blocks and f32 group scales over byte codes, as Q8_0's, not yet
+    Q6_K / Q3_K, f32-scale nibbles or dense matrices) come back unchanged.
+    Idempotent."""
     if "mega7" in params or "mega56" in params or batch_hint > MAX_SCAN_BATCH:
         return params
     if info.version == ModelVersion.V7:

@@ -1,19 +1,33 @@
-"""Weight matrices over their storage formats: dense, Q4_K and Q6_K.
+"""Weight matrices over their storage formats: dense and every GGML block
+type the loader reads directly.
 
 Layout is output-major ``[M, K]`` (row = output feature), as in GGUF, so
 the quantization blocks run along K. A matrix may carry a leading layer
 axis ``[L, M, ...]``; :meth:`Matrix.layer` takes one layer's view.
 
-Kinds and their arrays:
+Kinds and their arrays (the JAX package's ``Matrix.from_gguf_blocks``
+keys, without the arrays that only lay weights out for the TPU):
 
 - ``dense``: ``w`` ``[M, K]`` in the model dtype (f32 or bf16).
-- ``qk`` (Q4_K): ``codes`` u8 ``[M, K/2]`` in split halves (byte j =
-  el(j) | el(j+K/2) << 4), ``sc6``, ``mn6`` u8 ``[M, K/32]``, ``d8``,
-  ``dm8`` f32 ``[M, K/256]``. A matrix whose K is not a multiple of 256
-  has no such factors and keeps the f32 group products ``scales``,
-  ``mins`` ``[M, K/32]`` instead; only the CPU runs it.
-- ``qk_nomin`` (Q6_K): ``codes`` i8 ``[M, K]``, ``q6s`` i8 ``[M, K/16]``,
-  ``q6d`` f32 ``[M, K/256]`` (or ``scales`` ``[M, K/16]``, as above).
+- ``qk``: ``codes`` u8 ``[M, K/2]`` in split halves (byte j = el(j) |
+  el(j+K/2) << 4). Q4_K: ``sc6``, ``mn6`` u8 ``[M, K/32]``, ``d8``,
+  ``dm8`` f32 ``[M, K/256]``; Q4_K rows that do not hold whole
+  256-element super-blocks, and Q4_0 / Q4_1 at K % 64 == 0: the f32
+  group products ``scales``, ``mins`` ``[M, K/32]`` instead.
+- ``qk_b`` (u8 byte codes ``[M, K]``, offsets): Q5_K and Q2_K with
+  ``sc6``, ``mn6`` u8 ``[M, K/32]`` (Q5_K) or ``[M, K/16]`` (Q2_K) and
+  ``d8``, ``dm8`` f32 ``[M, K/256]``; Q5_0, Q5_1 and Q4_1 at K % 64 != 0
+  (and Q5_K / Q2_K without whole super-blocks) with f32 ``scales``,
+  ``mins``.
+- ``qk_nomin`` (byte codes ``[M, K]``, no offsets): Q6_K and Q3_K (i8)
+  with ``q6s`` i8 ``[M, K/16]`` and ``q6d`` f32 ``[M, K/256]``; Q8_0 and
+  Q4_0 at K % 64 != 0 (i8, per 32), and Q6_K / Q3_K without whole
+  super-blocks (per 16), with f32 ``scales``.
+
+Each form has its gemv and dequant-GEMM kernel (``ops/cuda/matmul.py``):
+``q4k_*`` for the Q4_K factors, ``q6k_*`` for the Q6_K / Q3_K factors,
+``qkb_*`` for the Q5_K / Q2_K factors, ``qs_*`` for every form with f32
+``scales``.
 """
 
 from __future__ import annotations
@@ -25,8 +39,8 @@ import torch
 
 from ..errors import LoaderError, UnsupportedTensorType
 from ..ops.cuda.matmul import (
-    MAX_GEMV_ROWS, q4k_codes, q4k_dequantize, q4k_gemm, q4k_gemv,
-    q6k_dequantize, q6k_gemm, q6k_gemv, slab_matmul_plain,
+    MAX_GEMV_ROWS, q4k_gemm, q4k_gemv, q4k_scale_products, q6k_gemm, q6k_gemv,
+    q6k_scale_products, qkb_gemm, qkb_gemv, qs_dequantize, qs_gemm, qs_gemv,
 )
 from ..quant import repack
 from ..quant.ggml import GgmlDType
@@ -40,21 +54,56 @@ def _gemv_tiles(m: int, kdim: int) -> bool:
     return m % 8 == 0 and m <= 4096 and m * kdim <= (2 << 20)
 
 
-def takes_gemv(kind: str, n: int, m: int, k: int) -> bool:
+def takes_gemv(kind: str, n: int, m: int, k: int, groups: int) -> bool:
     """The JAX package's ``quant_matmul`` gate (ops/pallas/matmul.py:
-    1281-1287) for the port's kinds: n rows of x go to the gemv (exact
-    f32 weights) only at a small n·groups; every other call goes to the
-    dequant-GEMM (bf16-rounded weights). Following it keeps the port in
-    the JAX package's numerics class at every n."""
-    g = k // (32 if kind == "qk" else 16)
+    1281-1287): n rows of x go to the gemv (exact f32 weights) only at a
+    small n·groups; every other call goes to the dequant-GEMM
+    (bf16-rounded weights). ``groups`` is the matrix's own group count per
+    row (:meth:`Matrix.groups`), kdim its code bytes per row. Following it
+    keeps the port in the JAX package's numerics class at every n."""
     kdim = k // 2 if kind == "qk" else k
-    return (n <= MAX_GEMV_ROWS and n * g <= 256 and _gemv_tiles(m, kdim)
-            and (kind != "qk" or g % 2 == 0) and n * g * kdim * 2 <= (4 << 20))
+    return (n <= MAX_GEMV_ROWS and n * groups <= 256 and _gemv_tiles(m, kdim)
+            and (kind != "qk" or groups % 2 == 0) and n * groups * kdim * 2 <= (4 << 20))
+
+
+def scale_products(a: dict):
+    """Per-group f32 ``(scales, mins or None)`` of a quantized matrix's
+    arrays: the stored f32 arrays, or the products formed from the native
+    factors (bit-exact: the repackers form the stored products as
+    ``d·sc`` in f32 too). Works on layer-stacked arrays."""
+    if "scales" in a:
+        return a["scales"].float(), (a["mins"].float() if "mins" in a else None)
+    if "sc6" in a:
+        return q4k_scale_products(a["sc6"], a["mn6"], a["d8"], a["dm8"])
+    if "q6s" in a:
+        return q6k_scale_products(a["q6s"], a["q6d"]), None
+    raise LoaderError(f"no scale arrays among {sorted(a)}")
+
+
+# the native factor arrays' keys, by their count
+_FACTOR_KEYS = {2: ("q6s", "q6d"), 4: ("sc6", "mn6", "d8", "dm8")}
+# block type -> (kind, repacker, native factorization or None)
+_REPACK = {
+    GgmlDType.Q4_K: ("qk", "repack_q4_k", "q4k_scale_factors"),
+    GgmlDType.Q5_K: ("qk_b", "repack_q5_k", "q5k_scale_factors"),
+    GgmlDType.Q2_K: ("qk_b", "repack_q2_k", "q2k_scale_factors"),
+    GgmlDType.Q6_K: ("qk_nomin", "repack_q6_k", "q6k_scale_factors"),
+    GgmlDType.Q3_K: ("qk_nomin", "repack_q3_k", "q3k_scale_factors"),
+    GgmlDType.Q8_0: ("qk_nomin", "repack_q8_0", None),
+    GgmlDType.Q4_0: ("qk", "repack_q4_0", None),  # split-halves nibbles: the Q4_K group form
+    GgmlDType.Q4_1: ("qk", "repack_q4_1", None),
+    GgmlDType.Q5_0: ("qk_b", "repack_q5_0", None),
+    GgmlDType.Q5_1: ("qk_b", "repack_q5_1", None),
+}
+# the byte-code form of the 4-bit legacy types where K % 64 != 0 (the
+# split halves would not stay 32-group aligned)
+_BYTES_REPACK = {GgmlDType.Q4_0: ("qk_nomin", "repack_q4_0_bytes"),
+                 GgmlDType.Q4_1: ("qk_b", "repack_q4_1_bytes")}
 
 
 @dataclass
 class Matrix:
-    kind: str  # "dense" | "qk" | "qk_nomin"
+    kind: str  # "dense" | "qk" | "qk_b" | "qk_nomin"
     shape: tuple[int, int]  # logical (M, K), without a layer axis
     arrays: dict[str, torch.Tensor]
 
@@ -65,28 +114,20 @@ class Matrix:
     @classmethod
     def from_gguf_blocks(cls, dtype: GgmlDType, raw: np.ndarray, shape,
                          device="cuda") -> "Matrix":
-        """Repack raw GGML blocks into the kind's arrays on ``device``."""
+        """Repack raw GGML blocks into the kind's arrays on ``device``
+        (the kinds and keys of the module docstring)."""
         m, k = int(shape[0]), int(shape[1])
-        if dtype == GgmlDType.Q4_K:
-            codes, scales, mins = repack.repack_q4_k(raw, m, k)
-            factors = repack.q4k_scale_factors(raw, m, k)
-            if factors is not None:
-                sc6, mn6, d8, dm8 = factors
-                arrays = {"codes": codes, "sc6": sc6, "mn6": mn6, "d8": d8,
-                          "dm8": dm8}
-            else:
-                arrays = {"codes": codes, "scales": scales, "mins": mins}
-            kind = "qk"
-        elif dtype == GgmlDType.Q6_K:
-            codes, scales = repack.repack_q6_k(raw, m, k)
-            factors = repack.q6k_scale_factors(raw, m, k)
-            if factors is not None:
-                arrays = {"codes": codes, "q6s": factors[0], "q6d": factors[1]}
-            else:
-                arrays = {"codes": codes, "scales": scales}
-            kind = "qk_nomin"
-        else:
+        if dtype not in _REPACK:
             raise UnsupportedTensorType(f"no direct-quantized repack for {dtype!r}")
+        kind, repack_fn, factors_fn = _REPACK[dtype]
+        if dtype in _BYTES_REPACK and k % 64:
+            kind, repack_fn = _BYTES_REPACK[dtype]
+        codes, *scales = getattr(repack, repack_fn)(raw, m, k)
+        factors = getattr(repack, factors_fn)(raw, m, k) if factors_fn else None
+        if factors is not None:  # native factors: the f32 products are not kept
+            arrays = {"codes": codes, **dict(zip(_FACTOR_KEYS[len(factors)], factors))}
+        else:
+            arrays = {"codes": codes, **dict(zip(("scales", "mins"), scales))}
         return cls(kind, (m, k), {
             key: torch.from_numpy(np.require(a, requirements="CW")).to(device)
             for key, a in arrays.items()})
@@ -103,28 +144,25 @@ class Matrix:
         m, kc = a["codes"].shape[-2:]
         return (m, kc * 2) if self.kind == "qk" else (m, kc)
 
+    def groups(self) -> int:
+        """Quantization groups per row, from the matrix's scale arrays."""
+        a = self.arrays
+        return next(a[key].shape[-1] for key in ("scales", "sc6", "q6s") if key in a)
+
+    def takes_gemv(self, n: int) -> bool:
+        """Whether a single-layer quantized matrix multiplies n rows of x
+        on its gemv (else on its dequant-GEMM): :func:`takes_gemv`."""
+        m, k = self.dims()
+        return takes_gemv(self.kind, n, m, k, self.groups())
+
     def dequantize(self) -> torch.Tensor:
         """The dense f32 ``[M, K]`` weight of a single-layer matrix."""
         a = self.arrays
         if self.kind == "dense":
             return a["w"].float()
-        m, k = self.dims()
-        if self.kind == "qk" and "sc6" in a:
-            return q4k_dequantize(a["codes"], a["sc6"], a["mn6"], a["d8"], a["dm8"])
-        if self.kind == "qk_nomin" and "q6s" in a:
-            return q6k_dequantize(a["codes"], a["q6s"], a["q6d"])
-        if self.kind in ("qk", "qk_nomin"):
-            g = a["scales"].shape[-1]
-            w = self._codes().view(m, g, k // g) * a["scales"][..., None]
-            if "mins" in a:
-                w = w - a["mins"][..., None]
-            return w.view(m, k)
-        raise LoaderError(f"unknown matrix kind {self.kind}")
-
-    def _codes(self) -> torch.Tensor:
-        """The f32 codes ``[M, K]`` of a quantized single-layer matrix."""
-        codes = self.arrays["codes"]
-        return q4k_codes(codes) if self.kind == "qk" else codes.float()
+        if self.kind not in ("qk", "qk_b", "qk_nomin"):
+            raise LoaderError(f"unknown matrix kind {self.kind}")
+        return qs_dequantize(a["codes"], *scale_products(a), k=self.dims()[1])
 
     def matmul(self, x: torch.Tensor) -> torch.Tensor:
         """``y[..., m] = Σ_k x[..., k] W[m, k]``, f32 result, for a
@@ -132,10 +170,12 @@ class Matrix:
 
         Dense weights multiply in f32 after rounding x to the weight's
         dtype (a bf16 weight gives bf16 operands and an f32 product, not
-        a bf16 one). Quantized kinds go through the gemv kernels where
-        :func:`takes_gemv` says so and through the dequant-GEMM kernels
-        otherwise (``ops/cuda/matmul.py``); on the CPU those take their
-        plain versions.
+        a bf16 one). Quantized kinds go through their form's gemv where
+        :meth:`takes_gemv` says so and through its dequant-GEMM otherwise
+        (``ops/cuda/matmul.py``), as the JAX package's ``quant_matmul``
+        dispatches: native Q4_K factors → ``q4k_*``, native Q5_K / Q2_K →
+        ``qkb_*``, native Q6_K / Q3_K → ``q6k_*``, f32 scales → ``qs_*``.
+        On the CPU those take their plain versions.
         """
         m, k = self.dims()
         lead = x.shape[:-1]
@@ -147,20 +187,13 @@ class Matrix:
                 y = x2.float() @ w.T
             else:
                 y = x2.to(w.dtype).float() @ w.float().T
+            return y.reshape(lead + (m,))
+        gemv = self.takes_gemv(x2.shape[0])
+        if "sc6" in a:
+            family = (q4k_gemv, q4k_gemm) if self.kind == "qk" else (qkb_gemv, qkb_gemm)
+            y = family[0 if gemv else 1](x2, a["codes"], a["sc6"], a["mn6"], a["d8"], a["dm8"])
+        elif "q6s" in a:
+            y = (q6k_gemv if gemv else q6k_gemm)(x2, a["codes"], a["q6s"], a["q6d"])
         else:
-            gemv = takes_gemv(self.kind, x2.shape[0], m, k)
-            if self.kind == "qk" and "sc6" in a:
-                y = (q4k_gemv if gemv else q4k_gemm)(
-                    x2, a["codes"], a["sc6"], a["mn6"], a["d8"], a["dm8"])
-            elif self.kind == "qk_nomin" and "q6s" in a:
-                y = (q6k_gemv if gemv else q6k_gemm)(
-                    x2, a["codes"], a["q6s"], a["q6d"])
-            elif x.is_cuda:
-                raise UnsupportedTensorType(
-                    f"{self.kind} matrix [{m}, {k}]: K-quant rows that do not "
-                    "hold whole 256-element super-blocks have no CUDA kernel yet")
-            elif gemv:
-                y = x2.to(torch.bfloat16).float() @ self.dequantize().T
-            else:
-                y = slab_matmul_plain(x2, self._codes(), a["scales"], a.get("mins"))
+            y = (qs_gemv if gemv else qs_gemm)(x2, a["codes"], a["scales"], a.get("mins"))
         return y.reshape(lead + (m,))

@@ -1,18 +1,27 @@
 // Device code shared by the whole-stack decode kernels (layer7.cu, layer56.cu):
-// Q4_K and bf16 row gemvs for up to 16 lanes, LayerNorm rows, block and warp
+// quantized (Q4_K, Q5_K / Q2_K, f32-scale bytes) and bf16 row gemvs for up
+// to 16 lanes, LayerNorm rows, block and warp
 // sums, staging through L2, L2 prefetch, and the device clock. Each kernel
 // is one cooperative launch of 256-thread blocks that walks the layers.
 //
 // Q4_K rows use the port's split-halves layout (models/matrix.py): code
 // byte j of a row holds elements j (low nibble) and j + K/2 (high nibble);
 // the weight is q * (d * sc) - dmin * mn per 32-element group, in f32 (the
-// gemv class of q4k_gemv.cu).
+// gemv class of q4k_gemv.cu). Byte-code rows hold one code a byte, with
+// s = d * sc and mn = dmin * mn formed in f32 per 32- or 16-group (Q5_K,
+// Q2_K) or f32 group scales and optional mins (Q8_0, Q5_0, Q5_1, Q4_1 and
+// Q4_0 bytes): the gemv class of qkb_gemv.cu and qs_gemv.cu, with their
+// scale sources and code decoding (qscales.cuh).
 
 #pragma once
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <initializer_list>
+
+#include "qscales.cuh"
 
 namespace {
 
@@ -21,12 +30,25 @@ constexpr int kWarps = kThreads / 32;
 constexpr int kMaxB = 16;           // lanes one launch takes
 constexpr int kMaxSmem = 232448;    // bytes of shared memory a block may use
 
-struct Q4K {
-  const uint8_t* codes;  // [L, M, K/2] split halves
-  const uint8_t* sc6;    // [L, M, K/32]
-  const uint8_t* mn6;    // [L, M, K/32]
-  const float* d8;       // [L, M, K/256]
-  const float* dm8;      // [L, M, K/256]
+// A layer-stacked quantized matrix in one of the forms the kernels take,
+// picked per matrix slot at run time (a warp-uniform switch, no template
+// axis): the descriptor int packs form | signed << 2 | group size << 3.
+enum MatForm {
+  kFormQ4K = 0,  // codes u8 [L, M, K/2] split halves; p1, p2 = sc6, mn6 u8
+                 // [L, M, K/32]; d8, dm8 f32 [L, M, K/256]
+  kFormQKB = 1,  // Q5_K / Q2_K: codes u8 [L, M, K]; p1, p2 = sc6, mn6 u8
+                 // [L, M, K/gs]; d8, dm8 f32 [L, M, K/256]
+  kFormQS = 2,   // f32 group scales: codes u8 or i8 [L, M, K]; p1 = scales,
+                 // p2 = mins (or null) f32 [L, M, K/gs]; no d8, dm8
+};
+
+struct QMat {
+  const uint8_t* codes;
+  const void* p1;
+  const void* p2;
+  const float* d8;
+  const float* dm8;
+  int form, sgn, gs;
 };
 
 __device__ __forceinline__ unsigned long long globaltimer_ns() {
@@ -112,19 +134,23 @@ __device__ void prefetch_l2(const void* p, size_t bytes) {
   }
 }
 
-__device__ void prefetch_q4k(const Q4K& w, int l, int M, int k) {
+__device__ void prefetch_mat(const QMat& w, int l, int M, int k) {
   const size_t rows = (size_t)M, at = (size_t)l * rows;
-  prefetch_l2(w.codes + at * (k / 2), rows * (k / 2));
-  prefetch_l2(w.sc6 + at * (k / 32), rows * (k / 32));
-  prefetch_l2(w.mn6 + at * (k / 32), rows * (k / 32));
-  prefetch_l2(w.d8 + at * (k / 256), rows * (k / 256) * 4);
-  prefetch_l2(w.dm8 + at * (k / 256), rows * (k / 256) * 4);
+  const size_t cb = w.form == kFormQ4K ? k / 2 : k;      // code bytes per row
+  const size_t fb = w.form == kFormQS ? 4 * (k / w.gs) : k / w.gs;  // factor bytes
+  prefetch_l2(w.codes + at * cb, rows * cb);
+  prefetch_l2(static_cast<const char*>(w.p1) + at * fb, rows * fb);
+  if (w.p2 != nullptr) prefetch_l2(static_cast<const char*>(w.p2) + at * fb, rows * fb);
+  if (w.d8 != nullptr) {
+    prefetch_l2(w.d8 + at * (k / 256), rows * (k / 256) * 4);
+    prefetch_l2(w.dm8 + at * (k / 256), rows * (k / 256) * 4);
+  }
 }
 
 // One Q4_K output row m of layer l for every lane: acc[t] = x[t] . W[m].
 // xs: shared bf16 [B, k]. Called by a whole warp.
 template <int NB>
-__device__ void q4k_row(const Q4K& w, int l, int M, int m, int k, const __nv_bfloat16* xs,
+__device__ void q4k_row(const QMat& w, int l, int M, int m, int k, const __nv_bfloat16* xs,
                         int B, float* acc) {
   const int lane = threadIdx.x & 31;
   const int half = k >> 1;
@@ -132,8 +158,8 @@ __device__ void q4k_row(const Q4K& w, int l, int M, int m, int k, const __nv_bfl
   const int g32 = k >> 5, g256 = k >> 8;
   const size_t row = (size_t)l * M + m;
   const uint8_t* crow = w.codes + row * half;
-  const uint8_t* srow = w.sc6 + row * g32;
-  const uint8_t* mrow = w.mn6 + row * g32;
+  const uint8_t* srow = static_cast<const uint8_t*>(w.p1) + row * g32;
+  const uint8_t* mrow = static_cast<const uint8_t*>(w.p2) + row * g32;
   const float* drow = w.d8 + row * g256;
   const float* dmrow = w.dm8 + row * g256;
 #pragma unroll
@@ -178,6 +204,70 @@ __device__ void q4k_row(const Q4K& w, int l, int M, int m, int k, const __nv_bfl
   for (int t = 0; t < NB; ++t) acc[t] = warp_sum(acc[t]);
 }
 
+// One output row m of layer l of a byte-code matrix (kFormQKB or kFormQS)
+// for every lane: acc[t] = x[t] . W[m], in f32 on the exact weight q * s -
+// mn, formed per element (a 16-element chunk never straddles a 16- or
+// 32-group). xs: shared bf16 [B, k]. Called by a warp.
+template <int NB>
+__device__ void byte_row(const QMat& w, int l, int M, int m, int k, const __nv_bfloat16* xs,
+                         int B, float* acc) {
+  const int lane = threadIdx.x & 31;
+  const int G = k / w.gs;
+  const size_t row = (size_t)l * M + m;
+  const uint8_t* crow = w.codes + row * k;
+#pragma unroll
+  for (int t = 0; t < NB; ++t) acc[t] = 0.f;
+  for (int c = lane; c < (k >> 4); c += 32) {
+    const int j0 = c << 4;
+    const int g = j0 / w.gs;
+    const uint4 raw = __ldg(reinterpret_cast<const uint4*>(crow + j0));
+    float s, off;
+    if (w.form == kFormQKB) {
+      NativeScales{static_cast<const uint8_t*>(w.p1), static_cast<const uint8_t*>(w.p2), w.d8,
+                   w.dm8, G, 256 / w.gs}.get(row, g, s, off);
+    } else {
+      F32Scales{static_cast<const float*>(w.p1), static_cast<const float*>(w.p2), G}.get(
+          row, g, s, off);
+    }
+    const uint32_t words[4] = {raw.x, raw.y, raw.z, raw.w};
+    float wv[16];  // the weights q * s - mn of the chunk
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+#pragma unroll
+      for (int b = 0; b < 4; ++b) {
+        const float q = w.sgn ? code_at<kI8>(words[i], b) : code_at<kU8>(words[i], b);
+        wv[4 * i + b] = q * s - off;
+      }
+    }
+#pragma unroll
+    for (int t = 0; t < NB; ++t) {
+      if (t < B) {
+        const uint4* xp = reinterpret_cast<const uint4*>(xs + (size_t)t * k + j0);
+        float f[16];
+        bf16x8(xp[0], f);
+        bf16x8(xp[1], f + 8);
+        float p = 0.f;
+#pragma unroll
+        for (int e = 0; e < 16; ++e) p += wv[e] * f[e];
+        acc[t] += p;
+      }
+    }
+  }
+#pragma unroll
+  for (int t = 0; t < NB; ++t) acc[t] = warp_sum(acc[t]);
+}
+
+// One output row of a quantized layer matrix in whichever form it has.
+template <int NB>
+__device__ __forceinline__ void mat_row(const QMat& w, int l, int M, int m, int k,
+                                        const __nv_bfloat16* xs, int B, float* acc) {
+  if (w.form == kFormQ4K) {
+    q4k_row<NB>(w, l, M, m, k, xs, B, acc);
+  } else {
+    byte_row<NB>(w, l, M, m, k, xs, B, acc);
+  }
+}
+
 // One bf16 dense row (k elements) for every lane: acc[t] = x[t] . w.
 template <int NB>
 __device__ void bf16_row(const __nv_bfloat16* wrow, int k, const __nv_bfloat16* xs, int B,
@@ -210,14 +300,31 @@ T take(const void* const* p, int& i) {
   return (T)(p[i++]);
 }
 
-Q4K take_q4k(const void* const* p, int& i) {
-  Q4K w;
+// A matrix slot's five pointers (codes, p1, p2, d8, dm8; null where the
+// form has none) and its descriptor (see MatForm).
+QMat take_mat(const void* const* p, int& i, int desc) {
+  QMat w;
   w.codes = take<const uint8_t*>(p, i);
-  w.sc6 = take<const uint8_t*>(p, i);
-  w.mn6 = take<const uint8_t*>(p, i);
+  w.p1 = take<const void*>(p, i);
+  w.p2 = take<const void*>(p, i);
   w.d8 = take<const float*>(p, i);
   w.dm8 = take<const float*>(p, i);
+  w.form = desc & 3;
+  w.sgn = (desc >> 2) & 1;
+  w.gs = desc >> 3;
   return w;
+}
+
+// Whether a slot's descriptor and pointers make a matrix the kernels take
+// at [M, K] (K % 256 == 0 is checked by the caller).
+bool mat_ok(const QMat& w) {
+  if (w.codes == nullptr || w.p1 == nullptr) return false;
+  switch (w.form) {
+    case kFormQ4K: return w.gs == 32 && w.p2 && w.d8 && w.dm8;
+    case kFormQKB: return (w.gs == 16 || w.gs == 32) && w.p2 && w.d8 && w.dm8;
+    case kFormQS: return w.gs == 16 || w.gs == 32;
+    default: return false;
+  }
 }
 
 }  // namespace

@@ -6,7 +6,9 @@
 // with each of its static versions 6, 5 and 4 (the template parameter V).
 //
 // Version 6. Per layer l, for B <= 16 lanes (the residual x [B, C] is
-// carried in place; Q(.) is a Q4_K gemv of the bf16-rounded input, bf(.) a
+// carried in place; Q(.) is a quantized gemv of the bf16-rounded input (Q4_K,
+// Q5_K, Q2_K or an f32-scale byte form, picked per matrix slot at run time;
+// decode_common.cuh), bf(.) a
 // bf16 adapter product with f32 sums):
 //   xx = LN1(x); sx = xx + mix_x (sh - xx)
 //   z = bf16(tanh(bf(tm_w1 sx)));  mix_s = bf(tm_w2[s] z_s) + time_mix[s]
@@ -24,7 +26,7 @@
 //
 // Numerics are the class of the JAX kernel at its default settings: every
 // quantized matrix multiplies the bf16-rounded input by the exact f32 weight
-// q * (d * sc) - dmin * mn (the gemv class of q4k_gemv.cu, at every B), the
+// (the gemv class of q4k_gemv.cu, qkb_gemv.cu and qs_gemv.cu, at every B), the
 // four adapters take bf16 operands and accumulate in f32 (their tanh outputs
 // rounded to bf16 before the up product), everything else is f32 with IEEE
 // expf (no fast math: StableExp and the group norm stay exact to f32).
@@ -47,8 +49,8 @@
 // writes it: pp holds the F32_MIN sentinel, next to which a blend
 // S + m (S_new - S) would round S_new away.
 //
-// Bound on this card: the weights are read once per token (8 Q4_K matrices,
-// ~30.7 MB per layer at the 1.6B widths, plus 0.9 MB of bf16 adapters) and
+// Bound on this card: the weights are read once per token (8 matrices, in
+// Q4_K ~30.7 MB per layer at the 1.6B widths, plus 0.9 MB of bf16 adapters) and
 // the WKV state is read and written once (B * 1 MB per layer), so the step
 // is bound by HBM bytes; its dependency chain has seven phases per layer.
 //
@@ -61,7 +63,7 @@
 //      down-projection tm_w1 (5R rows) and tanh -> z;
 //   2. the five mixes, one (mix, channel) item per thread -> the five
 //      inputs, bf16 in global scratch (no block could hold all of them);
-//   3. Wr, Wk, Wv, Wg (Q4_K, one warp per row, all lanes per decoded
+//   3. Wr, Wk, Wv, Wg (one warp per row, all lanes per decoded
 //      weight), each over its input staged in shared memory in turn; the
 //      decay down-projection td_w1 and tanh -> dz;
 //   4. per (lane, head), one block of 256 threads, four per channel: the
@@ -73,7 +75,7 @@
 //   7. the FFN value, x += sigmoid(rf) * vf, and the rescale.
 // Versions 5 and 4 need fewer phases (their mixes are static, so each block
 // can form a mixed input from LN1 and the shift state alone):
-//   1. LN1, the static mixes and the Q4_K projections r, k, v (and g), each
+//   1. LN1, the static mixes and the projections r, k, v (and g), each
 //      input staged in shared memory in turn. Version 4 then runs the WKV
 //      step of channel m in the warp that computed row m of all three: the
 //      rows of a projection go to warps by (block, warp) alone, so that warp
@@ -114,7 +116,7 @@ struct Args {
   const __nv_bfloat16* tm_w2;                   // [L, 5, C, R] (V6)
   const __nv_bfloat16* td_w1;                   // [L, D, C] (V6)
   const __nv_bfloat16* td_w2;                   // [L, C, D] (V6)
-  Q4K wr, wk, wv, wg, wo, fk, fv, fr;           // no wg for V4
+  QMat wr, wk, wv, wg, wo, fk, fv, fr;           // no wg for V4
   const float *ash_in, *fsh_in, *wkv_in;        // [L, B, C] x2, [L, B, H, 64, 64] (V6, V5)
   float *ash_out, *fsh_out, *wkv_out;
   const float* mask;                            // [B], 0 or 1
@@ -147,10 +149,10 @@ __device__ void phase_shift(const Args& a, int l, unsigned char* smem) {
   const int C = a.C, B = a.B, R5 = 5 * a.R;
   prefetch_l2(a.tm_w2 + (size_t)l * 5 * C * a.R, (size_t)5 * C * a.R * 2);  // phase 2
   prefetch_l2(a.td_w1 + (size_t)l * a.D * C, (size_t)a.D * C * 2);          // phase 3
-  prefetch_q4k(a.wr, l, C, C);
-  prefetch_q4k(a.wk, l, C, C);
-  prefetch_q4k(a.wv, l, C, C);
-  prefetch_q4k(a.wg, l, C, C);
+  prefetch_mat(a.wr, l, C, C);
+  prefetch_mat(a.wk, l, C, C);
+  prefetch_mat(a.wv, l, C, C);
+  prefetch_mat(a.wg, l, C, C);
   float* rows = reinterpret_cast<float*>(smem);
   __nv_bfloat16* xs = reinterpret_cast<__nv_bfloat16*>(smem + (size_t)B * C * 4);
   layer_norm_rows(a.x, B, C, a.eps_ln, a.ln1_w + (size_t)l * C, a.ln1_b + (size_t)l * C,
@@ -232,7 +234,7 @@ __device__ void phase_mix(const Args& a, int l, float* smem) {
   }
 }
 
-// Phase 3: r, k, v, g (Q4_K) over their inputs, staged in turn; then the
+// Phase 3: r, k, v, g over their inputs, staged in turn; then the
 // decay down-projection over the w input, tanh -> dz.
 template <int NB>
 __device__ void phase_proj(const Args& a, int l, __nv_bfloat16* xs) {
@@ -240,16 +242,16 @@ __device__ void phase_proj(const Args& a, int l, __nv_bfloat16* xs) {
   // for phase 4: the decay up-projection and the WKV state; for phase 5: Wo
   prefetch_l2(a.td_w2 + (size_t)l * C * D, (size_t)C * D * 2);
   prefetch_l2(a.wkv_in + (size_t)l * B * H * kHs * kHs, (size_t)B * H * kHs * kHs * 4);
-  prefetch_q4k(a.wo, l, C, C);
+  prefetch_mat(a.wo, l, C, C);
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   float acc[NB];
   for (int j = 0; j < 4; ++j) {  // r, k, v, g
-    const Q4K& w = j == 0 ? a.wr : (j == 1 ? a.wk : (j == 2 ? a.wv : a.wg));
+    const QMat& w = j == 0 ? a.wr : (j == 1 ? a.wk : (j == 2 ? a.wv : a.wg));
     const int in = j == 0 ? kInR : (j == 1 ? kInK : (j == 2 ? kInV : kInG));
     __syncthreads();  // the previous input's readers are done
     stage(xs, a.mixed + (size_t)in * B * C, B * C);
     for (int m = blockIdx.x * kWarps + warp; m < C; m += gridDim.x * kWarps) {
-      q4k_row<NB>(w, l, C, m, C, xs, B, acc);
+      mat_row<NB>(w, l, C, m, C, xs, B, acc);
       if (lane == 0) {
         for (int t = 0; t < B; ++t) a.rkvg[((size_t)j * B + t) * C + m] = acc[t];
       }
@@ -273,9 +275,9 @@ __device__ void phase_proj(const Args& a, int l, __nv_bfloat16* xs) {
 template <int V>
 __device__ void phase_att(const Args& a, int l, float* smem) {
   const int C = a.C, B = a.B, H = a.H, D = V == 6 ? a.D : 0;
-  prefetch_q4k(a.fk, l, a.hidden, C);  // for phases 6 and 7
-  prefetch_q4k(a.fr, l, C, C);
-  prefetch_q4k(a.fv, l, C, a.hidden);
+  prefetch_mat(a.fk, l, a.hidden, C);  // for phases 6 and 7
+  prefetch_mat(a.fr, l, C, C);
+  prefetch_mat(a.fv, l, C, a.hidden);
   const int part = threadIdx.x / kHs, t = threadIdx.x % kHs;
   float* red = smem;             // kWarps
   float* s_dz = red + kWarps;    // D
@@ -378,7 +380,7 @@ __device__ void wkv4_row(const Args& a, int l, int m, const float* acc) {
 
 // Phase 1 of versions 5 and 4: LN1 and the att shift state (block 0 writes
 // it); then per projection (r, k, v, and g for V5) its static mix
-// sh + mix (xx - sh) staged in shared memory as bf16 and its Q4_K rows. In
+// sh + mix (xx - sh) staged in shared memory as bf16 and its matrix rows. In
 // version 4 the v pass ends with the WKV step of each row (wkv4_row).
 template <int V, int NB>
 __device__ void phase_static_proj(const Args& a, int l, unsigned char* smem) {
@@ -387,7 +389,7 @@ __device__ void phase_static_proj(const Args& a, int l, unsigned char* smem) {
   if constexpr (V == 5) {  // for phase 2
     prefetch_l2(a.wkv_in + (size_t)l * B * C * kHs, (size_t)B * C * kHs * 4);
   }
-  prefetch_q4k(a.wo, l, C, C);
+  prefetch_mat(a.wo, l, C, C);
   float* rows = reinterpret_cast<float*>(smem);
   __nv_bfloat16* xs = reinterpret_cast<__nv_bfloat16*>(smem + (size_t)B * C * 4);
   layer_norm_rows(a.x, B, C, a.eps_ln, a.ln1_w + (size_t)l * C, a.ln1_b + (size_t)l * C,
@@ -395,7 +397,7 @@ __device__ void phase_static_proj(const Args& a, int l, unsigned char* smem) {
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   float acc[NB];
   for (int j = 0; j < kProj; ++j) {  // r, k, v, g
-    const Q4K& w = j == 0 ? a.wr : (j == 1 ? a.wk : (j == 2 ? a.wv : a.wg));
+    const QMat& w = j == 0 ? a.wr : (j == 1 ? a.wk : (j == 2 ? a.wv : a.wg));
     const float* mixv = j == 0 ? a.mix_r : (j == 1 ? a.mix_k : (j == 2 ? a.mix_v : a.mix_g));
     if (j > 0) __syncthreads();  // the previous projection's readers of xs are done
     for (int c = threadIdx.x; c < C; c += blockDim.x) {
@@ -415,7 +417,7 @@ __device__ void phase_static_proj(const Args& a, int l, unsigned char* smem) {
     }
     __syncthreads();
     for (int m = blockIdx.x * kWarps + warp; m < C; m += gridDim.x * kWarps) {
-      q4k_row<NB>(w, l, C, m, C, xs, B, acc);
+      mat_row<NB>(w, l, C, m, C, xs, B, acc);
       if (lane == 0) {
         if (V == 4 && j == 2) {
           wkv4_row<NB>(a, l, m, acc);
@@ -435,7 +437,7 @@ __device__ void phase_wo(const Args& a, int l, __nv_bfloat16* xs) {
   stage(xs, a.y, B * C);
   float acc[NB];
   for (int m = blockIdx.x * kWarps + warp; m < C; m += gridDim.x * kWarps) {
-    q4k_row<NB>(a.wo, l, C, m, C, xs, B, acc);
+    mat_row<NB>(a.wo, l, C, m, C, xs, B, acc);
     if (lane == 0) {
       for (int t = 0; t < B; ++t) {
         float* xp = a.x + (size_t)t * C + m;
@@ -478,7 +480,7 @@ __device__ void phase_ffn_in(const Args& a, int l, unsigned char* smem) {
     __syncthreads();
     if (j == 0) {
       for (int m = blockIdx.x * kWarps + warp; m < a.hidden; m += gridDim.x * kWarps) {
-        q4k_row<NB>(a.fk, l, a.hidden, m, C, xs, B, acc);
+        mat_row<NB>(a.fk, l, a.hidden, m, C, xs, B, acc);
         if (lane == 0) {
           for (int t = 0; t < B; ++t) {
             const float p = fmaxf(acc[t], 0.f);
@@ -488,7 +490,7 @@ __device__ void phase_ffn_in(const Args& a, int l, unsigned char* smem) {
       }
     } else {
       for (int m = blockIdx.x * kWarps + warp; m < C; m += gridDim.x * kWarps) {
-        q4k_row<NB>(a.fr, l, C, m, C, xs, B, acc);
+        mat_row<NB>(a.fr, l, C, m, C, xs, B, acc);
         if (lane == 0) {
           for (int t = 0; t < B; ++t) a.rf[(size_t)t * C + m] = acc[t];
         }
@@ -505,10 +507,10 @@ __device__ void phase_ffn_out(const Args& a, int l, __nv_bfloat16* xs) {
     if constexpr (V == 6) {
       prefetch_l2(a.tm_w1 + (size_t)(l + 1) * 5 * a.R * C, (size_t)5 * a.R * C * 2);
     } else {
-      prefetch_q4k(a.wr, l + 1, C, C);
-      prefetch_q4k(a.wk, l + 1, C, C);
-      prefetch_q4k(a.wv, l + 1, C, C);
-      if constexpr (V == 5) prefetch_q4k(a.wg, l + 1, C, C);
+      prefetch_mat(a.wr, l + 1, C, C);
+      prefetch_mat(a.wk, l + 1, C, C);
+      prefetch_mat(a.wv, l + 1, C, C);
+      if constexpr (V == 5) prefetch_mat(a.wg, l + 1, C, C);
     }
   }
   const bool half_x = a.rescale > 0 && (a.first_layer + l + 1) % a.rescale == 0;
@@ -516,7 +518,7 @@ __device__ void phase_ffn_out(const Args& a, int l, __nv_bfloat16* xs) {
   stage(xs, a.khid, B * a.hidden);
   float acc[NB];
   for (int m = blockIdx.x * kWarps + warp; m < C; m += gridDim.x * kWarps) {
-    q4k_row<NB>(a.fv, l, C, m, a.hidden, xs, B, acc);
+    mat_row<NB>(a.fv, l, C, m, a.hidden, xs, B, acc);
     if (lane == 0) {
       for (int t = 0; t < B; ++t) {
         float* xp = a.x + (size_t)t * C + m;
@@ -619,16 +621,18 @@ cudaError_t launch_version(const Args& a, cudaStream_t s) {
 
 // ptrs: 83 device pointers in the order of the fields of Args above (ln1_w,
 // ln1_b, ln2_w, ln2_b, mix_x, decay, first, gn_w, gn_b, ffn_mk, ffn_mr,
-// time_mix, tm_w1, tm_w2, td_w1, td_w2, then codes/sc6/mn6/d8/dm8 of Wr, Wk,
-// Wv, Wg, Wo, FFN key, FFN value, FFN receptance, then ash_in, fsh_in,
+// time_mix, tm_w1, tm_w2, td_w1, td_w2, then the five pointers (codes, p1,
+// p2, d8, dm8 of decode_common.cuh's QMat) of Wr, Wk, Wv, Wg, Wo, FFN key,
+// FFN value, FFN receptance, then ash_in, fsh_in,
 // wkv_in, ash_out, fsh_out, wkv_out, mask, x, then the scratch xx, z, mixed,
 // rkvg, dz, y, khid, rf, then phase_ns, null or u64 [1 + P L] that receives
 // the %globaltimer at the start and after each phase's barrier (P = 7, 5, 4
 // phases per layer for versions 6, 5, 4), then mix_k, mix_v, mix_r, mix_g,
 // aa_in, bb_in, pp_in, aa_out, bb_out, pp_out); a pointer a version does not
 // read is null (see Args). ints: L, B, C, H, hidden, R (time-mix rank), D
-// (decay rank), rescale (0 for none), first_layer, version (6, 5 or 4);
-// floats: eps_ln, eps_gn. Every array contiguous and 16-byte aligned, C and
+// (decay rank), rescale (0 for none), first_layer, version (6, 5 or 4),
+// then the eight matrices' descriptors (MatForm, decode_common.cuh; Wg's
+// is not read for version 4); floats: eps_ln, eps_gn. Every array contiguous and 16-byte aligned, C and
 // hidden multiples of 256, 1 <= B <= 16; for versions 6 and 5 C == H * 64;
 // for version 6 R and D multiples of 8. Returns the cudaError_t of the
 // launch.
@@ -652,14 +656,14 @@ extern "C" int layer_scan56(const void* const* ptrs, const int* ints, const floa
   a.tm_w2 = take<const __nv_bfloat16*>(ptrs, i);
   a.td_w1 = take<const __nv_bfloat16*>(ptrs, i);
   a.td_w2 = take<const __nv_bfloat16*>(ptrs, i);
-  a.wr = take_q4k(ptrs, i);
-  a.wk = take_q4k(ptrs, i);
-  a.wv = take_q4k(ptrs, i);
-  a.wg = take_q4k(ptrs, i);
-  a.wo = take_q4k(ptrs, i);
-  a.fk = take_q4k(ptrs, i);
-  a.fv = take_q4k(ptrs, i);
-  a.fr = take_q4k(ptrs, i);
+  a.wr = take_mat(ptrs, i, ints[10]);
+  a.wk = take_mat(ptrs, i, ints[11]);
+  a.wv = take_mat(ptrs, i, ints[12]);
+  a.wg = take_mat(ptrs, i, ints[13]);
+  a.wo = take_mat(ptrs, i, ints[14]);
+  a.fk = take_mat(ptrs, i, ints[15]);
+  a.fv = take_mat(ptrs, i, ints[16]);
+  a.fr = take_mat(ptrs, i, ints[17]);
   a.ash_in = take<const float*>(ptrs, i);
   a.fsh_in = take<const float*>(ptrs, i);
   a.wkv_in = take<const float*>(ptrs, i);
@@ -703,6 +707,11 @@ extern "C" int layer_scan56(const void* const* ptrs, const int* ints, const floa
       a.rescale < 0 || (version != 4 && a.C != a.H * kHs) ||
       (version == 6 && (a.R < 8 || a.R % 8 || a.D < 8 || a.D % 8)))
     return (int)cudaErrorInvalidValue;
+  for (const QMat* w : {&a.wr, &a.wk, &a.wv, &a.wg, &a.wo, &a.fk, &a.fv, &a.fr}) {
+    if (w != &a.wg || version != 4) {
+      if (!mat_ok(*w)) return (int)cudaErrorInvalidValue;
+    }
+  }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (version == 6) return (int)launch_version<6>(a, s);
   if (version == 5) return (int)launch_version<5>(a, s);

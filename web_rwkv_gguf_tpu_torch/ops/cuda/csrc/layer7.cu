@@ -5,7 +5,7 @@
 //
 // Per layer l, for B <= 16 lanes (the residual x [B, C] is carried in place):
 //   xx = LN1(x); six token-shift mixes of xx with the shift state
-//   r, k, v = Q4_K gemvs; w, a, g, v-mix from the bf16 inner-LoRA pairs
+//   r, k, v = quantized gemvs; w, a, g, v-mix from the bf16 inner-LoRA pairs
 //   value residual towards layer 0's v; the attention core of att_core7.cu
 //   x += Wo y;  xx2 = LN2(x);  x += Wv relu(Wk mix(xx2))^2;  x *= 0.5 every
 //   `rescale` layers.
@@ -17,8 +17,10 @@
 //
 // Numerics are the class of the JAX kernel at its default settings: every
 // quantized matrix multiplies the bf16-rounded input by the exact f32 weight
-// q * (d * sc) - dmin * mn (the gemv class of q4k_gemv.cu, for all six
-// matrices at every B), the LoRA pairs take bf16 operands and accumulate in
+// (q * (d * sc) - dmin * mn for Q4_K, Q5_K and Q2_K, q * s - mn for the
+// f32-scale byte forms; the gemv class of q4k_gemv.cu, qkb_gemv.cu and
+// qs_gemv.cu, for all six matrices at every B; each matrix slot picks its
+// row function by its form at run time, decode_common.cuh), the LoRA pairs take bf16 operands and accumulate in
 // f32, everything else is f32.
 //
 // Design. The TPU kernel is a grid over layers whose steps Pallas pipelines;
@@ -64,7 +66,7 @@ struct Args {
   const float *w0, *a0, *v0, *k_k, *k_a, *ffn_xk, *gn_w, *gn_b, *r_k;  // [L, C]
   const __nv_bfloat16* down;                    // [L, D, C]: w1 | a1 | g1 | v1
   const __nv_bfloat16* up;                      // [L, C, D]: w2 | a2 | g2 | v2
-  Q4K wr, wk, wv, wo, fk, fv;
+  QMat wr, wk, wv, wo, fk, fv;
   const float *ash_in, *fsh_in, *wkv_in;        // [L, B, C] x2, [L, B, H, 64, 64]
   float *ash_out, *fsh_out, *wkv_out;
   const float* mask;                            // [B], 0 or 1
@@ -80,7 +82,7 @@ struct Args {
 };
 
 // Phase 1: LN1, the att shift state (block 0 writes it) and the six mixed
-// inputs into xs [6, B, C] bf16; then r, k, v (Q4_K) and the LoRA
+// inputs into xs [6, B, C] bf16; then r, k, v and the LoRA
 // down-projections with their inner activations (tanh for w, sigmoid for
 // g), z stored bf16.
 template <int NB>
@@ -90,7 +92,7 @@ __device__ void phase_proj(const Args& a, int l, unsigned char* smem) {
   // 3: Wo
   prefetch_l2(a.up + (size_t)l * C * D, (size_t)C * D * 2);
   prefetch_l2(a.wkv_in + (size_t)l * B * H * kHs * kHs, (size_t)B * H * kHs * kHs * 4);
-  prefetch_q4k(a.wo, l, C, C);
+  prefetch_mat(a.wo, l, C, C);
   __nv_bfloat16* xs = reinterpret_cast<__nv_bfloat16*>(smem);
   float* rows = reinterpret_cast<float*>(smem + (size_t)6 * B * C * 2);
   layer_norm_rows(a.x, B, C, a.eps_ln, a.ln1_w + (size_t)l * C, a.ln1_b + (size_t)l * C,
@@ -124,9 +126,9 @@ __device__ void phase_proj(const Args& a, int l, unsigned char* smem) {
   for (int row = blockIdx.x * kWarps + warp; row < nrows; row += gridDim.x * kWarps) {
     if (row < 3 * C) {
       const int which = row / C, m = row - which * C;
-      const Q4K& w = which == 0 ? a.wr : (which == 1 ? a.wk : a.wv);
+      const QMat& w = which == 0 ? a.wr : (which == 1 ? a.wk : a.wv);
       const int s = which == 0 ? 0 : (which == 1 ? 2 : 3);  // r, k, v inputs
-      q4k_row<NB>(w, l, C, m, C, xs + (size_t)s * B * C, B, acc);
+      mat_row<NB>(w, l, C, m, C, xs + (size_t)s * B * C, B, acc);
       if (lane == 0) {
         for (int t = 0; t < B; ++t) a.rkv[((size_t)which * B + t) * C + m] = acc[t];
       }
@@ -157,8 +159,8 @@ __device__ void phase_proj(const Args& a, int l, unsigned char* smem) {
 // the four quarters.
 __device__ void phase_att(const Args& a, int l, float* smem) {
   const int C = a.C, B = a.B, H = a.H, D = a.D;
-  prefetch_q4k(a.fk, l, a.hidden, C);  // for phases 4 and 5
-  prefetch_q4k(a.fv, l, C, a.hidden);
+  prefetch_mat(a.fk, l, a.hidden, C);  // for phases 4 and 5
+  prefetch_mat(a.fv, l, C, a.hidden);
   const int part = threadIdx.x / kHs, t = threadIdx.x % kHs;
   float* red = smem;                      // kWarps
   float* s_z = red + kWarps;              // D
@@ -267,11 +269,11 @@ __device__ void phase_att(const Args& a, int l, float* smem) {
   }
 }
 
-// One Q4_K matrix over the bf16 input xs [B, k] in shared memory. mode 0:
+// One quantized matrix over the bf16 input xs [B, k] in shared memory. mode 0:
 // x += W in; mode 1: khid = bf16(relu(W in)^2); mode 2: x += W in, then the
 // rescale.
 template <int NB>
-__device__ void gemv_rows(const Args& a, int l, const Q4K& w, int M, int k,
+__device__ void gemv_rows(const Args& a, int l, const QMat& w, int M, int k,
                           const __nv_bfloat16* xs, int mode) {
   const int B = a.B, C = a.C;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
@@ -279,7 +281,7 @@ __device__ void gemv_rows(const Args& a, int l, const Q4K& w, int M, int k,
       mode == 2 && a.rescale > 0 && (a.first_layer + l + 1) % a.rescale == 0;
   float acc[NB];
   for (int m = blockIdx.x * kWarps + warp; m < M; m += gridDim.x * kWarps) {
-    q4k_row<NB>(w, l, M, m, k, xs, B, acc);
+    mat_row<NB>(w, l, M, m, k, xs, B, acc);
     if (lane == 0) {
       for (int t = 0; t < B; ++t) {
         if (mode == 1) {
@@ -336,9 +338,9 @@ __device__ void phase_ffn_key(const Args& a, int l, unsigned char* smem) {
 template <int NB>
 __device__ void phase_ffn_value(const Args& a, int l, __nv_bfloat16* xs) {
   if (l + 1 < a.L) {  // for the next layer's phase 1
-    prefetch_q4k(a.wr, l + 1, a.C, a.C);
-    prefetch_q4k(a.wk, l + 1, a.C, a.C);
-    prefetch_q4k(a.wv, l + 1, a.C, a.C);
+    prefetch_mat(a.wr, l + 1, a.C, a.C);
+    prefetch_mat(a.wk, l + 1, a.C, a.C);
+    prefetch_mat(a.wv, l + 1, a.C, a.C);
     prefetch_l2(a.down + (size_t)(l + 1) * a.D * a.C, (size_t)a.D * a.C * 2);
   }
   stage(xs, a.khid, a.B * a.hidden);
@@ -410,13 +412,14 @@ cudaError_t launch(const Args& a, cudaStream_t stream) {
 
 // ptrs: 60 device pointers in the order of the fields of Args above (ln1_w,
 // ln1_b, ln2_w, ln2_b, x_stack, w0, a0, v0, k_k, k_a, ffn_xk, gn_w, gn_b,
-// r_k, down, up, then codes/sc6/mn6/d8/dm8 of Wr, Wk, Wv, Wo, FFN key, FFN
-// value, then ash_in, fsh_in, wkv_in, ash_out, fsh_out, wkv_out, mask, x,
+// r_k, down, up, then the five pointers of Wr, Wk, Wv, Wo, FFN key, FFN
+// value (codes, p1, p2, d8, dm8 of decode_common.cuh's QMat), then ash_in, fsh_in, wkv_in, ash_out, fsh_out, wkv_out, mask, x,
 // then rkv, z, vfirst, y, khid (scratch, but vfirst holds layer 0's v after
 // the launch and must hold it before one whose first_layer > 0), then
 // phase_ns, null or u64 [1 + 5 L] that receives the %globaltimer at the
 // start and after each phase's barrier); ints: L, B, C, H, hidden, D, dw,
-// da, dg, dv, rescale (0 for none), first_layer; floats: eps_ln, eps_gn,
+// da, dg, dv, rescale (0 for none), first_layer, then the six matrices'
+// descriptors (MatForm, decode_common.cuh); floats: eps_ln, eps_gn,
 // eps_l2. Every array contiguous and 16-byte aligned, C and hidden
 // multiples of 256, C == H * 64, every LoRA rank a multiple of 8,
 // 1 <= B <= 16. Returns the cudaError_t of the launch.
@@ -440,12 +443,12 @@ extern "C" int layer_scan7(const void* const* ptrs, const int* ints, const float
   a.r_k = take<const float*>(ptrs, i);
   a.down = take<const __nv_bfloat16*>(ptrs, i);
   a.up = take<const __nv_bfloat16*>(ptrs, i);
-  a.wr = take_q4k(ptrs, i);
-  a.wk = take_q4k(ptrs, i);
-  a.wv = take_q4k(ptrs, i);
-  a.wo = take_q4k(ptrs, i);
-  a.fk = take_q4k(ptrs, i);
-  a.fv = take_q4k(ptrs, i);
+  a.wr = take_mat(ptrs, i, ints[12]);
+  a.wk = take_mat(ptrs, i, ints[13]);
+  a.wv = take_mat(ptrs, i, ints[14]);
+  a.wo = take_mat(ptrs, i, ints[15]);
+  a.fk = take_mat(ptrs, i, ints[16]);
+  a.fv = take_mat(ptrs, i, ints[17]);
   a.ash_in = take<const float*>(ptrs, i);
   a.fsh_in = take<const float*>(ptrs, i);
   a.wkv_in = take<const float*>(ptrs, i);
@@ -479,6 +482,9 @@ extern "C" int layer_scan7(const void* const* ptrs, const int* ints, const float
       a.dw % 8 || a.da % 8 || a.dg % 8 || a.dv % 8 || a.dw + a.da + a.dg + a.dv != a.D ||
       a.first_layer < 0)
     return (int)cudaErrorInvalidValue;
+  for (const QMat* w : {&a.wr, &a.wk, &a.wv, &a.wo, &a.fk, &a.fv}) {
+    if (!mat_ok(*w)) return (int)cudaErrorInvalidValue;
+  }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (a.B == 1) return (int)launch<1>(a, s);
   if (a.B == 2) return (int)launch<2>(a, s);

@@ -1,5 +1,5 @@
 // K-quant dequant-GEMM for Hopper (sm_90a): y[n, m] = sum_k x[n, k] * W[m, k]
-// at any row count n, W held as the port's logical Q4_K or Q6_K arrays. On
+// at any row count n, W held as any of the port's logical quantized forms. On
 // the main path it runs every quantized matmul of a prefill chunk (n = B*T)
 // and the decode matmuls whose n * groups exceeds the gemv's gate.
 //
@@ -8,12 +8,14 @@
 // at line 86).
 //
 // What it computes (the slab kernel's numerics class, not the gemv's):
-//   Q4_K  y = sum_k bf16(x) * bf16(q * s)  -  sum_g mn[m, g] * xs[n, g]
-//         q the 4-bit code (split halves: low nibble of byte j is element
-//         j, high nibble element j + K/2), s = d8 * sc6 and mn = dm8 * mn6
-//         formed in f32, xs[n, g] the f32 sum of bf16(x) over group g.
-//   Q6_K  y = sum_k bf16(x) * bf16(q * s), q the signed i8 code,
-//         s = q6d * q6s in f32; no offset.
+//   y = sum_k bf16(x) * bf16(q * s)  -  sum_g mn[m, g] * xs[n, g]
+// q the code: split-halves nibbles (low nibble of byte j is element j,
+// high nibble element j + K/2; Q4_K, Q4_0, Q4_1), u8 bytes (Q5_K, Q2_K,
+// Q5_0, Q5_1, Q4_1 bytes) or i8 bytes (Q6_K, Q3_K, Q8_0, Q4_0 bytes); s and
+// mn the group scale and offset of the element's group (16 or 32 elements):
+// f32 arrays, or 8-bit codes times per-256 super-scales formed in f32 here
+// (Q4_K / Q5_K / Q2_K: s = d8 * sc6, mn = dm8 * mn6; Q6_K / Q3_K: s = q6d *
+// q6s, no offset); xs[n, g] the f32 sum of bf16(x) over group g.
 // Products are bf16 x bf16 on the tensor cores (mma.sync.m16n8k16, f32
 // accumulation); the offset term is kept in its own f32 accumulators and
 // subtracted in the epilogue, as the TPU kernel adds it after its dot.
@@ -23,17 +25,20 @@
 // 512 multiply-adds per weight, above the ~295 operations per byte where
 // H100 stops being memory-bound). This first version is simple, not
 // fast: one block of 4 warps per 64 weight rows x 64 input rows, looping
-// over K 64 elements at a time (Q4_K: 32 code bytes per row, one low and
-// one high 32-group; Q6_K: 64 code bytes, four 16-groups). Each step
-// dequantizes the weight tile to bf16 in shared memory and stages the x
-// tile beside it (zero-padded past M and n, x never read past its end),
-// the next step's codes and x are loaded into registers while the tensor
-// cores work, and each warp computes a 32 x 32 output tile. wgmma, TMA
-// and a ring of stages are later work.
+// over K 64 elements at a time (nibbles: 32 code bytes per row, 32 low and
+// 32 high elements; bytes: 64 code bytes, the last step of a row whose K is
+// an odd multiple of 32 half empty). Each step dequantizes the weight tile
+// to bf16 in shared memory and stages the x tile beside it (zero-padded
+// past M, n and K, x never read past its end) with its sums over each 16
+// elements, the next step's codes and x are loaded into registers while
+// the tensor cores work, and each warp computes a 32 x 32 output tile.
+// wgmma, TMA and a ring of stages are later work.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
+
+#include "qscales.cuh"
 
 namespace {
 
@@ -57,6 +62,11 @@ __device__ __forceinline__ float bf16_hi(uint32_t w) {
   return __uint_as_float(w & 0xFFFF0000u);
 }
 
+__device__ __forceinline__ float sum8(uint4 v) {
+  return bf16_lo(v.x) + bf16_hi(v.x) + bf16_lo(v.y) + bf16_hi(v.y) + bf16_lo(v.z) +
+         bf16_hi(v.z) + bf16_lo(v.w) + bf16_hi(v.w);
+}
+
 __device__ __forceinline__ void mma_bf16(float* d, const uint32_t* a,
                                          uint32_t b0, uint32_t b1) {
   asm volatile(
@@ -66,61 +76,64 @@ __device__ __forceinline__ void mma_bf16(float* d, const uint32_t* a,
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-// Q4_K: thread t dequantizes 16 code bytes of weight row t/2 (bytes
-// (t%2)*16.. of the step's 32), giving 16 low-group and 16 high-group
-// elements. Q6_K: 32 code bytes of row t/2 (bytes (t%2)*32.. of 64).
-template <bool kQ4>
+// Nibbles: thread t dequantizes 16 code bytes of weight row t/2 (bytes
+// (t%2)*16.. of the step's 32), giving 16 low and 16 high elements. Bytes:
+// 32 code bytes of row t/2 (bytes (t%2)*32.. of the step's 64).
+template <int kCodes>
 struct Codes {
-  uint4 v[kQ4 ? 1 : 2];
+  uint4 v[kCodes == kNib ? 1 : 2];
 };
 
-template <bool kQ4>
+// A step's 64 elements of a row fall in four 16-element slots: for nibbles
+// slots 0, 1 are the low elements (32 s ..), slots 2, 3 the high ones
+// (K/2 + 32 s ..); for bytes slot j is elements 64 s + 16 j ... The
+// offset term sums, per slot, the slot's group offset times its x sum.
+template <int kCodes, class S>
 __global__ void __launch_bounds__(kThreads)
 qk_gemm_kernel(const __nv_bfloat16* __restrict__ x,
-               const uint8_t* __restrict__ codes,
-               const uint8_t* __restrict__ sc,   // sc6 (Q4_K) or q6s (Q6_K)
-               const uint8_t* __restrict__ mn6,  // Q4_K only
-               const float* __restrict__ d,      // d8 or q6d
-               const float* __restrict__ dm8,    // Q4_K only
-               float* __restrict__ y, int n, int m, int k) {
+               const uint8_t* __restrict__ codes, const S scales,
+               float* __restrict__ y, int n, int m, int k, int gs) {
+  constexpr bool kNibble = kCodes == kNib;
   __shared__ __align__(16) __nv_bfloat16 ws[kBM * kStride];
   __shared__ __align__(16) __nv_bfloat16 xs[kBN * kStride];
-  __shared__ float mn_t[kBM][2];  // Q4_K group offsets of this step
-  __shared__ float xs_t[kBN][2];  // Q4_K group sums of bf16 x of this step
+  __shared__ float mn_t[kBM][4];  // group offsets of this step's slots
+  __shared__ float xs_t[kBN][4];  // sums of bf16 x over this step's slots
 
   const int tid = threadIdx.x;
   const int m0 = blockIdx.x * kBM;
   const int n0 = blockIdx.y * kBN;
   const int half = k >> 1;
-  const int steps = kQ4 ? half / 32 : k / kKT;
-  const int g32 = k >> 5;      // Q4_K groups per row
-  const int g16 = k >> 4;      // Q6_K groups per row
-  const int g256 = k >> 8;     // super-blocks per row
+  const int steps = kNibble ? half / 32 : (k + kKT - 1) / kKT;
+  const bool offsets = scales.has_min();
 
   // loader roles: weight row wr, part wp; x row xr, segment xp
   const int wr = tid >> 1, wp = tid & 1;
   const int xr = tid >> 1, xp = tid & 1;
   const bool w_ok = m0 + wr < m;
   const bool x_ok = n0 + xr < n;
-  const size_t row_bytes = kQ4 ? (size_t)half : (size_t)k;
+  const size_t row_bytes = kNibble ? (size_t)half : (size_t)k;
   const uint8_t* crow = codes + (size_t)(w_ok ? m0 + wr : 0) * row_bytes;
   const __nv_bfloat16* xrow = x + (size_t)(x_ok ? n0 + xr : 0) * k;
 
-  auto load_codes = [&](int s, Codes<kQ4>& c) {
-    const uint8_t* src = kQ4 ? crow + s * 32 + wp * 16 : crow + s * kKT + wp * 32;
+  // the first element of the 32 this thread loads (nibbles: of the low half)
+  auto col0 = [&](int s, int part) { return kNibble ? s * 32 + part * 16 : s * kKT + part * 32; };
+  auto load_codes = [&](int s, Codes<kCodes>& c) {
+    const int e = col0(s, wp);
+    const bool ok = w_ok && (kNibble || e < k);
+    const uint4* src = reinterpret_cast<const uint4*>(crow + e);
 #pragma unroll
-    for (int i = 0; i < (kQ4 ? 1 : 2); ++i) {
-      c.v[i] = w_ok ? reinterpret_cast<const uint4*>(src)[i] : make_uint4(0, 0, 0, 0);
-    }
+    for (int i = 0; i < (kNibble ? 1 : 2); ++i) c.v[i] = ok ? src[i] : make_uint4(0, 0, 0, 0);
   };
   // x segment of this thread: 32 bf16 (64 bytes) of input row xr
   auto x_col = [&](int s) {
-    return kQ4 ? (xp == 0 ? s * 32 : half + s * 32) : s * kKT + xp * 32;
+    return kNibble ? (xp == 0 ? s * 32 : half + s * 32) : s * kKT + xp * 32;
   };
   auto load_x = [&](int s, uint4* xv) {
-    const uint4* p = reinterpret_cast<const uint4*>(xrow + x_col(s));
+    const int c = x_col(s);
+    const bool ok = x_ok && c < k;
+    const uint4* p = reinterpret_cast<const uint4*>(xrow + c);
 #pragma unroll
-    for (int i = 0; i < 4; ++i) xv[i] = x_ok ? p[i] : make_uint4(0, 0, 0, 0);
+    for (int i = 0; i < 4; ++i) xv[i] = ok ? p[i] : make_uint4(0, 0, 0, 0);
   };
 
   const int warp = tid >> 5, lane = tid & 31;
@@ -137,27 +150,23 @@ qk_gemm_kernel(const __nv_bfloat16* __restrict__ x,
 #pragma unroll
       for (int e = 0; e < 4; ++e) acc[i][j][e] = corr[i][j][e] = 0.f;
 
-  Codes<kQ4> cur;
+  Codes<kCodes> cur;
   uint4 xv[4];
   load_codes(0, cur);
   load_x(0, xv);
 
   for (int s = 0; s < steps; ++s) {
     // ---- dequantize the weight tile into shared memory ----
-    if constexpr (kQ4) {
-      const int glo = s, ghi = (half >> 5) + s;  // the step's two 32-groups
+    const size_t r = (size_t)(w_ok ? m0 + wr : 0);
+    if constexpr (kNibble) {
+      const int e = col0(s, wp);  // low elements e.., high elements K/2 + e..
       float slo = 0.f, shi = 0.f, mlo = 0.f, mhi = 0.f;
       if (w_ok) {
-        const size_t r = (size_t)(m0 + wr);
-        slo = d[r * g256 + (glo >> 3)] * (float)sc[r * g32 + glo];
-        shi = d[r * g256 + (ghi >> 3)] * (float)sc[r * g32 + ghi];
-        mlo = dm8[r * g256 + (glo >> 3)] * (float)mn6[r * g32 + glo];
-        mhi = dm8[r * g256 + (ghi >> 3)] * (float)mn6[r * g32 + ghi];
+        scales.get(r, e / gs, slo, mlo);
+        scales.get(r, (half + e) / gs, shi, mhi);
       }
-      if (wp == 0) {
-        mn_t[wr][0] = mlo;
-        mn_t[wr][1] = mhi;
-      }
+      mn_t[wr][wp] = mlo;
+      mn_t[wr][2 + wp] = mhi;
       const uint32_t words[4] = {cur.v[0].x, cur.v[0].y, cur.v[0].z, cur.v[0].w};
       uint32_t lo[8], hi[8];
 #pragma unroll
@@ -179,15 +188,14 @@ qk_gemm_kernel(const __nv_bfloat16* __restrict__ x,
       dst_hi[0] = make_uint4(hi[0], hi[1], hi[2], hi[3]);
       dst_hi[1] = make_uint4(hi[4], hi[5], hi[6], hi[7]);
     } else {
-      const int g0 = (s * kKT + wp * 32) >> 4;  // the thread's two 16-groups
-      float s0 = 0.f, s1 = 0.f;
-      if (w_ok) {
-        const size_t r = (size_t)(m0 + wr);
-        s0 = d[r * g256 + (g0 >> 4)] *
-             (float)reinterpret_cast<const int8_t*>(sc)[r * g16 + g0];
-        s1 = d[r * g256 + ((g0 + 1) >> 4)] *
-             (float)reinterpret_cast<const int8_t*>(sc)[r * g16 + g0 + 1];
+      const int e = col0(s, wp);  // elements e .. e + 31: slots 2 wp, 2 wp + 1
+      float s0 = 0.f, s1 = 0.f, o0 = 0.f, o1 = 0.f;
+      if (w_ok && e < k) {
+        scales.get(r, e / gs, s0, o0);
+        scales.get(r, (e + 16) / gs, s1, o1);
       }
+      mn_t[wr][2 * wp] = o0;
+      mn_t[wr][2 * wp + 1] = o1;
       const uint32_t words[8] = {cur.v[0].x, cur.v[0].y, cur.v[0].z, cur.v[0].w,
                                  cur.v[1].x, cur.v[1].y, cur.v[1].z, cur.v[1].w};
       uint32_t out[16];
@@ -195,12 +203,8 @@ qk_gemm_kernel(const __nv_bfloat16* __restrict__ x,
       for (int q = 0; q < 8; ++q) {
         const uint32_t wv = words[q];
         const float sq = q < 4 ? s0 : s1;
-        const float e0 = (float)(int8_t)(wv & 0xFFu);
-        const float e1 = (float)(int8_t)((wv >> 8) & 0xFFu);
-        const float e2 = (float)(int8_t)((wv >> 16) & 0xFFu);
-        const float e3 = (float)(int8_t)(wv >> 24);
-        out[2 * q] = pack_bf16(e0 * sq, e1 * sq);
-        out[2 * q + 1] = pack_bf16(e2 * sq, e3 * sq);
+        out[2 * q] = pack_bf16(code_at<kCodes>(wv, 0) * sq, code_at<kCodes>(wv, 1) * sq);
+        out[2 * q + 1] = pack_bf16(code_at<kCodes>(wv, 2) * sq, code_at<kCodes>(wv, 3) * sq);
       }
       uint4* dst = reinterpret_cast<uint4*>(ws + wr * kStride + wp * 32);
 #pragma unroll
@@ -208,20 +212,13 @@ qk_gemm_kernel(const __nv_bfloat16* __restrict__ x,
         dst[i] = make_uint4(out[4 * i], out[4 * i + 1], out[4 * i + 2], out[4 * i + 3]);
       }
     }
-    // ---- stage the x tile (and, for Q4_K, its group sums) ----
+    // ---- stage the x tile and its sums over each 16 elements ----
     {
       uint4* dst = reinterpret_cast<uint4*>(xs + xr * kStride + xp * 32);
-      float gsum = 0.f;
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        dst[i] = xv[i];
-        if constexpr (kQ4) {
-          gsum += bf16_lo(xv[i].x) + bf16_hi(xv[i].x) + bf16_lo(xv[i].y) +
-                  bf16_hi(xv[i].y) + bf16_lo(xv[i].z) + bf16_hi(xv[i].z) +
-                  bf16_lo(xv[i].w) + bf16_hi(xv[i].w);
-        }
-      }
-      if constexpr (kQ4) xs_t[xr][xp] = gsum;
+      for (int i = 0; i < 4; ++i) dst[i] = xv[i];
+      xs_t[xr][2 * xp] = sum8(xv[0]) + sum8(xv[1]);
+      xs_t[xr][2 * xp + 1] = sum8(xv[2]) + sum8(xv[3]);
     }
     __syncthreads();
 
@@ -251,22 +248,26 @@ qk_gemm_kernel(const __nv_bfloat16* __restrict__ x,
         for (int i = 0; i < 2; ++i) mma_bf16(acc[i][j], a[i], b0, b1);
       }
     }
-    if constexpr (kQ4) {
+    if (offsets) {
       // offset term: corr[m, n] += mn[m, g] * xs[n, g] over the step's groups
+      // (a 32-group is two slots with one offset: its x sums add first)
+      const bool pairs = gs == 32;
 #pragma unroll
       for (int i = 0; i < 2; ++i) {
-        const int r0 = wm + i * 16 + gid;
-        const float ma0 = mn_t[r0][0], ma1 = mn_t[r0][1];
-        const float mb0 = mn_t[r0 + 8][0], mb1 = mn_t[r0 + 8][1];
 #pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const int c0 = wn + j * 8 + 2 * tig;
-          const float x00 = xs_t[c0][0], x01 = xs_t[c0][1];
-          const float x10 = xs_t[c0 + 1][0], x11 = xs_t[c0 + 1][1];
-          corr[i][j][0] += ma0 * x00 + ma1 * x01;
-          corr[i][j][1] += ma0 * x10 + ma1 * x11;
-          corr[i][j][2] += mb0 * x00 + mb1 * x01;
-          corr[i][j][3] += mb0 * x10 + mb1 * x11;
+        for (int h = 0; h < 2; ++h) {
+          const int r0 = wm + i * 16 + gid + 8 * h;
+          const float* mr = mn_t[r0];
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+#pragma unroll
+            for (int c = 0; c < 2; ++c) {
+              const float* xc = xs_t[wn + j * 8 + 2 * tig + c];
+              corr[i][j][2 * h + c] +=
+                  pairs ? mr[0] * (xc[0] + xc[1]) + mr[2] * (xc[2] + xc[3])
+                        : mr[0] * xc[0] + mr[1] * xc[1] + mr[2] * xc[2] + mr[3] * xc[3];
+            }
+          }
         }
       }
     }
@@ -290,36 +291,68 @@ qk_gemm_kernel(const __nv_bfloat16* __restrict__ x,
   }
 }
 
-template <bool kQ4>
-int launch(const void* x, const void* codes, const void* sc, const void* mn6,
-           const void* d, const void* dm8, void* y, int n, int m, int k,
-           void* stream) {
-  if (k % 256 != 0 || m <= 0 || n <= 0) return (int)cudaErrorInvalidValue;
+template <int kCodes, class S>
+int launch(const void* x, const void* codes, const S& scales, void* y, int n, int m, int k,
+           int gs, void* stream) {
+  if (m <= 0 || n <= 0 || k % 32 || (gs != 16 && gs != 32) ||
+      (kCodes == kNib && (gs != 32 || k % 64)))
+    return (int)cudaErrorInvalidValue;
   const dim3 grid((m + kBM - 1) / kBM, (n + kBN - 1) / kBN);
-  qk_gemm_kernel<kQ4><<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const __nv_bfloat16*>(x), static_cast<const uint8_t*>(codes),
-      static_cast<const uint8_t*>(sc), static_cast<const uint8_t*>(mn6),
-      static_cast<const float*>(d), static_cast<const float*>(dm8),
-      static_cast<float*>(y), n, m, k);
+  qk_gemm_kernel<kCodes, S><<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const __nv_bfloat16*>(x), static_cast<const uint8_t*>(codes), scales,
+      static_cast<float*>(y), n, m, k, gs);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// x bf16 [n, k] (16-byte aligned); codes u8 [m, k/2] (16-byte aligned);
-// sc6, mn6 u8 [m, k/32]; d8, dm8 f32 [m, k/256]; y f32 [n, m]. All
-// contiguous, k % 256 == 0. Returns the cudaError_t of the launch.
+// Every entry: x bf16 [n, k] (16-byte aligned); codes 16-byte aligned; y
+// f32 [n, m]; all contiguous. Returns the cudaError_t of the launch.
+
+// codes u8 [m, k/2] split halves; sc6, mn6 u8 [m, k/32]; d8, dm8 f32
+// [m, k/256]; k % 256 == 0.
 extern "C" int q4k_gemm(const void* x, const void* codes, const void* sc6,
                         const void* mn6, const void* d8, const void* dm8,
                         void* y, int n, int m, int k, void* stream) {
-  return launch<true>(x, codes, sc6, mn6, d8, dm8, y, n, m, k, stream);
+  if (k % 256) return (int)cudaErrorInvalidValue;
+  const NativeScales s{static_cast<const uint8_t*>(sc6), static_cast<const uint8_t*>(mn6),
+                       static_cast<const float*>(d8), static_cast<const float*>(dm8), k / 32, 8};
+  return launch<kNib>(x, codes, s, y, n, m, k, 32, stream);
 }
 
-// x bf16 [n, k] (16-byte aligned); codes i8 [m, k] (16-byte aligned); q6s
-// i8 [m, k/16]; q6d f32 [m, k/256]; y f32 [n, m]. All contiguous,
-// k % 256 == 0. Returns the cudaError_t of the launch.
+// codes i8 [m, k]; q6s i8 [m, k/16]; q6d f32 [m, k/256]; k % 256 == 0.
 extern "C" int q6k_gemm(const void* x, const void* codes, const void* q6s,
                         const void* q6d, void* y, int n, int m, int k,
                         void* stream) {
-  return launch<false>(x, codes, q6s, nullptr, q6d, nullptr, y, n, m, k, stream);
+  if (k % 256) return (int)cudaErrorInvalidValue;
+  const NominScales s{static_cast<const int8_t*>(q6s), static_cast<const float*>(q6d), k / 16, 16};
+  return launch<kI8>(x, codes, s, y, n, m, k, 16, stream);
+}
+
+// Q5_K / Q2_K: codes u8 [m, k]; sc6, mn6 u8 [m, k/gs]; d8, dm8 f32
+// [m, k/256]; k % 256 == 0; gs 32 (Q5_K) or 16 (Q2_K).
+extern "C" int qkb_gemm(const void* x, const void* codes, const void* sc6,
+                        const void* mn6, const void* d8, const void* dm8,
+                        void* y, int n, int m, int k, int gs, void* stream) {
+  if (k % 256 || (gs != 16 && gs != 32)) return (int)cudaErrorInvalidValue;
+  const NativeScales s{static_cast<const uint8_t*>(sc6), static_cast<const uint8_t*>(mn6),
+                       static_cast<const float*>(d8), static_cast<const float*>(dm8), k / gs,
+                       256 / gs};
+  return launch<kU8>(x, codes, s, y, n, m, k, gs, stream);
+}
+
+// f32 group scales: codes [m, k/2] u8 split-halves nibbles (code_kind 0) or
+// [m, k] u8 (1) / i8 (2) bytes; scales f32 [m, k/gs]; mins f32 [m, k/gs] or
+// null; gs 16 or 32 (32 for nibbles); k % 32 == 0 (k % 64 == 0 for nibbles).
+extern "C" int qs_gemm(const void* x, const void* codes, const void* scales,
+                       const void* mins, void* y, int n, int m, int k, int gs,
+                       int code_kind, void* stream) {
+  if (gs != 16 && gs != 32) return (int)cudaErrorInvalidValue;
+  const F32Scales s{static_cast<const float*>(scales), static_cast<const float*>(mins), k / gs};
+  switch (code_kind) {
+    case kNib: return launch<kNib>(x, codes, s, y, n, m, k, gs, stream);
+    case kU8: return launch<kU8>(x, codes, s, y, n, m, k, gs, stream);
+    case kI8: return launch<kI8>(x, codes, s, y, n, m, k, gs, stream);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }

@@ -11,6 +11,10 @@ parameters, tagged with the model's ``version`` (6, 5 or 4); for version
 6 with the four adapters (``tm_w1`` ``[L, 5R, C]``, ``tm_w2`` ``[L, 5,
 C, R]``, ``td_w1`` ``[L, D, C]``, ``td_w2`` ``[L, C, D]``) in bf16.
 
+Each layer matrix is a kernel slot in one of the forms of
+``layer7.stack_matrix`` (Q4_K or Q5_K / Q2_K native factors, or f32
+group scales over byte codes, as Q8_0's), picked per slot at run time.
+
 Numerics follow the JAX kernel at its defaults: every quantized matrix
 multiplies the bf16-rounded input by its exact f32 weight (the gemv
 class, at every B), the adapters take bf16 operands with f32 products
@@ -40,11 +44,11 @@ import torch
 from .. import basic as B_
 from .. import wkv as W
 from . import build
-from .layer7 import MAX_SCAN_BATCH, mega_layers
-from .matmul import q4k_gemv_plain
+from .layer7 import (MAX_SCAN_BATCH, check_operands, mega_layers, slot_gemv_plain,
+                     slot_operands, stack_matrix)
 
 __all__ = ["MAX_SCAN_BATCH", "PHASES", "layer_scan56", "layer_scan56_plain", "mega_layers",
-           "prep_decode56"]
+           "prep_decode56", "replay_staged"]
 
 HEAD_SIZE = 64  # the head size the kernel takes (versions 6 and 5)
 # the phases of a layer between grid barriers, in order, by version
@@ -60,7 +64,7 @@ _ATT = {6: ("Wr", "Wk", "Wv", "Wg", "Wo"), 5: ("Wr", "Wk", "Wv", "Wg", "Wo"),
 # the layer matrices by version, as (part, name)
 _MATRICES = {v: tuple(("att", n) for n in names) + (("ffn", "Wk"), ("ffn", "Wv"), ("ffn", "Wr"))
              for v, names in _ATT.items()}
-_FACTORS = ("codes", "sc6", "mn6", "d8", "dm8")
+_FACTORS = ("codes", "p1", "p2", "d8", "dm8")  # a matrix slot's operands
 # the per-layer vectors by version, besides the FFN's mixes
 _VECS = {6: ("mix_x", "time_decay", "time_first"),
          5: ("mix_k", "mix_v", "mix_r", "mix_g", "time_decay", "time_first"),
@@ -72,8 +76,9 @@ _STATE = {6: ("att_shift", "wkv", "ffn_shift"), 5: ("att_shift", "wkv", "ffn_shi
 def prep_decode56(params: dict, info) -> dict | None:
     """The stacked decode blocks of a loaded RWKV-6, -5 or -4 model, or
     None when the model is not one the kernel takes: another version,
-    per-layer (list) blocks, a layer matrix that is not Q4_K with whole
-    256-element super-blocks, C or the FFN width not a multiple of 256, a
+    per-layer (list) blocks, a layer matrix of a form
+    ``layer7.stack_matrix`` does not take, C or the FFN width not a
+    multiple of 256, a
     head size other than 64 (versions 6 and 5; version 4 has one "head"
     of width C), or an adapter rank that is not a multiple of 8 (version
     6)."""
@@ -88,12 +93,12 @@ def prep_decode56(params: dict, info) -> dict | None:
     if (C % 256 or hidden % 256 or R % 8 or D % 8
             or (version != 4 and (hs != HEAD_SIZE or C != H * hs))):
         return None
-    mats = {}
+    mats, forms = {}, {}
     for part, name in _MATRICES[version]:
-        m = blocks[part][name]
-        if getattr(m, "kind", None) != "qk" or "sc6" not in m.arrays:
+        slot = stack_matrix(blocks[part][name])
+        if slot is None:
             return None
-        mats[f"{part}.{name}"] = tuple(m.arrays[k] for k in _FACTORS)
+        forms[f"{part}.{name}"], mats[f"{part}.{name}"] = slot
     mega = {
         "version": version, "L": info.num_layer, "C": C, "H": H, "hs": hs, "hidden": hidden,
         "R": R, "D": D,
@@ -101,7 +106,8 @@ def prep_decode56(params: dict, info) -> dict | None:
         "ln2": (blocks["ln2"]["w"], blocks["ln2"]["b"]),
         "vecs": {**{k: att[k] for k in _VECS[version]}, "ffn_mk": ffn["mix_k"],
                  "ffn_mr": ffn["mix_r"]},
-        "mats": mats,
+        "mats": mats,  # per slot: its five operands (layer7.stack_matrix)
+        "forms": forms,  # per slot: its descriptor
     }
     if version != 4:
         mega["gn"] = (att["gn"]["w"], att["gn"]["b"])
@@ -180,7 +186,7 @@ def layer_scan56_plain(mega, state, x, mask, rescale, eps_ln, eps_gn, first_laye
 
     for i in range(L):
         def mat(name, xin, i=i):
-            io[name] = (xin, q4k_gemv_plain(xin, *(a[i] for a in mega["mats"][name])))
+            io[name] = (xin, slot_gemv_plain(mega["forms"][name], mega["mats"][name], i, xin))
             return io[name][1]
 
         xx = B_.layer_norm(x, mega["ln1"][0][i], mega["ln1"][1][i], eps_ln)
@@ -208,6 +214,37 @@ def layer_scan56_plain(mega, state, x, mask, rescale, eps_ln, eps_gn, first_laye
     return x, {k: torch.stack(v) for k, v in news.items()}
 
 
+def replay_staged(mega, i, state, x, mask, eps_ln, eps_gn, staged):
+    """Layer i of ``mega`` replayed in plain PyTorch from the operands a
+    one-layer launch of it staged (``staged`` of :func:`layer_scan56`),
+    for checks that hold each staged operand against what the kernel's own
+    earlier ones make of it: ``y`` (bf16) from the staged r/k/v/g products
+    and the layer's input ``state`` (versions 6 and 5; None for version 4,
+    which stages no v), ``khid`` (bf16) from ``x + Wo·y`` with the staged
+    y, and ``x`` (f32, no rescale) from the staged y, khid and FFN
+    receptance. Each differs from the staged one by the order of f32 sums
+    alone, and by the bf16 roundings that order flips."""
+    version, vec = mega["version"], mega["vecs"]
+
+    def mat(name, a):
+        return slot_gemv_plain(mega["forms"][name], mega["mats"][name], i, a.float())
+
+    y = None
+    if version != 4:
+        r, k, v, g = staged["rkvg"].float().unbind(0)
+        # the decay only moves the new state, not y
+        y = _att_heads(mega, state, i, r, k, v, g, torch.ones_like(r), mask.float()[:, None],
+                       eps_gn)[0].to(torch.bfloat16)
+    x_mid = x.float() + mat("att.Wo", staged["y"])
+    xx2 = B_.layer_norm(x_mid, mega["ln2"][0][i], mega["ln2"][1][i], eps_ln)
+    fsh = state["ffn_shift"][i]
+    mk = vec["ffn_mk"][i]
+    kx2 = B_.lerp(xx2, fsh, mk) if version == 6 else B_.lerp(fsh, xx2, mk)
+    khid = B_.squared_relu(mat("ffn.Wk", kx2)).to(torch.bfloat16)
+    x_out = x_mid + torch.sigmoid(staged["rf"].float()) * mat("ffn.Wv", staged["khid"])
+    return {"y": y, "khid": khid, "x": x_out}
+
+
 @functools.cache
 def _fn():
     fn = build.load("layer56").layer_scan56
@@ -230,10 +267,11 @@ _ORDER = (
 
 
 def _operands(mega, dev):
-    """The kernel's parameter operands by name, each checked against the
-    shape and type the kernel reads."""
+    """The kernel's parameter operands by name (an array a matrix form
+    lacks is left out: a null pointer), each checked against the shape
+    and type the kernel reads."""
     version, L, C, hidden, R, D = (mega[k] for k in ("version", "L", "C", "hidden", "R", "D"))
-    f32, bf, u8 = torch.float32, torch.bfloat16, torch.uint8
+    f32, bf = (torch.float32,), (torch.bfloat16,)
     want = {"ln1_w": (mega["ln1"][0], f32, L * C), "ln1_b": (mega["ln1"][1], f32, L * C),
             "ln2_w": (mega["ln2"][0], f32, L * C), "ln2_b": (mega["ln2"][1], f32, L * C)}
     want.update({k: (a, f32, L * C) for k, a in mega["vecs"].items()})
@@ -245,19 +283,12 @@ def _operands(mega, dev):
                      "tm_w2": (mega["tm_w2"], bf, L * 5 * C * R),
                      "td_w1": (mega["td_w1"], bf, L * D * C),
                      "td_w2": (mega["td_w2"], bf, L * C * D)})
-    for name, factors in mega["mats"].items():
+    for name, ops in mega["mats"].items():
         m, k = {"ffn.Wk": (hidden, C), "ffn.Wv": (C, hidden)}.get(name, (C, C))
-        sizes = (m * k // 2, m * k // 32, m * k // 32, m * k // 256, m * k // 256)
-        for f, a, dt, n in zip(_FACTORS, factors, (u8, u8, u8, f32, f32), sizes):
-            want[f"{name}.{f}"] = (a, dt, L * n)
-    for a, dt, n in want.values():
-        if a.dtype != dt or a.numel() != n or a.device != dev:
-            raise ValueError(f"layer_scan56: a parameter is {a.dtype} {tuple(a.shape)} on "
-                             f"{a.device}, want {dt} of {n} elements on {dev}")
-        if not a.is_contiguous() or a.data_ptr() % 16:
-            raise ValueError("layer_scan56: every parameter must be contiguous and "
-                             "16-byte aligned")
-    return {name: a for name, (a, _, _) in want.items()}
+        for f, w in zip(_FACTORS, slot_operands(mega["forms"][name], ops, L, m, k)):
+            want[f"{name}.{f}"] = w
+    check_operands("layer_scan56", want.values(), dev)
+    return {name: a for name, (a, _, _) in want.items() if a is not None}
 
 
 def layer_scan56(mega, state, x, mask, rescale, eps_ln, eps_gn, first_layer=0,
@@ -330,7 +361,8 @@ def layer_scan56(mega, state, x, mask, rescale, eps_ln, eps_gn, first_layer=0,
             raise ValueError(f"layer_scan56: phase_ns must be int64 [{n}] on {dev}")
         ptr["phase_ns"] = phase_ns.data_ptr()
     ptrs = [ptr.get(name, 0) for name in _ORDER]
-    ints = [L, bsz, C, H, hidden, R, D, rescale or 0, first_layer, version]
+    ints = [L, bsz, C, H, hidden, R, D, rescale or 0, first_layer, version,
+            *(mega["forms"].get(m, 0) for m in _MATRIX_SLOTS)]
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
         err = _fn()((ctypes.c_void_p * len(ptrs))(*ptrs), (ctypes.c_int * len(ints))(*ints),

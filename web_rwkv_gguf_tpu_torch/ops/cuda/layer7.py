@@ -9,6 +9,11 @@ with plain PyTorch ops. Both take the stacked blocks of
 parameters, plus the inner-LoRA pairs concatenated and rounded to bf16
 (``down`` ``[L, D, C]`` = w1 | a1 | g1 | v1, ``up`` ``[L, C, D]``).
 
+Each layer matrix is a kernel slot in one of the forms of
+:func:`stack_matrix` (Q4_K or Q5_K / Q2_K native factors, or f32 group
+scales over byte codes), picked per slot at run time; the layers of one
+slot share its form (the loader stacks only uniform layers).
+
 Numerics follow the JAX kernel at its defaults: every quantized matrix
 multiplies the bf16-rounded input by its exact f32 weight (the gemv
 class, at every B — where the composed per-layer path sends the FFN
@@ -32,29 +37,102 @@ import torch
 
 from .. import basic as B_
 from . import build
-from .matmul import q4k_gemv_plain
+from .matmul import q4k_gemv_plain, qkb_gemv_plain, qs_gemv_plain
 from .wkv7 import HEAD_SIZE, att_core7_plain
 
 MAX_SCAN_BATCH = 16  # lanes one launch takes (the JAX package's limit too)
 _MATRICES = (("att", "Wr"), ("att", "Wk"), ("att", "Wv"), ("att", "Wo"),
              ("ffn", "Wk"), ("ffn", "Wv"))
-_FACTORS = ("codes", "sc6", "mn6", "d8", "dm8")
+# the forms of a matrix slot (csrc/decode_common.cuh, MatForm)
+FORM_Q4K, FORM_QKB, FORM_QS = 0, 1, 2
+
+
+def stack_matrix(m):
+    """A layer-stacked matrix as a slot of the whole-stack kernels:
+    ``(descriptor, (codes, p1, p2, d8, dm8))``, the descriptor ``form |
+    signed << 2 | group size << 3`` and None for an array the form lacks
+    (decode_common.cuh, MatForm) — or None for a matrix they do not take.
+    They take Q4_K and Q5_K / Q2_K with whole super-blocks (native
+    factors) and f32 group scales over byte codes (Q8_0, Q5_0, Q5_1, and
+    Q4_1 / Q4_0 bytes); not yet Q6_K / Q3_K, f32-scale nibbles or dense
+    matrices."""
+    kind, a = getattr(m, "kind", None), getattr(m, "arrays", {})
+    if kind == "qk" and "sc6" in a:
+        form, gs = FORM_Q4K, 32
+    elif kind == "qk_b" and "sc6" in a:
+        form, gs = FORM_QKB, a["codes"].shape[-1] // a["sc6"].shape[-1]
+    elif kind in ("qk_b", "qk_nomin") and "scales" in a:
+        form, gs = FORM_QS, a["codes"].shape[-1] // a["scales"].shape[-1]
+    else:
+        return None
+    if gs not in (16, 32):
+        return None
+    signed = int(a["codes"].dtype == torch.int8)
+    keys = (("scales", "mins", None, None) if form == FORM_QS
+            else ("sc6", "mn6", "d8", "dm8"))
+    return form | signed << 2 | gs << 3, (a["codes"], *(a.get(k) for k in keys))
+
+
+def slot_gemv_plain(desc, ops, i, x):
+    """Layer i's product of a matrix slot (descriptor and operands of
+    :func:`stack_matrix`) in the gemv class, in plain PyTorch."""
+    codes, p1, p2, d8, dm8 = (None if t is None else t[i] for t in ops)
+    form = desc & 3
+    if form == FORM_Q4K:
+        return q4k_gemv_plain(x, codes, p1, p2, d8, dm8)
+    if form == FORM_QKB:
+        return qkb_gemv_plain(x, codes, p1, p2, d8, dm8)
+    return qs_gemv_plain(x, codes, p1, p2)
+
+
+def slot_operands(desc, ops, L, m, k):
+    """A matrix slot's five operands with the type(s) and element count
+    the kernel reads for each (None for an absent one), for an ``[L, M,
+    K]`` stack."""
+    form, gs = desc & 3, desc >> 3
+    f32, u8 = torch.float32, torch.uint8
+    if form == FORM_Q4K:
+        want = ((u8, m * k // 2), (u8, m * k // 32), (u8, m * k // 32),
+                (f32, m * k // 256), (f32, m * k // 256))
+    elif form == FORM_QKB:
+        want = ((u8, m * k), (u8, m * k // gs), (u8, m * k // gs),
+                (f32, m * k // 256), (f32, m * k // 256))
+    else:
+        want = (((u8, torch.int8), m * k), (f32, m * k // gs), (f32, m * k // gs),
+                (None, 0), (None, 0))
+    return [(a, dt if isinstance(dt, tuple) else (dt,), L * n)
+            for a, (dt, n) in zip(ops, want)]
+
+
+def check_operands(name, want, dev):
+    """Raise unless every present operand has its type, size, device,
+    contiguity and 16-byte alignment."""
+    for a, dts, n in want:
+        if a is None:
+            continue
+        if a.dtype not in dts or a.numel() != n or a.device != dev:
+            raise ValueError(f"{name}: a parameter is {a.dtype} {tuple(a.shape)} on "
+                             f"{a.device}, want {' or '.join(map(str, dts))} of {n} "
+                             f"elements on {dev}")
+        if not a.is_contiguous() or a.data_ptr() % 16:
+            raise ValueError(f"{name}: every parameter must be contiguous and "
+                             "16-byte aligned")
 
 
 def prep_decode7(params: dict, info) -> dict | None:
     """The stacked decode blocks of a loaded model, or None when the
     model is not one the kernel takes: per-layer (list) blocks, a layer
-    matrix that is not Q4_K with whole 256-element super-blocks, or a
-    LoRA rank that is not a multiple of 8."""
+    matrix of a form :func:`stack_matrix` does not take, or a LoRA rank
+    that is not a multiple of 8."""
     blocks = params.get("blocks")
     if not isinstance(blocks, dict):
         return None
-    mats = {}
+    mats, forms = {}, {}
     for part, name in _MATRICES:
-        m = blocks[part][name]
-        if getattr(m, "kind", None) != "qk" or "sc6" not in m.arrays:
+        slot = stack_matrix(blocks[part][name])
+        if slot is None:
             return None
-        mats[f"{part}.{name}"] = tuple(m.arrays[k] for k in _FACTORS)
+        forms[f"{part}.{name}"], mats[f"{part}.{name}"] = slot
     att, ffn = blocks["att"], blocks["ffn"]
     bf = torch.bfloat16
     pairs = (("w1", "w2"), ("a1", "a2"), ("g1", "g2"), ("v1", "v2"))
@@ -72,7 +150,8 @@ def prep_decode7(params: dict, info) -> dict | None:
         "r_k": att["r_k"],
         "down": torch.cat([att[d].to(bf) for d, _ in pairs], dim=1).contiguous(),
         "up": torch.cat([att[u].to(bf) for _, u in pairs], dim=2).contiguous(),
-        "mats": mats,
+        "mats": mats,  # per slot: its five operands (stack_matrix)
+        "forms": forms,  # per slot: its descriptor
     }
 
 
@@ -106,7 +185,7 @@ def layer_scan7_plain(mega, state, x, mask, rescale, eps_ln, eps_gn, eps_l2,
 
     for i in range(L):
         def mat(name, xin, i=i):
-            return q4k_gemv_plain(xin, *(a[i] for a in mega["mats"][name]))
+            return slot_gemv_plain(mega["forms"][name], mega["mats"][name], i, xin)
 
         down, up = mega["down"][i].float(), mega["up"][i].float()
 
@@ -156,12 +235,13 @@ def _fn():
 
 
 def _operands(mega, dev):
-    """The kernel's parameter operands in its order, each checked against
-    the shape and type the kernel reads."""
+    """The kernel's parameter operands in its order (None for an array a
+    matrix form lacks), each checked against the shape and type the
+    kernel reads."""
     L, C, hidden = mega["L"], mega["C"], mega["hidden"]
     D = sum(mega["lora_dims"])
     vec = mega["vecs"]
-    f32, bf, u8 = torch.float32, torch.bfloat16, torch.uint8
+    f32, bf = (torch.float32,), (torch.bfloat16,)
     want = [(a, f32, L * C) for a in (*mega["ln1"], *mega["ln2"])]
     want.append((mega["x_stack"], f32, L * 6 * C))
     want += [(vec[k], f32, L * C) for k in ("w0", "a0", "v0", "k_k", "k_a", "ffn_xk")]
@@ -169,16 +249,9 @@ def _operands(mega, dev):
     want += [(mega["down"], bf, L * D * C), (mega["up"], bf, L * C * D)]
     for part, name in _MATRICES:
         m, k = {"ffn.Wk": (hidden, C), "ffn.Wv": (C, hidden)}.get(f"{part}.{name}", (C, C))
-        sizes = (m * k // 2, m * k // 32, m * k // 32, m * k // 256, m * k // 256)
-        for a, dt, n in zip(mega["mats"][f"{part}.{name}"], (u8, u8, u8, f32, f32), sizes):
-            want.append((a, dt, L * n))
-    for a, dt, n in want:
-        if a.dtype != dt or a.numel() != n or a.device != dev:
-            raise ValueError(f"layer_scan7: a parameter is {a.dtype} {tuple(a.shape)} on "
-                             f"{a.device}, want {dt} of {n} elements on {dev}")
-        if not a.is_contiguous() or a.data_ptr() % 16:
-            raise ValueError("layer_scan7: every parameter must be contiguous and "
-                             "16-byte aligned")
+        key = f"{part}.{name}"
+        want += slot_operands(mega["forms"][key], mega["mats"][key], L, m, k)
+    check_operands("layer_scan7", want, dev)
     return [a for a, _, _ in want]
 
 
@@ -233,7 +306,7 @@ def layer_scan7(mega, state, x, mask, rescale, eps_ln, eps_gn, eps_l2, v0_carry=
                 else v_first.float().contiguous().clone()),
                torch.empty(bsz, C, dtype=bf, device=dev),
                torch.empty(bsz, hidden, dtype=bf, device=dev)]
-    ptrs = [a.data_ptr() for a in ops] + [
+    ptrs = [0 if a is None else a.data_ptr() for a in ops] + [
         st["att_shift"].data_ptr(), st["ffn_shift"].data_ptr(), st["wkv"].data_ptr(),
         out["att_shift"].data_ptr(), out["ffn_shift"].data_ptr(), out["wkv"].data_ptr(),
         m.data_ptr(), x_io.data_ptr(), *(a.data_ptr() for a in scratch)]
@@ -242,10 +315,11 @@ def layer_scan7(mega, state, x, mask, rescale, eps_ln, eps_gn, eps_l2, v0_carry=
                 or phase_ns.device != dev):
             raise ValueError(f"layer_scan7: phase_ns must be int64 [{1 + 5 * L}] on {dev}")
     ptrs.append(0 if phase_ns is None else phase_ns.data_ptr())
-    ints = [L, bsz, C, H, hidden, D, *mega["lora_dims"], rescale or 0, first]
+    ints = [L, bsz, C, H, hidden, D, *mega["lora_dims"], rescale or 0, first,
+            *(mega["forms"][f"{part}.{name}"] for part, name in _MATRICES)]
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
-        err = _fn()((ctypes.c_void_p * len(ptrs))(*ptrs), (ctypes.c_int * 12)(*ints),
+        err = _fn()((ctypes.c_void_p * len(ptrs))(*ptrs), (ctypes.c_int * len(ints))(*ints),
                     (ctypes.c_float * 3)(eps_ln, eps_gn, eps_l2), stream)
     layer_scan7.launches += 1
     layer_scan7.shapes[(L, bsz, C)] += 1

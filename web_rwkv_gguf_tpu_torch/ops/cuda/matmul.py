@@ -1,18 +1,29 @@
-"""Quantized matmul kernels (Q4_K, Q6_K) and their plain PyTorch versions.
+"""Quantized matmul kernels and their plain PyTorch versions.
 
 Each computes ``y[n, m] = Σ_k x[n, k]·W[m, k]`` with W held as the
-loader's logical K-quant arrays (``models/matrix.py``) and returns f32
-``[n, m]``; x is rounded to bf16 first, as the model's quantized matmul
-defines it. Two numerics classes, as in the JAX package's
-``quant_matmul`` (``models/matrix.py`` picks between them):
+loader's logical arrays of one quantized form (``models/matrix.py``) and
+returns f32 ``[n, m]``; x is rounded to bf16 first, as the model's
+quantized matmul defines it. The forms, by the kernels that take them:
 
-- the gemvs ``q4k_gemv`` / ``q6k_gemv`` (``csrc/q4k_gemv.cu``,
-  ``csrc/q6k_gemv.cu``: one warp per output row, n ≤ 8) multiply by the
-  exact f32 weight ``q·(d·sc) − dmin·mn``;
-- the dequant-GEMMs ``q4k_gemm`` / ``q6k_gemm`` (``csrc/qk_gemm.cu``:
-  bf16 tensor-core tiles, any n) multiply by ``bf16(q·(d·sc))`` with f32
-  accumulation and subtract the Q4_K offset term in f32 as
-  ``Σ_g (dmin·mn)[m, g]·xs[n, g]``, xs the f32 group sums of the
+- ``q4k_*``: Q4_K native factors (split-halves nibbles, 6-bit scale and
+  min codes per 32, f32 super-scales per 256);
+- ``q6k_*``: Q6_K and Q3_K native factors (i8 codes, i8 scale codes per
+  16, f32 super-scales);
+- ``qkb_*``: Q5_K and Q2_K native factors (u8 byte codes, u8 scale and
+  min codes per 32 or 16, f32 super-scales);
+- ``qs_*``: f32 group scales (and optional offsets) over split-halves
+  nibbles, u8 or i8 bytes: Q8_0, the legacy Q4_0/Q4_1/Q5_0/Q5_1, and
+  K-quant rows that do not hold whole 256-element super-blocks.
+
+Two numerics classes, as in the JAX package's ``quant_matmul``
+(``models/matrix.py`` picks between them):
+
+- the gemvs (``csrc/q4k_gemv.cu``, ``csrc/q6k_gemv.cu``,
+  ``csrc/qkb_gemv.cu``, ``csrc/qs_gemv.cu``: one warp per output row, n
+  ≤ 8) multiply by the exact f32 weight ``q·s − mn``;
+- the dequant-GEMMs (``csrc/qk_gemm.cu``: bf16 tensor-core tiles, any n)
+  multiply by ``bf16(q·s)`` with f32 accumulation and subtract the offset
+  term in f32 as ``Σ_g mn[m, g]·xs[n, g]``, xs the f32 group sums of the
   bf16-rounded x.
 
 On a CUDA tensor each wrapper launches its kernel or raises; only a
@@ -40,24 +51,51 @@ def q4k_codes(codes) -> torch.Tensor:
 
 
 def q4k_scale_products(sc6, mn6, d8, dm8):
-    """f32 group scales ``d·sc`` and offsets ``dmin·mn`` ``[M, K/32]``."""
-    return (d8.repeat_interleave(8, dim=1) * sc6.float(),
-            dm8.repeat_interleave(8, dim=1) * mn6.float())
+    """f32 group scales ``d·sc`` and offsets ``dmin·mn`` ``[M, G]`` of
+    native factors (Q4_K: G = K/32; Q5_K and Q2_K the same way, G = K/32
+    or K/16), each super-scale repeated over its ``G / (K/256)`` groups."""
+    reps = sc6.shape[-1] // d8.shape[-1]
+    return (d8.repeat_interleave(reps, dim=-1) * sc6.float(),
+            dm8.repeat_interleave(reps, dim=-1) * mn6.float())
 
 
 def q4k_dequantize(codes, sc6, mn6, d8, dm8) -> torch.Tensor:
     """Dense f32 ``[M, K]`` weight of a Q4_K matrix (split-halves codes)."""
-    q = q4k_codes(codes)
-    m, k = q.shape
-    s, mn = q4k_scale_products(sc6, mn6, d8, dm8)
-    return (q.view(m, k // 32, 32) * s[..., None] - mn[..., None]).view(m, k)
+    return qs_dequantize(codes, *q4k_scale_products(sc6, mn6, d8, dm8), k=2 * codes.shape[-1])
+
+
+def q6k_scale_products(q6s, q6d):
+    """f32 group scales ``d·sc`` ``[M, G]`` of Q6_K / Q3_K factors."""
+    return q6d.repeat_interleave(q6s.shape[-1] // q6d.shape[-1], dim=-1) * q6s.float()
 
 
 def q6k_dequantize(codes, q6s, q6d) -> torch.Tensor:
-    """Dense f32 ``[M, K]`` weight of a Q6_K matrix."""
-    m, k = codes.shape
-    s = q6d.repeat_interleave(16, dim=1) * q6s.float()
-    return (codes.float().view(m, k // 16, 16) * s[..., None]).view(m, k)
+    """Dense f32 ``[M, K]`` weight of a Q6_K / Q3_K matrix."""
+    return qs_dequantize(codes, q6k_scale_products(q6s, q6d))
+
+
+def qs_codes(codes, k: int) -> torch.Tensor:
+    """The f32 codes ``[M, K]`` of split-halves nibbles (``codes`` of K/2
+    bytes a row) or of u8 / i8 bytes (K a row)."""
+    return q4k_codes(codes) if codes.shape[-1] * 2 == k else codes.float()
+
+
+def qs_dequantize(codes, scales, mins=None, k=None) -> torch.Tensor:
+    """Dense f32 ``[M, K]`` weight ``q·s − mn`` of codes (nibbles or
+    bytes; K given, or bytes assumed) and f32 group scales and offsets
+    ``[M, G]``."""
+    m = codes.shape[0]
+    k = k or codes.shape[-1]
+    g = scales.shape[-1]
+    w = qs_codes(codes, k).view(m, g, k // g) * scales[..., None]
+    if mins is not None:
+        w = w - mins[..., None]
+    return w.view(m, k)
+
+
+def qkb_dequantize(codes, sc6, mn6, d8, dm8) -> torch.Tensor:
+    """Dense f32 ``[M, K]`` weight of a Q5_K / Q2_K matrix (byte codes)."""
+    return qs_dequantize(codes, *q4k_scale_products(sc6, mn6, d8, dm8))
 
 
 def q4k_gemv_plain(x, codes, sc6, mn6, d8, dm8) -> torch.Tensor:
@@ -69,6 +107,17 @@ def q4k_gemv_plain(x, codes, sc6, mn6, d8, dm8) -> torch.Tensor:
 def q6k_gemv_plain(x, codes, q6s, q6d) -> torch.Tensor:
     """Plain version of :func:`q6k_gemv`."""
     w = q6k_dequantize(codes, q6s, q6d)
+    return x.to(torch.bfloat16).float() @ w.T
+
+
+def qkb_gemv_plain(x, codes, sc6, mn6, d8, dm8) -> torch.Tensor:
+    """Plain version of :func:`qkb_gemv`."""
+    return x.to(torch.bfloat16).float() @ qkb_dequantize(codes, sc6, mn6, d8, dm8).T
+
+
+def qs_gemv_plain(x, codes, scales, mins=None) -> torch.Tensor:
+    """Plain version of :func:`qs_gemv`."""
+    w = qs_dequantize(codes, scales, mins, k=x.shape[-1])
     return x.to(torch.bfloat16).float() @ w.T
 
 
@@ -93,21 +142,30 @@ def q4k_gemm_plain(x, codes, sc6, mn6, d8, dm8) -> torch.Tensor:
 
 def q6k_gemm_plain(x, codes, q6s, q6d) -> torch.Tensor:
     """Plain version of :func:`q6k_gemm`."""
-    s = q6d.repeat_interleave(16, dim=1) * q6s.float()
-    return slab_matmul_plain(x, codes.float(), s)
+    return slab_matmul_plain(x, codes.float(), q6k_scale_products(q6s, q6d))
 
 
-def _check(name, x, arrays: dict, shapes: dict, dtypes: dict, max_rows=None):
-    """Validate what the kernel takes; returns x rounded to bf16,
-    contiguous and 16-byte aligned."""
+def qkb_gemm_plain(x, codes, sc6, mn6, d8, dm8) -> torch.Tensor:
+    """Plain version of :func:`qkb_gemm`."""
+    return slab_matmul_plain(x, codes.float(), *q4k_scale_products(sc6, mn6, d8, dm8))
+
+
+def qs_gemm_plain(x, codes, scales, mins=None) -> torch.Tensor:
+    """Plain version of :func:`qs_gemm`."""
+    return slab_matmul_plain(x, qs_codes(codes, x.shape[-1]), scales, mins)
+
+
+def _check(name, x, arrays: dict, shapes: dict, dtypes: dict, max_rows=None, k_multiple=256):
+    """Validate what the kernel takes (K a multiple of ``k_multiple``);
+    returns x rounded to bf16, contiguous and 16-byte aligned."""
     if x.dim() != 2:
         raise ValueError(f"{name}: x must be [n, K], got {tuple(x.shape)}")
     n, k = x.shape
     if n < 1 or (max_rows is not None and n > max_rows):
         raise ValueError(f"{name}: the kernel takes 1..{max_rows or 'any'} "
                          f"input rows, got {n}")
-    if k % 256:
-        raise ValueError(f"{name}: K must be a multiple of 256, got {k}")
+    if k % k_multiple:
+        raise ValueError(f"{name}: K must be a multiple of {k_multiple}, got {k}")
     if max_rows is not None and n * k * 4 > _MAX_SMEM:
         raise ValueError(f"{name}: x of [{n}, {k}] does not fit shared memory")
     xb = x.to(torch.bfloat16).contiguous()
@@ -119,9 +177,10 @@ def _check(name, x, arrays: dict, shapes: dict, dtypes: dict, max_rows=None):
         if not a.is_contiguous():
             raise ValueError(f"{name}: {key} must be contiguous")
     for key, a in arrays.items():
-        if tuple(a.shape) != shapes[key] or a.dtype != dtypes[key]:
+        want = dtypes[key] if isinstance(dtypes[key], tuple) else (dtypes[key],)
+        if tuple(a.shape) != shapes[key] or a.dtype not in want:
             raise ValueError(
-                f"{name}: {key} must be {dtypes[key]} {shapes[key]}, got "
+                f"{name}: {key} must be {' or '.join(map(str, want))} {shapes[key]}, got "
                 f"{a.dtype} {tuple(a.shape)}")
     if arrays["codes"].data_ptr() % 16:
         raise ValueError(f"{name}: codes must be 16-byte aligned")
@@ -263,3 +322,146 @@ def q6k_gemm(x, codes, q6s, q6d) -> torch.Tensor:
 
 q6k_gemm.launches = 0
 q6k_gemm.shapes = collections.Counter()  # launches by (n, M, K)
+
+
+# code storage of the f32-scale kernels (csrc/qs_gemv.cu, csrc/qk_gemm.cu)
+_CODE_KIND = {"nibbles": 0, torch.uint8: 1, torch.int8: 2}
+
+
+def _qs_form(name, x, codes, scales, mins, max_rows=None):
+    """Check the f32-scale operands; returns (bf16 x, group size, code
+    kind)."""
+    m, k = codes.shape[0], x.shape[-1]
+    nib = codes.shape[-1] * 2 == k
+    g = scales.shape[-1]
+    gs = k // g if g else 0
+    if gs not in (16, 32) or g * gs != k or (nib and (gs != 32 or codes.dtype != torch.uint8)):
+        raise ValueError(f"{name}: groups of 16 or 32 elements (32 for nibbles) over K={k}, "
+                         f"got scales {tuple(scales.shape)}, codes {codes.dtype} "
+                         f"{tuple(codes.shape)}")
+    arrays = {"codes": codes, "scales": scales}
+    shapes = {"codes": (m, k // 2 if nib else k), "scales": (m, g), "mins": (m, g)}
+    dtypes = {"codes": (torch.uint8, torch.int8), "scales": torch.float32,
+              "mins": torch.float32}
+    if mins is not None:
+        arrays["mins"] = mins
+    xb = _check(name, x, arrays, shapes, dtypes, max_rows, k_multiple=64 if nib else 32)
+    return xb, gs, _CODE_KIND["nibbles" if nib else codes.dtype]
+
+
+@functools.cache
+def _qs_fn(op: str):
+    fn = getattr(build.load("qs_gemv" if op == "gemv" else "qk_gemm"), f"qs_{op}")
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _launch_qs(wrapper, op, xb, codes, scales, mins, m, gs, kind):
+    n, k = xb.shape
+    y = torch.empty(n, m, dtype=torch.float32, device=xb.device)
+    with torch.cuda.device(xb.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = _qs_fn(op)(xb.data_ptr(), codes.data_ptr(), scales.data_ptr(),
+                         0 if mins is None else mins.data_ptr(), y.data_ptr(),
+                         n, m, k, gs, kind, stream)
+    wrapper.launches += 1
+    wrapper.shapes[(n, m, k)] += 1
+    if err:
+        raise RuntimeError(f"qs_{op} launch failed: CUDA error {err}")
+    return y
+
+
+def qs_gemv(x, codes, scales, mins=None) -> torch.Tensor:
+    """Gemv over f32 group scales: x ``[n, K]`` (n ≤ 8); codes u8 ``[M,
+    K/2]`` split-halves nibbles, or u8 / i8 ``[M, K]`` bytes; scales and
+    the optional mins f32 ``[M, G]`` (groups of 16 or 32; 32 for nibbles)
+    → f32 ``[n, M]`` = x·Wᵀ with W = q·s − mn, the exact f32 weight."""
+    if not x.is_cuda:
+        return qs_gemv_plain(x, codes, scales, mins)
+    xb, gs, kind = _qs_form("qs_gemv", x, codes, scales, mins, MAX_GEMV_ROWS)
+    return _launch_qs(qs_gemv, "gemv", xb, codes, scales, mins, codes.shape[0], gs, kind)
+
+
+qs_gemv.launches = 0
+qs_gemv.shapes = collections.Counter()  # launches by (n, M, K)
+
+
+def qs_gemm(x, codes, scales, mins=None) -> torch.Tensor:
+    """Dequant-GEMM over f32 group scales at any row count; the arrays as
+    for :func:`qs_gemv` → f32 ``[n, M]`` in the bf16-weight class."""
+    if not x.is_cuda:
+        return qs_gemm_plain(x, codes, scales, mins)
+    xb, gs, kind = _qs_form("qs_gemm", x, codes, scales, mins)
+    return _launch_qs(qs_gemm, "gemm", xb, codes, scales, mins, codes.shape[0], gs, kind)
+
+
+qs_gemm.launches = 0
+qs_gemm.shapes = collections.Counter()  # launches by (n, M, K)
+
+
+def _qkb_check(name, x, codes, sc6, mn6, d8, dm8, max_rows=None):
+    """Check the Q5_K / Q2_K operands; returns (bf16 x, group size)."""
+    m, k = codes.shape[0], x.shape[-1]
+    g = sc6.shape[-1]
+    gs = k // g if g else 0
+    if gs not in (16, 32) or g * gs != k:
+        raise ValueError(f"{name}: groups of 16 or 32 elements over K={k}, got sc6 "
+                         f"{tuple(sc6.shape)}")
+    arrays = {"codes": codes, "sc6": sc6, "mn6": mn6, "d8": d8, "dm8": dm8}
+    xb = _check(name, x, arrays,
+                {"codes": (m, k), "sc6": (m, g), "mn6": (m, g), "d8": (m, k // 256),
+                 "dm8": (m, k // 256)},
+                {"codes": torch.uint8, "sc6": torch.uint8, "mn6": torch.uint8,
+                 "d8": torch.float32, "dm8": torch.float32}, max_rows)
+    return xb, gs
+
+
+@functools.cache
+def _qkb_fn(op: str):
+    fn = getattr(build.load("qkb_gemv" if op == "gemv" else "qk_gemm"), f"qkb_{op}")
+    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _launch_qkb(wrapper, op, xb, arrays, gs):
+    n, k = xb.shape
+    m = arrays[0].shape[0]
+    y = torch.empty(n, m, dtype=torch.float32, device=xb.device)
+    with torch.cuda.device(xb.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = _qkb_fn(op)(xb.data_ptr(), *(a.data_ptr() for a in arrays), y.data_ptr(),
+                          n, m, k, gs, stream)
+    wrapper.launches += 1
+    wrapper.shapes[(n, m, k)] += 1
+    if err:
+        raise RuntimeError(f"qkb_{op} launch failed: CUDA error {err}")
+    return y
+
+
+def qkb_gemv(x, codes, sc6, mn6, d8, dm8) -> torch.Tensor:
+    """Q5_K / Q2_K gemv: x ``[n, K]`` (n ≤ 8); codes u8 ``[M, K]``; sc6,
+    mn6 u8 ``[M, G]`` (G = K/32 for Q5_K, K/16 for Q2_K); d8, dm8 f32
+    ``[M, K/256]`` → f32 ``[n, M]`` on the exact f32 weight."""
+    if not x.is_cuda:
+        return qkb_gemv_plain(x, codes, sc6, mn6, d8, dm8)
+    xb, gs = _qkb_check("qkb_gemv", x, codes, sc6, mn6, d8, dm8, MAX_GEMV_ROWS)
+    return _launch_qkb(qkb_gemv, "gemv", xb, (codes, sc6, mn6, d8, dm8), gs)
+
+
+qkb_gemv.launches = 0
+qkb_gemv.shapes = collections.Counter()  # launches by (n, M, K)
+
+
+def qkb_gemm(x, codes, sc6, mn6, d8, dm8) -> torch.Tensor:
+    """Q5_K / Q2_K dequant-GEMM at any row count; the arrays as for
+    :func:`qkb_gemv` → f32 ``[n, M]`` in the bf16-weight class."""
+    if not x.is_cuda:
+        return qkb_gemm_plain(x, codes, sc6, mn6, d8, dm8)
+    xb, gs = _qkb_check("qkb_gemm", x, codes, sc6, mn6, d8, dm8)
+    return _launch_qkb(qkb_gemm, "gemm", xb, (codes, sc6, mn6, d8, dm8), gs)
+
+
+qkb_gemm.launches = 0
+qkb_gemm.shapes = collections.Counter()  # launches by (n, M, K)
