@@ -13,23 +13,26 @@ ops/cuda/csrc`` with nvcc (one nvcc per source, all started together),
 holds each kernel against its plain PyTorch version at the shapes the
 decode and prefill paths give it and times both (and, where one PyTorch
 call computes the same product, that call). Then it drives the port's
-main paths on six synthetic models, one after the other, each path with
+main paths on nine synthetic models, one after the other, each path with
 every kernel's launch count set to 0 just before and checked exactly
 just after:
 
 - in the Q4_K_M placement, RWKV-7 at the 0.1B widths, RWKV-6 at the
   World 1.6B widths, RWKV-5 at the World 0.4B widths and RWKV-4 at the
   World 0.1B widths; RWKV-7 at the 0.1B widths in the Q5_K_M placement
-  and RWKV-6 at the World 1.6B widths in Q8_0 (table ``MODELS``; full
-  depth; the files are built in worker processes while the kernels
-  build);
+  and RWKV-6 at the World 1.6B widths in Q8_0; f16 files requantized at
+  load, RWKV-7 at the 0.1B widths in Int8 and in NF4 and RWKV-6 at the
+  World 1.6B widths in Int8 (table ``MODELS``; full depth but where
+  it says otherwise; the files are built in worker processes while the
+  kernels build);
 - serve two requests at batch 1 through ``forward_chunk`` (each prompt
   prefilled as one chunk) → ``logits_head`` → ``make_generator``, on
   the loaded params (the per-layer kernels at decode);
 - ``runtime.Engine(num_batch=4)``: ``generate`` on four prompts of
   different lengths (chunked prefill as the scheduler plans it, then
   32 greedy tokens on all lanes, each step one launch of the
-  whole-stack decode kernel), then one ``infer`` with a FULL lane.
+  whole-stack decode kernel, or the per-layer path for NF4, which has
+  none), then one ``infer`` with a FULL lane.
 
 For each model it holds the whole-stack decode kernel against its plain
 version layer by layer, and compares the card with the CPU at the same
@@ -37,7 +40,10 @@ widths (two layers, three lanes): decode steps with a lane frozen,
 through the per-layer kernels and through the whole-stack kernel, and a
 ragged prefill chunk followed by one of 128 tokens; it also measures how
 far the card and the CPU each move under one-ulp product changes
-(decode steps and prefill, on the per-layer path). Every comparison of
+(decode steps and prefill, on the per-layer path), and holds the
+dequant-GEMM call with offsets of those decode steps that lies furthest
+from its plain version as a kernel case of its own, on the model's own
+activations. Every comparison of
 a model prints before a failed one raises, so the exit code is not 0.
 The last lines are the card's ``nvidia-smi`` name and power limit, one
 JSON line of per-kernel numbers, and ``{"ok": true, "device": {...}}``.
@@ -49,6 +55,7 @@ prints no result.
 from __future__ import annotations
 
 import collections
+import contextlib
 import json
 import math
 import multiprocessing
@@ -64,13 +71,16 @@ _V6_MATRICES = (("att", "Wr"), ("att", "Wk"), ("att", "Wv"), ("att", "Wg"), ("at
 # COMPARE_LAYERS layers from seed + 1, or "compare_seed"), its matrices quantized as
 # "quantize" (layers) and "head_quantize" (the head) say: the Q4_K_M
 # placement (Q4_K layers, Q6_K head), the Q5_K_M placement (Q5_K layers,
-# Q6_K head) or Q8_0 throughout. "kinds" are the Matrix kinds the layers
+# Q6_K head) or Q8_0 throughout; or an f16 file ("quantize" None) that
+# load_model requantizes by "quant" (Int8, NF4: every layer matrix, the
+# head stays dense bf16). "kinds" are the Matrix kinds the layers
 # and the head load as. "matrices" are a layer's quantized matrices; "wkv" the kernel
 # that runs a layer's WKV in a per-layer forward chunk at T = 1, at
 # 2 <= T < 128 and at T >= 128 (None: the chunk-parallel form, PyTorch
 # matmuls); "mega" the whole-stack decode blocks and their kernel, held
-# layer by layer at each of "mega_batches" lanes. MODEL_CASES holds each
-# model's kernel cases.
+# layer by layer at each of "mega_batches" lanes (None: the model has no
+# whole-stack form, and the Engine decodes layer by layer). MODEL_CASES
+# holds each model's kernel cases.
 MODELS = {
     # RWKV-7 0.1B widths (L=12, C=768, head 64, hidden 4·C, LoRA ranks
     # w/a/g/v 64/64/128/32)
@@ -126,13 +136,46 @@ MODELS = {
                  matrices=(("att", "Wr"), ("att", "Wk"), ("att", "Wv"), ("att", "Wo"),
                            ("ffn", "Wk"), ("ffn", "Wv")),
                  wkv=("att_core7_step", "wkv7_scan", None), mega=("mega7", "layer_scan7"),
-                 # B=1 is traced (lane_trace), not held: PERF.md, Findings PR 5
-                 mega_batches=(4, 16)),
+                 mega_batches=(4, 1, 16)),
     # RWKV-6 World 1.6B widths in llama.cpp's Q8_0 (every matrix Q8_0, the
     # head included)
     "v6q8": dict(make="make_v6_gguf", seed=50, quantize="Q8_0", head_quantize="Q8_0",
                  kinds=("qk_nomin", "qk_nomin"),
                  widths=dict(n_layer=24, n_emb=2048, head_size=64, n_vocab=VOCAB, n_hidden=7168,
+                             rank_tm=32, rank_td=64),
+                 matrices=_V6_MATRICES, wkv=("wkv6_scan", "wkv6_scan", None),
+                 mega=("mega56", "layer_scan56"), mega_batches=(4, 1, 16)),
+    # RWKV-7 0.1B widths from an f16 file, requantized at load as the
+    # reference's --quant int8 does (u8 codes per 128 with f16 bounds)
+    "v7i8": dict(make="make_v7_gguf", seed=60, quantize=None, quant="INT8",
+                 kinds=("int8", "dense"),
+                 widths=dict(n_layer=12, n_emb=768, head_size=64, n_vocab=VOCAB, n_hidden=3072,
+                             lora_w=64, lora_a=64, lora_g=128, lora_v=32),
+                 matrices=(("att", "Wr"), ("att", "Wk"), ("att", "Wv"), ("att", "Wo"),
+                           ("ffn", "Wk"), ("ffn", "Wv")),
+                 wkv=("att_core7_step", "wkv7_scan", None), mega=("mega7", "layer_scan7"),
+                 mega_batches=(4, 1, 16)),
+    # the same widths requantized as --quant nf4 does (4-bit normal-quantile
+    # codebook per 64 with an f16 absmax); no whole-stack form, as in the
+    # JAX package. Its card-vs-CPU model is seed 72's: seed 71's reads past
+    # the limits with the JAX package in the card's place, the order of the
+    # LayerNorm's f32 sums alone moving it there (tests/
+    # test_torch_requant_decode.py::test_nf4_compare_model_against_jax;
+    # PERF.md, Findings)
+    "v7nf4": dict(make="make_v7_gguf", seed=70, compare_seed=72, quantize=None, quant="NF4",
+                  kinds=("nf4", "dense"),
+                  widths=dict(n_layer=12, n_emb=768, head_size=64, n_vocab=VOCAB,
+                              n_hidden=3072, lora_w=64, lora_a=64, lora_g=128, lora_v=32),
+                  matrices=(("att", "Wr"), ("att", "Wk"), ("att", "Wv"), ("att", "Wo"),
+                            ("ffn", "Wk"), ("ffn", "Wv")),
+                  wkv=("att_core7_step", "wkv7_scan", None), mega=None, mega_batches=()),
+    # RWKV-6 World 1.6B widths requantized as --quant int8 does
+    "v6i8": dict(make="make_v6_gguf", seed=80, quantize=None, quant="INT8",
+                 kinds=("int8", "dense"),
+                 # 6 of the model's 24 layers: the file is f16 (1.3 GB at this
+                 # depth) and is quantized on the host at load, and the run
+                 # stays within its time
+                 widths=dict(n_layer=6, n_emb=2048, head_size=64, n_vocab=VOCAB, n_hidden=7168,
                              rank_tm=32, rank_td=64),
                  matrices=_V6_MATRICES, wkv=("wkv6_scan", "wkv6_scan", None),
                  mega=("mega56", "layer_scan56"), mega_batches=(4, 1, 16)),
@@ -699,8 +742,102 @@ def kernel_cases6q8(torch, k, bf16_peak, f32_peak, full_rows, dev="cuda"):
     return cases
 
 
+def requant_case(torch, mm, scheme, op, m, k, n, seed, bf16_peak, dev="cuda"):
+    """``op`` of the kernels of an engine-requantized matrix at [m, k] with
+    n rows, on random codes and block factors with f16 values: Int8
+    through ``qs_*`` (u8 codes per 128; the gemv class's scales (mx −
+    mn)/255, the GEMM's (mx − mn)·(1/255), offsets −mn, as
+    ``models.matrix.int8_operands`` forms them), NF4 / SF4 through
+    ``nf4_*`` with the scheme's codebook. The library yardstick:
+    torch.matmul of the bf16 x against the bf16 weight."""
+    from web_rwkv_gguf_tpu_torch.quant import formats
+
+    int8 = scheme == "INT8"
+    family = "qs" if int8 else "nf4"
+    lut = None if int8 else formats.NF4_QUANTILES if scheme == "NF4" else formats.sf4_quantiles()
+
+    def make(i):
+        ints, floats, normal = _rng(torch, dev, seed + 1000 * i)
+        x = normal(n, k).to(torch.bfloat16)
+        if int8:
+            mn = -(floats(m, k // 128) * 0.1 + 0.05).half().float()
+            mx = (floats(m, k // 128) * 0.1 + 0.05).half().float()
+            s = (mx - mn) * (1.0 / 255.0) if op == "gemm" else (mx - mn) / 255.0
+            return x, ints(0, 256, (m, k), torch.uint8), s, -mn
+        absmax = (floats(m, k // 64) * 0.1 + 0.01).half().float()
+        return (x, ints(0, 256, (m, k // 2), torch.uint8), absmax,
+                torch.tensor(lut, device=dev))
+
+    def weight(args):
+        x, codes, a, b = args
+        w = mm.qs_dequantize(codes, a, b) if int8 else mm.nf4_dequantize(codes, a, b)
+        return x, w.to(torch.bfloat16).T
+
+    weight_bytes = m * k + 8 * m * (k // 128) if int8 else m * k // 2 + 4 * m * (k // 64) + 64
+    return dict(name=f"{family}_{op}[{scheme},m={m},k={k},n={n}]",
+                kernel=getattr(mm, f"{family}_{op}"), shape=(n, m, k),
+                plain=getattr(mm, f"{family}_{op}_plain"), make_args=make,
+                compare=gemv_compare if op == "gemv" else gemm_compare,
+                nbytes=weight_bytes + 2 * n * k + 4 * n * m, flops=2 * n * m * k,
+                fpeak=bf16_peak, library=torch.matmul, library_args=weight)
+
+
+def kernel_cases7i8(torch, k, bf16_peak, f32_peak, full_rows, dev="cuda"):
+    """The RWKV-7 Int8 main paths' new kernel calls at the 0.1B widths: the
+    Int8 form of the f32-scale gemv at the shapes whose codes tile it (n =
+    1, the B=1 serve's decode, and 4), its GEMM at [768, 3072] for n = 1
+    and 4 (the gate sends it there at every n) and at every layer shape
+    for n = 512 (an Engine chunk of T=128 at B=4); the head is dense
+    (torch.matmul)."""
+    mm = k["matmul"]
+    cases = [requant_case(torch, mm, "INT8", "gemv", m, kk, n, 18000 + m + 7 * kk + n,
+                          bf16_peak, dev) for m, kk in ((768, 768), (3072, 768)) for n in (1, 4)]
+    cases += [requant_case(torch, mm, "INT8", "gemm", 768, 3072, n, 18100 + n, bf16_peak, dev)
+              for n in (1, 4)]
+    cases += [requant_case(torch, mm, "INT8", "gemm", m, kk, 512, 18200 + m + 7 * kk,
+                           bf16_peak, dev) for m, kk in ((768, 768), (3072, 768), (768, 3072))]
+    return cases
+
+
+def kernel_cases7nf4(torch, k, bf16_peak, f32_peak, full_rows, dev="cuda"):
+    """The RWKV-7 NF4 main paths' new kernel calls at the 0.1B widths: the
+    NF4 gemv at every layer shape for n = 1 (the B=1 serve's decode) and
+    at the K=768 shapes for n = 4 (the Engine's per-layer decode step at
+    B=4), the NF4 GEMM at [768, 3072] for n = 4 (its 96 groups a row send
+    it past the gate) and at every layer shape for n = 512 (an Engine
+    chunk of T=128 at B=4); the same kernels with the SF4 codebook."""
+    mm = k["matmul"]
+    layer_shapes = ((768, 768), (3072, 768), (768, 3072))
+    cases = [requant_case(torch, mm, "NF4", "gemv", m, kk, 1, 19000 + m + 7 * kk, bf16_peak, dev)
+             for m, kk in layer_shapes]
+    cases += [requant_case(torch, mm, "NF4", "gemv", m, kk, 4, 19100 + m + 7 * kk, bf16_peak,
+                           dev) for m, kk in layer_shapes[:2]]
+    cases.append(requant_case(torch, mm, "NF4", "gemm", 768, 3072, 4, 19200, bf16_peak, dev))
+    cases += [requant_case(torch, mm, "NF4", "gemm", m, kk, 512, 19300 + m + 7 * kk, bf16_peak,
+                           dev) for m, kk in layer_shapes]
+    cases += [requant_case(torch, mm, "SF4", op, m, kk, n, 19400 + n, bf16_peak, dev)
+              for op, m, kk, n in (("gemv", 768, 768, 1), ("gemm", 768, 3072, 512))]
+    return cases
+
+
+def kernel_cases6i8(torch, k, bf16_peak, f32_peak, full_rows, dev="cuda"):
+    """The RWKV-6 Int8 main paths' new kernel calls at the 1.6B widths: the
+    Int8 gemv at n = 1 (the B=1 serve's decode) at the shapes whose codes
+    tile it, its GEMM at [2048, 7168] for n = 1 (the gate sends it there at
+    every n) and at every layer shape for n = 512 (an Engine chunk of
+    T=128 at B=4); the head is dense (torch.matmul)."""
+    mm = k["matmul"]
+    cases = [requant_case(torch, mm, "INT8", "gemv", m, kk, 1, 20000 + m + 7 * kk, bf16_peak, dev)
+             for m, kk in ((2048, 2048), (7168, 2048))]
+    cases.append(requant_case(torch, mm, "INT8", "gemm", 2048, 7168, 1, 20100, bf16_peak, dev))
+    cases += [requant_case(torch, mm, "INT8", "gemm", m, kk, 512, 20200 + m + 7 * kk, bf16_peak,
+                           dev) for m, kk in ((2048, 2048), (7168, 2048), (2048, 7168))]
+    return cases
+
+
 MODEL_CASES = {"v7": kernel_cases, "v6": kernel_cases6, "v5": kernel_cases5,
-               "v4": kernel_cases4, "v7q5": kernel_cases7q5, "v6q8": kernel_cases6q8}
+               "v4": kernel_cases4, "v7q5": kernel_cases7q5, "v6q8": kernel_cases6q8,
+               "v7i8": kernel_cases7i8, "v7nf4": kernel_cases7nf4, "v6i8": kernel_cases6i8}
 
 
 def clone_tree(tree):
@@ -856,42 +993,6 @@ def bf16_place(t):
     return torch.where(i < 0, -(i & 0x7FFF), i)
 
 
-def lane_trace(torch, mod, mega, state, x, mask, eps, name):
-    """RWKV-7: lane 0 of the whole-stack check's B-lane inputs run alone
-    (B=1) and inside the batch, layer by layer on the plain chain's input
-    (one-layer launches, as mega_case holds them): per layer, each of the
-    kernel against the plain version at B=1 and inside the batch, the
-    kernel at B=1 against itself inside the batch, and the plain version
-    likewise, as the largest share of MEGA_LAYER_TOL over lane 0's arrays
-    (which array). Logged only: the kernel's check is mega_case's."""
-    def lane0(out):
-        return {"x": out[0][0], "v_first": out[2][0], **{k: v[:, 0] for k, v in out[1].items()}}
-
-    def worst(a, b):
-        a, b = lane0(a), lane0(b)
-        s = {k: (a[k] - b[k]).abs().max().item()
-             / (MEGA_LAYER_TOL * max(b[k].abs().max().item(), 1e-30)) for k in b}
-        k = max(s, key=s.get)
-        return f"{s[k]:.3f} ({k})"
-
-    x_l, v_first = x, None
-    for i in range(mega["L"]):
-        m_i = mod.mega_layers(mega, i, i + 1)
-        s_n = {k: v[i:i + 1] for k, v in state.items()}
-        s_1 = {k: v[i:i + 1, :1] for k, v in state.items()}
-        v1 = None if v_first is None else v_first[:1]
-        runs = {(fn.__name__, n): fn(m_i, s, xi, mi, None, *eps, (vf, i))
-                for fn in (mod.layer_scan7, mod.layer_scan7_plain)
-                for n, s, xi, mi, vf in ((1, s_1, x_l[:1], mask[:1], v1),
-                                          (x.shape[0], s_n, x_l, mask, v_first))}
-        (k1, kn), (p1, pn) = ((runs[(f, 1)], runs[(f, x.shape[0])])
-                              for f in ("layer_scan7", "layer_scan7_plain"))
-        log(f"  {name}: lane 0, layer {i}, share of MEGA_LAYER_TOL: kernel against plain at "
-            f"B=1 {worst(k1, p1)}, at B={x.shape[0]} {worst(kn, pn)}; kernel B=1 against "
-            f"B={x.shape[0]} {worst(k1, kn)}; plain B=1 against B={x.shape[0]} {worst(p1, pn)}")
-        x_l, v_first = pn[0], pn[2]
-
-
 def staged_excess(st_k, st_p, rep, version, live):
     """Each operand a one-layer launch staged for the ``live`` lanes (versions
     6 and 5), as a share of its bound: the f32 products (r/k/v/g, the FFN
@@ -1013,16 +1114,21 @@ def scan_compare(got, want):
 
 
 COUNTED = ("q4k_gemv", "q4k_gemm", "q6k_gemv", "q6k_gemm", "qkb_gemv", "qkb_gemm", "qs_gemv",
-           "qs_gemm", "att_core7_step", "wkv7_scan", "layer_scan7", "wkv6_scan", "layer_scan56",
-           "wkv4_scan")
+           "qs_gemm", "nf4_gemv", "nf4_gemm", "att_core7_step", "wkv7_scan", "layer_scan7",
+           "wkv6_scan", "layer_scan56", "wkv4_scan")
 
 
 def matmul_kernel(mat, n):
     """The kernel ``Matrix.matmul`` launches for ``mat`` at n rows: its
     form's family (native Q4_K factors, Q5_K/Q2_K factors, Q6_K/Q3_K
-    factors, or f32 group scales) and the gate (``Matrix.takes_gemv``)."""
+    factors, f32 group scales or Int8, NF4/SF4) and the gate
+    (``Matrix.takes_gemv``); None for a dense matrix (torch.matmul)."""
     a = mat.arrays
-    if "sc6" in a:
+    if mat.kind == "dense":
+        return None
+    if mat.kind in ("int8", "nf4"):
+        family = "qs" if mat.kind == "int8" else "nf4"
+    elif "sc6" in a:
         family = "q4k" if mat.kind == "qk" else "qkb"
     else:
         family = "q6k" if "q6s" in a else "qs"
@@ -1055,18 +1161,34 @@ def compare_seed(spec):
 
 
 def build_file(tag, n_layer, seed):
-    """The bytes of model ``tag``'s synthetic file (in its placement) at
-    ``n_layer`` layers and the seconds its build took (run in a worker
-    process)."""
+    """The bytes of model ``tag``'s synthetic file (in its placement, or
+    f16 for a requantized model) at ``n_layer`` layers and the seconds its
+    build took (run in a worker process)."""
+    import numpy as np
+
     from web_rwkv_gguf_tpu_torch.quant.ggml import GgmlDType
     from web_rwkv_gguf_tpu_torch.utils import synthetic
 
     spec = MODELS[tag]
+    if spec["quantize"] is None:
+        placement = dict(dtype=np.float16)
+    else:
+        placement = dict(quantize=GgmlDType[spec["quantize"]],
+                         head_quantize=GgmlDType[spec["head_quantize"]])
     t0 = time.perf_counter()
     raw = getattr(synthetic, spec["make"])(**{**spec["widths"], "n_layer": n_layer}, seed=seed,
-                                           quantize=GgmlDType[spec["quantize"]],
-                                           head_quantize=GgmlDType[spec["head_quantize"]])
+                                           **placement)
     return raw, time.perf_counter() - t0
+
+
+def load(models, raw, spec, device):
+    """``models.load_model`` of a model file, requantized by the model's
+    scheme where it has one."""
+    from web_rwkv_gguf_tpu_torch.gguf import GgufFile
+    from web_rwkv_gguf_tpu_torch.quant import QuantScheme
+
+    quant = QuantScheme[spec["quant"]] if "quant" in spec else None
+    return models.load_model(GgufFile(raw), quant=quant, device=device)
 
 
 def serve(torch, models, info, params, prompts, steps):
@@ -1328,7 +1450,7 @@ def main() -> int:
         return 2
     # the model files are built in worker processes while the kernels
     # build; every worker is stopped on the way out
-    workers = multiprocessing.get_context("spawn").Pool(3)
+    workers = multiprocessing.get_context("spawn").Pool(5)
     try:
         files = {tag: {"full": workers.apply_async(
                            build_file, (tag, MODELS[tag]["widths"]["n_layer"],
@@ -1344,7 +1466,7 @@ def main() -> int:
 
 def run(np, torch, files) -> int:
     from web_rwkv_gguf_tpu_torch import models, runtime
-    from web_rwkv_gguf_tpu_torch.gguf import GgufFile
+    from web_rwkv_gguf_tpu_torch.models import matrix as matrix_mod
     from web_rwkv_gguf_tpu_torch.models.forward import WKV7_CHUNKED_MIN_T
     from web_rwkv_gguf_tpu_torch.models.forward import GN_EPS, L2_EPS, LN_EPS
     from web_rwkv_gguf_tpu_torch.models.loader import layer_params
@@ -1404,6 +1526,10 @@ def run(np, torch, files) -> int:
                             "web_rwkv_gguf_tpu/ops/pallas/matmul.py:1225"),
                "qs_gemv": ("web_rwkv_gguf_tpu_torch/ops/cuda/csrc/qs_gemv.cu",
                            "web_rwkv_gguf_tpu/ops/pallas/matmul.py:939"),
+               "nf4_gemv": ("web_rwkv_gguf_tpu_torch/ops/cuda/csrc/nf4_gemv.cu",
+                            "web_rwkv_gguf_tpu/ops/pallas/matmul.py:1002"),
+               "nf4_gemm": ("web_rwkv_gguf_tpu_torch/ops/cuda/csrc/qk_gemm.cu",
+                            "web_rwkv_gguf_tpu/ops/pallas/matmul.py:1225"),
                "qkb_gemv": ("web_rwkv_gguf_tpu_torch/ops/cuda/csrc/qkb_gemv.cu",
                             "web_rwkv_gguf_tpu/ops/pallas/matmul.py:587"),
                "qs_gemm": ("web_rwkv_gguf_tpu_torch/ops/cuda/csrc/qk_gemm.cu",
@@ -1434,6 +1560,7 @@ def run(np, torch, files) -> int:
                 "q6k_gemv": mm.q6k_gemv, "q6k_gemm": mm.q6k_gemm,
                 "qkb_gemv": mm.qkb_gemv, "qkb_gemm": mm.qkb_gemm,
                 "qs_gemv": mm.qs_gemv, "qs_gemm": mm.qs_gemm,
+                "nf4_gemv": mm.nf4_gemv, "nf4_gemm": mm.nf4_gemm,
                 "att_core7_step": core.att_core7_step, "wkv7_scan": core.wkv7_scan,
                 "layer_scan7": l7.layer_scan7, "wkv6_scan": wkv6.wkv6_scan,
                 "layer_scan56": l56.layer_scan56, "wkv4_scan": wkv4.wkv4_scan}
@@ -1466,14 +1593,15 @@ def run(np, torch, files) -> int:
         version on the Engine's lanes."""
         L = info.num_layer
         layers = layer_params(params, L)
-        mega_key, scan_name = spec["mega"]
+        mega_key, scan_name = spec["mega"] or (None, None)
         scan_mod = l7 if mega_key == "mega7" else l56
 
         def chunk(B, T):
             return expected_chunk(WKV7_CHUNKED_MIN_T, spec, layers, B, T)
 
         def head(n):
-            return collections.Counter({matmul_kernel(params["head"], n): 1})
+            kernel = matmul_kernel(params["head"], n)
+            return collections.Counter({kernel: 1} if kernel else {})
 
         # ---- main path: two requests at batch 1 ----------------------------
         want = collections.Counter()
@@ -1514,14 +1642,19 @@ def run(np, torch, files) -> int:
         want = collections.Counter()
         for T in Ts:
             want += chunk(B4, T) + head(B4)
-        if mega_key not in eng.params:
-            raise AssertionError(f"{tag}: the Engine did not arrange the whole-stack blocks")
-        for _ in range(decode_steps):  # each step: one whole-stack launch, the head
-            want += collections.Counter({scan_name: 1}) + head(B4)
+        if (mega_key in eng.params) != (mega_key is not None) or (
+                mega_key is None and {"mega7", "mega56"} & set(eng.params)):
+            raise AssertionError(f"{tag}: the Engine arranged whole-stack blocks "
+                                 f"{sorted({'mega7', 'mega56'} & set(eng.params))}, expected "
+                                 f"{mega_key}")
+        # each step: one whole-stack launch, or the per-layer path at T=1; the head
+        step = (collections.Counter({scan_name: 1}) if mega_key else chunk(B4, 1)) + head(B4)
+        for _ in range(decode_steps):
+            want += step
         log(f"{tag} engine: prompts of {list(ENGINE_LENGTHS)} tokens, prefill chunks T={Ts} "
             f"(token_chunk_size {ENGINE_CHUNK}), then {decode_steps} decode steps at B={B4}, "
-            f"each one launch of the whole-stack kernel and the head "
-            f"({matmul_kernel(params['head'], B4)} at n={B4})")
+            f"each {dict(step)} (the head: {matmul_kernel(params['head'], B4) or 'dense'} "
+            f"at n={B4})")
         out_gen = counted(f"{tag} engine generate (B=4)", want,
                           lambda: eng.generate(engine_prompts, ENGINE_TOKENS))
         if [len(o) for o in out_gen] != [ENGINE_TOKENS] * B4 or not all(
@@ -1584,6 +1717,8 @@ def run(np, torch, files) -> int:
         log_profile(f"{tag} engine decode at B={B4}", busy, prof_wall_us, rows,
                     t_dec / decode_steps * 1e6, "step")
 
+        if mega_key is None:
+            return
         # ---- the whole-stack decode kernel against its plain version --------
         # on the Engine's lanes as generate left them, one lane frozen, at
         # each of the model's batches (lanes repeated)
@@ -1611,12 +1746,99 @@ def run(np, torch, files) -> int:
                 continue
             cases.append(case)
             phase_times(torch, case, len(names), names)
-        if v7:
-            lane_trace(torch, scan_mod, eng.params[mega_key], eng.state, dec_x, mask, eps,
-                       f"{tag} {scan_name}")
         if failed:
             raise AssertionError(f"{tag}: the whole-stack kernel disagrees with its plain "
                                  f"version ({failed})")
+
+    @contextlib.contextmanager
+    def capture_gemms(calls, on):
+        """While ``on``: each dequant-GEMM call with group offsets that
+        ``Matrix.matmul`` makes (``q4k_gemm``, ``qkb_gemm``; ``qs_gemm``
+        with mins, the Int8 form among them) lands in ``calls`` as (wrapper
+        name, its arguments), then runs."""
+        saved = {name: getattr(matrix_mod, name) for name in ("q4k_gemm", "qkb_gemm", "qs_gemm")}
+
+        def recorder(name, fn):
+            def record(*args):
+                if name != "qs_gemm" or args[3] is not None:
+                    calls.append((name, args))
+                return fn(*args)
+            return record
+
+        if on:
+            for name, fn in saved.items():
+                setattr(matrix_mod, name, recorder(name, fn))
+        try:
+            yield
+        finally:
+            for name, fn in saved.items():
+                setattr(matrix_mod, name, fn)
+
+    def gemm_terms(name, args):
+        """A dequant-GEMM call's function in f64 (the same bf16 operands):
+        its products' sum, its offset term and their difference y, and how
+        many times max|y| the offset term's magnitude Σ_g|mn·xs| reaches."""
+        x, codes, *factors = args
+        m, k = codes.shape[0], x.shape[-1]
+        if name == "qs_gemm":
+            s, mn = factors
+        else:
+            s, mn = mm.q4k_scale_products(*factors)
+        g = s.shape[-1]
+        q = mm.qs_codes(codes, k)
+        w = (q.view(m, g, k // g) * s[..., None]).to(torch.bfloat16).double()
+        xb = x.to(torch.bfloat16).double()
+        main = xb @ w.view(m, k).T
+        xs = xb.view(-1, g, k // g).sum(-1)
+        y = main - xs @ mn.double().T
+        return main, y, ((xs.abs() @ mn.double().abs().T).max() / y.abs().max()).item()
+
+    def activation_case(tag, calls):
+        """The captured GEMM calls against their plain versions on the
+        model's own activations; the one furthest from its plain version
+        becomes a kernel case (held at GEMM_TOL, timed, in the JSON line),
+        its error and its plain version's split against the f64 function:
+        the whole product, and its products' sum alone (offsets zeroed)."""
+        worst = None
+        for name, args in calls:
+            err, lim = gemm_compare(getattr(mm, name)(*args), getattr(mm, f"{name}_plain")(*args))
+            if worst is None or err / lim > worst[0]:
+                worst = (err / lim, name, args)
+        share, name, args = worst
+        kernel, plain = getattr(mm, name), getattr(mm, f"{name}_plain")
+        x, codes = args[:2]
+        (n, k), m = x.shape, codes.shape[0]
+        main, y, cancel = gemm_terms(name, args)
+        bare = (*args[:3], None) if name == "qs_gemm" else (*args[:3], torch.zeros_like(args[3]),
+                                                             *args[4:])
+        rel = lambda a, b: ((a.double() - b).abs().max() / y.abs().max()).item()  # noqa: E731
+        log(f"  {tag}: {len(calls)} dequant-GEMM calls with offsets in the decode steps, on "
+            f"the model's own activations; the furthest from its plain version {name} "
+            f"[n={n}, m={m}, k={k}] at {share:.3f} of its tolerance. Against its function in "
+            f"f64, × max|y|: kernel {rel(kernel(*args), y):.3e}, plain "
+            f"{rel(plain(*args), y):.3e}; "
+            f"the products' sum alone: kernel {rel(kernel(*bare), main):.3e}, plain "
+            f"{rel(plain(*bare), main):.3e}; the offset term's magnitude is {cancel:.1f} "
+            f"× max|y|")
+
+        def make(i):
+            return args if i == 0 else tuple(a if a is None else a.clone() for a in args)
+
+        def weight(a):
+            if name == "qs_gemm":
+                w = mm.qs_dequantize(a[1], a[2], a[3], k=k)
+            else:
+                w = getattr(mm, name.replace("gemm", "dequantize"))(*a[1:])
+            return a[0].to(torch.bfloat16), w.to(torch.bfloat16).T
+
+        case = dict(name=f"{name}[{tag} activations,m={m},k={k},n={n}]", kernel=kernel,
+                    plain=plain, shape=(n, m, k), make_args=make, compare=gemm_compare,
+                    nbytes=sum(a.numel() * a.element_size() for a in args[1:] if a is not None)
+                    + 2 * n * k + 4 * n * m,
+                    flops=2 * n * m * k, fpeak=bf16_peak, library=torch.matmul,
+                    library_args=weight)
+        add_entry(case, run_kernel_case(torch, case, hbm))
+        cases.append(case)
 
     def card_vs_cpu(tag, spec, info2, p_gpu, p_cpu):
         """The card against the CPU, same widths, two layers, three lanes."""
@@ -1625,21 +1847,26 @@ def run(np, torch, files) -> int:
         prefill = [(prng.integers(0, VOCAB, (len(lens), T)), np.array(lens))
                    for T, lens in COMPARE_PREFILL]
         batch = len(COMPARE_STEPS[0][1])
-        mega_key = spec["mega"][0]
-        m_gpu = models.prepare_decode(p_gpu, info2, batch)
-        m_cpu = models.prepare_decode(p_cpu, info2, batch)
-        if mega_key not in m_gpu or mega_key not in m_cpu:
-            raise AssertionError(f"{tag}: the compare model did not take the whole-stack "
-                                 "decode blocks")
+        runs = [("decode steps, per-layer kernels (lane 2 frozen on the second)", decode,
+                 p_gpu, p_cpu)]
+        if spec["mega"] is not None:
+            mega_key = spec["mega"][0]
+            m_gpu = models.prepare_decode(p_gpu, info2, batch)
+            m_cpu = models.prepare_decode(p_cpu, info2, batch)
+            if mega_key not in m_gpu or mega_key not in m_cpu:
+                raise AssertionError(f"{tag}: the compare model did not take the whole-stack "
+                                     "decode blocks")
+            runs.append(("decode steps, whole-stack kernel (lane 2 frozen on the second)",
+                         decode, m_gpu, m_cpu))
+        runs.append((f"prefill chunks {COMPARE_PREFILL}", prefill, p_gpu, p_cpu))
         fmt = lambda rel: ", ".join(f"{k} {v:.3e}" for k, v in rel.items())  # noqa: E731
         failed = []  # every comparison runs and prints before a failure raises
-        for label, chunks, pg, pc in (
-                ("decode steps, per-layer kernels (lane 2 frozen on the second)", decode,
-                 p_gpu, p_cpu),
-                ("decode steps, whole-stack kernel (lane 2 frozen on the second)", decode,
-                 m_gpu, m_cpu),
-                (f"prefill chunks {COMPARE_PREFILL}", prefill, p_gpu, p_cpu)):
-            card = run_chunks(torch, models, info2, pg, chunks, "cuda")
+        for label, chunks, pg, pc in runs:
+            gemms = []  # the decode steps' dequant-GEMM calls with offsets, on the card
+            with capture_gemms(gemms, chunks is decode and pg is p_gpu):
+                card = run_chunks(torch, models, info2, pg, chunks, "cuda")
+            if gemms:
+                activation_case(tag, gemms)
             cpu = run_chunks(torch, models, info2, pc, chunks, "cpu")
             per_chunk = rel_diff(card, cpu)
             log(f"{tag} card vs CPU, L={COMPARE_LAYERS}, B={batch}, {label}: max "
@@ -1675,7 +1902,7 @@ def run(np, torch, files) -> int:
         log(f"{tag} model file: {len(raw) / 1e6:.1f} MB built in {t_file:.1f} s in a worker "
             f"process ({spec['widths']}, seed {spec['seed']})")
         t0 = time.perf_counter()
-        info, params = models.load_model(GgufFile(raw), device="cuda")
+        info, params = load(models, raw, spec, "cuda")
         del raw
         torch.cuda.synchronize()
         log(f"{tag} load_model on cuda: {time.perf_counter() - t0:.1f} s; "
@@ -1684,14 +1911,13 @@ def run(np, torch, files) -> int:
         layer_kind, head_kind = spec["kinds"]
         if (info.version.value != tag[:2] or params["head"].kind != head_kind
                 or any(blocks[p][n].kind != layer_kind for p, n in spec["matrices"])):
-            raise AssertionError(f"{tag}: the model did not load in its placement "
-                                 f"({spec['quantize']} layers, {spec['head_quantize']} head)")
+            raise AssertionError(f"{tag}: the model did not load as {spec['kinds']}")
         drive(tag, spec, info, params)
         del info, params, blocks
         t0 = time.perf_counter()
         raw2, t_file = files[tag]["compare"].get()
-        info2, p_gpu = models.load_model(GgufFile(raw2), device="cuda")
-        card_vs_cpu(tag, spec, info2, p_gpu, models.load_model(GgufFile(raw2), device="cpu")[1])
+        info2, p_gpu = load(models, raw2, spec, "cuda")
+        card_vs_cpu(tag, spec, info2, p_gpu, load(models, raw2, spec, "cpu")[1])
         log(f"{tag} card vs CPU: {time.perf_counter() - t0:.1f} s (its file built in "
             f"{t_file:.1f} s in a worker process, seed {compare_seed(spec)})")
         del raw2, info2, p_gpu

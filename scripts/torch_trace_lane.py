@@ -14,14 +14,28 @@ to 3, as chip_smoke's ``sensitivity()``) against the plain version, and
 the plain version on the CPU (the same function, every sum in the CPU's
 order: the LoRA products and the attention core's too) against it on the
 card: how far the order of f32 sums alone moves that layer at that
-input. Needs one CUDA card; from the repo root:
+input. Then it finds which of the layer's sums does so: the plain
+version on the card again with one kind of its operations at a time run
+on the CPU instead (the inner-LoRA pairs, the attention core, the layer
+norms, the quantized products), each against the plain version on the
+CPU; the kind whose move closes the gap holds the sensitive sum. Needs
+one CUDA card; from the repo root:
 
-    python3 scripts/torch_trace_lane.py [tag]
+    python3 scripts/torch_trace_lane.py [tag] [--gemm-source FILE]
+
+``--gemm-source`` builds the dequant-GEMM entry points (``q4k_gemm``,
+``q6k_gemm``, ``qkb_gemm``, ``qs_gemm``) from another ``qk_gemm.cu`` (an
+earlier commit's, say) and makes the port launch them, so that the
+Engine's prefill, and with it the lane's state, is the one that version
+made.
 """
 
+import ctypes
 import math
 import os
+import subprocess
 import sys
+import types
 
 import numpy as np
 import torch
@@ -32,7 +46,8 @@ import chip_smoke as cs  # noqa: E402
 from web_rwkv_gguf_tpu_torch import models, runtime  # noqa: E402
 from web_rwkv_gguf_tpu_torch.gguf import GgufFile  # noqa: E402
 from web_rwkv_gguf_tpu_torch.models.forward import GN_EPS, L2_EPS, LN_EPS  # noqa: E402
-from web_rwkv_gguf_tpu_torch.ops.cuda import build, layer7  # noqa: E402
+from web_rwkv_gguf_tpu_torch.ops import basic  # noqa: E402
+from web_rwkv_gguf_tpu_torch.ops.cuda import build, layer7, matmul  # noqa: E402
 
 NOISE_SEEDS = (0, 1, 2, 3)
 
@@ -48,12 +63,58 @@ def shares(got, want):
     return f"{s[k]:.3f} ({k})"
 
 
-def to_cpu(tree):
+def to_dev(tree, dev):
     if isinstance(tree, dict):
-        return {k: to_cpu(v) for k, v in tree.items()}
+        return {k: to_dev(v, dev) for k, v in tree.items()}
     if isinstance(tree, tuple):
-        return tuple(to_cpu(v) for v in tree)
-    return tree.cpu() if isinstance(tree, torch.Tensor) else tree
+        return tuple(to_dev(v, dev) for v in tree)
+    return tree.to(dev) if isinstance(tree, torch.Tensor) else tree
+
+
+def to_cpu(tree):
+    return to_dev(tree, "cpu")
+
+
+def on_cpu(fn):
+    """``fn`` evaluated on the CPU, its result moved back to the card."""
+    def wrapped(*args, **kw):
+        return to_dev(fn(*to_cpu(args), **to_cpu(kw)), "cuda")
+    return wrapped
+
+
+# the kinds of operation in layer7.layer_scan7_plain, by the module names
+# they are looked up under, and their stand-ins evaluated on the CPU
+PIECES = {
+    "LoRA pairs": {"lora_plain": on_cpu(layer7.lora_plain)},
+    "attention core": {"att_core7_plain": on_cpu(layer7.att_core7_plain)},
+    "layer norms": {"B_": types.SimpleNamespace(layer_norm=on_cpu(basic.layer_norm),
+                                                squared_relu=basic.squared_relu)},
+    "quantized products": {"slot_gemv_plain": on_cpu(layer7.slot_gemv_plain)},
+}
+
+
+def with_piece_on_cpu(piece, fn, *args):
+    saved = {name: getattr(layer7, name) for name in PIECES[piece]}
+    for name, sub in PIECES[piece].items():
+        setattr(layer7, name, sub)
+    try:
+        return fn(*args)
+    finally:
+        for name, val in saved.items():
+            setattr(layer7, name, val)
+
+
+def use_gemm_source(path):
+    """Build the dequant-GEMM library from ``path`` and have the port's
+    GEMM wrappers launch its entry points."""
+    out = build.BUILD_DIR / "qk_gemm-traced.so"
+    subprocess.run([build.nvcc(), *build.NVCC_FLAGS, "-I", str(build.CSRC), "-o", str(out),
+                    path], check=True, capture_output=True)
+    lib = ctypes.CDLL(str(out))
+    real = build.load
+    build.load = lambda name: lib if name == "qk_gemm" else real(name)
+    for fn in (matmul._gemm_fn, matmul._qkb_fn, matmul._qs_fn, matmul._nf4_fn):
+        fn.cache_clear()
 
 
 def noisy_slot(seed):
@@ -76,7 +137,14 @@ def main() -> int:
         print("torch_trace_lane: no CUDA card", file=sys.stderr)
         return 1
     torch.backends.cuda.matmul.allow_tf32 = False
-    tag = sys.argv[1] if len(sys.argv) > 1 else "v7q5"
+    args = sys.argv[1:]
+    if "--gemm-source" in args:
+        at = args.index("--gemm-source")
+        build.build()
+        use_gemm_source(args[at + 1])
+        print(f"dequant-GEMM built from {args[at + 1]}", flush=True)
+        del args[at:at + 2]
+    tag = args[0] if args else "v7q5"
     spec = cs.MODELS[tag]
     build.build()
     raw, _ = cs.build_file(tag, spec["widths"]["n_layer"], spec["seed"])
@@ -108,11 +176,17 @@ def main() -> int:
                 noisy.append(shares(layer7.layer_scan7_plain(*args), want))
             finally:
                 layer7.slot_gemv_plain = real
-        on_cpu = layer7.layer_scan7_plain(*to_cpu(args))
+        cpu = layer7.layer_scan7_plain(*to_cpu(args))
         print(f"{tag} lane 0 at B=1, layer {i}, share of MEGA_LAYER_TOL: kernel against plain "
               f"{shares(got, want)}; plain on the CPU against plain on the card "
-              f"{shares(to_cpu(on_cpu), to_cpu(want))}; plain with one-ulp product changes "
+              f"{shares(to_cpu(cpu), to_cpu(want))}; kernel against plain on the CPU "
+              f"{shares(to_cpu(got), cpu)}; plain with one-ulp product changes "
               f"against plain, seeds {NOISE_SEEDS}: {', '.join(noisy)}", flush=True)
+        moved = [f"{piece} "
+                 f"{shares(to_cpu(with_piece_on_cpu(piece, layer7.layer_scan7_plain, *args)), cpu)}"
+                 for piece in PIECES]
+        print(f"  plain on the card with one kind of operation on the CPU, against plain on "
+              f"the CPU: {'; '.join(moved)}", flush=True)
         x_l, v_first = want[0], want[2]
     return 0
 

@@ -658,25 +658,31 @@ def test_qs_kernels_refuse_what_they_do_not_take(card):
 @pytest.mark.cuda
 @pytest.mark.parametrize("B", [1, 3, 9])
 @pytest.mark.parametrize("version,kind", [("v7", "Q5_K"), ("v7", "Q8_0"), ("v6", "Q5_K"),
-                                          ("v6", "Q8_0"), ("v7", "Q2_K"), ("v6", "Q5_1")])
+                                          ("v6", "Q8_0"), ("v7", "Q2_K"), ("v6", "Q5_1"),
+                                          ("v7", "INT8"), ("v6", "INT8")])
 def test_layer_scan_stack_forms_on_card(card, version, kind, B):
     """The whole-stack decode kernels on Q5_K / Q2_K (native byte-kind
-    slots) and Q8_0 / Q5_1 (f32-scale byte slots) stacks against their
-    plain versions, from a random state, one lane frozen at B ≥ 3: each
-    layer as a one-layer slice on the plain chain's input, every output at
-    2^-8·max of that layer (as test_layer_scan56_on_card); the frozen
-    lane's state is kept exactly."""
+    slots), Q8_0 / Q5_1 (f32-scale byte slots) and Int8-requantized
+    (f32-scale slots in 128-groups) stacks against their plain versions,
+    from a random state, one lane frozen at B ≥ 3: each layer as a
+    one-layer slice on the plain chain's input, every output at 2^-8·max
+    of that layer (as test_layer_scan56_on_card); the frozen lane's state
+    is kept exactly."""
     from web_rwkv_gguf_tpu_torch.gguf import GgufFile
     from web_rwkv_gguf_tpu_torch.models import embed_tokens, load_model, prepare_decode
     from web_rwkv_gguf_tpu_torch.models.forward import GN_EPS, L2_EPS, LN_EPS
     from web_rwkv_gguf_tpu_torch.ops.cuda import layer7, layer56
+    from web_rwkv_gguf_tpu_torch.quant import QuantScheme
     from web_rwkv_gguf_tpu_torch.utils.synthetic import make_v6_gguf, make_v7_gguf
 
-    kw = dict(n_layer=2, n_emb=256, head_size=64, n_vocab=512, n_hidden=1024,
-              quantize=ggml.GgmlDType[kind], head_quantize=ggml.GgmlDType.Q6_K, seed=8)
+    requant = kind == "INT8"
+    kw = dict(n_layer=2, n_emb=256, head_size=64, n_vocab=512, n_hidden=1024, seed=8,
+              **({} if requant else dict(quantize=ggml.GgmlDType[kind],
+                                          head_quantize=ggml.GgmlDType.Q6_K)))
     raw = (make_v7_gguf(**kw) if version == "v7"
            else make_v6_gguf(**kw, rank_tm=32, rank_td=64))
-    info, params = load_model(GgufFile(raw), device=card)
+    info, params = load_model(GgufFile(raw), quant=QuantScheme.INT8 if requant else None,
+                              device=card)
     v7 = version == "v7"
     mega = prepare_decode(params, info, B)["mega7" if v7 else "mega56"]
     state = _random_state56(info, B, card, B)
@@ -707,3 +713,119 @@ def test_layer_scan_stack_forms_on_card(card, version, kind, B):
                 assert torch.equal(s1[key][:, 1], s_i[key][:, 1])
         x = x0
     assert scan.launches == before + info.num_layer
+
+
+# the engine's requantized forms at the RWKV-7 0.1B layer shapes
+REQUANT_SHAPES = [(768, 768), (3072, 768), (768, 3072)]
+
+
+def _requant_matrix(scheme, m, k, seed, dev):
+    from web_rwkv_gguf_tpu_torch.models import Matrix
+    from web_rwkv_gguf_tpu_torch.quant import QuantScheme
+
+    w = (np.random.default_rng(seed).normal(size=(m, k)) * 0.05).astype(np.float16)
+    return Matrix.from_f16(w, QuantScheme[scheme], device=dev)
+
+
+def _requant_call(mat, op):
+    """The kernel, its plain version and the weight operands of ``op`` for
+    an Int8 (``qs_*``, groups of 128) or NF4 / SF4 (``nf4_*``) matrix."""
+    from web_rwkv_gguf_tpu_torch.models.matrix import int8_operands
+
+    a = mat.arrays
+    if mat.kind == "int8":
+        family, ops = "qs", (a["codes"], *int8_operands(a, op == "gemm"))
+    else:
+        family, ops = "nf4", (a["codes"], a["absmax"], a["lut"])
+    return getattr(mm, f"{family}_{op}"), getattr(mm, f"{family}_{op}_plain"), ops
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("op,n", [("gemv", 1), ("gemv", 4), ("gemv", 8), ("gemm", 3),
+                                  ("gemm", 64), ("gemm", 130)])
+@pytest.mark.parametrize("scheme", ["INT8", "NF4", "SF4"])
+@pytest.mark.parametrize("m,k", REQUANT_SHAPES)
+def test_requant_kernels_on_card(card, m, k, scheme, op, n):
+    """The Int8 forms of ``qs_gemv`` / ``qs_gemm`` (u8 codes in 128-groups,
+    offsets −mn) and ``nf4_gemv`` / ``nf4_gemm`` with the NF4 and the SF4
+    codebook against their plain versions."""
+    kernel, plain, ops = _requant_call(_requant_matrix(scheme, m, k, m + k, card), op)
+    x = _x(n, k, n, card)
+    before = kernel.launches
+    got = kernel(x, *ops)
+    assert kernel.launches == before + 1
+    _close(got, plain(x, *ops), 1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [3, 64])
+@pytest.mark.parametrize("form", ["Q5_K", "Q8_0", "INT8", "NF4"])
+def test_gemm_on_same_signed_inputs_on_card(card, form, n):
+    """The dequant-GEMM on inputs that are all ≥ 0 (relu², the FFN value's
+    input) at K = 3072: its products' sum is many times |y| where the
+    offset term cancels it. At n = 64 the tensor cores' truncating sums,
+    chained through a row, would drift from the plain version's (each
+    mma now starts from zero); at n = 3 (M = 768: 12 tiles of 64 rows)
+    the CUDA-core path forms each weight with its offset first
+    (csrc/qk_gemm.cu)."""
+    m, k = 768, 3072
+    x = torch.relu(_x(n, k, 5, card)) ** 2
+    if form in ("INT8", "NF4"):
+        kernel, plain, ops = _requant_call(_requant_matrix(form, m, k, 11, card), "gemm")
+    else:
+        a = _matrix(form, m, k, 11, card).arrays
+        if form == "Q5_K":
+            kernel, plain = mm.qkb_gemm, mm.qkb_gemm_plain
+            ops = tuple(a[key] for key in ("codes", "sc6", "mn6", "d8", "dm8"))
+        else:
+            kernel, plain, ops = mm.qs_gemm, mm.qs_gemm_plain, (a["codes"], a["scales"])
+    _close(kernel(x, *ops), plain(x, *ops), 1e-4)
+
+
+@pytest.mark.cuda
+def test_nf4_kernels_refuse_what_they_do_not_take(card):
+    a = _requant_matrix("NF4", 256, 512, 1, card).arrays
+    with pytest.raises(ValueError):  # 9 rows on the gemv
+        mm.nf4_gemv(_x(9, 512, 0, card), a["codes"], a["absmax"], a["lut"])
+    with pytest.raises(ValueError):  # a codebook of another size
+        mm.nf4_gemm(_x(2, 512, 0, card), a["codes"], a["absmax"], a["lut"][:8].contiguous())
+    with pytest.raises(ValueError):  # absmax per 32
+        mm.nf4_gemm(_x(2, 512, 0, card), a["codes"], a["absmax"].repeat(1, 2), a["lut"])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("scheme", ["INT8", "NF4"])
+def test_requant_forward_routes_through_the_kernels_on_card(card, scheme):
+    """A requantized RWKV-7 model (C=256, FFN 1024) at B=4: a decode step
+    through forward_chunk takes the scheme's gemv for all 12 layer
+    matrices (n·groups at most 4 · 32 for NF4's FFN value), a prefill
+    chunk of T=9 its GEMM; logits and layer 0's state agree with the CPU
+    at the card-vs-CPU limit of chip_smoke.py."""
+    from web_rwkv_gguf_tpu_torch.gguf import GgufFile
+    from web_rwkv_gguf_tpu_torch.models import init_state, load_model
+    from web_rwkv_gguf_tpu_torch.models import forward_chunk, logits_head
+    from web_rwkv_gguf_tpu_torch.quant import QuantScheme
+    from web_rwkv_gguf_tpu_torch.utils.synthetic import make_v7_gguf
+
+    raw = make_v7_gguf(n_layer=2, n_emb=256, head_size=64, n_vocab=512, n_hidden=1024,
+                       seed=12)
+    family = "qs" if scheme == "INT8" else "nf4"
+    gemv, gemm = getattr(mm, f"{family}_gemv"), getattr(mm, f"{family}_gemm")
+    outs = {}
+    for dev in (card, torch.device("cpu")):
+        info, params = load_model(GgufFile(raw), quant=QuantScheme[scheme], device=dev)
+        st = init_state(info, 4, device=dev)
+        counts = (gemv.launches, gemm.launches)
+        logits = []
+        for T in (1, 9):
+            toks = torch.arange(4 * T, device=dev).view(4, T) * 7 % 512
+            x, st = forward_chunk(info, params, st, toks, torch.full((4,), T, device=dev))
+            logits.append(logits_head(params, x[:, -1]).cpu())
+        if dev.type == "cuda":
+            # T=1: 6 matrices x 2 layers on the gemv; T=9 (n=36): the GEMM
+            assert (gemv.launches - counts[0], gemm.launches - counts[1]) == (12, 12)
+        outs[dev.type] = (logits, {k: v.cpu() for k, v in st.items()})
+    for a, b in zip(outs["cuda"][0], outs["cpu"][0]):
+        _close(a, b, 1e-2)
+    for key, v in outs["cpu"][1].items():
+        _close(outs["cuda"][1][key][0], v[0], 1e-2)

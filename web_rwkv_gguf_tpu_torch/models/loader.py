@@ -8,8 +8,9 @@ torch tensors on one device:
   a llama.cpp Q4_K_M file that keeps some matrices in Q6_K);
 - big matrices are :class:`Matrix` (direct-quantized from any block
   type ``GgufFile.quantized_tensor`` returns — Q8_0, Q4_0, Q4_1, Q5_0,
-  Q5_1, Q2_K to Q6_K — or dense in the model dtype after an f16 round
-  trip);
+  Q5_1, Q2_K to Q6_K — or, after an f16 round trip, requantized by the
+  layer's scheme (``load_model(quant=)``: Int8, NF4, SF4) or dense in the
+  model dtype; the head is never requantized);
 - the adapters (V7's inner LoRAs, V6's ``tm_w1`` / ``tm_w2`` /
   ``td_w1`` / ``td_w2``) are dense in the model dtype; vectors are f32
   (V5's decay activated at load as exp(-exp(raw)) per head, V4's as
@@ -28,6 +29,7 @@ import torch
 from ..errors import TensorNotFound
 from ..ops.cuda.layer7 import MAX_SCAN_BATCH, prep_decode7
 from ..ops.cuda.layer56 import prep_decode56
+from ..quant.formats import QuantScheme
 from .info import ModelVersion, detect_info
 from .matrix import Matrix
 
@@ -83,8 +85,10 @@ def prepare_decode(params: dict, info, batch_hint: int = 1) -> dict:
     Params it cannot arrange (a batch above the limit, per-layer blocks,
     a layer matrix of a form the whole-stack kernels do not take:
     ``layer7.stack_matrix`` takes Q4_K and Q5_K / Q2_K with whole
-    super-blocks and f32 group scales over byte codes, as Q8_0's, not yet
-    Q6_K / Q3_K, f32-scale nibbles or dense matrices) come back unchanged.
+    super-blocks, f32 group scales over byte codes, as Q8_0's, and the
+    engine's Int8; not yet Q6_K / Q3_K, f32-scale nibbles or dense
+    matrices, nor NF4 / SF4, which the JAX package's whole-stack kernels
+    do not take either) come back unchanged.
     Idempotent."""
     if "mega7" in params or "mega56" in params or batch_hint > MAX_SCAN_BATCH:
         return params
@@ -95,17 +99,27 @@ def prepare_decode(params: dict, info, batch_hint: int = 1) -> dict:
     return params if mega is None else {**params, "mega56": mega}
 
 
-def load_model(reader, *, dtype=torch.bfloat16, rescale: int | None = None,
+def load_model(reader, *, quant=None, dtype=torch.bfloat16, rescale: int | None = None,
                device="cuda"):
     """Load an RWKV-7, -6, -5 or -4 model into ``(info, params)`` on ``device``.
 
-    ``dtype`` is the storage type of dense matrices and adapters (bf16 or
-    f32). ``rescale``: the weights of ``att.output`` / ``ffn.value`` at
-    layer i are pre-multiplied by ``2^-(i // rescale)`` (those matrices
-    then load dense) and the forward halves the residual every
+    ``quant``: the engine's requantization, one ``QuantScheme`` for every
+    layer or ``{layer: scheme}`` (layers not named stay NONE), as the JAX
+    package's ``load_model(quant=)`` takes it. It applies to each layer
+    matrix that does not load direct-quantized: every matrix of an f16 /
+    f32 file, and the rescale-discounted ones of any file (the JAX
+    package's ``_Loader.matrix``). Layers of mixed kinds load as
+    per-layer (list) blocks. ``dtype`` is the storage type of dense
+    matrices and adapters (bf16 or f32). ``rescale``: the weights of
+    ``att.output`` / ``ffn.value`` at layer i are pre-multiplied by
+    ``2^-(i // rescale)`` (those matrices then load dense or by the
+    layer's scheme) and the forward halves the residual every
     ``rescale`` layers.
     """
     info = detect_info(reader)
+    if isinstance(quant, QuantScheme):
+        quant = {i: quant for i in range(info.num_layer)}
+    quant = quant or {}
     rescale = rescale or 10**9
     C, L, H, hs = info.num_emb, info.num_layer, info.num_head, info.head_size
 
@@ -121,22 +135,23 @@ def load_model(reader, *, dtype=torch.bfloat16, rescale: int | None = None,
     def to_dtype(a: np.ndarray) -> torch.Tensor:
         return dev(a.astype(np.float32)).to(dtype)
 
-    def matrix(name, discount=1.0) -> Matrix:
+    def matrix(name, discount=1.0, layer=None) -> Matrix:
         if discount == 1.0:
             qt = reader.quantized_tensor(name)
             if qt is not None:
                 return Matrix.from_gguf_blocks(qt[0], qt[1], reader.shape(name),
                                                device=device)
         w = matrix_f32(name) * discount
-        # the f16 round trip the reference loader applies to dense weights
-        return Matrix.dense(dev(w.astype(np.float16)).to(dtype))
+        # the f16 round trip the reference loader applies before its scheme
+        return Matrix.from_f16(w.astype(np.float16), quant.get(layer, QuantScheme.NONE),
+                               dtype, device)
 
     def vecs(fmt):
         return dev(np.stack([vector(fmt.format(i=i)) for i in range(L)]))
 
     def mats(fmt, discounted=False):
         return _stack_matrices([
-            matrix(fmt.format(i=i), 2.0 ** -(i // rescale) if discounted else 1.0)
+            matrix(fmt.format(i=i), 2.0 ** -(i // rescale) if discounted else 1.0, i)
             for i in range(L)
         ])
 

@@ -24,10 +24,21 @@ keys, without the arrays that only lay weights out for the TPU):
   Q4_0 at K % 64 != 0 (i8, per 32), and Q6_K / Q3_K without whole
   super-blocks (per 16), with f32 ``scales``.
 
+The engine's requantization of dense weights (:meth:`Matrix.from_f16`,
+``quant/formats.py``) adds two kinds:
+
+- ``int8``: ``codes`` u8 ``[M, K]``, ``mn`` / ``mx`` f32 ``[M, K/128]``
+  (f16 values); a weight is ``mn + u·(mx − mn)/255``.
+- ``nf4`` (NF4 and SF4): ``codes`` u8 ``[M, K/2]`` in pairs (byte j =
+  el(2j) | el(2j+1) << 4), ``absmax`` f32 ``[M, K/64]`` (f16 values),
+  ``lut`` f32 ``[16]`` (``[L, 16]`` layer-stacked), the codebook; a
+  weight is ``lut[idx]·absmax``.
+
 Each form has its gemv and dequant-GEMM kernel (``ops/cuda/matmul.py``):
 ``q4k_*`` for the Q4_K factors, ``q6k_*`` for the Q6_K / Q3_K factors,
 ``qkb_*`` for the Q5_K / Q2_K factors, ``qs_*`` for every form with f32
-``scales``.
+``scales`` and for ``int8`` (scales ``(mx − mn)/255``, offsets ``−mn``),
+``nf4_*`` for ``nf4``.
 """
 
 from __future__ import annotations
@@ -39,11 +50,16 @@ import torch
 
 from ..errors import LoaderError, UnsupportedTensorType
 from ..ops.cuda.matmul import (
-    MAX_GEMV_ROWS, q4k_gemm, q4k_gemv, q4k_scale_products, q6k_gemm, q6k_gemv,
-    q6k_scale_products, qkb_gemm, qkb_gemv, qs_dequantize, qs_gemm, qs_gemv,
+    MAX_GEMV_ROWS, nf4_dequantize, nf4_gemm, nf4_gemv, q4k_gemm, q4k_gemv,
+    q4k_scale_products, q6k_gemm, q6k_gemv, q6k_scale_products, qkb_gemm, qkb_gemv,
+    qs_dequantize, qs_gemm, qs_gemv,
 )
+from ..quant import formats as qf
 from ..quant import repack
 from ..quant.ggml import GgmlDType
+
+# the kinds whose codes pack two elements a byte
+_NIBBLE_KINDS = ("qk", "nf4")
 
 
 def _gemv_tiles(m: int, kdim: int) -> bool:
@@ -61,9 +77,10 @@ def takes_gemv(kind: str, n: int, m: int, k: int, groups: int) -> bool:
     (bf16-rounded weights). ``groups`` is the matrix's own group count per
     row (:meth:`Matrix.groups`), kdim its code bytes per row. Following it
     keeps the port in the JAX package's numerics class at every n."""
-    kdim = k // 2 if kind == "qk" else k
+    nibbles = kind in _NIBBLE_KINDS
+    kdim = k // 2 if nibbles else k
     return (n <= MAX_GEMV_ROWS and n * groups <= 256 and _gemv_tiles(m, kdim)
-            and (kind != "qk" or groups % 2 == 0) and n * groups * kdim * 2 <= (4 << 20))
+            and (not nibbles or groups % 2 == 0) and n * groups * kdim * 2 <= (4 << 20))
 
 
 def scale_products(a: dict):
@@ -78,6 +95,18 @@ def scale_products(a: dict):
     if "q6s" in a:
         return q6k_scale_products(a["q6s"], a["q6d"]), None
     raise LoaderError(f"no scale arrays among {sorted(a)}")
+
+
+def int8_operands(a: dict, gemm: bool):
+    """The f32 group scales and offsets ``(s, −mn)`` ``[M, K/128]`` over
+    which an ``int8`` matrix's codes multiply in the ``qs_*`` kernels (w =
+    u·s − (−mn), the negation exact). ``s`` is (mx − mn)/255 for the gemv
+    class (the JAX package's gemv operands and whole-stack prep divide)
+    and (mx − mn)·(1/255) for the GEMM's (its slab branch multiplies): the
+    two differ by about one ulp."""
+    mn, mx = a["mn"].float(), a["mx"].float()
+    s = (mx - mn) * (1.0 / 255.0) if gemm else (mx - mn) / 255.0
+    return s, -mn
 
 
 # the native factor arrays' keys, by their count
@@ -103,13 +132,47 @@ _BYTES_REPACK = {GgmlDType.Q4_0: ("qk_nomin", "repack_q4_0_bytes"),
 
 @dataclass
 class Matrix:
-    kind: str  # "dense" | "qk" | "qk_b" | "qk_nomin"
+    kind: str  # "dense" | "qk" | "qk_b" | "qk_nomin" | "int8" | "nf4"
     shape: tuple[int, int]  # logical (M, K), without a layer axis
     arrays: dict[str, torch.Tensor]
 
     @classmethod
     def dense(cls, w: torch.Tensor) -> "Matrix":
         return cls("dense", tuple(w.shape[-2:]), {"w": w})
+
+    @classmethod
+    def from_f16(cls, w: np.ndarray, scheme, dtype=torch.bfloat16,
+                 device="cuda") -> "Matrix":
+        """A dense ``[M, K]`` weight (f16 values) requantized by ``scheme``
+        (``quant.QuantScheme``), as the JAX package's ``Matrix.from_f16``
+        makes it (without its TPU operands): NONE keeps it dense in
+        ``dtype``; INT8 quantizes per 128 elements of a row, NF4 and SF4
+        per 64 (SF4 is NF4 with the Student-t codebook). A K that the
+        block does not divide stays dense."""
+        m, k = w.shape
+
+        def dev(a):
+            return torch.from_numpy(np.require(a, requirements="CW")).to(device)
+
+        block = qf.INT8_BLOCK_SIZE if scheme == qf.QuantScheme.INT8 else qf.NF4_BLOCK_SIZE
+        if scheme == qf.QuantScheme.NONE or k % block:
+            return cls.dense(dev(np.asarray(w, np.float16)).to(dtype))
+        w32 = np.asarray(w, np.float32)
+        if scheme == qf.QuantScheme.INT8:
+            codes, mn, mx = qf.quantize_int8(w32)
+            g = k // block
+            return cls("int8", (m, k), {
+                "codes": dev(codes.reshape(m, k)),
+                "mn": dev(mn.astype(np.float32).reshape(m, g)),
+                "mx": dev(mx.astype(np.float32).reshape(m, g))})
+        if scheme in (qf.QuantScheme.NF4, qf.QuantScheme.SF4):
+            lut = qf.NF4_QUANTILES if scheme == qf.QuantScheme.NF4 else qf.sf4_quantiles()
+            packed, absmax, lut = qf.quantize_nf4(w32, lut)
+            return cls("nf4", (m, k), {
+                "codes": dev(packed.reshape(m, k // 2)),
+                "absmax": dev(absmax.astype(np.float32).reshape(m, k // block)),
+                "lut": dev(np.asarray(lut, np.float32))})
+        raise LoaderError(f"unsupported scheme {scheme}")
 
     @classmethod
     def from_gguf_blocks(cls, dtype: GgmlDType, raw: np.ndarray, shape,
@@ -142,12 +205,17 @@ class Matrix:
         if self.kind == "dense":
             return tuple(a["w"].shape[-2:])
         m, kc = a["codes"].shape[-2:]
-        return (m, kc * 2) if self.kind == "qk" else (m, kc)
+        return (m, kc * 2) if self.kind in _NIBBLE_KINDS else (m, kc)
 
     def groups(self) -> int:
-        """Quantization groups per row, from the matrix's scale arrays."""
+        """Quantization groups per row that the gemv gate counts: the
+        matrix's scale arrays' width; for ``nf4`` twice its absmax count,
+        the per-64 absmax tiled over the JAX kernel's two nibble planes
+        (JAX ``quant_matmul``: groups of 32 in its de-interleaved x)."""
         a = self.arrays
-        return next(a[key].shape[-1] for key in ("scales", "sc6", "q6s") if key in a)
+        if self.kind == "nf4":
+            return 2 * a["absmax"].shape[-1]
+        return next(a[key].shape[-1] for key in ("scales", "sc6", "q6s", "mn") if key in a)
 
     def takes_gemv(self, n: int) -> bool:
         """Whether a single-layer quantized matrix multiplies n rows of x
@@ -160,6 +228,14 @@ class Matrix:
         a = self.arrays
         if self.kind == "dense":
             return a["w"].float()
+        if self.kind == "int8":  # the JAX package's formula, bit for bit
+            m, k = self.dims()
+            g = a["mn"].shape[-1]
+            u = (a["codes"].float() / 255.0).view(m, g, k // g)
+            mn, mx = a["mn"][..., None], a["mx"][..., None]
+            return (mn + u * (mx - mn)).view(m, k)
+        if self.kind == "nf4":
+            return nf4_dequantize(a["codes"], a["absmax"], a["lut"])
         if self.kind not in ("qk", "qk_b", "qk_nomin"):
             raise LoaderError(f"unknown matrix kind {self.kind}")
         return qs_dequantize(a["codes"], *scale_products(a), k=self.dims()[1])
@@ -174,8 +250,9 @@ class Matrix:
         :meth:`takes_gemv` says so and through its dequant-GEMM otherwise
         (``ops/cuda/matmul.py``), as the JAX package's ``quant_matmul``
         dispatches: native Q4_K factors → ``q4k_*``, native Q5_K / Q2_K →
-        ``qkb_*``, native Q6_K / Q3_K → ``q6k_*``, f32 scales → ``qs_*``.
-        On the CPU those take their plain versions.
+        ``qkb_*``, native Q6_K / Q3_K → ``q6k_*``, f32 scales and ``int8``
+        → ``qs_*``, ``nf4`` → ``nf4_*``. On the CPU those take their plain
+        versions.
         """
         m, k = self.dims()
         lead = x.shape[:-1]
@@ -189,7 +266,11 @@ class Matrix:
                 y = x2.to(w.dtype).float() @ w.float().T
             return y.reshape(lead + (m,))
         gemv = self.takes_gemv(x2.shape[0])
-        if "sc6" in a:
+        if self.kind == "int8":
+            y = (qs_gemv if gemv else qs_gemm)(x2, a["codes"], *int8_operands(a, not gemv))
+        elif self.kind == "nf4":
+            y = (nf4_gemv if gemv else nf4_gemm)(x2, a["codes"], a["absmax"], a["lut"])
+        elif "sc6" in a:
             family = (q4k_gemv, q4k_gemm) if self.kind == "qk" else (qkb_gemv, qkb_gemm)
             y = family[0 if gemv else 1](x2, a["codes"], a["sc6"], a["mn6"], a["d8"], a["dm8"])
         elif "q6s" in a:

@@ -10,8 +10,9 @@
 // gemv class of q4k_gemv.cu). Byte-code rows hold one code a byte, with
 // s = d * sc and mn = dmin * mn formed in f32 per 32- or 16-group (Q5_K,
 // Q2_K) or f32 group scales and optional mins (Q8_0, Q5_0, Q5_1, Q4_1 and
-// Q4_0 bytes): the gemv class of qkb_gemv.cu and qs_gemv.cu, with their
-// scale sources and code decoding (qscales.cuh).
+// Q4_0 bytes; the engine's Int8 in 128-groups): the gemv class of
+// qkb_gemv.cu and qs_gemv.cu, with their scale sources and code decoding
+// (qscales.cuh).
 
 #pragma once
 
@@ -39,7 +40,9 @@ enum MatForm {
   kFormQKB = 1,  // Q5_K / Q2_K: codes u8 [L, M, K]; p1, p2 = sc6, mn6 u8
                  // [L, M, K/gs]; d8, dm8 f32 [L, M, K/256]
   kFormQS = 2,   // f32 group scales: codes u8 or i8 [L, M, K]; p1 = scales,
-                 // p2 = mins (or null) f32 [L, M, K/gs]; no d8, dm8
+                 // p2 = mins (or null) f32 [L, M, K/gs]; no d8, dm8; gs 16
+                 // or 32, or 128 (the engine's Int8: s = (mx - mn) / 255
+                 // and mins = -mn formed at prep)
 };
 
 struct QMat {
@@ -206,8 +209,8 @@ __device__ void q4k_row(const QMat& w, int l, int M, int m, int k, const __nv_bf
 
 // One output row m of layer l of a byte-code matrix (kFormQKB or kFormQS)
 // for every lane: acc[t] = x[t] . W[m], in f32 on the exact weight q * s -
-// mn, formed per element (a 16-element chunk never straddles a 16- or
-// 32-group). xs: shared bf16 [B, k]. Called by a warp.
+// mn, formed per element (a 16-element chunk never straddles a 16-, 32- or
+// 128-group). xs: shared bf16 [B, k]. Called by a warp.
 template <int NB>
 __device__ void byte_row(const QMat& w, int l, int M, int m, int k, const __nv_bfloat16* xs,
                          int B, float* acc) {
@@ -322,7 +325,7 @@ bool mat_ok(const QMat& w) {
   switch (w.form) {
     case kFormQ4K: return w.gs == 32 && w.p2 && w.d8 && w.dm8;
     case kFormQKB: return (w.gs == 16 || w.gs == 32) && w.p2 && w.d8 && w.dm8;
-    case kFormQS: return w.gs == 16 || w.gs == 32;
+    case kFormQS: return w.gs == 16 || w.gs == 32 || w.gs == 128;
     default: return false;
   }
 }

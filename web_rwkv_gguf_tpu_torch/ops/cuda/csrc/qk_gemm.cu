@@ -11,19 +11,41 @@
 //   y = sum_k bf16(x) * bf16(q * s)  -  sum_g mn[m, g] * xs[n, g]
 // q the code: split-halves nibbles (low nibble of byte j is element j,
 // high nibble element j + K/2; Q4_K, Q4_0, Q4_1), u8 bytes (Q5_K, Q2_K,
-// Q5_0, Q5_1, Q4_1 bytes) or i8 bytes (Q6_K, Q3_K, Q8_0, Q4_0 bytes); s and
-// mn the group scale and offset of the element's group (16 or 32 elements):
-// f32 arrays, or 8-bit codes times per-256 super-scales formed in f32 here
-// (Q4_K / Q5_K / Q2_K: s = d8 * sc6, mn = dm8 * mn6; Q6_K / Q3_K: s = q6d *
-// q6s, no offset); xs[n, g] the f32 sum of bf16(x) over group g.
+// Q5_0, Q5_1, Q4_1 bytes, the engine's Int8) or i8 bytes (Q6_K, Q3_K,
+// Q8_0, Q4_0 bytes), or the codebook value of a 4-bit index in pair order
+// (the engine's NF4 / SF4: low nibble of byte j is element 2j, high nibble
+// 2j + 1; q * s = lut[idx] * absmax in f32, then rounded); s and mn the
+// group scale and offset of the element's group (16, 32 or 128 elements;
+// 64 for codebook indices): f32 arrays, or 8-bit codes times per-256
+// super-scales formed in f32 here (Q4_K / Q5_K / Q2_K: s = d8 * sc6, mn =
+// dm8 * mn6; Q6_K / Q3_K: s = q6d * q6s, no offset); xs[n, g] the f32 sum
+// of bf16(x) over group g.
 // Products are bf16 x bf16 on the tensor cores (mma.sync.m16n8k16, f32
 // accumulation); the offset term is kept in its own f32 accumulators and
 // subtracted in the epilogue, as the TPU kernel adds it after its dot.
+// Each mma starts from zero and its four sums are added to the running
+// accumulators by ordinary f32 adds (round to nearest): the tensor core
+// aligns and truncates its addends to the largest one, so chained through
+// a whole row (K/16 steps) it would pull a sum of same-signed products
+// (relu^2 inputs into the FFN value) toward zero by about half an ulp of
+// the running sum at each step; where the offset term then cancels most
+// of that sum, the drift is many ulps of y.
 //
 // Bound on this card: bytes at small n (decode: the weight is read once
 // for a handful of rows), operations at prefill n (B*T = 512 rows do
 // 512 multiply-adds per weight, above the ~295 operations per byte where
-// H100 stops being memory-bound). This first version is simple, not
+// H100 stops being memory-bound). At n <= 8 (the decode rows past the
+// gemv's gate) where the tensor-core grid of M/64 blocks would leave SMs
+// idle (every layer matrix; not a vocabulary head), the same function runs
+// on the CUDA cores in qgemv.cuh's structure (kSlab): one warp per weight
+// row, each weight bf16(q * s) - mn formed per element and summed in f32.
+// There the tensor cores, even with a fresh sum per mma, left the products'
+// sum of relu^2 inputs (16-27x max|y| before the offset term cancels it)
+// 3-7x further from its f64 value than an f32 GEMM of the same bf16
+// operands (on an H100: 3.9e-5 against 7.6e-6 of max|y|, Int8 at [2048,
+// 7168], n = 3), and used 12-32 of the 132 SMs; the per-element form sits
+// within 1.2e-7.
+// Otherwise it is the tensor-core kernel below, simple, not
 // fast: one block of 4 warps per 64 weight rows x 64 input rows, looping
 // over K 64 elements at a time (nibbles: 32 code bytes per row, 32 low and
 // 32 high elements; bytes: 64 code bytes, the last step of a row whose K is
@@ -38,6 +60,7 @@
 #include <cuda_bf16.h>
 #include <stdint.h>
 
+#include "qgemv.cuh"
 #include "qscales.cuh"
 
 namespace {
@@ -78,10 +101,12 @@ __device__ __forceinline__ void mma_bf16(float* d, const uint32_t* a,
 
 // Nibbles: thread t dequantizes 16 code bytes of weight row t/2 (bytes
 // (t%2)*16.. of the step's 32), giving 16 low and 16 high elements. Bytes:
-// 32 code bytes of row t/2 (bytes (t%2)*32.. of the step's 64).
+// 32 code bytes of row t/2 (bytes (t%2)*32.. of the step's 64). Codebook
+// indices: 16 code bytes of row t/2 (bytes (t%2)*16.. of the step's 32),
+// the elements (t%2)*32.. of the step's 64, in order.
 template <int kCodes>
 struct Codes {
-  uint4 v[kCodes == kNib ? 1 : 2];
+  uint4 v[kCodes == kU8 || kCodes == kI8 ? 2 : 1];
 };
 
 // A step's 64 elements of a row fall in four 16-element slots: for nibbles
@@ -94,10 +119,16 @@ qk_gemm_kernel(const __nv_bfloat16* __restrict__ x,
                const uint8_t* __restrict__ codes, const S scales,
                float* __restrict__ y, int n, int m, int k, int gs) {
   constexpr bool kNibble = kCodes == kNib;
+  constexpr bool kBytes = kCodes == kU8 || kCodes == kI8;
   __shared__ __align__(16) __nv_bfloat16 ws[kBM * kStride];
   __shared__ __align__(16) __nv_bfloat16 xs[kBN * kStride];
   __shared__ float mn_t[kBM][4];  // group offsets of this step's slots
   __shared__ float xs_t[kBN][4];  // sums of bf16 x over this step's slots
+  __shared__ float lut_s[16];     // codebook indices: the f32 codebook
+  if constexpr (kCodes == kLut) {
+    if (threadIdx.x < 16) lut_s[threadIdx.x] = scales.lut[threadIdx.x];
+    __syncthreads();
+  }
 
   const int tid = threadIdx.x;
   const int m0 = blockIdx.x * kBM;
@@ -111,7 +142,7 @@ qk_gemm_kernel(const __nv_bfloat16* __restrict__ x,
   const int xr = tid >> 1, xp = tid & 1;
   const bool w_ok = m0 + wr < m;
   const bool x_ok = n0 + xr < n;
-  const size_t row_bytes = kNibble ? (size_t)half : (size_t)k;
+  const size_t row_bytes = kBytes ? (size_t)k : (size_t)half;
   const uint8_t* crow = codes + (size_t)(w_ok ? m0 + wr : 0) * row_bytes;
   const __nv_bfloat16* xrow = x + (size_t)(x_ok ? n0 + xr : 0) * k;
 
@@ -119,10 +150,10 @@ qk_gemm_kernel(const __nv_bfloat16* __restrict__ x,
   auto col0 = [&](int s, int part) { return kNibble ? s * 32 + part * 16 : s * kKT + part * 32; };
   auto load_codes = [&](int s, Codes<kCodes>& c) {
     const int e = col0(s, wp);
-    const bool ok = w_ok && (kNibble || e < k);
-    const uint4* src = reinterpret_cast<const uint4*>(crow + e);
+    const bool ok = w_ok && (!kBytes || e < k);
+    const uint4* src = reinterpret_cast<const uint4*>(crow + (kCodes == kLut ? e / 2 : e));
 #pragma unroll
-    for (int i = 0; i < (kNibble ? 1 : 2); ++i) c.v[i] = ok ? src[i] : make_uint4(0, 0, 0, 0);
+    for (int i = 0; i < (kBytes ? 2 : 1); ++i) c.v[i] = ok ? src[i] : make_uint4(0, 0, 0, 0);
   };
   // x segment of this thread: 32 bf16 (64 bytes) of input row xr
   auto x_col = [&](int s) {
@@ -187,6 +218,25 @@ qk_gemm_kernel(const __nv_bfloat16* __restrict__ x,
       dst_lo[1] = make_uint4(lo[4], lo[5], lo[6], lo[7]);
       dst_hi[0] = make_uint4(hi[0], hi[1], hi[2], hi[3]);
       dst_hi[1] = make_uint4(hi[4], hi[5], hi[6], hi[7]);
+    } else if constexpr (kCodes == kLut) {
+      const int e = col0(s, wp);  // elements e .. e + 31, one 64-group
+      float sc = 0.f, off = 0.f;
+      if (w_ok) scales.get(r, e / gs, sc, off);
+      const uint32_t words[4] = {cur.v[0].x, cur.v[0].y, cur.v[0].z, cur.v[0].w};
+      uint32_t out[16];
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+#pragma unroll
+        for (int b = 0; b < 4; ++b) {
+          const uint32_t byte = (words[q] >> (8 * b)) & 0xFFu;
+          out[4 * q + b] = pack_bf16(lut_s[byte & 0xFu] * sc, lut_s[byte >> 4] * sc);
+        }
+      }
+      uint4* dst = reinterpret_cast<uint4*>(ws + wr * kStride + wp * 32);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        dst[i] = make_uint4(out[4 * i], out[4 * i + 1], out[4 * i + 2], out[4 * i + 3]);
+      }
     } else {
       const int e = col0(s, wp);  // elements e .. e + 31: slots 2 wp, 2 wp + 1
       float s0 = 0.f, s1 = 0.f, o0 = 0.f, o1 = 0.f;
@@ -245,13 +295,19 @@ qk_gemm_kernel(const __nv_bfloat16* __restrict__ x,
         const uint32_t b0 = *reinterpret_cast<const uint32_t*>(base);
         const uint32_t b1 = *reinterpret_cast<const uint32_t*>(base + 8);
 #pragma unroll
-        for (int i = 0; i < 2; ++i) mma_bf16(acc[i][j], a[i], b0, b1);
+        for (int i = 0; i < 2; ++i) {
+          float t[4] = {0.f, 0.f, 0.f, 0.f};  // a fresh sum: see the note at the top
+          mma_bf16(t, a[i], b0, b1);
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[i][j][e] += t[e];
+        }
       }
     }
     if (offsets) {
       // offset term: corr[m, n] += mn[m, g] * xs[n, g] over the step's groups
-      // (a 32-group is two slots with one offset: its x sums add first)
-      const bool pairs = gs == 32;
+      // (a 32-group is two slots with one offset, a 128-group all four
+      // slots of a byte step: their x sums add first)
+      const bool pairs = gs == 32, whole = gs == 128;
 #pragma unroll
       for (int i = 0; i < 2; ++i) {
 #pragma unroll
@@ -264,8 +320,9 @@ qk_gemm_kernel(const __nv_bfloat16* __restrict__ x,
             for (int c = 0; c < 2; ++c) {
               const float* xc = xs_t[wn + j * 8 + 2 * tig + c];
               corr[i][j][2 * h + c] +=
-                  pairs ? mr[0] * (xc[0] + xc[1]) + mr[2] * (xc[2] + xc[3])
-                        : mr[0] * xc[0] + mr[1] * xc[1] + mr[2] * xc[2] + mr[3] * xc[3];
+                  whole ? mr[0] * ((xc[0] + xc[1]) + (xc[2] + xc[3]))
+                  : pairs ? mr[0] * (xc[0] + xc[1]) + mr[2] * (xc[2] + xc[3])
+                          : mr[0] * xc[0] + mr[1] * xc[1] + mr[2] * xc[2] + mr[3] * xc[3];
             }
           }
         }
@@ -294,9 +351,18 @@ qk_gemm_kernel(const __nv_bfloat16* __restrict__ x,
 template <int kCodes, class S>
 int launch(const void* x, const void* codes, const S& scales, void* y, int n, int m, int k,
            int gs, void* stream) {
-  if (m <= 0 || n <= 0 || k % 32 || (gs != 16 && gs != 32) ||
-      (kCodes == kNib && (gs != 32 || k % 64)))
-    return (int)cudaErrorInvalidValue;
+  const bool gs_ok = kCodes == kNib   ? gs == 32 && k % 64 == 0
+                    : kCodes == kLut ? gs == 64 && k % 64 == 0
+                                     : gs == 16 || gs == 32 || gs == 128;
+  if (m <= 0 || n <= 0 || k % 32 || k % gs || !gs_ok) return (int)cudaErrorInvalidValue;
+  if (n <= 8 && (size_t)n * k * sizeof(float) + 64 <= (size_t)kGemvSmem) {
+    int dev = 0, sms = 0;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err != cudaSuccess) return (int)err;
+    if ((m + kBM - 1) / kBM < sms)
+      return qgemv_dispatch<kCodes, true>(x, codes, scales, y, n, m, k, gs, stream);
+  }
   const dim3 grid((m + kBM - 1) / kBM, (n + kBN - 1) / kBN);
   qk_gemm_kernel<kCodes, S><<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const __nv_bfloat16*>(x), static_cast<const uint8_t*>(codes), scales,
@@ -343,11 +409,12 @@ extern "C" int qkb_gemm(const void* x, const void* codes, const void* sc6,
 
 // f32 group scales: codes [m, k/2] u8 split-halves nibbles (code_kind 0) or
 // [m, k] u8 (1) / i8 (2) bytes; scales f32 [m, k/gs]; mins f32 [m, k/gs] or
-// null; gs 16 or 32 (32 for nibbles); k % 32 == 0 (k % 64 == 0 for nibbles).
+// null; gs 16, 32 or 128 (32 for nibbles); k % 32 == 0, k % gs == 0 (k % 64
+// == 0 for nibbles). The engine's Int8: u8 codes, gs 128, mins = -mn.
 extern "C" int qs_gemm(const void* x, const void* codes, const void* scales,
                        const void* mins, void* y, int n, int m, int k, int gs,
                        int code_kind, void* stream) {
-  if (gs != 16 && gs != 32) return (int)cudaErrorInvalidValue;
+  if (gs != 16 && gs != 32 && gs != 128) return (int)cudaErrorInvalidValue;
   const F32Scales s{static_cast<const float*>(scales), static_cast<const float*>(mins), k / gs};
   switch (code_kind) {
     case kNib: return launch<kNib>(x, codes, s, y, n, m, k, gs, stream);
@@ -355,4 +422,13 @@ extern "C" int qs_gemm(const void* x, const void* codes, const void* scales,
     case kI8: return launch<kI8>(x, codes, s, y, n, m, k, gs, stream);
     default: return (int)cudaErrorInvalidValue;
   }
+}
+
+// NF4 / SF4: codes u8 [m, k/2] codebook indices in pair order; absmax f32
+// [m, k/64]; lut f32 [16]; k % 64 == 0.
+extern "C" int nf4_gemm(const void* x, const void* codes, const void* absmax,
+                        const void* lut, void* y, int n, int m, int k, void* stream) {
+  if (k % 64) return (int)cudaErrorInvalidValue;
+  const LutScales s{static_cast<const float*>(absmax), static_cast<const float*>(lut), k / 64};
+  return launch<kLut>(x, codes, s, y, n, m, k, 64, stream);
 }

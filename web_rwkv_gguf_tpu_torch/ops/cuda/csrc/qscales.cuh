@@ -1,10 +1,12 @@
 // Group scales and codes of the port's quantized forms, shared by the
 // matmul kernels (qgemv.cuh, qk_gemm.cu) and the whole-stack decode rows
 // (decode_common.cuh). A weight is q * s - mn, with q a code of its row and
-// s, mn its group's scale and offset (groups of 16 or 32 elements along K).
-// A scale source gives (s, mn) of row `row`, group g: stored f32 arrays, or
-// 8-bit codes times per-256 super-scales formed in f32 here, as the loader
-// would form them (models/matrix.py, scale_products).
+// s, mn its group's scale and offset (groups of 16, 32 or 128 elements
+// along K; NF4 / SF4: q the codebook value of a 4-bit index, s the absmax
+// of a 64-group, no offset). A scale source gives (s, mn) of row `row`,
+// group g: stored f32 arrays, or 8-bit codes times per-256 super-scales
+// formed in f32 here, as the loader would form them (models/matrix.py,
+// scale_products).
 
 #pragma once
 
@@ -14,9 +16,11 @@
 namespace {
 
 // How a row's codes are stored: split-halves nibbles (byte j holds element
-// j in its low nibble and element j + K/2 in its high one), u8 bytes or i8
-// bytes (sign-extended: a Q8_0 file may hold -128).
-enum CodeKind { kNib = 0, kU8 = 1, kI8 = 2 };
+// j in its low nibble and element j + K/2 in its high one), u8 bytes, i8
+// bytes (sign-extended: a Q8_0 file may hold -128), or codebook indices in
+// pair order (byte j holds element 2j in its low nibble and element 2j + 1
+// in its high one; the codebook comes with LutScales).
+enum CodeKind { kNib = 0, kU8 = 1, kI8 = 2, kLut = 3 };
 
 // f32 group scales and (optional) offsets, [m, G] each.
 struct F32Scales {
@@ -55,6 +59,20 @@ struct NominScales {
   __device__ __forceinline__ bool has_min() const { return false; }
   __device__ __forceinline__ void get(size_t row, int g, float& s, float& off) const {
     s = d[row * (G / reps) + g / reps] * (float)sc[row * G + g];
+    off = 0.f;
+  }
+};
+
+// NF4 / SF4: f32 absmax per 64-group [m, G] and the 16-entry f32 codebook
+// (each kernel stages it in shared memory, rounded as its class rounds it);
+// no offsets.
+struct LutScales {
+  const float* absmax;
+  const float* lut;
+  int G;
+  __device__ __forceinline__ bool has_min() const { return false; }
+  __device__ __forceinline__ void get(size_t row, int g, float& s, float& off) const {
+    s = absmax[row * G + g];
     off = 0.f;
   }
 };

@@ -11,8 +11,9 @@ parameters, plus the inner-LoRA pairs concatenated and rounded to bf16
 
 Each layer matrix is a kernel slot in one of the forms of
 :func:`stack_matrix` (Q4_K or Q5_K / Q2_K native factors, or f32 group
-scales over byte codes), picked per slot at run time; the layers of one
-slot share its form (the loader stacks only uniform layers).
+scales over byte codes, the engine's Int8 among them), picked per slot
+at run time; the layers of one slot share its form (the loader stacks
+only uniform layers).
 
 Numerics follow the JAX kernel at its defaults: every quantized matrix
 multiplies the bf16-rounded input by its exact f32 weight (the gemv
@@ -53,10 +54,17 @@ def stack_matrix(m):
     signed << 2 | group size << 3`` and None for an array the form lacks
     (decode_common.cuh, MatForm) — or None for a matrix they do not take.
     They take Q4_K and Q5_K / Q2_K with whole super-blocks (native
-    factors) and f32 group scales over byte codes (Q8_0, Q5_0, Q5_1, and
-    Q4_1 / Q4_0 bytes); not yet Q6_K / Q3_K, f32-scale nibbles or dense
-    matrices."""
+    factors), f32 group scales over byte codes (Q8_0, Q5_0, Q5_1, and
+    Q4_1 / Q4_0 bytes) and the engine's Int8 (its f32-scale form in
+    128-groups, formed here as the JAX package's ``_prep_matrix`` forms
+    it: s = (mx − mn)/255, and −mn for the mins); not yet Q6_K / Q3_K,
+    f32-scale nibbles, dense matrices, nor NF4 / SF4, which the JAX
+    package's whole-stack kernels do not take either."""
     kind, a = getattr(m, "kind", None), getattr(m, "arrays", {})
+    if kind == "int8":
+        mn, mx = a["mn"].float(), a["mx"].float()
+        return (FORM_QS | 128 << 3,
+                (a["codes"], ((mx - mn) / 255.0).contiguous(), (-mn).contiguous(), None, None))
     if kind == "qk" and "sc6" in a:
         form, gs = FORM_Q4K, 32
     elif kind == "qk_b" and "sc6" in a:
@@ -166,6 +174,15 @@ def mega_layers(mega: dict, lo: int, hi: int) -> dict:
     return {**cut(mega), "L": hi - lo}
 
 
+def lora_plain(xin, down, up, act=None):
+    """One inner-LoRA pair in plain PyTorch: bf16 operands, f32 products,
+    the inner sum z = act(x·down) rounded to bf16 between them."""
+    z = xin.to(torch.bfloat16).float() @ down.T
+    if act is not None:
+        z = act(z)
+    return z.to(torch.bfloat16).float() @ up.T
+
+
 def layer_scan7_plain(mega, state, x, mask, rescale, eps_ln, eps_gn, eps_l2,
                       v0_carry=None):
     """Plain version of :func:`layer_scan7`."""
@@ -190,10 +207,7 @@ def layer_scan7_plain(mega, state, x, mask, rescale, eps_ln, eps_gn, eps_l2,
         down, up = mega["down"][i].float(), mega["up"][i].float()
 
         def lora(xin, j, act=None, down=down, up=up):
-            z = xin.to(torch.bfloat16).float() @ down[offs[j]:offs[j + 1]].T
-            if act is not None:
-                z = act(z)
-            return z.to(torch.bfloat16).float() @ up[:, offs[j]:offs[j + 1]].T
+            return lora_plain(xin, down[offs[j]:offs[j + 1]], up[:, offs[j]:offs[j + 1]], act)
 
         xx = B_.layer_norm(x, mega["ln1"][0][i], mega["ln1"][1][i], eps_ln)
         sh = state["att_shift"][i]

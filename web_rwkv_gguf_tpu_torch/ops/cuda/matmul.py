@@ -12,19 +12,26 @@ quantized matmul defines it. The forms, by the kernels that take them:
 - ``qkb_*``: Q5_K and Q2_K native factors (u8 byte codes, u8 scale and
   min codes per 32 or 16, f32 super-scales);
 - ``qs_*``: f32 group scales (and optional offsets) over split-halves
-  nibbles, u8 or i8 bytes: Q8_0, the legacy Q4_0/Q4_1/Q5_0/Q5_1, and
-  K-quant rows that do not hold whole 256-element super-blocks.
+  nibbles, u8 or i8 bytes: Q8_0, the legacy Q4_0/Q4_1/Q5_0/Q5_1,
+  K-quant rows that do not hold whole 256-element super-blocks, and the
+  engine's Int8 requantization (u8 codes in groups of 128);
+- ``nf4_*``: the engine's NF4 / SF4 requantization (4-bit codebook
+  indices in pair order, f32 absmax per 64, a 16-entry f32 codebook).
 
 Two numerics classes, as in the JAX package's ``quant_matmul``
 (``models/matrix.py`` picks between them):
 
 - the gemvs (``csrc/q4k_gemv.cu``, ``csrc/q6k_gemv.cu``,
-  ``csrc/qkb_gemv.cu``, ``csrc/qs_gemv.cu``: one warp per output row, n
-  ≤ 8) multiply by the exact f32 weight ``q·s − mn``;
-- the dequant-GEMMs (``csrc/qk_gemm.cu``: bf16 tensor-core tiles, any n)
-  multiply by ``bf16(q·s)`` with f32 accumulation and subtract the offset
-  term in f32 as ``Σ_g mn[m, g]·xs[n, g]``, xs the f32 group sums of the
-  bf16-rounded x.
+  ``csrc/qkb_gemv.cu``, ``csrc/qs_gemv.cu``, ``csrc/nf4_gemv.cu``: one
+  warp per output row, n ≤ 8) multiply by the exact f32 weight ``q·s −
+  mn`` (NF4: ``bf16(lut[idx])·absmax``, exact in f32, as the JAX kernel
+  rounds its codebook values to bf16 and scales its group sums);
+- the dequant-GEMMs (``csrc/qk_gemm.cu``: bf16 tensor-core tiles; one
+  warp per row on the CUDA cores at n ≤ 8 where M/64 tiles would leave
+  SMs idle) multiply by
+  ``bf16(q·s)`` (NF4: ``bf16(lut[idx]·absmax)``) with f32 accumulation
+  and subtract the offset term in f32 as ``Σ_g mn[m, g]·xs[n, g]``, xs
+  the f32 group sums of the bf16-rounded x.
 
 On a CUDA tensor each wrapper launches its kernel or raises; only a
 tensor on the CPU takes the plain version, which computes the same
@@ -98,6 +105,17 @@ def qkb_dequantize(codes, sc6, mn6, d8, dm8) -> torch.Tensor:
     return qs_dequantize(codes, *q4k_scale_products(sc6, mn6, d8, dm8))
 
 
+def nf4_dequantize(codes, absmax, lut) -> torch.Tensor:
+    """Dense f32 ``[M, K]`` weight ``lut[idx]·absmax`` of an NF4 / SF4
+    matrix: pair-order nibbles (low nibble of byte j is element 2j, high
+    nibble element 2j + 1), absmax per 64 elements."""
+    idx = torch.stack([codes & 0x0F, codes >> 4], dim=-1).flatten(-2).long()
+    v = lut.float()[idx]
+    m, k = v.shape
+    g = absmax.shape[-1]
+    return (v.view(m, g, k // g) * absmax[..., None]).view(m, k)
+
+
 def q4k_gemv_plain(x, codes, sc6, mn6, d8, dm8) -> torch.Tensor:
     """Plain version of :func:`q4k_gemv`."""
     w = q4k_dequantize(codes, sc6, mn6, d8, dm8)
@@ -121,18 +139,26 @@ def qs_gemv_plain(x, codes, scales, mins=None) -> torch.Tensor:
     return x.to(torch.bfloat16).float() @ w.T
 
 
+def nf4_gemv_plain(x, codes, absmax, lut) -> torch.Tensor:
+    """Plain version of :func:`nf4_gemv`: the codebook rounded to bf16,
+    times absmax (exact in f32: 8 by 11 significant bits)."""
+    w = nf4_dequantize(codes, absmax, lut.to(torch.bfloat16).float())
+    return x.to(torch.bfloat16).float() @ w.T
+
+
 def slab_matmul_plain(x, q, scales, offsets=None) -> torch.Tensor:
     """The dequant-GEMM's function over f32 codes ``q`` ``[M, K]`` and f32
-    group scales (and offsets) ``[M, G]``: ``bf16(x) @ bf16(q·s)ᵀ`` in f32,
-    minus ``Σ_g off[m, g]·Σ_{k∈g} bf16(x)[n, k]`` where there are offsets."""
+    group scales (and offsets) ``[M, G]``: ``bf16(x) @ bf16(q·s)ᵀ`` minus
+    ``Σ_g off[m, g]·Σ_{k∈g} bf16(x)[n, k]`` where there are offsets, in
+    f32, each weight's offset subtracted before the sum: on same-signed
+    inputs (relu², the FFN value's) the two sums are each 15-27 times
+    max|y|, and their difference would carry their rounding into y."""
     m, k = q.shape
     g = scales.shape[-1]
     w = (q.view(m, g, k // g) * scales[..., None]).to(torch.bfloat16).float()
-    xb = x.to(torch.bfloat16).float()
-    y = xb @ w.view(m, k).T
     if offsets is not None:
-        y = y - xb.view(-1, g, k // g).sum(-1) @ offsets.T
-    return y
+        w = w - offsets[..., None]
+    return x.to(torch.bfloat16).float() @ w.view(m, k).T
 
 
 def q4k_gemm_plain(x, codes, sc6, mn6, d8, dm8) -> torch.Tensor:
@@ -153,6 +179,13 @@ def qkb_gemm_plain(x, codes, sc6, mn6, d8, dm8) -> torch.Tensor:
 def qs_gemm_plain(x, codes, scales, mins=None) -> torch.Tensor:
     """Plain version of :func:`qs_gemm`."""
     return slab_matmul_plain(x, qs_codes(codes, x.shape[-1]), scales, mins)
+
+
+def nf4_gemm_plain(x, codes, absmax, lut) -> torch.Tensor:
+    """Plain version of :func:`nf4_gemm`: ``bf16(x) @ bf16(lut[idx]·absmax)ᵀ``
+    in f32, the codebook value and absmax multiplied in f32 first."""
+    w = nf4_dequantize(codes, absmax, lut).to(torch.bfloat16).float()
+    return x.to(torch.bfloat16).float() @ w.T
 
 
 def _check(name, x, arrays: dict, shapes: dict, dtypes: dict, max_rows=None, k_multiple=256):
@@ -335,9 +368,9 @@ def _qs_form(name, x, codes, scales, mins, max_rows=None):
     nib = codes.shape[-1] * 2 == k
     g = scales.shape[-1]
     gs = k // g if g else 0
-    if gs not in (16, 32) or g * gs != k or (nib and (gs != 32 or codes.dtype != torch.uint8)):
-        raise ValueError(f"{name}: groups of 16 or 32 elements (32 for nibbles) over K={k}, "
-                         f"got scales {tuple(scales.shape)}, codes {codes.dtype} "
+    if gs not in (16, 32, 128) or g * gs != k or (nib and (gs != 32 or codes.dtype != torch.uint8)):
+        raise ValueError(f"{name}: groups of 16, 32 or 128 elements (32 for nibbles) over "
+                         f"K={k}, got scales {tuple(scales.shape)}, codes {codes.dtype} "
                          f"{tuple(codes.shape)}")
     arrays = {"codes": codes, "scales": scales}
     shapes = {"codes": (m, k // 2 if nib else k), "scales": (m, g), "mins": (m, g)}
@@ -375,8 +408,9 @@ def _launch_qs(wrapper, op, xb, codes, scales, mins, m, gs, kind):
 def qs_gemv(x, codes, scales, mins=None) -> torch.Tensor:
     """Gemv over f32 group scales: x ``[n, K]`` (n ≤ 8); codes u8 ``[M,
     K/2]`` split-halves nibbles, or u8 / i8 ``[M, K]`` bytes; scales and
-    the optional mins f32 ``[M, G]`` (groups of 16 or 32; 32 for nibbles)
-    → f32 ``[n, M]`` = x·Wᵀ with W = q·s − mn, the exact f32 weight."""
+    the optional mins f32 ``[M, G]`` (groups of 16, 32 or 128; 32 for
+    nibbles) → f32 ``[n, M]`` = x·Wᵀ with W = q·s − mn, the exact f32
+    weight."""
     if not x.is_cuda:
         return qs_gemv_plain(x, codes, scales, mins)
     xb, gs, kind = _qs_form("qs_gemv", x, codes, scales, mins, MAX_GEMV_ROWS)
@@ -465,3 +499,62 @@ def qkb_gemm(x, codes, sc6, mn6, d8, dm8) -> torch.Tensor:
 
 qkb_gemm.launches = 0
 qkb_gemm.shapes = collections.Counter()  # launches by (n, M, K)
+
+
+def _nf4_check(name, x, codes, absmax, lut, max_rows=None):
+    m, k = codes.shape[0], x.shape[-1]
+    return _check(name, x, {"codes": codes, "absmax": absmax, "lut": lut},
+                  {"codes": (m, k // 2), "absmax": (m, k // 64), "lut": (16,)},
+                  {"codes": torch.uint8, "absmax": torch.float32, "lut": torch.float32},
+                  max_rows, k_multiple=64)
+
+
+@functools.cache
+def _nf4_fn(op: str):
+    fn = getattr(build.load("nf4_gemv" if op == "gemv" else "qk_gemm"), f"nf4_{op}")
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _launch_nf4(wrapper, op, xb, codes, absmax, lut):
+    n, k = xb.shape
+    m = codes.shape[0]
+    y = torch.empty(n, m, dtype=torch.float32, device=xb.device)
+    with torch.cuda.device(xb.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = _nf4_fn(op)(xb.data_ptr(), codes.data_ptr(), absmax.data_ptr(), lut.data_ptr(),
+                          y.data_ptr(), n, m, k, stream)
+    wrapper.launches += 1
+    wrapper.shapes[(n, m, k)] += 1
+    if err:
+        raise RuntimeError(f"nf4_{op} launch failed: CUDA error {err}")
+    return y
+
+
+def nf4_gemv(x, codes, absmax, lut) -> torch.Tensor:
+    """NF4 / SF4 gemv: x ``[n, K]`` (n ≤ 8); codes u8 ``[M, K/2]`` in pair
+    order; absmax f32 ``[M, K/64]``; lut f32 ``[16]`` → f32 ``[n, M]`` =
+    x·Wᵀ with W = bf16(lut[idx])·absmax, exact in f32."""
+    if not x.is_cuda:
+        return nf4_gemv_plain(x, codes, absmax, lut)
+    xb = _nf4_check("nf4_gemv", x, codes, absmax, lut, MAX_GEMV_ROWS)
+    return _launch_nf4(nf4_gemv, "gemv", xb, codes, absmax, lut)
+
+
+nf4_gemv.launches = 0
+nf4_gemv.shapes = collections.Counter()  # launches by (n, M, K)
+
+
+def nf4_gemm(x, codes, absmax, lut) -> torch.Tensor:
+    """NF4 / SF4 dequant-GEMM at any row count; the arrays as for
+    :func:`nf4_gemv` → f32 ``[n, M]`` in the bf16-weight class, W =
+    bf16(lut[idx]·absmax)."""
+    if not x.is_cuda:
+        return nf4_gemm_plain(x, codes, absmax, lut)
+    xb = _nf4_check("nf4_gemm", x, codes, absmax, lut)
+    return _launch_nf4(nf4_gemm, "gemm", xb, codes, absmax, lut)
+
+
+nf4_gemm.launches = 0
+nf4_gemm.shapes = collections.Counter()  # launches by (n, M, K)

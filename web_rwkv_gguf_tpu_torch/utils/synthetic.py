@@ -103,14 +103,15 @@ def make_v7_gguf(
 
 def make_v6_gguf(
     *, n_layer=2, n_emb=16, head_size=4, n_vocab=32, n_hidden=None, rank_tm=4,
-    rank_td=8, seed=0, quantize=None, head_quantize=None,
+    rank_td=8, seed=0, quantize=None, head_quantize=None, dtype=np.float32,
 ):
     """Bytes of an RWKV-6 GGUF file with weights drawn from ``seed``
     (the draws, names and order of the JAX package's ``make_v6_gguf``).
 
     ``quantize`` selects the block type of the eight layer matrices and
     the head; ``head_quantize`` overrides it for the head, so
-    ``quantize=Q4_K, head_quantize=Q6_K`` writes the Q4_K_M placement."""
+    ``quantize=Q4_K, head_quantize=Q6_K`` writes the Q4_K_M placement.
+    ``dtype`` (f32 or f16) is the type of every tensor left plain."""
     n_hidden = n_hidden or 4 * n_emb
     n_head = n_emb // head_size
     rng = np.random.default_rng(seed)
@@ -118,10 +119,10 @@ def make_v6_gguf(
     w.add_metadata("rwkv6.wkv.head_size", head_size)
 
     def r(*shape, scale=0.5):
-        return (rng.normal(size=shape) * scale).astype(np.float32)
+        return (rng.normal(size=shape) * scale).astype(dtype)
 
     def uniform():
-        return rng.uniform(0, 1, n_emb).astype(np.float32)
+        return rng.uniform(0, 1, n_emb).astype(dtype)
 
     def addq(name, arr):
         w.add_tensor(name, arr, quantize=quantize)
