@@ -13,21 +13,25 @@ ops/cuda/csrc`` with nvcc (one nvcc per source, all started together),
 holds each kernel against its plain PyTorch version at the shapes the
 decode and prefill paths give it and times both (and, where one PyTorch
 call computes the same product, that call). Then it drives the port's
-main paths on nine synthetic models, one after the other, each path with
-every kernel's launch count set to 0 just before and checked exactly
-just after:
+main paths on eleven synthetic models, one after the other, each path
+with every kernel's launch count set to 0 just before and checked
+exactly just after:
 
 - in the Q4_K_M placement, RWKV-7 at the 0.1B widths, RWKV-6 at the
   World 1.6B widths, RWKV-5 at the World 0.4B widths and RWKV-4 at the
   World 0.1B widths; RWKV-7 at the 0.1B widths in the Q5_K_M placement
   and RWKV-6 at the World 1.6B widths in Q8_0; f16 files requantized at
   load, RWKV-7 at the 0.1B widths in Int8 and in NF4 and RWKV-6 at the
-  World 1.6B widths in Int8 (table ``MODELS``; full depth but where
-  it says otherwise; the files are built in worker processes while the
-  kernels build);
+  World 1.6B widths in Int8; RWKV-7 at the 0.1B widths in Q6_K
+  throughout and from an f16 file loaded as bf16 (table ``MODELS``; full
+  depth but where it says otherwise; the files are built in worker
+  processes while the kernels build);
 - serve two requests at batch 1 through ``forward_chunk`` (each prompt
   prefilled as one chunk) → ``logits_head`` → ``make_generator``, on
-  the loaded params (the per-layer kernels at decode);
+  the loaded params, or for an RWKV-7 model whose r, k and v group on
+  ``models.unroll_params(params)``, the JAX package's unrolled decode
+  form, where each layer's r, k and v take one ``quant_gemv_grouped``
+  launch (the per-layer kernels at decode);
 - ``runtime.Engine(num_batch=4)``: ``generate`` on four prompts of
   different lengths (chunked prefill as the scheduler plans it, then
   32 greedy tokens on all lanes, each step one launch of the
@@ -35,7 +39,10 @@ just after:
   none), then one ``infer`` with a FULL lane.
 
 For each model it holds the whole-stack decode kernel against its plain
-version layer by layer, and compares the card with the CPU at the same
+version layer by layer (and, beside the Q6_K and f16 models, stacks in
+the slots no driven model reaches: RWKV-7 at the 0.1B widths in Q3_K and
+Q4_1, RWKV-6 at the 1.6B widths in Q6_K, Q4_0 and bf16, at 4 of its 24
+layers; ``SLOT_STACKS``), and compares the card with the CPU at the same
 widths (two layers, three lanes): decode steps with a lane frozen,
 through the per-layer kernels and through the whole-stack kernel, and a
 ragged prefill chunk followed by one of 128 tokens; it also measures how
@@ -64,6 +71,13 @@ import sys
 import time
 
 VOCAB = 65536  # every model's vocabulary
+# RWKV-7 0.1B widths (L=12, C=768, head 64, hidden 4·C, LoRA ranks w/a/g/v
+# 64/64/128/32) and a layer's six matrices
+_V7_WIDTHS = dict(n_layer=12, n_emb=768, head_size=64, n_vocab=VOCAB, n_hidden=3072,
+                  lora_w=64, lora_a=64, lora_g=128, lora_v=32)
+_V7_MATRICES = (("att", "Wr"), ("att", "Wk"), ("att", "Wv"), ("att", "Wo"), ("ffn", "Wk"),
+                ("ffn", "Wv"))
+_RKV = (("att", "Wr"), ("att", "Wk"), ("att", "Wv"))  # the grouped gemv's matrices
 _V6_MATRICES = (("att", "Wr"), ("att", "Wk"), ("att", "Wv"), ("att", "Wg"), ("att", "Wo"),
                 ("ffn", "Wk"), ("ffn", "Wv"), ("ffn", "Wr"))
 # The models under test, in the order they run: each a synthetic file at
@@ -79,13 +93,15 @@ _V6_MATRICES = (("att", "Wr"), ("att", "Wk"), ("att", "Wv"), ("att", "Wg"), ("at
 # 2 <= T < 128 and at T >= 128 (None: the chunk-parallel form, PyTorch
 # matmuls); "mega" the whole-stack decode blocks and their kernel, held
 # layer by layer at each of "mega_batches" lanes (None: the model has no
-# whole-stack form, and the Engine decodes layer by layer). MODEL_CASES
-# holds each model's kernel cases.
+# whole-stack form, and the Engine decodes layer by layer). "grouped": an
+# RWKV-7 model whose r, k and v group (models.unroll_params attaches
+# att["Wrkv_g"] to every layer), served at B=1 on the unrolled params.
+# MODEL_CASES holds each model's kernel cases.
 MODELS = {
     # RWKV-7 0.1B widths (L=12, C=768, head 64, hidden 4·C, LoRA ranks
     # w/a/g/v 64/64/128/32)
     "v7": dict(make="make_v7_gguf", seed=0, quantize="Q4_K", head_quantize="Q6_K",
-               kinds=("qk", "qk_nomin"),
+               kinds=("qk", "qk_nomin"), grouped=True,
                widths=dict(n_layer=12, n_emb=768, head_size=64, n_vocab=VOCAB, n_hidden=3072,
                            lora_w=64, lora_a=64, lora_g=128, lora_v=32),
                matrices=(("att", "Wr"), ("att", "Wk"), ("att", "Wv"), ("att", "Wo"),
@@ -97,8 +113,7 @@ MODELS = {
     # and 64 from RWKV-LM's v6 model.py)
     "v6": dict(make="make_v6_gguf", seed=10, quantize="Q4_K", head_quantize="Q6_K",
                kinds=("qk", "qk_nomin"),
-               # 12 of the model's 24 layers: the Q8_0 model below runs the
-               # 1.6B widths at full depth, and the run stays within its time
+               # 12 of the model's 24 layers, and the run stays within its time
                widths=dict(n_layer=12, n_emb=2048, head_size=64, n_vocab=VOCAB, n_hidden=7168,
                            rank_tm=32, rank_td=64),
                matrices=_V6_MATRICES, wkv=("wkv6_scan", "wkv6_scan", None),
@@ -130,7 +145,7 @@ MODELS = {
     # of its run holds against its plain version on its own inputs
     # (scripts/torch_trace_compare.py; PERF.md, Findings PR 5)
     "v7q5": dict(make="make_v7_gguf", seed=40, compare_seed=42, quantize="Q5_K",
-                 head_quantize="Q6_K", kinds=("qk_b", "qk_nomin"),
+                 head_quantize="Q6_K", kinds=("qk_b", "qk_nomin"), grouped=True,
                  widths=dict(n_layer=12, n_emb=768, head_size=64, n_vocab=VOCAB, n_hidden=3072,
                              lora_w=64, lora_a=64, lora_g=128, lora_v=32),
                  matrices=(("att", "Wr"), ("att", "Wk"), ("att", "Wv"), ("att", "Wo"),
@@ -141,14 +156,16 @@ MODELS = {
     # head included)
     "v6q8": dict(make="make_v6_gguf", seed=50, quantize="Q8_0", head_quantize="Q8_0",
                  kinds=("qk_nomin", "qk_nomin"),
-                 widths=dict(n_layer=24, n_emb=2048, head_size=64, n_vocab=VOCAB, n_hidden=7168,
+                 # 12 of the model's 24 layers: beside the other models and the
+                 # slot stacks, the run stays within its time
+                 widths=dict(n_layer=12, n_emb=2048, head_size=64, n_vocab=VOCAB, n_hidden=7168,
                              rank_tm=32, rank_td=64),
                  matrices=_V6_MATRICES, wkv=("wkv6_scan", "wkv6_scan", None),
                  mega=("mega56", "layer_scan56"), mega_batches=(4, 1, 16)),
     # RWKV-7 0.1B widths from an f16 file, requantized at load as the
     # reference's --quant int8 does (u8 codes per 128 with f16 bounds)
     "v7i8": dict(make="make_v7_gguf", seed=60, quantize=None, quant="INT8",
-                 kinds=("int8", "dense"),
+                 kinds=("int8", "dense"), grouped=True,
                  widths=dict(n_layer=12, n_emb=768, head_size=64, n_vocab=VOCAB, n_hidden=3072,
                              lora_w=64, lora_a=64, lora_g=128, lora_v=32),
                  matrices=(("att", "Wr"), ("att", "Wk"), ("att", "Wv"), ("att", "Wo"),
@@ -179,6 +196,20 @@ MODELS = {
                              rank_tm=32, rank_td=64),
                  matrices=_V6_MATRICES, wkv=("wkv6_scan", "wkv6_scan", None),
                  mega=("mega56", "layer_scan56"), mega_batches=(4, 1, 16)),
+    # RWKV-7 0.1B widths with every matrix in llama.cpp's Q6_K, the head
+    # included: the native Q6_K slot of layer7.cu through the Engine, the
+    # grouped r/k/v gemv on Q6_K's signed byte codes at B=1
+    "v7q6": dict(make="make_v7_gguf", seed=90, quantize="Q6_K", head_quantize="Q6_K",
+                 kinds=("qk_nomin", "qk_nomin"), grouped=True, widths=_V7_WIDTHS,
+                 matrices=_V7_MATRICES, wkv=("att_core7_step", "wkv7_scan", None),
+                 mega=("mega7", "layer_scan7"), mega_batches=(4, 1, 16)),
+    # RWKV-7 0.1B widths from an f16 file loaded as it is (no quant=): every
+    # matrix dense bf16, the head included; the dense slot of layer7.cu
+    # through the Engine; no grouped kind
+    "v7f16": dict(make="make_v7_gguf", seed=100, quantize=None, kinds=("dense", "dense"),
+                  widths=_V7_WIDTHS, matrices=_V7_MATRICES,
+                  wkv=("att_core7_step", "wkv7_scan", None), mega=("mega7", "layer_scan7"),
+                  mega_batches=(4, 1, 16)),
 }
 PROMPTS = ([11, 2041, 7, 65000, 310, 42, 9, 1234], [5, 5, 60000, 88, 901, 3, 77, 12])
 DECODE_STEPS = 32
@@ -247,7 +278,15 @@ SENSITIVITY_SEEDS = {"cuda": (0, 1, 2, 3), "cpu": (0, 1)}
 # one-layer slice fed from the plain version's chain): one layer's f32
 # sums in another order flip a few of the bf16 roundings of its matmul
 # inputs, each by one bf16 step (2^-8); a layer must stay within one such
-# step of its largest value (seen: up to 1.0e-3; PERF.md, Findings).
+# step of its largest value (seen: up to 1.0e-3; PERF.md, Findings). An
+# RWKV-7 layer's LayerNorm outputs (its new shift states) are held so against
+# the plain version's, and its x, WKV state and v_first against the plain
+# version given the kernel's LayerNorm outputs (``layer_scan7_plain(...,
+# ln_out=)``): the kernel, PyTorch on the card and the CPU each sum a
+# LayerNorm in their own order, and where one of the six mixes' bf16
+# roundings sits on a tie that order alone moves the layer's WKV state past
+# one step, the kernel equal to one of the two plain versions and not the
+# other (scripts/torch_trace_lane.py; PERF.md, Findings).
 MEGA_LAYER_TOL = 2.0 ** -8
 # For versions 6 and 5 a layer's x may pass instead through what it is made
 # of, in at most MEGA_FLIP_LAYERS layers of a case and with x within
@@ -835,9 +874,118 @@ def kernel_cases6i8(torch, k, bf16_peak, f32_peak, full_rows, dev="cuda"):
     return cases
 
 
+# the matrix kind of each block type the grouped gemv takes
+GROUPED_KINDS = {"Q4_K": "qk", "Q4_0": "qk", "Q5_K": "qk_b", "Q6_K": "qk_nomin",
+                 "Q8_0": "qk_nomin", "Int8": "int8"}
+
+
+def grouped_case(torch, mm, kind, m, k, n, seed, bf16_peak, dev="cuda"):
+    """``quant_gemv_grouped`` on three [m, k] matrices of block type
+    ``kind`` (GROUPED_KINDS) with random codes and factors, n rows each,
+    grouped by ``models.group_gemv_matrices``. The library yardstick: one
+    torch.bmm of the bf16 inputs [3, n, k] against the three weights
+    dequantized to bf16 ahead of time."""
+    from web_rwkv_gguf_tpu_torch.models import Matrix, group_gemv_matrices
+
+    mkind = GROUPED_KINDS[kind]
+    u8, i8 = torch.uint8, torch.int8
+
+    def matrix(ints, floats):
+        if kind in ("Q4_K", "Q5_K"):
+            codes = (ints(0, 256, (m, k // 2), u8) if kind == "Q4_K"
+                     else ints(0, 32, (m, k), u8))
+            a = {"codes": codes, "sc6": ints(0, 64, (m, k // 32), u8),
+                 "mn6": ints(0, 64, (m, k // 32), u8), "d8": floats(m, k // 256) * 1e-2,
+                 "dm8": floats(m, k // 256) * 1e-2}
+        elif kind == "Q4_0":
+            s = floats(m, k // 32) * 1e-2
+            a = {"codes": ints(0, 256, (m, k // 2), u8), "scales": s, "mins": 8.0 * s}
+        elif kind == "Q6_K":
+            a = {"codes": ints(-32, 32, (m, k), i8), "q6s": ints(-128, 128, (m, k // 16), i8),
+                 "q6d": floats(m, k // 256) * 1e-3}
+        elif kind == "Q8_0":
+            a = {"codes": ints(-128, 128, (m, k), i8), "scales": floats(m, k // 32) * 1e-2}
+        else:
+            a = {"codes": ints(0, 256, (m, k), u8),
+                 "mn": -(floats(m, k // 128) * 0.1 + 0.05).half().float(),
+                 "mx": (floats(m, k // 128) * 0.1 + 0.05).half().float()}
+        return Matrix(mkind, (m, k), a)
+
+    def make(i):
+        ints, floats, normal = _rng(torch, dev, seed + 1000 * i)
+        grouped = group_gemv_matrices([matrix(ints, floats) for _ in range(3)])
+        if grouped is None:
+            raise AssertionError(f"{kind} [{m}, {k}] does not group")
+        return normal(3, n, k).to(torch.bfloat16), mkind, grouped, m, k
+
+    def weights(args):
+        xs, _, g, _, _ = args
+        off = g["offsets"]
+        w = torch.stack([mm.qs_dequantize(c, g["scales"][i], None if off is None else off[i],
+                                          k=k) for i, c in enumerate(g["codes"])])
+        return xs, w.to(torch.bfloat16).transpose(1, 2)
+
+    G = k // (128 if kind == "Int8" else 16 if kind == "Q6_K" else 32)
+    code_bytes = m * k // 2 if mkind == "qk" else m * k
+    offsets = kind not in ("Q6_K", "Q8_0")
+    return dict(name=f"quant_gemv_grouped[{kind},3x m={m},k={k},n={n}]",
+                kernel=mm.quant_gemv_grouped, shape=(n, m, k),
+                plain=mm.quant_gemv_grouped_plain, make_args=make, compare=gemv_compare,
+                # each matrix's codes, f32 scale products (and offsets); x, y
+                nbytes=3 * (code_bytes + (8 if offsets else 4) * m * G + 2 * n * k + 4 * n * m),
+                flops=3 * 2 * n * m * k, fpeak=bf16_peak, library=torch.bmm,
+                library_args=weights)
+
+
+def kernel_cases7q6(torch, k, bf16_peak, f32_peak, full_rows, dev="cuda"):
+    """The grouped r/k/v gemv of the B=1 unrolled decode at the 0.1B widths
+    (3 × [768, 768], n = 1) for each kind it takes, and Q4_K at the 1.5B
+    widths (3 × [2048, 2048], where the JAX package still groups Q4_K);
+    then the RWKV-7 Q6_K main paths' other new kernel calls at the 0.1B
+    widths: the Q6_K gemv at the shapes whose codes tile it (n = 1, the
+    B=1 serve's Wo and FFN key), the Q6_K GEMM at [768, 3072] for n = 1
+    (the FFN value: its codes do not tile the gemv, so the gate sends it
+    to the GEMM at every n) and at every layer shape for n = 512 (an
+    Engine chunk of T=128 at B=4)."""
+    mm = k["matmul"]
+    cases = [grouped_case(torch, mm, kind, 768, 768, 1, 21000 + 10 * j, bf16_peak, dev)
+             for j, kind in enumerate(GROUPED_KINDS)]
+    cases.append(grouped_case(torch, mm, "Q4_K", 2048, 2048, 1, 21100, bf16_peak, dev))
+    layer_shapes = ((768, 768), (3072, 768), (768, 3072))
+    cases += [q6k_case(torch, mm, "gemv", m, kk, 1, 21200 + m + 7 * kk, bf16_peak, dev)
+              for m, kk in layer_shapes[:2]]
+    cases.append(q6k_case(torch, mm, "gemm", 768, 3072, 1, 21250, bf16_peak, dev))
+    cases += [q6k_case(torch, mm, "gemm", m, kk, 512, 21300 + m + 7 * kk, bf16_peak, dev)
+              for m, kk in layer_shapes]
+    return cases
+
+
+def kernel_cases7f16(torch, k, bf16_peak, f32_peak, full_rows, dev="cuda"):
+    """The RWKV-7 bf16 model's main paths call no kernel outside the
+    whole-stack step that another model's cases do not hold: its matrices
+    are dense (torch.matmul), and its attention core and WKV scan have the
+    RWKV-7 Q4_K_M model's cases. Its whole-stack step and the slot stacks
+    of SLOT_STACKS are held after its Engine phase."""
+    return []
+
+
 MODEL_CASES = {"v7": kernel_cases, "v6": kernel_cases6, "v5": kernel_cases5,
                "v4": kernel_cases4, "v7q5": kernel_cases7q5, "v6q8": kernel_cases6q8,
-               "v7i8": kernel_cases7i8, "v7nf4": kernel_cases7nf4, "v6i8": kernel_cases6i8}
+               "v7i8": kernel_cases7i8, "v7nf4": kernel_cases7nf4, "v6i8": kernel_cases6i8,
+               "v7q6": kernel_cases7q6, "v7f16": kernel_cases7f16}
+
+# Whole-stack stacks in the slots no driven model reaches, held beside the
+# model named: (version, block type or None for an f16 file loaded as bf16),
+# the RWKV-7 ones at the 0.1B widths at full depth, the RWKV-6 ones at the
+# World 1.6B widths at 4 of its 24 layers, all at a vocabulary of 256 (the
+# head is not run); each held layer by layer at SLOT_BATCHES lanes.
+SLOT_STACKS = {"v7q6": (("v7", "Q3_K"), ("v7", "Q4_1")),
+               "v7f16": (("v6", "Q6_K"), ("v6", "Q4_0"), ("v6", None))}
+SLOT_WIDTHS = {"v7": {**_V7_WIDTHS, "n_vocab": 256},
+               "v6": dict(n_layer=4, n_emb=2048, head_size=64, n_vocab=256, n_hidden=7168,
+                          rank_tm=32, rank_td=64)}
+SLOT_BATCHES = {"v7": (4, 1, 16), "v6": (4,)}
+SLOT_SEED = 110
 
 
 def clone_tree(tree):
@@ -849,11 +997,12 @@ def clone_tree(tree):
     return tree.clone() if hasattr(tree, "clone") else tree
 
 
-def mega_case(torch, mod, mega, state, x, mask, eps, f32_peak):
+def mega_case(torch, mod, mega, state, x, mask, eps, f32_peak, label):
     """The whole-stack decode kernel of ``mod`` (``ops/cuda/layer7`` or
     ``ops/cuda/layer56``) at a decode shape: one token for every lane of
-    ``state`` through all layers of ``mega``; input copies beyond the
-    first are clones in new memory."""
+    ``state`` through all layers of ``mega`` (``label`` names the model or
+    slot stack in the case's name); input copies beyond the first are
+    clones in new memory."""
     v7 = hasattr(mod, "layer_scan7")
     scan, plain = ((mod.layer_scan7, mod.layer_scan7_plain) if v7
                    else (mod.layer_scan56, mod.layer_scan56_plain))
@@ -866,20 +1015,24 @@ def mega_case(torch, mod, mega, state, x, mask, eps, f32_peak):
             return (mega, state, x, mask, None, *eps)
         return (clone_tree(mega), clone_tree(state), x.clone(), mask, None, *eps)
 
-    def one_layer(fn, i, x_l, v_first, staged=None):
+    def one_layer(fn, i, x_l, v_first, staged=None, **kw):
         """Layer i alone, as a one-layer slice: (x, state, carry); for
-        versions 6 to 4 ``staged`` receives the layer's staged operands."""
+        versions 6 to 4 ``staged`` receives the layer's staged operands;
+        ``kw`` goes to the plain version (RWKV-7's ``ln_out``)."""
         m_i = mod.mega_layers(mega, i, i + 1)
         s_i = {k: v[i:i + 1] for k, v in state.items()}
         if v7:
-            return fn(m_i, s_i, x_l, mask, None, *eps, (v_first, i))
+            return fn(m_i, s_i, x_l, mask, None, *eps, (v_first, i), **kw)
         return (*fn(m_i, s_i, x_l, mask, None, *eps, i, staged=staged), None)
 
     live = mask > 0
 
     def check(args):
         """Layer by layer: each layer as a one-layer launch on the plain
-        chain's input to it, against the plain version of that layer (and,
+        chain's input to it, against the plain version of that layer (for
+        RWKV-7 its shift states, the LayerNorm outputs, against the plain
+        version's, and the rest against the plain version given those
+        outputs; and,
         for versions 6 to 4, the layer's x replayed from the kernel's own
         staged operands, at MEGA_REPLAY_TOL; for versions 6 and 5 a layer
         whose x alone is past MEGA_LAYER_TOL, by at most MEGA_FLIP_X times,
@@ -902,8 +1055,11 @@ def mega_case(torch, mod, mega, state, x, mask, eps, f32_peak):
             # a masked lane's x is unspecified (its state is what it keeps)
             x_live = torch.where(live[:, None], got[0], want[0])
             pairs = {"x": (x_live, want[0]), **{k: (got[1][k], want[1][k]) for k in want[1]}}
-            if v7:
-                pairs["v_first"] = (got[2], want[2])
+            if v7:  # given the kernel's LayerNorm outputs: x, the WKV state, v_first
+                given = one_layer(plain, i, x_l, v_first,
+                                  ln_out=(got[1]["att_shift"], got[1]["ffn_shift"]))
+                pairs.update(x=(x_live, given[0]), wkv=(got[1]["wkv"], given[1]["wkv"]),
+                             v_first=(got[2], given[2]))
             else:
                 rep = mod.replay_staged(mega, i, state, x_l, mask, *eps, st_k)
                 rel = ((rep["x"] - got[0])[live].abs().max() / got[0][live].abs().max()).item()
@@ -975,7 +1131,7 @@ def mega_case(torch, mod, mega, state, x, mask, eps, f32_peak):
         wkv_flops = 6 * H * hs * hs
     tag = "" if v7 else f"version={version},"
     case = dict(
-        name=f"{scan.__name__}[{tag}L={L},B={B},C={C},hidden={hidden}]", kernel=scan,
+        name=f"{scan.__name__}[{label},{tag}L={L},B={B},C={C},hidden={hidden}]", kernel=scan,
         shape=(L, B, C) if v7 else (version, L, B, C), L=L, plain=plain, make_args=make,
         check=check,
         # weights once, state in and out, x in and out, the mask
@@ -1114,8 +1270,8 @@ def scan_compare(got, want):
 
 
 COUNTED = ("q4k_gemv", "q4k_gemm", "q6k_gemv", "q6k_gemm", "qkb_gemv", "qkb_gemm", "qs_gemv",
-           "qs_gemm", "nf4_gemv", "nf4_gemm", "att_core7_step", "wkv7_scan", "layer_scan7",
-           "wkv6_scan", "layer_scan56", "wkv4_scan")
+           "qs_gemm", "nf4_gemv", "nf4_gemm", "quant_gemv_grouped", "att_core7_step",
+           "wkv7_scan", "layer_scan7", "wkv6_scan", "layer_scan56", "wkv4_scan")
 
 
 def matmul_kernel(mat, n):
@@ -1143,11 +1299,17 @@ def expected_chunk(chunked_min_t, spec, layers, B, T):
     (``spec["wkv"]``: for RWKV-7 the attention core at T=1 and the scan at
     2 ≤ T < 128, for RWKV-6 and -5 the V6 scan below T=128, T=1 included,
     for RWKV-4 its scan at every T; from T=128 the chunk-parallel WKV is
-    PyTorch matmuls)."""
+    PyTorch matmuls). A layer of unrolled params (``models.unroll_params``)
+    that carries ``att["Wrkv_g"]`` takes r, k and v in one
+    ``quant_gemv_grouped`` launch at B = T = 1 where its Wo is quantized."""
     want = collections.Counter()
     for blk in layers:
+        grouped = B * T == 1 and "Wrkv_g" in blk["att"] and blk["att"]["Wo"].kind != "dense"
         for part, name in spec["matrices"]:
-            want[matmul_kernel(blk[part][name], B * T)] += 1
+            if not (grouped and (part, name) in _RKV):
+                want[matmul_kernel(blk[part][name], B * T)] += 1
+        if grouped:
+            want["quant_gemv_grouped"] += 1
     at_1, below, above = spec["wkv"]
     wkv = at_1 if T == 1 else (below if T < chunked_min_t else above)
     if wkv is not None:
@@ -1178,6 +1340,22 @@ def build_file(tag, n_layer, seed):
     t0 = time.perf_counter()
     raw = getattr(synthetic, spec["make"])(**{**spec["widths"], "n_layer": n_layer}, seed=seed,
                                            **placement)
+    return raw, time.perf_counter() - t0
+
+
+def build_slot_file(version, kind, seed):
+    """The bytes of a slot stack's synthetic file (SLOT_STACKS: ``kind`` a
+    block type, or None for f16) and the seconds its build took (run in a
+    worker process)."""
+    import numpy as np
+
+    from web_rwkv_gguf_tpu_torch.quant.ggml import GgmlDType
+    from web_rwkv_gguf_tpu_torch.utils import synthetic
+
+    placement = dict(dtype=np.float16) if kind is None else dict(quantize=GgmlDType[kind])
+    t0 = time.perf_counter()
+    raw = getattr(synthetic, f"make_{version}_gguf")(**SLOT_WIDTHS[version], seed=seed,
+                                                     **placement)
     return raw, time.perf_counter() - t0
 
 
@@ -1456,7 +1634,10 @@ def main() -> int:
                            build_file, (tag, MODELS[tag]["widths"]["n_layer"],
                                         MODELS[tag]["seed"])),
                        "compare": workers.apply_async(
-                           build_file, (tag, COMPARE_LAYERS, compare_seed(MODELS[tag])))}
+                           build_file, (tag, COMPARE_LAYERS, compare_seed(MODELS[tag]))),
+                       **{f"slot {version} {kind or 'bf16'}": workers.apply_async(
+                           build_slot_file, (version, kind, SLOT_SEED + j))
+                          for j, (version, kind) in enumerate(SLOT_STACKS.get(tag, ()))}}
                  for tag in tags}
         return run(np, torch, files)
     finally:
@@ -1466,6 +1647,7 @@ def main() -> int:
 
 def run(np, torch, files) -> int:
     from web_rwkv_gguf_tpu_torch import models, runtime
+    from web_rwkv_gguf_tpu_torch.gguf import GgufFile
     from web_rwkv_gguf_tpu_torch.models import matrix as matrix_mod
     from web_rwkv_gguf_tpu_torch.models.forward import WKV7_CHUNKED_MIN_T
     from web_rwkv_gguf_tpu_torch.models.forward import GN_EPS, L2_EPS, LN_EPS
@@ -1528,6 +1710,8 @@ def run(np, torch, files) -> int:
                            "web_rwkv_gguf_tpu/ops/pallas/matmul.py:939"),
                "nf4_gemv": ("web_rwkv_gguf_tpu_torch/ops/cuda/csrc/nf4_gemv.cu",
                             "web_rwkv_gguf_tpu/ops/pallas/matmul.py:1002"),
+               "quant_gemv_grouped": ("web_rwkv_gguf_tpu_torch/ops/cuda/csrc/gemv_grouped.cu",
+                                      "web_rwkv_gguf_tpu/ops/pallas/matmul.py:1154"),
                "nf4_gemm": ("web_rwkv_gguf_tpu_torch/ops/cuda/csrc/qk_gemm.cu",
                             "web_rwkv_gguf_tpu/ops/pallas/matmul.py:1225"),
                "qkb_gemv": ("web_rwkv_gguf_tpu_torch/ops/cuda/csrc/qkb_gemv.cu",
@@ -1561,6 +1745,7 @@ def run(np, torch, files) -> int:
                 "qkb_gemv": mm.qkb_gemv, "qkb_gemm": mm.qkb_gemm,
                 "qs_gemv": mm.qs_gemv, "qs_gemm": mm.qs_gemm,
                 "nf4_gemv": mm.nf4_gemv, "nf4_gemm": mm.nf4_gemm,
+                "quant_gemv_grouped": mm.quant_gemv_grouped,
                 "att_core7_step": core.att_core7_step, "wkv7_scan": core.wkv7_scan,
                 "layer_scan7": l7.layer_scan7, "wkv6_scan": wkv6.wkv6_scan,
                 "layer_scan56": l56.layer_scan56, "wkv4_scan": wkv4.wkv4_scan}
@@ -1585,18 +1770,78 @@ def run(np, torch, files) -> int:
         path_shapes[path] = {k: collections.Counter(fn.shapes) for k, fn in counters.items()}
         return result
 
+    def hold_stack(label, mega_key, mega, state, dec_x, batches):
+        """The whole-stack decode kernel against its plain version, layer
+        by layer, on ``state``'s four lanes (lane 2 frozen at B=4; lanes
+        repeated to each of ``batches``), timed, with its phase times;
+        every batch is checked and logged before a failure raises."""
+        v7 = mega_key == "mega7"
+        scan_mod = l7 if v7 else l56
+        B4 = dec_x.shape[0]
+        mask = torch.tensor([1.0, 1.0, 0.0, 1.0], device="cuda")
+        eps = (LN_EPS, GN_EPS, L2_EPS) if v7 else (LN_EPS, GN_EPS)
+        names = (("LN1+mix+r/k/v+LoRA down", "LoRA up+attention", "Wo", "LN2+mix+FFN key",
+                  "FFN value") if v7 else l56.PHASES[mega["version"]])
+        log(f"{label} whole-stack decode kernel (against its plain version, same inputs, "
+            f"layer by layer):")
+        failed = []
+        for B in batches:
+            lanes = torch.arange(B, device="cuda") % B4
+            case = mega_case(torch, scan_mod, mega,
+                             {k: v[:, lanes].contiguous() for k, v in state.items()},
+                             dec_x[lanes], mask if B == B4 else torch.ones(B, device="cuda"),
+                             eps, f32_peak, label)
+            try:
+                add_entry(case, run_kernel_case(torch, case, hbm))
+            except AssertionError as e:
+                log(f"  {case['name']}: FAILED: {e}")
+                failed.append(case["name"])
+                continue
+            cases.append(case)
+            phase_times(torch, case, len(names), names)
+        if failed:
+            raise AssertionError(f"{label}: the whole-stack kernel disagrees with its plain "
+                                 f"version ({failed})")
+
+    def slot_stack(label, version, kind, raw):
+        """A stack in a slot no driven model reaches (SLOT_STACKS): loaded,
+        arranged by ``prepare_decode`` in its slot, three decode steps of
+        four lanes through the whole-stack kernel for a state, then held by
+        hold_stack."""
+        info, params = models.load_model(GgufFile(raw), device="cuda")
+        mega_key = "mega7" if version == "v7" else "mega56"
+        prepared = models.prepare_decode(params, info, 4)
+        form = (l7.descriptor(l7.FORM_DENSE, 0, 0) if kind is None
+                else l7.descriptor(l7.FORM_Q6K, 1, 16) if kind in ("Q6_K", "Q3_K")
+                else l7.descriptor(l7.FORM_QS_NIB, 0, 32))
+        if mega_key not in prepared or set(prepared[mega_key]["forms"].values()) != {form}:
+            raise AssertionError(f"{label}: the stack did not take its slot {form}")
+        state = models.init_state(info, 4, device="cuda")
+        for step in range(3):
+            toks = torch.tensor([[11 + 17 * step + 5 * b] for b in range(4)], device="cuda")
+            _, state = models.forward_chunk(info, prepared, state, toks,
+                                            torch.ones(4, dtype=torch.long, device="cuda"))
+        dec_x = models.embed_tokens(params, torch.tensor([[7], [8], [9], [10]],
+                                                         device="cuda"))[:, 0]
+        hold_stack(label, mega_key, prepared[mega_key], state, dec_x, SLOT_BATCHES[version])
+
     def drive(tag, spec, info, params):
         """The main paths of one model: two requests at B=1 on the loaded
-        params (the per-layer kernels), then the Engine at B=4 (chunked
-        prefill, decode through the whole-stack kernel, one FULL infer),
-        timed and profiled; then the whole-stack kernel against its plain
-        version on the Engine's lanes."""
+        params (the per-layer kernels; for a "grouped" RWKV-7 model on
+        ``models.unroll_params(params)``, whose r, k and v take the grouped
+        gemv), then the Engine at B=4 (chunked prefill, decode through the
+        whole-stack kernel, one FULL infer), timed and profiled; then the
+        whole-stack kernel against its plain version on the Engine's
+        lanes."""
         L = info.num_layer
         layers = layer_params(params, L)
         mega_key, scan_name = spec["mega"] or (None, None)
-        scan_mod = l7 if mega_key == "mega7" else l56
+        serve_params = models.unroll_params(params) if spec.get("grouped") else params
+        serve_layers = layer_params(serve_params, L)
+        if spec.get("grouped") and not all("Wrkv_g" in blk["att"] for blk in serve_layers):
+            raise AssertionError(f"{tag}: unroll_params did not group every layer's r, k, v")
 
-        def chunk(B, T):
+        def chunk(B, T, layers=layers):
             return expected_chunk(WKV7_CHUNKED_MIN_T, spec, layers, B, T)
 
         def head(n):
@@ -1606,13 +1851,15 @@ def run(np, torch, files) -> int:
         # ---- main path: two requests at batch 1 ----------------------------
         want = collections.Counter()
         for prompt in PROMPTS:
-            want += chunk(1, len(prompt)) + head(1)
+            want += chunk(1, len(prompt), serve_layers) + head(1)
             for _ in range(DECODE_STEPS):
-                want += chunk(1, 1) + head(1)
+                want += chunk(1, 1, serve_layers) + head(1)
+        form = "unrolled params" if spec.get("grouped") else "loaded params"
         tokens1, t_prompt, t_gen = counted(
-            f"{tag} serve (B=1)", want,
-            lambda: serve(torch, models, info, params, PROMPTS, DECODE_STEPS))
-        tokens2, t_prompt2, t_gen2 = serve(torch, models, info, params, PROMPTS, DECODE_STEPS)
+            f"{tag} serve (B=1, {form})", want,
+            lambda: serve(torch, models, info, serve_params, PROMPTS, DECODE_STEPS))
+        tokens2, t_prompt2, t_gen2 = serve(torch, models, info, serve_params, PROMPTS,
+                                           DECODE_STEPS)
         if tokens1 != tokens2:
             raise AssertionError(f"{tag}: greedy tokens differ between two runs")
         if not all(0 <= t < info.num_vocab for req in tokens1 for t in req):
@@ -1629,7 +1876,7 @@ def run(np, torch, files) -> int:
         dstate = models.init_state(info, 1, device="cuda")
         gen8 = models.make_generator(info, steps=8)
         busy, prof_wall_us, rows = profile(
-            torch, lambda: gen8(params, dstate, torch.tensor([[1]], device="cuda")), 8)
+            torch, lambda: gen8(serve_params, dstate, torch.tensor([[1]], device="cuda")), 8)
         log_profile(f"{tag} 8 decode steps at B=1", busy, prof_wall_us, rows,
                     t_gen2 / n_dec * 1e6, "token")
 
@@ -1724,31 +1971,7 @@ def run(np, torch, files) -> int:
         # each of the model's batches (lanes repeated)
         dec_x = models.embed_tokens(params, torch.tensor([[o[-1]] for o in out_gen],
                                                          device="cuda"))[:, 0]
-        mask = torch.tensor([1.0, 1.0, 0.0, 1.0], device="cuda")
-        v7 = mega_key == "mega7"
-        eps = (LN_EPS, GN_EPS, L2_EPS) if v7 else (LN_EPS, GN_EPS)
-        names = (("LN1+mix+r/k/v+LoRA down", "LoRA up+attention", "Wo", "LN2+mix+FFN key",
-                  "FFN value") if v7 else l56.PHASES[eng.params[mega_key]["version"]])
-        log(f"{tag} whole-stack decode kernel (against its plain version, same inputs, "
-            f"layer by layer):")
-        failed = []  # every batch is checked and logged before a failure raises
-        for B in spec["mega_batches"]:
-            lanes = torch.arange(B, device="cuda") % B4
-            case = mega_case(torch, scan_mod, eng.params[mega_key],
-                             {k: v[:, lanes].contiguous() for k, v in eng.state.items()},
-                             dec_x[lanes], mask if B == B4 else torch.ones(B, device="cuda"),
-                             eps, f32_peak)
-            try:
-                add_entry(case, run_kernel_case(torch, case, hbm))
-            except AssertionError as e:
-                log(f"  {case['name']}: FAILED: {e}")
-                failed.append(case["name"])
-                continue
-            cases.append(case)
-            phase_times(torch, case, len(names), names)
-        if failed:
-            raise AssertionError(f"{tag}: the whole-stack kernel disagrees with its plain "
-                                 f"version ({failed})")
+        hold_stack(tag, mega_key, eng.params[mega_key], eng.state, dec_x, spec["mega_batches"])
 
     @contextlib.contextmanager
     def capture_gemms(calls, on):
@@ -1922,6 +2145,16 @@ def run(np, torch, files) -> int:
             f"{t_file:.1f} s in a worker process, seed {compare_seed(spec)})")
         del raw2, info2, p_gpu
         torch.cuda.empty_cache()
+        for j, (version, slot_kind) in enumerate(SLOT_STACKS.get(tag, ())):
+            label = f"slot {version} {slot_kind or 'bf16'}"
+            t0 = time.perf_counter()
+            raw3, t_file = files[tag][label].get()
+            slot_stack(label, version, slot_kind, raw3)
+            log(f"{label}: {time.perf_counter() - t0:.1f} s ({len(raw3) / 1e6:.1f} MB file "
+                f"built in {t_file:.1f} s in a worker process, {SLOT_WIDTHS[version]}, seed "
+                f"{SLOT_SEED + j})")
+            del raw3
+            torch.cuda.empty_cache()
 
     # "launches": the kernel's count over the main paths' runs; by path and
     # at this entry's shape ("launches_at_shape", 0 for a shape off the paths)

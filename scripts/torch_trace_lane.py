@@ -6,7 +6,10 @@ chip_smoke holds ``layer_scan7`` layer by layer, each layer a one-layer
 launch on the plain version's chain, on the Engine's lanes as its timing
 phases leave them (the prompts prefilled; the token each lane generated
 last). This script rebuilds that state for ``chip_smoke.MODELS[tag]``
-(default ``v7q5``), runs lane 0 alone (B=1) down the plain chain, and at
+(default ``v7q5``), runs one of its lanes alone (B=1; lane 0, or the
+one ``--lane`` names) down the plain chain — or with ``--batch B`` all
+four lanes repeated to B lanes, all live, as chip_smoke holds the stack
+at B ≠ 4, reporting the lane ``--lane`` names — and at
 every layer prints, as shares of MEGA_LAYER_TOL (one bf16 step of each
 array's max): the kernel against the plain version, and the plain
 version with every quantized product moved by one f32 ulp (noise seeds 0
@@ -21,7 +24,7 @@ norms, the quantized products), each against the plain version on the
 CPU; the kind whose move closes the gap holds the sensitive sum. Needs
 one CUDA card; from the repo root:
 
-    python3 scripts/torch_trace_lane.py [tag] [--gemm-source FILE]
+    python3 scripts/torch_trace_lane.py [tag] [--lane N] [--batch B] [--gemm-source FILE]
 
 ``--gemm-source`` builds the dequant-GEMM entry points (``q4k_gemm``,
 ``q6k_gemm``, ``qkb_gemm``, ``qs_gemm``) from another ``qk_gemm.cu`` (an
@@ -52,12 +55,20 @@ from web_rwkv_gguf_tpu_torch.ops.cuda import build, layer7, matmul  # noqa: E402
 NOISE_SEEDS = (0, 1, 2, 3)
 
 
-def shares(got, want):
+def shares(got, want, row=None):
     """Per array of a one-layer result (x, the state, v_first), max|got -
-    want| over MEGA_LAYER_TOL·max|want|; the largest and its array."""
+    want| (over lane ``row`` alone where given) over
+    MEGA_LAYER_TOL·max|want| (over every lane, as chip_smoke holds it); the
+    largest and its array."""
     a = {"x": got[0], "v_first": got[2], **got[1]}
     b = {"x": want[0], "v_first": want[2], **want[1]}
-    s = {k: (a[k] - b[k]).abs().max().item()
+
+    def lane(k, t):
+        if row is None:
+            return t
+        return t[:, row] if k in got[1] else t[row]
+
+    s = {k: (lane(k, a[k]) - lane(k, b[k])).abs().max().item()
          / (cs.MEGA_LAYER_TOL * max(b[k].abs().max().item(), 1e-30)) for k in b}
     k = max(s, key=s.get)
     return f"{s[k]:.3f} ({k})"
@@ -144,6 +155,13 @@ def main() -> int:
         use_gemm_source(args[at + 1])
         print(f"dequant-GEMM built from {args[at + 1]}", flush=True)
         del args[at:at + 2]
+    opts = {"--lane": 0, "--batch": 1}
+    for opt in opts:
+        if opt in args:
+            at = args.index(opt)
+            opts[opt] = int(args[at + 1])
+            del args[at:at + 2]
+    lane, batch = opts["--lane"], opts["--batch"]
     tag = args[0] if args else "v7q5"
     spec = cs.MODELS[tag]
     build.build()
@@ -157,9 +175,12 @@ def main() -> int:
     eng.reset_state()
     eng.generate(prompts, 1)  # the state chip_smoke's check starts from
     mega = eng.params["mega7"]
-    x = models.embed_tokens(params, torch.tensor([[out[0][-1]]], device="cuda"))[:, 0]
-    state = {k: v[:, :1].contiguous() for k, v in eng.state.items()}
-    mask = torch.ones(1, device="cuda")
+    lanes = [lane] if batch == 1 else [b % len(prompts) for b in range(batch)]
+    row = None if batch == 1 else lane
+    x = models.embed_tokens(params, torch.tensor([[out[b][-1]] for b in lanes],
+                                                 device="cuda"))[:, 0]
+    state = {k: v[:, lanes].contiguous() for k, v in eng.state.items()}
+    mask = torch.ones(batch, device="cuda")
     eps = (LN_EPS, GN_EPS, L2_EPS)
     real = layer7.slot_gemv_plain
     x_l, v_first = x, None
@@ -173,18 +194,19 @@ def main() -> int:
         for seed in NOISE_SEEDS:
             layer7.slot_gemv_plain = noisy_slot(seed)
             try:
-                noisy.append(shares(layer7.layer_scan7_plain(*args), want))
+                noisy.append(shares(layer7.layer_scan7_plain(*args), want, row))
             finally:
                 layer7.slot_gemv_plain = real
         cpu = layer7.layer_scan7_plain(*to_cpu(args))
-        print(f"{tag} lane 0 at B=1, layer {i}, share of MEGA_LAYER_TOL: kernel against plain "
-              f"{shares(got, want)}; plain on the CPU against plain on the card "
-              f"{shares(to_cpu(cpu), to_cpu(want))}; kernel against plain on the CPU "
-              f"{shares(to_cpu(got), cpu)}; plain with one-ulp product changes "
+        print(f"{tag} lane {lane} at B={batch}, layer {i}, share of MEGA_LAYER_TOL: kernel "
+              f"against plain {shares(got, want, row)}; plain on the CPU against plain on the "
+              f"card {shares(to_cpu(cpu), to_cpu(want), row)}; kernel against plain on the CPU "
+              f"{shares(to_cpu(got), cpu, row)}; plain with one-ulp product changes "
               f"against plain, seeds {NOISE_SEEDS}: {', '.join(noisy)}", flush=True)
-        moved = [f"{piece} "
-                 f"{shares(to_cpu(with_piece_on_cpu(piece, layer7.layer_scan7_plain, *args)), cpu)}"
-                 for piece in PIECES]
+        moved = []
+        for piece in PIECES:
+            moved_plain = with_piece_on_cpu(piece, layer7.layer_scan7_plain, *args)
+            moved.append(f"{piece} {shares(to_cpu(moved_plain), cpu, row)}")
         print(f"  plain on the card with one kind of operation on the CPU, against plain on "
               f"the CPU: {'; '.join(moved)}", flush=True)
         x_l, v_first = want[0], want[2]

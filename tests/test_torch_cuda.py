@@ -5,7 +5,8 @@ card. Imports nothing of JAX, so it runs where only PyTorch is installed:
 
 (``--noconftest``: tests/conftest.py sets up JAX). Without a card every
 test here skips. Tolerances: the gemvs sum the same f32 terms in another
-order, atol = 1e-4·max|y|; the attention core, atol = 1e-4; the
+order, atol = 1e-4·max|y| (the grouped r/k/v gemv too: the same f32
+group sums in another order); the attention core, atol = 1e-4; the
 dequant-GEMMs multiply the same bf16 weights in another order, atol =
 1e-4·max|y|; the WKV scans (V7, V6 and V4), atol = 1e-4·max|plain| on y and
 the state; the whole-stack decode kernels as their tests say.
@@ -668,6 +669,34 @@ def test_layer_scan_stack_forms_on_card(card, version, kind, B):
     one-layer slice on the plain chain's input, every output at 2^-8·max
     of that layer (as test_layer_scan56_on_card); the frozen lane's state
     is kept exactly."""
+    _hold_stack_layers(card, version, kind, B, flips=False)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B", [1, 3, 9])
+@pytest.mark.parametrize("version,kind", [("v7", "Q6_K"), ("v6", "Q6_K"), ("v7", "Q3_K"),
+                                          ("v7", "Q4_0"), ("v6", "Q4_1"), ("v7", "BF16"),
+                                          ("v6", "BF16")])
+def test_layer_scan_new_slots_on_card(card, version, kind, B):
+    """The same for Q6_K / Q3_K (native Q6_K slots), Q4_0 / Q4_1 (f32-scale
+    nibble slots) and f16 files loaded as bf16 (dense slots). A version 6
+    layer's x is held as chip_smoke.py holds it: within 2^-8·max of the
+    plain version, or else within 4 times that with its staged f32
+    products (r/k/v/g, the FFN receptance) within 2^-8·max of the plain
+    version's and x within 1e-4·max of its replay from the kernel's own
+    staged operands (``layer56.replay_staged``): the other order of f32
+    sums flips bf16 roundings of the FFN's relu² inputs, whose sum through
+    the FFN value can move x past one bf16 step (seen: v6 Q4_1 at B=9, 2
+    of 2,048 elements at 1.14 of the bound)."""
+    _hold_stack_layers(card, version, kind, B, flips=True)
+
+
+def _hold_stack_layers(card, version, kind, B, flips):
+    """Each layer of a two-layer stack of ``kind`` (a GGML block type,
+    INT8 for an f16 file requantized at load, BF16 for an f16 file loaded
+    as it is) as a one-layer launch against its plain version (module
+    tests above); ``flips``: version 6 layers may pass through their
+    staged operands."""
     from web_rwkv_gguf_tpu_torch.gguf import GgufFile
     from web_rwkv_gguf_tpu_torch.models import embed_tokens, load_model, prepare_decode
     from web_rwkv_gguf_tpu_torch.models.forward import GN_EPS, L2_EPS, LN_EPS
@@ -675,10 +704,10 @@ def test_layer_scan_stack_forms_on_card(card, version, kind, B):
     from web_rwkv_gguf_tpu_torch.quant import QuantScheme
     from web_rwkv_gguf_tpu_torch.utils.synthetic import make_v6_gguf, make_v7_gguf
 
-    requant = kind == "INT8"
+    requant, dense = kind == "INT8", kind == "BF16"
     kw = dict(n_layer=2, n_emb=256, head_size=64, n_vocab=512, n_hidden=1024, seed=8,
-              **({} if requant else dict(quantize=ggml.GgmlDType[kind],
-                                          head_quantize=ggml.GgmlDType.Q6_K)))
+              **({} if requant else dict(dtype=np.float16) if dense
+                 else dict(quantize=ggml.GgmlDType[kind], head_quantize=ggml.GgmlDType.Q6_K)))
     raw = (make_v7_gguf(**kw) if version == "v7"
            else make_v6_gguf(**kw, rank_tm=32, rank_td=64))
     info, params = load_model(GgufFile(raw), quant=QuantScheme.INT8 if requant else None,
@@ -702,17 +731,103 @@ def test_layer_scan_stack_forms_on_card(card, version, kind, B):
             x0, s0, v_first = layer7.layer_scan7_plain(m_i, s_i, x, mask, None, *eps,
                                                        (v_first, i))
         else:
+            st_k, st_p = {}, {}
             x1, s1 = layer56.layer_scan56(m_i, s_i, x, mask, None, LN_EPS, GN_EPS,
-                                          first_layer=i)
-            x0, s0 = layer56.layer_scan56_plain(m_i, s_i, x, mask, None, LN_EPS, GN_EPS, i)
+                                          first_layer=i, staged=st_k)
+            x0, s0 = layer56.layer_scan56_plain(m_i, s_i, x, mask, None, LN_EPS, GN_EPS, i,
+                                                staged=st_p)
         live = mask > 0
-        _close(x1[live], x0[live], 2.0 ** -8)
+        bound = 2.0 ** -8 * x0[live].abs().max().item()
+        if flips and not v7 and (x1[live] - x0[live]).abs().max().item() > bound:
+            for key in ("rkvg", "rf"):
+                _close(st_k[key].float(), st_p[key].float(), 2.0 ** -8)
+            rep = layer56.replay_staged(mega, i, state, x, mask, LN_EPS, GN_EPS, st_k)
+            _close(x1[live], rep["x"][live], 1e-4)
+            _close(x1[live], x0[live], 4 * 2.0 ** -8)
+        else:
+            _close(x1[live], x0[live], 2.0 ** -8)
         for key in s0:
             _close(s1[key], s0[key], 2.0 ** -8)
             if B >= 3:
                 assert torch.equal(s1[key][:, 1], s_i[key][:, 1])
         x = x0
     assert scan.launches == before + info.num_layer
+
+
+def _grouped(kind, m, k, seed, dev):
+    """Three [m, k] matrices of ``kind`` (a GGML block type or INT8) and
+    their grouped operands."""
+    from web_rwkv_gguf_tpu_torch.models import Matrix, group_gemv_matrices
+    from web_rwkv_gguf_tpu_torch.quant import QuantScheme
+
+    mats = []
+    for i in range(3):
+        if kind == "INT8":
+            w = (np.random.default_rng(seed + i).normal(size=(m, k)) * 0.05).astype(np.float16)
+            mats.append(Matrix.from_f16(w, QuantScheme.INT8, device=dev))
+        else:
+            raw = _weights(m, k, getattr(ggml, f"quantize_{kind.lower()}"), seed + i)
+            mats.append(Matrix.from_gguf_blocks(ggml.GgmlDType[kind], raw, (m, k), device=dev))
+    return mats, group_gemv_matrices(mats)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 3, 8])
+@pytest.mark.parametrize("kind,m,k", [("Q4_K", 768, 768), ("Q4_0", 768, 768),
+                                      ("Q5_K", 768, 768), ("Q6_K", 768, 768),
+                                      ("Q8_0", 768, 768), ("INT8", 768, 768),
+                                      ("Q4_K", 2048, 2048), ("Q2_K", 256, 512)])
+def test_quant_gemv_grouped_on_card(card, kind, m, k, n):
+    """The grouped r/k/v gemv against its plain version, each matrix with
+    its own input rows (Q2_K: byte codes in 16-groups)."""
+    mats, grouped = _grouped(kind, m, k, m + k, card)
+    assert grouped is not None
+    xs = torch.stack([_x(n, k, n + i, card) for i in range(3)])
+    before = mm.quant_gemv_grouped.launches
+    got = mm.quant_gemv_grouped(xs, mats[0].kind, grouped, m, k)
+    assert mm.quant_gemv_grouped.launches == before + 1
+    _close(got, mm.quant_gemv_grouped_plain(xs, mats[0].kind, grouped, m, k), 1e-4)
+
+
+@pytest.mark.cuda
+def test_quant_gemv_grouped_refuses_what_it_does_not_take(card):
+    mats, grouped = _grouped("Q4_K", 256, 512, 3, card)
+    xs = _x(3, 512, 0, card).view(3, 1, 512)
+    for bad_xs in (xs[:2], torch.zeros(3, 9, 512, device=card), xs[..., :256]):
+        with pytest.raises(ValueError):
+            mm.quant_gemv_grouped(bad_xs, "qk", grouped, 256, 512)
+    with pytest.raises(ValueError):  # scales of another shape
+        mm.quant_gemv_grouped(xs, "qk", {**grouped, "scales": grouped["scales"][:, :128]},
+                              256, 512)
+    with pytest.raises(ValueError):  # codes on the CPU
+        mm.quant_gemv_grouped(xs, "qk", {**grouped, "codes": [c.cpu() for c in
+                                                                 grouped["codes"]]}, 256, 512)
+
+
+@pytest.mark.cuda
+def test_unrolled_decode_routes_through_the_grouped_gemv_on_card(card):
+    """A B=1 decode step on ``unroll_params``: one grouped launch per
+    layer, and the same logits as the per-matrix gemvs of the loaded
+    params within the card-vs-CPU limit (both in the exact-weight class;
+    a flipped bf16 operand rounding moves them apart)."""
+    from web_rwkv_gguf_tpu_torch.gguf import GgufFile
+    from web_rwkv_gguf_tpu_torch.models import (
+        forward_chunk, init_state, load_model, logits_head, unroll_params,
+    )
+    from web_rwkv_gguf_tpu_torch.utils.synthetic import make_v7_gguf
+
+    raw = make_v7_gguf(n_layer=2, n_emb=768, head_size=64, n_vocab=512, n_hidden=3072,
+                       quantize=ggml.GgmlDType.Q4_K, head_quantize=ggml.GgmlDType.Q6_K, seed=9)
+    info, params = load_model(GgufFile(raw), device=card)
+    out = []
+    for p in (unroll_params(params), params):
+        before = mm.quant_gemv_grouped.launches
+        tok = torch.tensor([[17]], device=card)
+        x, _ = forward_chunk(info, p, init_state(info, 1, device=card), tok,
+                             torch.tensor([1], device=card))
+        out.append((logits_head(p, x[:, 0]), mm.quant_gemv_grouped.launches - before))
+    assert [n for _, n in out] == [info.num_layer, 0]
+    _close(out[0][0], out[1][0], 1e-2)
 
 
 # the engine's requantized forms at the RWKV-7 0.1B layer shapes

@@ -31,7 +31,9 @@ from web_rwkv_gguf_tpu_torch.models import (
     prepare_decode,
 )
 from web_rwkv_gguf_tpu_torch.models.forward import GN_EPS, L2_EPS, LN_EPS
-from web_rwkv_gguf_tpu_torch.ops.cuda.layer7 import MAX_SCAN_BATCH, layer_scan7, mega_layers
+from web_rwkv_gguf_tpu_torch.ops.cuda.layer7 import (
+    MAX_SCAN_BATCH, layer_scan7, layer_scan7_plain, mega_layers, prep_decode7, stack_matrix,
+)
 from web_rwkv_gguf_tpu_torch.quant.ggml import GgmlDType
 from web_rwkv_gguf_tpu_torch.runtime import Engine
 from web_rwkv_gguf_tpu_torch.utils.synthetic import make_v7_gguf
@@ -139,6 +141,31 @@ def test_layer_scan7_slices_compose(port_model, rescale):
         assert torch.equal(s_all[key][:, 1], state[key][:, 1])  # the frozen lane
 
 
+def test_layer_scan7_plain_takes_the_layernorm_outputs(port_model):
+    """``ln_out``, which chip_smoke.py uses to hold the kernel's layers
+    given its own LayerNorm outputs: the plain version's own outputs (its
+    new shift states) give its result exactly; other outputs move only the
+    lanes the mask keeps running, and a frozen lane keeps its state."""
+    info, params = port_model
+    mega = prepare_decode(params, info, 3)["mega7"]
+    L, C, H, hs = info.num_layer, info.num_emb, info.num_head, info.head_size
+    g = torch.Generator().manual_seed(4)
+    state = {"att_shift": torch.randn(L, 3, C, generator=g),
+             "wkv": torch.randn(L, 3, H, hs, hs, generator=g),
+             "ffn_shift": torch.randn(L, 3, C, generator=g)}
+    x = embed_tokens(params, torch.tensor([[7], [9], [11]]))[:, 0]
+    mask = torch.tensor([1.0, 0.0, 1.0])
+    eps = (LN_EPS, GN_EPS, L2_EPS)
+    x0, s0 = layer_scan7_plain(mega, state, x, mask, None, *eps)
+    x1, s1 = layer_scan7_plain(mega, state, x, mask, None, *eps,
+                               ln_out=(s0["att_shift"], s0["ffn_shift"]))
+    assert torch.equal(x1, x0) and all(torch.equal(s1[k], s0[k]) for k in s0)
+    moved = (s0["att_shift"] * 1.01, s0["ffn_shift"])
+    x2, s2 = layer_scan7_plain(mega, state, x, mask, None, *eps, ln_out=moved)
+    assert not torch.equal(x2[0], x0[0]) and torch.equal(x2[1], x0[1])
+    assert torch.equal(s2["wkv"][:, 1], state["wkv"][:, 1])
+
+
 def test_prepare_decode_takes_only_what_the_kernel_runs(port_model):
     info, params = port_model
     prepared = prepare_decode(params, info, MAX_SCAN_BATCH)
@@ -146,9 +173,17 @@ def test_prepare_decode_takes_only_what_the_kernel_runs(port_model):
     assert "mega7" not in prepare_decode(params, info, MAX_SCAN_BATCH + 1)
     blocks_list = {**params, "blocks": [params["blocks"]]}
     assert "mega7" not in prepare_decode(blocks_list, info, 1)
+    # dense f32 layers: no slot takes them
     f32 = load_model(GgufFile(make_v7_gguf(n_layer=1, n_emb=64, head_size=16, n_vocab=32,
-                                           seed=2)), device="cpu")
+                                           seed=2)), dtype=torch.float32, device="cpu")
     assert "mega7" not in prepare_decode(f32[1], f32[0], 1)
+    # dense bf16 layers take the dense slot, but not at a head size the kernel
+    # refuses on the card (layer_scan7 takes 64 only)
+    bf16 = load_model(GgufFile(make_v7_gguf(n_layer=2, n_emb=256, head_size=16, n_vocab=32,
+                                            n_hidden=512, seed=2)), device="cpu")
+    assert stack_matrix(bf16[1]["blocks"]["att"]["Wr"]) is not None
+    assert prep_decode7(bf16[1], bf16[0]) is None
+    assert "mega7" not in prepare_decode(bf16[1], bf16[0], 1)
 
 
 def test_engine_decodes_through_the_whole_stack_step(port_model):

@@ -54,7 +54,7 @@ from web_rwkv_gguf_tpu_torch.models import (
 )
 from web_rwkv_gguf_tpu_torch.models.forward import GN_EPS, L2_EPS, LN_EPS
 from web_rwkv_gguf_tpu_torch.ops.cuda.layer7 import (
-    FORM_QKB, FORM_QS, layer_scan7, stack_matrix,
+    FORM_Q6K, FORM_QKB, FORM_QS, descriptor, layer_scan7, stack_matrix,
 )
 from web_rwkv_gguf_tpu_torch.ops.cuda.layer56 import layer_scan56
 from web_rwkv_gguf_tpu_torch.quant.ggml import GgmlDType
@@ -120,14 +120,17 @@ def _mega(version, params, info, B):
 
 def test_stacks_take_their_form(case):
     """Q5_K layer stacks take the native byte-kind slot, Q8_0 stacks the
-    f32-scale slot over signed bytes, in per-32 groups."""
+    f32-scale slot over signed bytes, in per-32 groups; the Q6_K head of
+    the Q5_K_M placement is a slot form too (the native Q6_K slot, signed
+    codes in 16-groups), as the Q8_0 head is (the f32-scale one)."""
     version, placement, _, (info, params) = case
     mega = _mega(version, params, info, 2)
     form = FORM_QKB if placement == "q5km" else FORM_QS
     signed = 0 if placement == "q5km" else 1
-    assert set(mega["forms"].values()) == {form | signed << 2 | 32 << 3}
-    head = stack_matrix(params["head"])  # Q6_K is no slot form yet; Q8_0 is
-    assert (head is None) == (placement == "q5km")
+    assert set(mega["forms"].values()) == {descriptor(form, signed, 32)}
+    head = stack_matrix(params["head"])
+    want = descriptor(FORM_Q6K, 1, 16) if placement == "q5km" else descriptor(FORM_QS, 1, 32)
+    assert head is not None and head[0] == want
 
 
 @pytest.mark.parametrize("B", [1, 5])

@@ -41,7 +41,7 @@ from web_rwkv_gguf_tpu_torch.models import (
     embed_tokens, forward_chunk, init_state, load_model, logits_head, prepare_decode,
 )
 from web_rwkv_gguf_tpu_torch.models.forward import GN_EPS, L2_EPS, LN_EPS
-from web_rwkv_gguf_tpu_torch.ops.cuda.layer7 import FORM_QS, layer_scan7
+from web_rwkv_gguf_tpu_torch.ops.cuda.layer7 import FORM_QS, descriptor, layer_scan7
 from web_rwkv_gguf_tpu_torch.ops.cuda.layer56 import layer_scan56
 from web_rwkv_gguf_tpu_torch.quant.formats import QuantScheme
 from web_rwkv_gguf_tpu_torch.runtime import Engine, RnnInput, RnnInputBatch
@@ -132,14 +132,16 @@ def test_stacks_take_their_slot(model):
     """Int8 layer stacks take the f32-scale slot over u8 codes in
     128-groups; NF4 / SF4 stacks no slot, so the Engine decodes them layer
     by layer, as the JAX package's does (its whole-stack kernels do not
-    take nf4)."""
+    take nf4); ``prepare_decode`` unrolls their blocks instead."""
     version, scheme, _, (info, params), _ = model
     prepared = prepare_decode(params, info, 2)
     if scheme == "INT8":
         mega = prepared["mega7" if version == "v7" else "mega56"]
-        assert set(mega["forms"].values()) == {FORM_QS | 128 << 3}
-    else:
-        assert prepared is params
+        assert set(mega["forms"].values()) == {descriptor(FORM_QS, 0, 128)}
+    else:  # the per-layer blocks of loader.unroll_params, no grouped r/k/v
+        assert not {"mega7", "mega56"} & set(prepared)
+        assert isinstance(prepared["blocks"], list)
+        assert not any("Wrkv_g" in blk["att"] for blk in prepared["blocks"])
 
 
 @pytest.mark.parametrize("B", [1, 5])

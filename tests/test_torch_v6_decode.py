@@ -166,13 +166,22 @@ def test_prepare_decode_takes_only_what_the_kernel_runs(port_model):
     assert prepare_decode(prepared, info, 2) is prepared  # idempotent
     assert "mega56" not in prepare_decode(params, info, MAX_SCAN_BATCH + 1)
     assert "mega56" not in prepare_decode({**params, "blocks": [params["blocks"]]}, info, 1)
-    # dense (unquantized) layers, a head size of 32, ranks not multiples of 8
-    for kw in (dict(), dict(n_emb=256, head_size=32, quantize=GgmlDType.Q4_K),
-               dict(n_emb=256, head_size=64, rank_tm=4, quantize=GgmlDType.Q4_K)):
+    # dense f32 layers, a head size of 32, ranks not multiples of 8
+    for kw, dtype in ((dict(), torch.float32),
+                      (dict(n_emb=256, head_size=32, quantize=GgmlDType.Q4_K), torch.bfloat16),
+                      (dict(n_emb=256, head_size=64, rank_tm=4, quantize=GgmlDType.Q4_K),
+                       torch.bfloat16)):
         full = {**SMALL, "n_layer": 1, **kw}
-        inf_, par = load_model(GgufFile(make_v6_gguf(**full, seed=2)), device="cpu")
+        inf_, par = load_model(GgufFile(make_v6_gguf(**full, seed=2)), dtype=dtype,
+                               device="cpu")
         assert prep_decode56(par, inf_) is None
         assert "mega56" not in prepare_decode(par, inf_, 1)
+    # dense bf16 layers at head size 64 take the dense slot, as the JAX
+    # package's prep_decode56 takes them
+    inf_, par = load_model(GgufFile(make_v6_gguf(**{**SMALL, "n_layer": 1}, seed=2)),
+                           device="cpu")
+    assert prep_decode56(par, inf_) is not None
+    assert "mega56" in prepare_decode(par, inf_, 1)
     # a V7 model takes its own blocks
     v7 = load_model(GgufFile(make_v7_gguf(n_layer=2, n_emb=256, head_size=64, n_vocab=64,
                                           n_hidden=512, quantize=GgmlDType.Q4_K, seed=2)),

@@ -10,7 +10,11 @@ object with ``kind``, ``shape`` and ``arrays`` is taken for a matrix.
 Arrays that only lay weights out for the TPU's kernels are dropped: the
 packed gemv operands of a matrix (:data:`TPU_MATRIX_KEYS`) and the
 whole-stack and grouped decode blocks, plus the stacked LoRA copies
-(:data:`TPU_PARAM_KEYS`).
+(:data:`TPU_PARAM_KEYS`). The grouped r/k/v operands ``Wrkv_g`` are the
+TPU kernel's layout (row-concatenated codes, position-interleaved
+scales); the port rebuilds its own from the carried matrices with
+``loader.unroll_params``, as it rebuilds the whole-stack blocks with
+``loader.prepare_decode``.
 """
 
 from __future__ import annotations

@@ -12,7 +12,12 @@ plain version):
   launch of the whole-stack kernel, ``ops/cuda/layer7`` for RWKV-7,
   ``ops/cuda/layer56`` for RWKV-6, -5 and -4;
 - quantized matmuls: the gemv kernels or the dequant-GEMM, by the row
-  count (``Matrix.matmul``);
+  count (``Matrix.matmul``); with params unrolled by
+  ``loader.unroll_params`` (the Engine's where no whole-stack block
+  attaches), an RWKV-7 layer at T = 1 and one lane multiplies r, k and v
+  in one ``quant_gemv_grouped`` launch where its quantized ``Wo`` and
+  ``att["Wrkv_g"]`` say so (the JAX package's ``_fused_att_core_ok``
+  gate without hooks);
 - RWKV-7 at T = 1 otherwise: each layer's attention core is the fused
   att-core kernel; RWKV-6 at T = 1 otherwise: the WKV is the scan kernel
   ``wkv6_scan`` (where the JAX package runs an XLA step), so no plain
@@ -39,6 +44,7 @@ from ..ops import basic as B
 from ..ops import wkv as W
 from ..ops.cuda.layer7 import MAX_SCAN_BATCH, layer_scan7
 from ..ops.cuda.layer56 import layer_scan56
+from ..ops.cuda.matmul import quant_gemv_grouped
 from ..ops.cuda.wkv4 import wkv4_scan
 from ..ops.cuda.wkv6 import wkv6_scan
 from ..ops.cuda.wkv7 import att_core7_step, wkv7_scan
@@ -143,9 +149,15 @@ def _layer_v7(info, blk, lst, x, v0, layer_idx, mask, lengths):
     sh = lst["att_shift"]
     rx, wx, kx, vx, ax, gx = B.token_shift_multi(xx, sh, att["x_stack"]).unbind(2)
 
-    r = att["Wr"].matmul(rx)
-    k = att["Wk"].matmul(kx)
-    v = att["Wv"].matmul(vx)
+    Bsz, T = x.shape[:2]
+    if T == 1 and Bsz == 1 and "Wrkv_g" in att and att["Wo"].kind != "dense":
+        m, k_in = att["Wr"].dims()
+        xs = torch.stack([rx[:, 0], kx[:, 0], vx[:, 0]])
+        r, k, v = quant_gemv_grouped(xs, att["Wr"].kind, att["Wrkv_g"], m, k_in)[:, :, None]
+    else:
+        r = att["Wr"].matmul(rx)
+        k = att["Wk"].matmul(kx)
+        v = att["Wv"].matmul(vx)
     w_in = att["w0"] + _lora(wx, att["w1"], att["w2"], torch.tanh)
     a_in = att["a0"] + _lora(ax, att["a1"], att["a2"])
     g = _lora(gx, att["g1"], att["g2"], torch.sigmoid)
@@ -155,7 +167,6 @@ def _layer_v7(info, blk, lst, x, v0, layer_idx, mask, lengths):
         v_mix = torch.sigmoid(att["v0"] + _lora(vx, att["v1"], att["v2"]))
         v = v + v_mix * (v0 - v)
 
-    Bsz, T = x.shape[:2]
     if T == 1:
         hs = att["r_k"].shape[-1]
         y, wkv = att_core7_step(

@@ -31,7 +31,10 @@ from ..ops.cuda.layer7 import MAX_SCAN_BATCH, prep_decode7
 from ..ops.cuda.layer56 import prep_decode56
 from ..quant.formats import QuantScheme
 from .info import ModelVersion, detect_info
-from .matrix import Matrix
+from .matrix import Matrix, gemv_block_m, gemv_scales
+
+# the kinds the grouped r/k/v gemv takes (ops/cuda/matmul.py::quant_gemv_grouped)
+GROUP_KINDS = ("qk", "qk_b", "qk_nomin", "int8")
 
 
 def _np(reader, name, dtype=np.float32) -> np.ndarray:
@@ -75,28 +78,77 @@ def layer_params(params: dict, num_layer: int) -> list[dict]:
     return [_layer_slice(blocks, i) for i in range(num_layer)]
 
 
-def prepare_decode(params: dict, info, batch_hint: int = 1) -> dict:
-    """Params with the whole-stack decode blocks attached, so that a T=1
-    forward of up to ``MAX_SCAN_BATCH`` lanes runs as one kernel launch,
-    as the JAX package's ``prepare_decode`` arranges it for its Engine:
-    ``params["mega7"]`` for RWKV-7 (``ops/cuda/layer7.prep_decode7``),
-    ``params["mega56"]`` for RWKV-6, -5 and -4
-    (``ops/cuda/layer56.prep_decode56``).
-    Params it cannot arrange (a batch above the limit, per-layer blocks,
-    a layer matrix of a form the whole-stack kernels do not take:
-    ``layer7.stack_matrix`` takes Q4_K and Q5_K / Q2_K with whole
-    super-blocks, f32 group scales over byte codes, as Q8_0's, and the
-    engine's Int8; not yet Q6_K / Q3_K, f32-scale nibbles or dense
-    matrices, nor NF4 / SF4, which the JAX package's whole-stack kernels
-    do not take either) come back unchanged.
-    Idempotent."""
-    if "mega7" in params or "mega56" in params or batch_hint > MAX_SCAN_BATCH:
+def group_gemv_matrices(mats: list) -> dict | None:
+    """The operands of the grouped decode gemv (``ops/cuda/matmul.py::
+    quant_gemv_grouped``) for same-shape single-layer matrices: ``codes``,
+    the matrices' own code tensors (not copied), and their f32 group scale
+    products ``scales`` and signed offsets ``offsets`` (None where the
+    kind has none) stacked ``[len(mats), M, G]`` (``matrix.gemv_scales``).
+    None where the JAX package's ``group_gemv_matrices`` declines: a
+    matrix that is not quantized in one of :data:`GROUP_KINDS`, kinds or
+    dims that differ, or codes whose gemv tiles M (``_gemv_block_m(m,
+    kdim) != m``: at C = 2048, Q4_K groups but Q5_K, Q8_0 and Int8 do not)."""
+    if not all(isinstance(mt, Matrix) for mt in mats):
+        return None
+    kind = mats[0].kind
+    if kind not in GROUP_KINDS:
+        return None
+    m, k = mats[0].dims()
+    if any(mt.kind != kind or mt.dims() != (m, k) for mt in mats):
+        return None
+    if gemv_block_m(m, mats[0].arrays["codes"].shape[-1]) != m:
+        return None
+    scales, offsets = zip(*(gemv_scales(mt) for mt in mats))
+    return {"codes": [mt.arrays["codes"] for mt in mats],
+            "scales": torch.stack(scales).contiguous(),
+            "offsets": None if offsets[0] is None else torch.stack(offsets).contiguous()}
+
+
+def unroll_params(params: dict) -> dict:
+    """Params with the stacked ``[L, ...]`` blocks as a list of per-layer
+    blocks (views, no copies), as the JAX package's ``unroll_params``
+    arranges its unrolled decode: each RWKV-7 layer whose r, k and v
+    matrices group (:func:`group_gemv_matrices`) gets them as
+    ``att["Wrkv_g"]``, which ``forward_chunk`` at T = 1 and one lane
+    multiplies in one ``quant_gemv_grouped`` launch. The JAX package also
+    attaches them to RWKV-6, -5 and -4 layers, where nothing reads them;
+    the port attaches them only where its forward reads them. List-form
+    blocks come back unchanged."""
+    blocks = params["blocks"]
+    if isinstance(blocks, list):
         return params
-    if info.version == ModelVersion.V7:
-        mega = prep_decode7(params, info)
-        return params if mega is None else {**params, "mega7": mega}
-    mega = prep_decode56(params, info)
-    return params if mega is None else {**params, "mega56": mega}
+    layers = [_layer_slice(blocks, i) for i in range(blocks["ln1"]["w"].shape[0])]
+    for blk in layers:
+        att = blk["att"]
+        if "w0" in att:  # an RWKV-7 layer
+            grouped = group_gemv_matrices([att["Wr"], att["Wk"], att["Wv"]])
+            if grouped is not None:
+                att["Wrkv_g"] = grouped
+    return {**params, "blocks": layers}
+
+
+def prepare_decode(params: dict, info, batch_hint: int = 1) -> dict:
+    """Params arranged for decode, as the JAX package's ``prepare_decode``
+    arranges them for its Engine: the whole-stack decode blocks attached,
+    so that a T=1 forward of up to ``MAX_SCAN_BATCH`` lanes runs as one
+    kernel launch (``params["mega7"]`` for RWKV-7, from
+    ``ops/cuda/layer7.prep_decode7``; ``params["mega56"]`` for RWKV-6, -5
+    and -4, from ``ops/cuda/layer56.prep_decode56``). Where they cannot be
+    attached (a batch above the limit, per-layer blocks, a model the
+    whole-stack kernels do not take: a layer matrix in NF4 / SF4 or dense
+    f32, as ``layer7.stack_matrix`` says, or widths ``prep_decode7`` /
+    ``prep_decode56`` refuse) it returns :func:`unroll_params`.
+    Idempotent."""
+    if "mega7" in params or "mega56" in params:
+        return params
+    if batch_hint <= MAX_SCAN_BATCH:
+        if info.version == ModelVersion.V7:
+            key, mega = "mega7", prep_decode7(params, info)
+        else:
+            key, mega = "mega56", prep_decode56(params, info)
+        if mega is not None:
+            return {**params, key: mega}
+    return unroll_params(params)
 
 
 def load_model(reader, *, quant=None, dtype=torch.bfloat16, rescale: int | None = None,

@@ -62,12 +62,18 @@ from ..quant.ggml import GgmlDType
 _NIBBLE_KINDS = ("qk", "nf4")
 
 
-def _gemv_tiles(m: int, kdim: int) -> bool:
-    """Whether the JAX package's gemv finds an M tiling for the matrix
-    (``ops/pallas/matmul.py::_gemv_block_m``; kdim = code bytes per row)."""
-    if any(m % c == 0 and c * kdim <= (2 << 20) for c in (4096, 2048, 1024, 512)):
-        return True
-    return m % 8 == 0 and m <= 4096 and m * kdim <= (2 << 20)
+def gemv_block_m(m: int, kdim: int) -> int | None:
+    """The M tile of the JAX package's gemv for a matrix of m rows of kdim
+    code bytes (``ops/pallas/matmul.py::_gemv_block_m``): the largest of
+    4096, 2048, 1024 and 512 that divides m within 2 MiB of codes, else
+    the whole m where that is a multiple of 8 within 4096 rows and 2 MiB,
+    else None (no tiling)."""
+    for c in (4096, 2048, 1024, 512):
+        if m % c == 0 and c * kdim <= (2 << 20):
+            return c
+    if m % 8 == 0 and m <= 4096 and m * kdim <= (2 << 20):
+        return m
+    return None
 
 
 def takes_gemv(kind: str, n: int, m: int, k: int, groups: int) -> bool:
@@ -79,7 +85,7 @@ def takes_gemv(kind: str, n: int, m: int, k: int, groups: int) -> bool:
     keeps the port in the JAX package's numerics class at every n."""
     nibbles = kind in _NIBBLE_KINDS
     kdim = k // 2 if nibbles else k
-    return (n <= MAX_GEMV_ROWS and n * groups <= 256 and _gemv_tiles(m, kdim)
+    return (n <= MAX_GEMV_ROWS and n * groups <= 256 and gemv_block_m(m, kdim) is not None
             and (not nibbles or groups % 2 == 0) and n * groups * kdim * 2 <= (4 << 20))
 
 
@@ -107,6 +113,16 @@ def int8_operands(a: dict, gemm: bool):
     mn, mx = a["mn"].float(), a["mx"].float()
     s = (mx - mn) * (1.0 / 255.0) if gemm else (mx - mn) / 255.0
     return s, -mn
+
+
+def gemv_scales(mat: "Matrix"):
+    """The f32 group scales and signed offsets ``(s, mn or None)`` ``[...,
+    M, G]`` of a quantized matrix in the gemv class, w = q·s − mn:
+    :func:`scale_products`, and for ``int8`` :func:`int8_operands` (−mn,
+    the added offset negated)."""
+    if mat.kind == "int8":
+        return int8_operands(mat.arrays, gemm=False)
+    return scale_products(mat.arrays)
 
 
 # the native factor arrays' keys, by their count

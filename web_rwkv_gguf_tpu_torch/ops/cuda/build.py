@@ -22,8 +22,9 @@ from pathlib import Path
 
 CSRC = Path(__file__).with_name("csrc")
 BUILD_DIR = Path(__file__).with_name("_build")
-KERNELS = ("q4k_gemv", "q6k_gemv", "qs_gemv", "qkb_gemv", "nf4_gemv", "att_core7", "qk_gemm",
-           "wkv7_scan", "layer7", "wkv6_scan", "layer56", "wkv4_scan")  # csrc/<name>.cu
+KERNELS = ("q4k_gemv", "q6k_gemv", "qs_gemv", "qkb_gemv", "nf4_gemv", "gemv_grouped",
+           "att_core7", "qk_gemm", "wkv7_scan", "layer7", "wkv6_scan", "layer56",
+           "wkv4_scan")  # csrc/<name>.cu
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",

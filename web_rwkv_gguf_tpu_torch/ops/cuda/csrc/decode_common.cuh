@@ -1,18 +1,21 @@
 // Device code shared by the whole-stack decode kernels (layer7.cu, layer56.cu):
-// quantized (Q4_K, Q5_K / Q2_K, f32-scale bytes) and bf16 row gemvs for up
-// to 16 lanes, LayerNorm rows, block and warp
-// sums, staging through L2, L2 prefetch, and the device clock. Each kernel
-// is one cooperative launch of 256-thread blocks that walks the layers.
+// quantized and dense row gemvs for up to 16 lanes in every matrix form the
+// kernels take (MatForm), LayerNorm rows, block and warp sums, staging
+// through L2, L2 prefetch, and the device clock. Each kernel is one
+// cooperative launch of 256-thread blocks that walks the layers.
 //
-// Q4_K rows use the port's split-halves layout (models/matrix.py): code
-// byte j of a row holds elements j (low nibble) and j + K/2 (high nibble);
-// the weight is q * (d * sc) - dmin * mn per 32-element group, in f32 (the
-// gemv class of q4k_gemv.cu). Byte-code rows hold one code a byte, with
-// s = d * sc and mn = dmin * mn formed in f32 per 32- or 16-group (Q5_K,
-// Q2_K) or f32 group scales and optional mins (Q8_0, Q5_0, Q5_1, Q4_1 and
-// Q4_0 bytes; the engine's Int8 in 128-groups): the gemv class of
-// qkb_gemv.cu and qs_gemv.cu, with their scale sources and code decoding
-// (qscales.cuh).
+// Nibble rows (Q4_K and the f32-scale nibbles of Q4_0 / Q4_1) use the port's
+// split-halves layout (models/matrix.py): code byte j of a row holds
+// elements j (low nibble) and j + K/2 (high nibble); the weight is q * s - mn
+// per 32-element group, with s = d * sc and mn = dmin * mn formed in f32 from
+// Q4_K's native factors or read from f32 group arrays (the gemv class of
+// q4k_gemv.cu and qs_gemv.cu). Byte-code rows hold one code a byte, with s
+// and mn formed in f32 per 32- or 16-group (Q5_K, Q2_K), s = d * sc per
+// 16-group and no offset (Q6_K, Q3_K: i8 codes and scale codes), or f32
+// group scales and optional mins (Q8_0, Q5_0, Q5_1, Q4_1 and Q4_0 bytes; the
+// engine's Int8 in 128-groups): the gemv class of qkb_gemv.cu, q6k_gemv.cu
+// and qs_gemv.cu, with their scale sources and code decoding (qscales.cuh).
+// Dense rows are bf16 weights against the bf16 input, f32 sums.
 
 #pragma once
 
@@ -31,19 +34,29 @@ constexpr int kWarps = kThreads / 32;
 constexpr int kMaxB = 16;           // lanes one launch takes
 constexpr int kMaxSmem = 232448;    // bytes of shared memory a block may use
 
-// A layer-stacked quantized matrix in one of the forms the kernels take,
-// picked per matrix slot at run time (a warp-uniform switch, no template
-// axis): the descriptor int packs form | signed << 2 | group size << 3.
+// A layer-stacked matrix in one of the forms the kernels take, picked per
+// matrix slot at run time (a warp-uniform switch, no template axis): the
+// descriptor int packs form | signed << 3 | group size << 4.
 enum MatForm {
-  kFormQ4K = 0,  // codes u8 [L, M, K/2] split halves; p1, p2 = sc6, mn6 u8
-                 // [L, M, K/32]; d8, dm8 f32 [L, M, K/256]
-  kFormQKB = 1,  // Q5_K / Q2_K: codes u8 [L, M, K]; p1, p2 = sc6, mn6 u8
-                 // [L, M, K/gs]; d8, dm8 f32 [L, M, K/256]
-  kFormQS = 2,   // f32 group scales: codes u8 or i8 [L, M, K]; p1 = scales,
-                 // p2 = mins (or null) f32 [L, M, K/gs]; no d8, dm8; gs 16
-                 // or 32, or 128 (the engine's Int8: s = (mx - mn) / 255
-                 // and mins = -mn formed at prep)
+  kFormQ4K = 0,    // codes u8 [L, M, K/2] split halves; p1, p2 = sc6, mn6 u8
+                   // [L, M, K/32]; d8, dm8 f32 [L, M, K/256]
+  kFormQKB = 1,    // Q5_K / Q2_K: codes u8 [L, M, K]; p1, p2 = sc6, mn6 u8
+                   // [L, M, K/gs]; d8, dm8 f32 [L, M, K/256]
+  kFormQS = 2,     // f32 group scales: codes u8 or i8 [L, M, K]; p1 = scales,
+                   // p2 = mins (or null) f32 [L, M, K/gs]; no d8, dm8; gs 16
+                   // or 32, or 128 (the engine's Int8: s = (mx - mn) / 255
+                   // and mins = -mn formed at prep)
+  kFormQ6K = 3,    // Q6_K / Q3_K: codes i8 [L, M, K]; p1 = q6s i8 [L, M, K/16];
+                   // d8 = q6d f32 [L, M, K/256]; no p2, dm8; gs 16
+  kFormQSNib = 4,  // f32 group scales over split-halves nibbles (Q4_0, Q4_1,
+                   // Q4_K rows without whole super-blocks): codes u8
+                   // [L, M, K/2]; p1 = scales, p2 = mins (or null) f32
+                   // [L, M, K/32]; gs 32
+  kFormDense = 5,  // bf16 weights: codes = w bf16 [L, M, K]; no factors
 };
+
+constexpr int kDescSigned = 3;  // descriptor bit of the signed codes
+constexpr int kDescGs = 4;      // descriptor bits of the group size, from here up
 
 struct QMat {
   const uint8_t* codes;
@@ -139,42 +152,48 @@ __device__ void prefetch_l2(const void* p, size_t bytes) {
 
 __device__ void prefetch_mat(const QMat& w, int l, int M, int k) {
   const size_t rows = (size_t)M, at = (size_t)l * rows;
-  const size_t cb = w.form == kFormQ4K ? k / 2 : k;      // code bytes per row
-  const size_t fb = w.form == kFormQS ? 4 * (k / w.gs) : k / w.gs;  // factor bytes
+  const bool nib = w.form == kFormQ4K || w.form == kFormQSNib;
+  const size_t cb = w.form == kFormDense ? 2 * k : (nib ? k / 2 : k);  // code bytes per row
   prefetch_l2(w.codes + at * cb, rows * cb);
+  if (w.p1 == nullptr) return;  // dense: no factors
+  const bool f32 = w.form == kFormQS || w.form == kFormQSNib;
+  const size_t fb = f32 ? 4 * (k / w.gs) : k / w.gs;  // factor bytes per row
   prefetch_l2(static_cast<const char*>(w.p1) + at * fb, rows * fb);
   if (w.p2 != nullptr) prefetch_l2(static_cast<const char*>(w.p2) + at * fb, rows * fb);
-  if (w.d8 != nullptr) {
-    prefetch_l2(w.d8 + at * (k / 256), rows * (k / 256) * 4);
-    prefetch_l2(w.dm8 + at * (k / 256), rows * (k / 256) * 4);
-  }
+  if (w.d8 != nullptr) prefetch_l2(w.d8 + at * (k / 256), rows * (k / 256) * 4);
+  if (w.dm8 != nullptr) prefetch_l2(w.dm8 + at * (k / 256), rows * (k / 256) * 4);
 }
 
-// One Q4_K output row m of layer l for every lane: acc[t] = x[t] . W[m].
-// xs: shared bf16 [B, k]. Called by a whole warp.
+// One nibble output row m of layer l (kFormQ4K or kFormQSNib) for every
+// lane: acc[t] = x[t] . W[m], in f32 on the exact weight q * s - mn formed
+// per element (a 16-element half-chunk never straddles a 32-group). xs:
+// shared bf16 [B, k]. Called by a whole warp.
 template <int NB>
-__device__ void q4k_row(const QMat& w, int l, int M, int m, int k, const __nv_bfloat16* xs,
+__device__ void nib_row(const QMat& w, int l, int M, int m, int k, const __nv_bfloat16* xs,
                         int B, float* acc) {
   const int lane = threadIdx.x & 31;
   const int half = k >> 1;
   const int nchunks = half >> 4;
-  const int g32 = k >> 5, g256 = k >> 8;
   const size_t row = (size_t)l * M + m;
   const uint8_t* crow = w.codes + row * half;
-  const uint8_t* srow = static_cast<const uint8_t*>(w.p1) + row * g32;
-  const uint8_t* mrow = static_cast<const uint8_t*>(w.p2) + row * g32;
-  const float* drow = w.d8 + row * g256;
-  const float* dmrow = w.dm8 + row * g256;
 #pragma unroll
   for (int t = 0; t < NB; ++t) acc[t] = 0.f;
   for (int c = lane; c < nchunks; c += 32) {
     const int j0 = c << 4;  // 16 code bytes: elements j0.. (low), j0 + K/2.. (high)
     const uint4 raw = __ldg(reinterpret_cast<const uint4*>(crow + j0));
     const int glo = j0 >> 5, ghi = (j0 + half) >> 5;
-    const float slo = drow[glo >> 3] * (float)srow[glo];
-    const float mlo = dmrow[glo >> 3] * (float)mrow[glo];
-    const float shi = drow[ghi >> 3] * (float)srow[ghi];
-    const float mhi = dmrow[ghi >> 3] * (float)mrow[ghi];
+    float slo, mlo, shi, mhi;
+    if (w.form == kFormQ4K) {
+      const NativeScales f{static_cast<const uint8_t*>(w.p1), static_cast<const uint8_t*>(w.p2),
+                           w.d8, w.dm8, k >> 5, 8};
+      f.get(row, glo, slo, mlo);
+      f.get(row, ghi, shi, mhi);
+    } else {
+      const F32Scales f{static_cast<const float*>(w.p1), static_cast<const float*>(w.p2),
+                        k >> 5};
+      f.get(row, glo, slo, mlo);
+      f.get(row, ghi, shi, mhi);
+    }
     const uint32_t words[4] = {raw.x, raw.y, raw.z, raw.w};
     float wlo[16], whi[16];
 #pragma unroll
@@ -207,10 +226,10 @@ __device__ void q4k_row(const QMat& w, int l, int M, int m, int k, const __nv_bf
   for (int t = 0; t < NB; ++t) acc[t] = warp_sum(acc[t]);
 }
 
-// One output row m of layer l of a byte-code matrix (kFormQKB or kFormQS)
-// for every lane: acc[t] = x[t] . W[m], in f32 on the exact weight q * s -
-// mn, formed per element (a 16-element chunk never straddles a 16-, 32- or
-// 128-group). xs: shared bf16 [B, k]. Called by a warp.
+// One output row m of layer l of a byte-code matrix (kFormQKB, kFormQS or
+// kFormQ6K) for every lane: acc[t] = x[t] . W[m], in f32 on the exact weight
+// q * s - mn, formed per element (a 16-element chunk never straddles a 16-,
+// 32- or 128-group). xs: shared bf16 [B, k]. Called by a warp.
 template <int NB>
 __device__ void byte_row(const QMat& w, int l, int M, int m, int k, const __nv_bfloat16* xs,
                          int B, float* acc) {
@@ -228,6 +247,8 @@ __device__ void byte_row(const QMat& w, int l, int M, int m, int k, const __nv_b
     if (w.form == kFormQKB) {
       NativeScales{static_cast<const uint8_t*>(w.p1), static_cast<const uint8_t*>(w.p2), w.d8,
                    w.dm8, G, 256 / w.gs}.get(row, g, s, off);
+    } else if (w.form == kFormQ6K) {
+      NominScales{static_cast<const int8_t*>(w.p1), w.d8, G, 256 / w.gs}.get(row, g, s, off);
     } else {
       F32Scales{static_cast<const float*>(w.p1), static_cast<const float*>(w.p2), G}.get(
           row, g, s, off);
@@ -260,17 +281,6 @@ __device__ void byte_row(const QMat& w, int l, int M, int m, int k, const __nv_b
   for (int t = 0; t < NB; ++t) acc[t] = warp_sum(acc[t]);
 }
 
-// One output row of a quantized layer matrix in whichever form it has.
-template <int NB>
-__device__ __forceinline__ void mat_row(const QMat& w, int l, int M, int m, int k,
-                                        const __nv_bfloat16* xs, int B, float* acc) {
-  if (w.form == kFormQ4K) {
-    q4k_row<NB>(w, l, M, m, k, xs, B, acc);
-  } else {
-    byte_row<NB>(w, l, M, m, k, xs, B, acc);
-  }
-}
-
 // One bf16 dense row (k elements) for every lane: acc[t] = x[t] . w.
 template <int NB>
 __device__ void bf16_row(const __nv_bfloat16* wrow, int k, const __nv_bfloat16* xs, int B,
@@ -297,6 +307,20 @@ __device__ void bf16_row(const __nv_bfloat16* wrow, int k, const __nv_bfloat16* 
   for (int t = 0; t < NB; ++t) acc[t] = warp_sum(acc[t]);
 }
 
+// One output row of a layer matrix in whichever form it has.
+template <int NB>
+__device__ __forceinline__ void mat_row(const QMat& w, int l, int M, int m, int k,
+                                        const __nv_bfloat16* xs, int B, float* acc) {
+  if (w.form == kFormQ4K || w.form == kFormQSNib) {
+    nib_row<NB>(w, l, M, m, k, xs, B, acc);
+  } else if (w.form == kFormDense) {
+    bf16_row<NB>(reinterpret_cast<const __nv_bfloat16*>(w.codes) + ((size_t)l * M + m) * k, k,
+                 xs, B, acc);
+  } else {
+    byte_row<NB>(w, l, M, m, k, xs, B, acc);
+  }
+}
+
 // The arguments of a decode kernel's C entry point, taken in order.
 template <class T>
 T take(const void* const* p, int& i) {
@@ -312,20 +336,24 @@ QMat take_mat(const void* const* p, int& i, int desc) {
   w.p2 = take<const void*>(p, i);
   w.d8 = take<const float*>(p, i);
   w.dm8 = take<const float*>(p, i);
-  w.form = desc & 3;
-  w.sgn = (desc >> 2) & 1;
-  w.gs = desc >> 3;
+  w.form = desc & ((1 << kDescSigned) - 1);
+  w.sgn = (desc >> kDescSigned) & 1;
+  w.gs = desc >> kDescGs;
   return w;
 }
 
 // Whether a slot's descriptor and pointers make a matrix the kernels take
 // at [M, K] (K % 256 == 0 is checked by the caller).
 bool mat_ok(const QMat& w) {
-  if (w.codes == nullptr || w.p1 == nullptr) return false;
+  if (w.codes == nullptr) return false;
+  if (w.form == kFormDense) return true;
+  if (w.p1 == nullptr) return false;
   switch (w.form) {
     case kFormQ4K: return w.gs == 32 && w.p2 && w.d8 && w.dm8;
     case kFormQKB: return (w.gs == 16 || w.gs == 32) && w.p2 && w.d8 && w.dm8;
     case kFormQS: return w.gs == 16 || w.gs == 32 || w.gs == 128;
+    case kFormQ6K: return w.gs == 16 && w.sgn && w.d8;
+    case kFormQSNib: return w.gs == 32 && !w.sgn;
     default: return false;
   }
 }

@@ -6,9 +6,9 @@
 // with each of its static versions 6, 5 and 4 (the template parameter V).
 //
 // Version 6. Per layer l, for B <= 16 lanes (the residual x [B, C] is
-// carried in place; Q(.) is a quantized gemv of the bf16-rounded input (Q4_K,
-// Q5_K, Q2_K or an f32-scale byte form, picked per matrix slot at run time;
-// decode_common.cuh), bf(.) a
+// carried in place; Q(.) is a gemv of the bf16-rounded input (Q4_K, Q5_K,
+// Q2_K, Q6_K, Q3_K, an f32-scale byte or nibble form or dense bf16, picked per
+// matrix slot at run time; decode_common.cuh), bf(.) a
 // bf16 adapter product with f32 sums):
 //   xx = LN1(x); sx = xx + mix_x (sh - xx)
 //   z = bf16(tanh(bf(tm_w1 sx)));  mix_s = bf(tm_w2[s] z_s) + time_mix[s]
@@ -26,7 +26,8 @@
 //
 // Numerics are the class of the JAX kernel at its default settings: every
 // quantized matrix multiplies the bf16-rounded input by the exact f32 weight
-// (the gemv class of q4k_gemv.cu, qkb_gemv.cu and qs_gemv.cu, at every B), the
+// (the gemv class of q4k_gemv.cu, qkb_gemv.cu, q6k_gemv.cu and qs_gemv.cu, at
+// every B), a dense one by its bf16 weight with f32 sums, the
 // four adapters take bf16 operands and accumulate in f32 (their tanh outputs
 // rounded to bf16 before the up product), everything else is f32 with IEEE
 // expf (no fast math: StableExp and the group norm stay exact to f32).

@@ -17,10 +17,12 @@
 //
 // Numerics are the class of the JAX kernel at its default settings: every
 // quantized matrix multiplies the bf16-rounded input by the exact f32 weight
-// (q * (d * sc) - dmin * mn for Q4_K, Q5_K and Q2_K, q * s - mn for the
-// f32-scale byte forms; the gemv class of q4k_gemv.cu, qkb_gemv.cu and
-// qs_gemv.cu, for all six matrices at every B; each matrix slot picks its
-// row function by its form at run time, decode_common.cuh), the LoRA pairs take bf16 operands and accumulate in
+// (q * (d * sc) - dmin * mn for Q4_K, Q5_K and Q2_K, q * (d * sc) for Q6_K and
+// Q3_K, q * s - mn for the f32-scale byte and nibble forms; the gemv class of
+// q4k_gemv.cu, qkb_gemv.cu, q6k_gemv.cu and qs_gemv.cu, for all six matrices
+// at every B), a dense bf16 matrix multiplies it by its bf16 weight with f32
+// sums (each matrix slot picks its row function by its form at run time,
+// decode_common.cuh), the LoRA pairs take bf16 operands and accumulate in
 // f32, everything else is f32.
 //
 // Design. The TPU kernel is a grid over layers whose steps Pallas pipelines;

@@ -12,14 +12,15 @@ parameters, tagged with the model's ``version`` (6, 5 or 4); for version
 C, R]``, ``td_w1`` ``[L, D, C]``, ``td_w2`` ``[L, C, D]``) in bf16.
 
 Each layer matrix is a kernel slot in one of the forms of
-``layer7.stack_matrix`` (Q4_K or Q5_K / Q2_K native factors, or f32
-group scales over byte codes, as Q8_0's), picked per slot at run time.
+``layer7.stack_matrix`` (Q4_K, Q5_K / Q2_K or Q6_K / Q3_K native
+factors, f32 group scales over byte codes or nibbles, the engine's Int8,
+or dense bf16), picked per slot at run time.
 
 Numerics follow the JAX kernel at its defaults: every quantized matrix
 multiplies the bf16-rounded input by its exact f32 weight (the gemv
-class, at every B), the adapters take bf16 operands with f32 products
-and round their tanh outputs to bf16 before the up product, the rest is
-f32. Versions 6 and 5 write their states as the JAX kernel's blend ``S +
+class, at every B), a dense bf16 one by its bf16 weight, the adapters
+take bf16 operands with f32 products and round their tanh outputs to
+bf16 before the up product, the rest is f32. Versions 6 and 5 write their states as the JAX kernel's blend ``S +
 m·(S_n − S)``, in the form ``m·S_n + (1 − m)·S`` that is exact for a
 mask of 0 or 1; version 4 writes aa, bb and pp by a select, as the JAX
 kernel does (pp starts at ``F32_MIN``). A masked lane's x is

@@ -10,15 +10,16 @@ parameters, plus the inner-LoRA pairs concatenated and rounded to bf16
 (``down`` ``[L, D, C]`` = w1 | a1 | g1 | v1, ``up`` ``[L, C, D]``).
 
 Each layer matrix is a kernel slot in one of the forms of
-:func:`stack_matrix` (Q4_K or Q5_K / Q2_K native factors, or f32 group
-scales over byte codes, the engine's Int8 among them), picked per slot
-at run time; the layers of one slot share its form (the loader stacks
-only uniform layers).
+:func:`stack_matrix` (Q4_K, Q5_K / Q2_K or Q6_K / Q3_K native factors,
+f32 group scales over byte codes or over nibbles, the engine's Int8, or
+dense bf16), picked per slot at run time; the layers of one slot share
+its form (the loader stacks only uniform layers).
 
 Numerics follow the JAX kernel at its defaults: every quantized matrix
 multiplies the bf16-rounded input by its exact f32 weight (the gemv
 class, at every B — where the composed per-layer path sends the FFN
-value matrix at B ≥ 3 to the bf16-weight GEMM), the LoRA pairs take
+value matrix at B ≥ 3 to the bf16-weight GEMM), a dense bf16 matrix
+multiplies it by its bf16 weight with f32 products, the LoRA pairs take
 bf16 operands with f32 products, the rest is f32.
 
 With ``v0_carry`` both run a contiguous slice of the stack
@@ -38,58 +39,93 @@ import torch
 
 from .. import basic as B_
 from . import build
-from .matmul import q4k_gemv_plain, qkb_gemv_plain, qs_gemv_plain
+from .matmul import q4k_gemv_plain, q6k_gemv_plain, qkb_gemv_plain, qs_gemv_plain
 from .wkv7 import HEAD_SIZE, att_core7_plain
 
 MAX_SCAN_BATCH = 16  # lanes one launch takes (the JAX package's limit too)
 _MATRICES = (("att", "Wr"), ("att", "Wk"), ("att", "Wv"), ("att", "Wo"),
              ("ffn", "Wk"), ("ffn", "Wv"))
 # the forms of a matrix slot (csrc/decode_common.cuh, MatForm)
-FORM_Q4K, FORM_QKB, FORM_QS = 0, 1, 2
+FORM_Q4K, FORM_QKB, FORM_QS, FORM_Q6K, FORM_QS_NIB, FORM_DENSE = range(6)
+SIGNED_BIT, GS_SHIFT = 3, 4  # a slot descriptor is form | signed << 3 | gs << 4
+# the group sizes each quantized form's kernel row takes
+_FORM_GS = {FORM_Q4K: (32,), FORM_QS_NIB: (32,), FORM_Q6K: (16,), FORM_QKB: (16, 32),
+            FORM_QS: (16, 32)}
+
+
+def descriptor(form: int, signed: int, gs: int) -> int:
+    """A matrix slot's descriptor (decode_common.cuh, MatForm)."""
+    return form | signed << SIGNED_BIT | gs << GS_SHIFT
+
+
+def slot_form(desc: int) -> int:
+    return desc & ((1 << SIGNED_BIT) - 1)
 
 
 def stack_matrix(m):
     """A layer-stacked matrix as a slot of the whole-stack kernels:
-    ``(descriptor, (codes, p1, p2, d8, dm8))``, the descriptor ``form |
-    signed << 2 | group size << 3`` and None for an array the form lacks
-    (decode_common.cuh, MatForm) — or None for a matrix they do not take.
-    They take Q4_K and Q5_K / Q2_K with whole super-blocks (native
-    factors), f32 group scales over byte codes (Q8_0, Q5_0, Q5_1, and
-    Q4_1 / Q4_0 bytes) and the engine's Int8 (its f32-scale form in
-    128-groups, formed here as the JAX package's ``_prep_matrix`` forms
-    it: s = (mx − mn)/255, and −mn for the mins); not yet Q6_K / Q3_K,
-    f32-scale nibbles, dense matrices, nor NF4 / SF4, which the JAX
-    package's whole-stack kernels do not take either."""
+    ``(descriptor, (codes, p1, p2, d8, dm8))``, None for an array the form
+    lacks (decode_common.cuh, MatForm) — or None for a matrix they do not
+    take. They take, as the JAX package's ``_prep_matrix`` does: Q4_K
+    with whole super-blocks (native factors); Q5_K / Q2_K and Q6_K / Q3_K
+    with whole super-blocks (native factors: codes, q6s and q6d for the
+    latter); f32 group scales over byte codes (Q8_0, Q5_0, Q5_1, and Q4_1 /
+    Q4_0 bytes) and over split-halves nibbles (Q4_0 / Q4_1 at K % 64 == 0,
+    Q4_K rows without whole super-blocks); the engine's Int8 (its f32-scale
+    form in 128-groups, formed here as ``_prep_matrix`` forms it: s = (mx −
+    mn)/255, and −mn for the mins); and dense bf16 weights ``[L, M, K]``
+    with M % 8 == 0. Not NF4 / SF4, which the JAX package's whole-stack
+    kernels do not take either, and not dense f32 weights: the JAX slot
+    rounds those to bf16, which the port's f32 reference class does not
+    do, so an f32 stack decodes layer by layer."""
     kind, a = getattr(m, "kind", None), getattr(m, "arrays", {})
+    if kind == "dense":
+        w = a["w"]
+        if w.dtype != torch.bfloat16 or w.dim() != 3 or w.shape[1] % 8:
+            return None
+        return descriptor(FORM_DENSE, 0, 0), (w, None, None, None, None)
     if kind == "int8":
         mn, mx = a["mn"].float(), a["mx"].float()
-        return (FORM_QS | 128 << 3,
+        return (descriptor(FORM_QS, 0, 128),
                 (a["codes"], ((mx - mn) / 255.0).contiguous(), (-mn).contiguous(), None, None))
+    codes = a.get("codes")
     if kind == "qk" and "sc6" in a:
-        form, gs = FORM_Q4K, 32
+        form, gs, keys = FORM_Q4K, 32, ("sc6", "mn6", "d8", "dm8")
+    elif kind == "qk" and "scales" in a:
+        form, gs, keys = FORM_QS_NIB, 2 * codes.shape[-1] // a["scales"].shape[-1], (
+            "scales", "mins", None, None)
     elif kind == "qk_b" and "sc6" in a:
-        form, gs = FORM_QKB, a["codes"].shape[-1] // a["sc6"].shape[-1]
+        form, gs, keys = FORM_QKB, codes.shape[-1] // a["sc6"].shape[-1], (
+            "sc6", "mn6", "d8", "dm8")
+    elif kind == "qk_nomin" and "q6s" in a:
+        form, gs, keys = FORM_Q6K, codes.shape[-1] // a["q6s"].shape[-1], (
+            "q6s", None, "q6d", None)
     elif kind in ("qk_b", "qk_nomin") and "scales" in a:
-        form, gs = FORM_QS, a["codes"].shape[-1] // a["scales"].shape[-1]
+        form, gs, keys = FORM_QS, codes.shape[-1] // a["scales"].shape[-1], (
+            "scales", "mins", None, None)
     else:
         return None
-    if gs not in (16, 32):
+    if gs not in _FORM_GS[form]:
         return None
-    signed = int(a["codes"].dtype == torch.int8)
-    keys = (("scales", "mins", None, None) if form == FORM_QS
-            else ("sc6", "mn6", "d8", "dm8"))
-    return form | signed << 2 | gs << 3, (a["codes"], *(a.get(k) for k in keys))
+    signed = int(codes.dtype == torch.int8)
+    return descriptor(form, signed, gs), (codes, *(a.get(k) if k else None for k in keys))
 
 
 def slot_gemv_plain(desc, ops, i, x):
     """Layer i's product of a matrix slot (descriptor and operands of
-    :func:`stack_matrix`) in the gemv class, in plain PyTorch."""
+    :func:`stack_matrix`) in the class its kernel row computes, in plain
+    PyTorch: the gemv class of a quantized form, bf16 operands with f32
+    products for a dense one."""
     codes, p1, p2, d8, dm8 = (None if t is None else t[i] for t in ops)
-    form = desc & 3
+    form = slot_form(desc)
     if form == FORM_Q4K:
         return q4k_gemv_plain(x, codes, p1, p2, d8, dm8)
     if form == FORM_QKB:
         return qkb_gemv_plain(x, codes, p1, p2, d8, dm8)
+    if form == FORM_Q6K:
+        return q6k_gemv_plain(x, codes, p1, d8)
+    if form == FORM_DENSE:
+        return x.to(torch.bfloat16).float() @ codes.float().T
     return qs_gemv_plain(x, codes, p1, p2)
 
 
@@ -97,17 +133,23 @@ def slot_operands(desc, ops, L, m, k):
     """A matrix slot's five operands with the type(s) and element count
     the kernel reads for each (None for an absent one), for an ``[L, M,
     K]`` stack."""
-    form, gs = desc & 3, desc >> 3
-    f32, u8 = torch.float32, torch.uint8
+    form, gs = slot_form(desc), desc >> GS_SHIFT
+    f32, u8, i8 = torch.float32, torch.uint8, torch.int8
+    none = (None, 0)
     if form == FORM_Q4K:
         want = ((u8, m * k // 2), (u8, m * k // 32), (u8, m * k // 32),
                 (f32, m * k // 256), (f32, m * k // 256))
     elif form == FORM_QKB:
         want = ((u8, m * k), (u8, m * k // gs), (u8, m * k // gs),
                 (f32, m * k // 256), (f32, m * k // 256))
+    elif form == FORM_Q6K:
+        want = ((i8, m * k), (i8, m * k // 16), none, (f32, m * k // 256), none)
+    elif form == FORM_QS_NIB:
+        want = ((u8, m * k // 2), (f32, m * k // 32), (f32, m * k // 32), none, none)
+    elif form == FORM_DENSE:
+        want = ((torch.bfloat16, m * k), none, none, none, none)
     else:
-        want = (((u8, torch.int8), m * k), (f32, m * k // gs), (f32, m * k // gs),
-                (None, 0), (None, 0))
+        want = (((u8, i8), m * k), (f32, m * k // gs), (f32, m * k // gs), none, none)
     return [(a, dt if isinstance(dt, tuple) else (dt,), L * n)
             for a, (dt, n) in zip(ops, want)]
 
@@ -129,11 +171,17 @@ def check_operands(name, want, dev):
 
 def prep_decode7(params: dict, info) -> dict | None:
     """The stacked decode blocks of a loaded model, or None when the
-    model is not one the kernel takes: per-layer (list) blocks, a layer
-    matrix of a form :func:`stack_matrix` does not take, or a LoRA rank
-    that is not a multiple of 8."""
+    model is not one the kernel takes: per-layer (list) blocks, a head
+    size other than 64, C or the FFN width not a multiple of 256 (what
+    :func:`layer_scan7` refuses on the card), a layer matrix of a form
+    :func:`stack_matrix` does not take, or a LoRA rank that is not a
+    multiple of 8."""
     blocks = params.get("blocks")
     if not isinstance(blocks, dict):
+        return None
+    C, hidden = info.num_emb, blocks["ffn"]["Wk"].shape[0]
+    if (info.head_size != HEAD_SIZE or C != info.num_head * HEAD_SIZE or C % 256
+            or hidden % 256):
         return None
     mats, forms = {}, {}
     for part, name in _MATRICES:
@@ -148,7 +196,7 @@ def prep_decode7(params: dict, info) -> dict | None:
         return None
     return {
         "L": info.num_layer, "C": info.num_emb, "H": info.num_head,
-        "hs": info.head_size, "hidden": blocks["ffn"]["Wk"].shape[0],
+        "hs": info.head_size, "hidden": hidden,
         "lora_dims": tuple(int(att[d].shape[-2]) for d, _ in pairs),
         "ln1": (blocks["ln1"]["w"], blocks["ln1"]["b"]),
         "ln2": (blocks["ln2"]["w"], blocks["ln2"]["b"]),
@@ -184,8 +232,12 @@ def lora_plain(xin, down, up, act=None):
 
 
 def layer_scan7_plain(mega, state, x, mask, rescale, eps_ln, eps_gn, eps_l2,
-                      v0_carry=None):
-    """Plain version of :func:`layer_scan7`."""
+                      v0_carry=None, ln_out=None):
+    """Plain version of :func:`layer_scan7`. ``ln_out = (xx1, xx2)``, each
+    ``[L, B, C]``, replaces the two LayerNorms' outputs of the lanes the
+    mask keeps running (a check's: the kernel's own, which its new
+    ``att_shift`` and ``ffn_shift`` states hold), so that a comparison
+    with the kernel leaves out the order of the LayerNorms' sums."""
     L, H = mega["L"], mega["H"]
     v_first, first = v0_carry if v0_carry is not None else (None, 0)
     offs = [0]
@@ -210,6 +262,8 @@ def layer_scan7_plain(mega, state, x, mask, rescale, eps_ln, eps_gn, eps_l2,
             return lora_plain(xin, down[offs[j]:offs[j + 1]], up[:, offs[j]:offs[j + 1]], act)
 
         xx = B_.layer_norm(x, mega["ln1"][0][i], mega["ln1"][1][i], eps_ln)
+        if ln_out is not None:
+            xx = torch.where(keep, ln_out[0][i], xx)
         sh = state["att_shift"][i]
         mixed = xx[:, None] + mega["x_stack"][i][None] * (sh - xx)[:, None]
         rx, wx, kx, vx, ax, gx = mixed.unbind(1)
@@ -228,6 +282,8 @@ def layer_scan7_plain(mega, state, x, mask, rescale, eps_ln, eps_gn, eps_l2,
             mega["r_k"][i], mask, eps_gn, eps_l2)
         x = x + mat("att.Wo", y.reshape(bsz, C))
         xx2 = B_.layer_norm(x, mega["ln2"][0][i], mega["ln2"][1][i], eps_ln)
+        if ln_out is not None:
+            xx2 = torch.where(keep, ln_out[1][i], xx2)
         fsh = state["ffn_shift"][i]
         kx2 = xx2 + vec["ffn_xk"][i] * (fsh - xx2)
         x = x + mat("ffn.Wv", B_.squared_relu(mat("ffn.Wk", kx2)))

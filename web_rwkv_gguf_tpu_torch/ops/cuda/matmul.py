@@ -16,16 +16,23 @@ quantized matmul defines it. The forms, by the kernels that take them:
   K-quant rows that do not hold whole 256-element super-blocks, and the
   engine's Int8 requantization (u8 codes in groups of 128);
 - ``nf4_*``: the engine's NF4 / SF4 requantization (4-bit codebook
-  indices in pair order, f32 absmax per 64, a 16-entry f32 codebook).
+  indices in pair order, f32 absmax per 64, a 16-entry f32 codebook);
+- ``quant_gemv_grouped``: three same-shape matrices of the kinds ``qk``,
+  ``qk_b``, ``qk_nomin`` or ``int8`` (each its own codes, f32 group scale
+  products and signed offsets formed at unroll time) against three
+  inputs of their own, in one launch: the r, k and v projections of an
+  RWKV-7 decode step at batch 1.
 
 Two numerics classes, as in the JAX package's ``quant_matmul``
 (``models/matrix.py`` picks between them):
 
 - the gemvs (``csrc/q4k_gemv.cu``, ``csrc/q6k_gemv.cu``,
-  ``csrc/qkb_gemv.cu``, ``csrc/qs_gemv.cu``, ``csrc/nf4_gemv.cu``: one
-  warp per output row, n ≤ 8) multiply by the exact f32 weight ``q·s −
-  mn`` (NF4: ``bf16(lut[idx])·absmax``, exact in f32, as the JAX kernel
-  rounds its codebook values to bf16 and scales its group sums);
+  ``csrc/qkb_gemv.cu``, ``csrc/qs_gemv.cu``, ``csrc/nf4_gemv.cu``,
+  ``csrc/gemv_grouped.cu``: one warp per output row, n ≤ 8) multiply by
+  the exact f32 weight ``q·s − mn`` (NF4: ``bf16(lut[idx])·absmax``,
+  exact in f32, as the JAX kernel rounds its codebook values to bf16 and
+  scales its group sums; the grouped gemv in the JAX kernel's factored
+  form ``s·Σq·x − mn·Σx`` per group);
 - the dequant-GEMMs (``csrc/qk_gemm.cu``: bf16 tensor-core tiles; one
   warp per row on the CUDA cores at n ≤ 8 where M/64 tiles would leave
   SMs idle) multiply by
@@ -558,3 +565,93 @@ def nf4_gemm(x, codes, absmax, lut) -> torch.Tensor:
 
 nf4_gemm.launches = 0
 nf4_gemm.shapes = collections.Counter()  # launches by (n, M, K)
+
+
+GROUPED_MATS = 3  # matrices one grouped launch serves (r, k, v)
+
+
+def quant_gemv_grouped_plain(xs, kind, grouped, m, k) -> torch.Tensor:
+    """Plain version of :func:`quant_gemv_grouped`: per matrix and group,
+    the f32 sum of q·bf16(x) times the scale product, minus the offset
+    times the group's f32 sum of bf16(x)."""
+    xb = xs.to(torch.bfloat16).float()
+    n = xb.shape[1]
+    offsets = grouped.get("offsets")
+    out = []
+    for i, codes in enumerate(grouped["codes"]):
+        s = grouped["scales"][i]
+        g = s.shape[-1]
+        xg = xb[i].reshape(n, g, k // g)
+        q = qs_codes(codes, k).view(m, g, k // g)
+        y = (torch.einsum("ngs,mgs->nmg", xg, q) * s).sum(-1)
+        if offsets is not None:
+            y = y - xg.sum(-1) @ offsets[i].T
+        out.append(y)
+    return torch.stack(out)
+
+
+@functools.cache
+def _grouped_fn():
+    fn = build.load("gemv_grouped").quant_gemv_grouped
+    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def quant_gemv_grouped(xs, kind, grouped, m, k) -> torch.Tensor:
+    """Three same-shape gemvs in one launch: xs ``[3, n, K]`` (n ≤ 8), each
+    matrix i's input rows ``xs[i]``; ``grouped`` (``models.loader.
+    group_gemv_matrices``) holds ``codes``, the three matrices' own code
+    tensors (u8 ``[M, K/2]`` split-halves nibbles for ``kind`` "qk", u8 or
+    i8 ``[M, K]`` bytes otherwise), ``scales`` f32 ``[3, M, G]`` and
+    ``offsets`` f32 ``[3, M, G]`` or None (w = q·s − offset; groups of 16,
+    32 or 128, 32 for nibbles) → f32 ``[3, n, M]``."""
+    if not xs.is_cuda:
+        return quant_gemv_grouped_plain(xs, kind, grouped, m, k)
+    codes, scales, offsets = grouped["codes"], grouped["scales"], grouped.get("offsets")
+    nib = kind == "qk"
+    g = scales.shape[-1]
+    gs = k // g if g else 0
+    if (xs.dim() != 3 or xs.shape[0] != GROUPED_MATS or xs.shape[-1] != k
+            or not 1 <= xs.shape[1] <= MAX_GEMV_ROWS or len(codes) != GROUPED_MATS):
+        raise ValueError(f"quant_gemv_grouped: xs must be [{GROUPED_MATS}, 1..{MAX_GEMV_ROWS}, "
+                         f"{k}] with {GROUPED_MATS} matrices, got {tuple(xs.shape)} and "
+                         f"{len(codes)}")
+    if gs not in (16, 32, 128) or g * gs != k or k % (64 if nib else 32) or (nib and gs != 32):
+        raise ValueError(f"quant_gemv_grouped: groups of 16, 32 or 128 elements (32 for "
+                         f"nibbles) over K={k}, got scales {tuple(scales.shape)}")
+    n = xs.shape[1]
+    if n * k * 4 > _MAX_SMEM:
+        raise ValueError(f"quant_gemv_grouped: x of [{n}, {k}] does not fit shared memory")
+    dtype = codes[0].dtype
+    want = (m, k // 2 if nib else k)
+    for key, a, shape, dts in (
+            *((f"codes[{i}]", c, want, (dtype,)) for i, c in enumerate(codes)),
+            ("scales", scales, (GROUPED_MATS, m, g), (torch.float32,)),
+            *((("offsets", offsets, (GROUPED_MATS, m, g), (torch.float32,)),)
+              if offsets is not None else ())):
+        if (tuple(a.shape) != shape or a.dtype not in dts or a.device != xs.device
+                or not a.is_contiguous()):
+            raise ValueError(f"quant_gemv_grouped: {key} must be contiguous "
+                             f"{' or '.join(map(str, dts))} {shape} on {xs.device}, got "
+                             f"{a.dtype} {tuple(a.shape)} on {a.device}")
+    if dtype not in ((torch.uint8,) if nib else (torch.uint8, torch.int8)):
+        raise ValueError(f"quant_gemv_grouped: codes of kind {kind} cannot be {dtype}")
+    if any(c.data_ptr() % 16 for c in codes):
+        raise ValueError("quant_gemv_grouped: codes must be 16-byte aligned")
+    xb = xs.to(torch.bfloat16).contiguous()
+    y = torch.empty(GROUPED_MATS, n, m, dtype=torch.float32, device=xs.device)
+    with torch.cuda.device(xs.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = _grouped_fn()(xb.data_ptr(), *(c.data_ptr() for c in codes), scales.data_ptr(),
+                            0 if offsets is None else offsets.data_ptr(), y.data_ptr(),
+                            n, m, k, gs, _CODE_KIND["nibbles" if nib else dtype], stream)
+    quant_gemv_grouped.launches += 1
+    quant_gemv_grouped.shapes[(n, m, k)] += 1
+    if err:
+        raise RuntimeError(f"quant_gemv_grouped launch failed: CUDA error {err}")
+    return y
+
+
+quant_gemv_grouped.launches = 0
+quant_gemv_grouped.shapes = collections.Counter()  # launches by (n, M, K)
