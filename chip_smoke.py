@@ -403,7 +403,8 @@ def run_kernel_case(torch, case, hbm):
     ops_ms = case["flops"] / case["fpeak"] * 1e3
     bound_by = "bytes" if bytes_ms >= ops_ms else "operations"
     bound_ms = max(bytes_ms, ops_ms)
-    lib = "none" if library_ms is None else f"{library_ms * 1e3:.4f} us"
+    lib = ("none" if library_ms is None
+           else f"{library_ms * 1e3:.4f} us (kernel / library {ms / library_ms:.3f})")
     log(f"  {name}: {case['nbytes'] / 1e6:.4f} MB, {case['flops'] / 1e9:.4f} GFLOP, "
         f"bound {bound_ms * 1e3:.4f} us ({bound_by}), kernel {ms * 1e3:.4f} us in a "
         f"graph, {eager_ms * 1e3:.4f} us issued eagerly, plain {plain_ms * 1e3:.4f} us, "
@@ -1959,6 +1960,10 @@ def run(np, torch, files) -> int:
             torch, lambda: (eng.reset_state(), eng.generate(engine_prompts, 1)), n_pre)
         log_profile(f"{tag} engine prefill of {n_pre} prompt tokens", busy, prof_wall_us, rows,
                     t_pre / n_pre * 1e6, "prompt token")
+        if busy is not None:  # the dequant-GEMM's part (every instantiation)
+            gemm_us = sum(us for us, key, _ in rows if "qk_gemm_kernel" in key)
+            log(f"{tag} engine prefill: qk_gemm_kernel {gemm_us:.2f} us/prompt token, "
+                f"{gemm_us / busy:.3f} of the prefill's device time")
         busy, prof_wall_us, rows = profile(
             torch, lambda: segment(eng.params, pre_state, first, None), decode_steps)
         log_profile(f"{tag} engine decode at B={B4}", busy, prof_wall_us, rows,

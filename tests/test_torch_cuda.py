@@ -117,11 +117,16 @@ def _q6k_arrays(m, k, seed, dev):
             for a in (repack.repack_q6_k(raw, m, k)[0], *repack.q6k_scale_factors(raw, m, k))]
 
 
+# row counts at the dequant-GEMM's tile edges (16, 64 and 2 x 128 input rows)
+GEMM_ROWS = [9, 63, 64, 65, 255, 256, 257, 512, 513]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("n", [3, 9, 64, 130])
-@pytest.mark.parametrize("m,k", [(768, 3072), (100, 512)])
+@pytest.mark.parametrize("n", [3, 130, *GEMM_ROWS])
+@pytest.mark.parametrize("m,k", [(768, 3072), (100, 512), (200, 1280), (832, 7168)])
 def test_q4k_gemm_on_card(card, m, k, n):
-    """Including ragged M (100 rows) and n (130 rows) edges."""
+    """Including ragged M (100, 200 rows: not a multiple of the 64-row
+    tile) and n at and around every tile edge."""
     arrays = _q4k_arrays(m, k, m + k + n, card)
     x = _x(n, k, n, card)
     before = mm.q4k_gemm.launches
@@ -131,9 +136,12 @@ def test_q4k_gemm_on_card(card, m, k, n):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("n", [6, 64])
-def test_q6k_gemm_on_card(card, n):
-    m, k = 1000, 768
+@pytest.mark.parametrize("m,k,n", [(1000, 768, 6), (1000, 768, 64), (200, 768, 257),
+                                   (65536, 2048, 4), (65536, 2048, 64)])
+def test_q6k_gemm_on_card(card, m, k, n):
+    """Layer shapes and the vocabulary head at the Engine's n = 4 and a FULL
+    infer's 64 (M = 65536: 1,024 tiles, the narrow tiles of 16 and 64 input
+    rows)."""
     arrays = _q6k_arrays(m, k, n, card)
     x = _x(n, k, n + 2, card)
     before = mm.q6k_gemm.launches
@@ -895,6 +903,96 @@ def test_gemm_on_same_signed_inputs_on_card(card, form, n):
         else:
             kernel, plain, ops = mm.qs_gemm, mm.qs_gemm_plain, (a["codes"], a["scales"])
     _close(kernel(x, *ops), plain(x, *ops), 1e-4)
+
+
+def _random_form(form, m, k, seed, dev):
+    """Random operands of one weight form, drawn on the card: the kernel
+    family (``mm.<family>_gemv`` / ``_gemm``) and its operands after x.
+    Forms: q4k, q6k, Q5_K, Q2_K (native factors), nf4, and qs_<codes>_<gs>
+    with _min for offsets (codes i8, u8 or nib; f32 group scales)."""
+    from web_rwkv_gguf_tpu_torch.quant.formats import NF4_QUANTILES
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+
+    def ints(lo, hi, shape, dtype):
+        return torch.randint(lo, hi, shape, generator=g, device=dev, dtype=dtype)
+
+    def floats(*shape):
+        return torch.rand(*shape, generator=g, device=dev)
+
+    u8 = torch.uint8
+    if form == "q4k":
+        return "q4k", (ints(0, 256, (m, k // 2), u8), ints(0, 64, (m, k // 32), u8),
+                       ints(0, 64, (m, k // 32), u8), floats(m, k // 256) * 1e-2,
+                       floats(m, k // 256) * 1e-2)
+    if form == "q6k":
+        return "q6k", (ints(-32, 32, (m, k), torch.int8), ints(-128, 128, (m, k // 16), torch.int8),
+                       floats(m, k // 256) * 1e-3)
+    if form in ("Q5_K", "Q2_K"):
+        gs, bound = (32, 32) if form == "Q5_K" else (16, 4)
+        return "qkb", (ints(0, bound, (m, k), u8), ints(0, 64, (m, k // gs), u8),
+                       ints(0, 64, (m, k // gs), u8), floats(m, k // 256) * 1e-2,
+                       floats(m, k // 256) * 1e-2)
+    if form == "nf4":
+        return "nf4", (ints(0, 256, (m, k // 2), u8), floats(m, k // 64),
+                       torch.tensor(NF4_QUANTILES, device=dev))
+    _, store, gs, *offsets = form.split("_")
+    gs = int(gs)
+    codes = {"nib": lambda: ints(0, 256, (m, k // 2), u8), "u8": lambda: ints(0, 256, (m, k), u8),
+             "i8": lambda: ints(-128, 128, (m, k), torch.int8)}[store]()
+    return "qs", (codes, floats(m, k // gs) * 1e-2, floats(m, k // gs) * 1e-1 if offsets else None)
+
+
+def _hold_form(card, form, op, m, k, n, seed):
+    family, ops = _random_form(form, m, k, seed, card)
+    kernel, plain = getattr(mm, f"{family}_{op}"), getattr(mm, f"{family}_{op}_plain")
+    x = _x(n, k, seed + n, card)
+    before = kernel.launches
+    got = kernel(x, *ops)
+    assert kernel.launches == before + 1
+    _close(got, plain(x, *ops), 1e-4)
+
+
+# every code storage and scale source of the dequant-GEMM, with the K values
+# each takes in turn (byte codes at odd multiples of 32: 96, 1056; nibbles
+# at 384 and 7168)
+GEMM_FORMS = [("q4k", (512, 7168)), ("q6k", (768, 2048)), ("Q5_K", (768, 3072)),
+              ("Q2_K", (512, 768)), ("qs_i8_32", (1056, 2048)), ("qs_u8_32_min", (96, 1056)),
+              ("qs_nib_32", (384, 7168)), ("qs_nib_32_min", (384, 7168)),
+              ("qs_i8_16", (1056, 768)), ("qs_u8_128_min", (768, 3072)), ("nf4", (384, 3072))]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", GEMM_ROWS)
+@pytest.mark.parametrize("form,ks", GEMM_FORMS)
+def test_gemm_tile_edges_on_card(card, form, ks, n):
+    """The dequant-GEMM at every form against its plain version, n at and
+    around each tile edge; M ragged against the 64-row tile (100, 200) or
+    not (832), K and M taken in turn across n."""
+    i = GEMM_ROWS.index(n)
+    _hold_form(card, form, "gemm", (100, 200, 832)[i % 3], ks[i % 2], n, seed=i)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [4, 64])
+@pytest.mark.parametrize("form", ["qs_i8_32", "qs_u8_128_min", "nf4"])
+def test_gemm_heads_on_card(card, form, n):
+    """A vocabulary head's shape (M = 65536, K = 2048) at n = 4 and 64 for
+    Q8_0 (i8 bytes), Int8 (u8 with offsets in 128-groups) and NF4."""
+    _hold_form(card, form, "gemm", 65536, 2048, n, seed=n)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", range(1, 9))
+@pytest.mark.parametrize("k", [768, 2048, 7168])
+@pytest.mark.parametrize("form", ["qs_i8_32", "qs_u8_128_min", "qs_nib_32_min", "Q5_K", "nf4"])
+def test_gemv_rows_on_card(card, form, k, n):
+    """qgemv.cuh through ``qs_gemv``, ``qkb_gemv`` and ``nf4_gemv`` at n =
+    1..8: M = 37 at even n (fewer rows than one pass of the persistent
+    grid, and not a multiple of a warp's rows: 2 at K = 768 for byte
+    codes, 4 for nibbles and codebook indices) and 20,005 at odd n
+    (several passes)."""
+    _hold_form(card, form, "gemv", 37 if n % 2 == 0 else 20005, k, n, seed=k + n)
 
 
 @pytest.mark.cuda

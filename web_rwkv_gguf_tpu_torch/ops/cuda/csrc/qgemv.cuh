@@ -11,14 +11,39 @@
 // Bound on this card: bytes. At n <= 8 each weight byte feeds at most 16
 // multiply-adds, far below the ~295 operations per byte where H100 stops
 // being memory-bound, so the least time is the code and scale bytes over
-// HBM bandwidth. Design, as q4k_gemv.cu: one warp per output row streams
-// the row's codes 16 bytes per lane (one 128-bit load each; a 16-byte chunk
-// never straddles a group, since groups are 16, 32 or 128 elements (64 for
-// the 32 elements of a chunk of codebook indices) and chunks start at
-// multiples of 16 (32)), applies all n inputs to each decoded chunk
-// while it sits in registers (each weight formed once, whatever n is); x is
-// staged once per block in shared memory as f32. Speed work (several rows
-// per warp, a packed 5-bit plane for Q5_K's byte codes) is later work.
+// HBM bandwidth. Design:
+// - A persistent grid: as many blocks of 8 warps as the SMs hold at the
+//   shared memory x takes (cudaOccupancyMaxActiveBlocksPerMultiprocessor),
+//   or fewer where the rows run out. Each block stages x once, as the bf16
+//   it already is (n = 8 at K = 7168: 129 KB), and then walks its rows, so
+//   x crosses L2 once per block, not once per few rows (per 8 rows, a
+//   [65536, 2048] head at n = 4 would move 134 MB of x beside its 143 MB
+//   of weights).
+// - Conflict-free x reads: a lane reads the x of one 16-byte code chunk in
+//   16-byte units, and a 16-byte pad after every 64 x elements puts the
+//   units that eight neighbouring lanes read (consecutive chunks: 32 bytes
+//   of x apart for byte codes and nibbles, 64 for codebook indices) in
+//   eight distinct bank groups (unpadded, a 32- or 64-byte lane stride is
+//   a 2- or 4-way conflict, repeated for each input row).
+// - Short rows: a row takes `lanes` lanes (the largest power of two up to
+//   32 dividing its chunk count, at least 4), and a warp 32 / lanes rows,
+//   so that every lane has whole chunks at K = 768 (48 byte chunks: two
+//   rows of 16 lanes; 24 nibble or index chunks: four rows of 8).
+// - Weights: one 128-bit load per lane per code chunk (16 bytes: 16 byte
+//   codes, 16 low and 16 high nibbles, or 32 codebook indices; a chunk
+//   never straddles a group, since groups are 16, 32 or 128 elements (64
+//   for codebook indices) and chunks start at multiples of 16 (32)), the
+//   next chunk's load issued before this one is decoded, each weight
+//   formed once and applied to all n inputs while it sits in registers.
+//   Codes become floats exactly through the exponent of 2^23 (a byte
+//   permute and a subtraction), not the quarter-rate integer conversion;
+//   forms without offsets skip the subtraction of a zero offset.
+// What still bounds it at n >= 2 (on an H100, PERF.md, Findings): instruction
+// issue, about 225 instructions a 16-byte chunk at n = 4 (the weight
+// formed per element, then each input's bf16 converted and multiplied).
+// x staged as f32 instead (XOR-swizzled, no pad) measured within 3 % but
+// at the [65536, 2048] head at n = 4 (7 % faster): bf16 kept, half the
+// shared memory.
 // Codebook indices (kLut) read the 16-entry codebook from shared memory,
 // rounded to bf16 as the TPU kernel rounds it (its per-group sums of
 // bf16(x) * bf16(lut[idx]) are scaled by the absmax after the dot): the
@@ -43,7 +68,7 @@
 
 namespace {
 
-constexpr int kGemvWarps = 8;      // output rows per block, one warp each
+constexpr int kGemvWarps = 8;      // warps per block
 constexpr int kGemvSmem = 232448;  // bytes of shared memory a block may use
 
 // v, or v rounded to bf16 (kSlab: the dequant-GEMM's weight rounding)
@@ -52,13 +77,86 @@ __device__ __forceinline__ float slab_round(float v) {
   return kSlab ? __bfloat162float(__float2bfloat16_rn(v)) : v;
 }
 
+// The four bytes of a code word as floats, exactly: u8, or i8 for kI8
+// (2^23 + b has b in its low mantissa bits; i8 is biased by 128 first).
+template <int kCodes>
+__device__ __forceinline__ void bytes4(uint32_t w, float* f) {
+  if constexpr (kCodes == kI8) w ^= 0x80808080u;
+  const float bias = kCodes == kI8 ? 8388736.f : 8388608.f;
+#pragma unroll
+  for (int b = 0; b < 4; ++b) f[b] = __uint_as_float(__byte_perm(w, 0x4B000000u, 0x7540 + b)) - bias;
+}
+
+// f32 values of the eight bf16 of a 16-byte unit
+__device__ __forceinline__ void bf16x8(uint4 u, float* f) {
+  const uint32_t w[4] = {u.x, u.y, u.z, u.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    f[2 * i] = __uint_as_float(w[i] << 16);
+    f[2 * i + 1] = __uint_as_float(w[i] & 0xFFFF0000u);
+  }
+}
+
+// Streaming 128-bit load of weight codes (read once: not kept in L1).
+__device__ __forceinline__ uint4 ld_stream(const uint8_t* p) {
+  uint4 v;
+  asm volatile("ld.global.nc.L1::no_allocate.v4.u32 {%0, %1, %2, %3}, [%4];"
+               : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w)
+               : "l"(p));
+  return v;
+}
+
+// Where element e of a staged x row sits (bf16 elements): 8 elements (16
+// bytes) of pad after every 64.
+__host__ __device__ constexpr int xpad(int e) { return e + (e >> 6) * 8; }
+
+// Lanes per row: the largest power of two from 4 to 32 dividing the row's
+// chunk count (16-byte code chunks), or more (whole warps at most) where
+// that leaves fewer warps of rows than 8 a SM: short matrices trade idle
+// lanes for SMs.
+inline int gemv_lanes(int chunks, int m, int sms) {
+  int l = 32;
+  while (l > 4 && chunks % l) l >>= 1;
+  while (l < 32 && (long long)m * l < 32LL * 8 * sms) l <<= 1;
+  return l;
+}
+
+template <int kCodes>
+__host__ __device__ constexpr int gemv_chunks(int k) {
+  return kCodes == kU8 || kCodes == kI8 ? k >> 4 : k >> 5;
+}
+
+// acc[t] += the chunk's weights times x row t's elements, for the 16
+// elements at x offset xo (x units xo and xo + 8, in one 64-element run).
+template <int N>
+__device__ __forceinline__ void dot16(const __nv_bfloat16* xs, int kp, int xo, const float* wv,
+                                      float* acc) {
+#pragma unroll
+  for (int t = 0; t < N; ++t) {
+    const uint4* p = reinterpret_cast<const uint4*>(xs + t * kp + xo);
+    float xf[16];
+    bf16x8(p[0], xf);
+    bf16x8(p[1], xf + 8);
+    float part[4] = {0.f, 0.f, 0.f, 0.f};  // four chains, not one of 16
+#pragma unroll
+    for (int e = 0; e < 16; ++e) part[e & 3] = fmaf(wv[e], xf[e], part[e & 3]);
+    acc[t] += (part[0] + part[1]) + (part[2] + part[3]);
+  }
+}
+
 template <int N, int kCodes, bool kSlab, class S>
 __global__ void __launch_bounds__(kGemvWarps * 32)
 qgemv_kernel(const __nv_bfloat16* __restrict__ x, const uint8_t* __restrict__ codes,
-             const S scales, float* __restrict__ y, int m, int k, int gs) {
-  extern __shared__ float4 xs4[];  // [N, k] f32, 16-byte aligned
-  float* xs = reinterpret_cast<float*>(xs4);
-  for (int i = threadIdx.x; i < N * k; i += blockDim.x) xs[i] = __bfloat162float(x[i]);
+             const S scales, float* __restrict__ y, int m, int k, int gs, int lanes) {
+  extern __shared__ uint4 xs4[];  // [N, xpad(k)] bf16
+  __nv_bfloat16* xs = reinterpret_cast<__nv_bfloat16*>(xs4);
+  const int kp = xpad(k);  // a multiple of 8: rows stay 16-byte aligned
+  const int units = k >> 3;
+  for (int i = threadIdx.x; i < N * units; i += blockDim.x) {
+    const int t = i / units, u = i - t * units;
+    const uint4 v = reinterpret_cast<const uint4*>(x + (size_t)t * k)[u];
+    *reinterpret_cast<uint4*>(xs + t * kp + xpad(u << 3)) = v;
+  }
   __shared__ float lut_s[16];
   if constexpr (kCodes == kLut) {
     if (threadIdx.x < 16)
@@ -68,133 +166,136 @@ qgemv_kernel(const __nv_bfloat16* __restrict__ x, const uint8_t* __restrict__ co
 
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
-  const int row = blockIdx.x * kGemvWarps + warp;
-  if (row >= m) return;
+  const int chunks = gemv_chunks<kCodes>(k);
+  const int rows_w = 32 / lanes;  // rows per warp; `lanes` a row (gemv_lanes)
+  const int sub = lane & (lanes - 1);
+  const int half = k >> 1;
+  const size_t row_bytes = kCodes == kU8 || kCodes == kI8 ? (size_t)k : (size_t)half;
+  const int step = gridDim.x * kGemvWarps;
 
-  float acc[N];
+  for (int g = blockIdx.x * kGemvWarps + warp; g * rows_w < m; g += step) {
+    const int row = g * rows_w + lane / lanes;
+    float acc[N];
 #pragma unroll
-  for (int t = 0; t < N; ++t) acc[t] = 0.f;
-
-  if constexpr (kCodes == kNib) {
-    const int half = k >> 1;  // code bytes per row
-    const uint8_t* crow = codes + (size_t)row * half;
-    for (int c = lane; c < (half >> 4); c += 32) {
-      const int j0 = c << 4;  // elements j0.. (low nibbles) and j0 + K/2.. (high)
-      const uint4 raw = *reinterpret_cast<const uint4*>(crow + j0);
-      float slo, mlo, shi, mhi;
-      scales.get(row, j0 / gs, slo, mlo);
-      scales.get(row, (j0 + half) / gs, shi, mhi);
-      const uint32_t words[4] = {raw.x, raw.y, raw.z, raw.w};
-      float wlo[16], whi[16];  // the weights q * s - mn of the 16 low and 16 high elements
+    for (int t = 0; t < N; ++t) acc[t] = 0.f;
+    if (row < m) {
+      const uint8_t* crow = codes + (size_t)row * row_bytes;
+      uint4 raw = make_uint4(0, 0, 0, 0);
+      if (sub < chunks) raw = ld_stream(crow + (sub << 4));
+      for (int c = sub; c < chunks; c += lanes) {
+        const uint4 cur = raw;
+        if (c + lanes < chunks) raw = ld_stream(crow + ((c + lanes) << 4));
+        const uint32_t words[4] = {cur.x, cur.y, cur.z, cur.w};
+        if constexpr (kCodes == kNib) {
+          const int j0 = c << 4;  // elements j0.. (low nibbles) and j0 + K/2.. (high)
+          float slo, mlo, shi, mhi;
+          scales.get(row, j0 / gs, slo, mlo);
+          scales.get(row, (j0 + half) / gs, shi, mhi);
+          float wlo[16], whi[16];  // the weights of the 16 low and 16 high elements
 #pragma unroll
-      for (int q = 0; q < 4; ++q) {
+          for (int q = 0; q < 4; ++q) {
+            bytes4<kU8>(words[q] & 0x0F0F0F0Fu, wlo + 4 * q);
+            bytes4<kU8>((words[q] >> 4) & 0x0F0F0F0Fu, whi + 4 * q);
+          }
 #pragma unroll
-        for (int b = 0; b < 4; ++b) {
-          const uint32_t byte = (words[q] >> (8 * b)) & 0xFFu;
-          wlo[4 * q + b] = slab_round<kSlab>((float)(byte & 0xFu) * slo) - mlo;
-          whi[4 * q + b] = slab_round<kSlab>((float)(byte >> 4) * shi) - mhi;
+          for (int e = 0; e < 16; ++e) {
+            wlo[e] = slab_round<kSlab>(wlo[e] * slo);
+            whi[e] = slab_round<kSlab>(whi[e] * shi);
+          }
+          if (scales.has_min()) {  // the same for every row: no divergence
+#pragma unroll
+            for (int e = 0; e < 16; ++e) {
+              wlo[e] -= mlo;
+              whi[e] -= mhi;
+            }
+          }
+          dot16<N>(xs, kp, xpad(j0), wlo, acc);
+          dot16<N>(xs, kp, xpad(half + j0), whi, acc);
+        } else if constexpr (kCodes == kLut) {
+          const int e0 = c << 5;  // elements e0 .. e0 + 31, one group
+          float s, off;
+          scales.get(row, e0 / gs, s, off);
+          float wv[32];  // the weights of the chunk, in element order
+#pragma unroll
+          for (int q = 0; q < 4; ++q) {
+#pragma unroll
+            for (int b = 0; b < 4; ++b) {
+              const uint32_t byte = (words[q] >> (8 * b)) & 0xFFu;
+              wv[8 * q + 2 * b] = slab_round<kSlab>(lut_s[byte & 0xFu] * s);
+              wv[8 * q + 2 * b + 1] = slab_round<kSlab>(lut_s[byte >> 4] * s);
+            }
+          }
+          dot16<N>(xs, kp, xpad(e0), wv, acc);
+          dot16<N>(xs, kp, xpad(e0) + 16, wv + 16, acc);
+        } else {
+          const int j0 = c << 4;  // elements j0 .. j0 + 15, one group
+          float s, off;
+          scales.get(row, j0 / gs, s, off);
+          float wv[16];
+#pragma unroll
+          for (int q = 0; q < 4; ++q) bytes4<kCodes>(words[q], wv + 4 * q);
+#pragma unroll
+          for (int e = 0; e < 16; ++e) wv[e] = slab_round<kSlab>(wv[e] * s);
+          if (scales.has_min()) {  // the same for every row: no divergence
+#pragma unroll
+            for (int e = 0; e < 16; ++e) wv[e] -= off;
+          }
+          dot16<N>(xs, kp, xpad(j0), wv, acc);
         }
-      }
-#pragma unroll
-      for (int t = 0; t < N; ++t) {
-        float sum = 0.f;
-#pragma unroll
-        for (int q = 0; q < 4; ++q) {
-          const float4 xl = xs4[((t * k + j0) >> 2) + q];
-          const float4 xh = xs4[((t * k + half + j0) >> 2) + q];
-          sum += wlo[4 * q] * xl.x + wlo[4 * q + 1] * xl.y + wlo[4 * q + 2] * xl.z +
-                 wlo[4 * q + 3] * xl.w + whi[4 * q] * xh.x + whi[4 * q + 1] * xh.y +
-                 whi[4 * q + 2] * xh.z + whi[4 * q + 3] * xh.w;
-        }
-        acc[t] += sum;
       }
     }
-  } else if constexpr (kCodes == kLut) {
-    const int half = k >> 1;  // code bytes per row
-    const uint8_t* crow = codes + (size_t)row * half;
-    for (int c = lane; c < (half >> 4); c += 32) {
-      const int e0 = c << 5;  // elements e0 .. e0 + 31, one group
-      const uint4 raw = *reinterpret_cast<const uint4*>(crow + (c << 4));
-      float s, off;
-      scales.get(row, e0 / gs, s, off);
-      const uint32_t words[4] = {raw.x, raw.y, raw.z, raw.w};
-      float wv[32];  // the weights bf16(lut[idx]) * absmax of the chunk
 #pragma unroll
-      for (int q = 0; q < 4; ++q) {
-#pragma unroll
-        for (int b = 0; b < 4; ++b) {
-          const uint32_t byte = (words[q] >> (8 * b)) & 0xFFu;
-          wv[8 * q + 2 * b] = slab_round<kSlab>(lut_s[byte & 0xFu] * s);
-          wv[8 * q + 2 * b + 1] = slab_round<kSlab>(lut_s[byte >> 4] * s);
-        }
-      }
-#pragma unroll
-      for (int t = 0; t < N; ++t) {
-        float sum = 0.f;
-#pragma unroll
-        for (int q = 0; q < 8; ++q) {
-          const float4 xv = xs4[((t * k + e0) >> 2) + q];
-          sum += wv[4 * q] * xv.x + wv[4 * q + 1] * xv.y + wv[4 * q + 2] * xv.z +
-                 wv[4 * q + 3] * xv.w;
-        }
-        acc[t] += sum;
-      }
+    for (int t = 0; t < N; ++t) {
+      float v = acc[t];
+      for (int off = lanes >> 1; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
+      if (row < m && sub == 0) y[(size_t)t * m + row] = v;
     }
-  } else {
-    const uint8_t* crow = codes + (size_t)row * k;
-    for (int c = lane; c < (k >> 4); c += 32) {
-      const int j0 = c << 4;  // elements j0 .. j0 + 15, one group
-      const uint4 raw = *reinterpret_cast<const uint4*>(crow + j0);
-      float s, off;
-      scales.get(row, j0 / gs, s, off);
-      const uint32_t words[4] = {raw.x, raw.y, raw.z, raw.w};
-      float wv[16];  // the weights q * s - mn of the chunk
-#pragma unroll
-      for (int q = 0; q < 4; ++q) {
-#pragma unroll
-        for (int b = 0; b < 4; ++b)
-          wv[4 * q + b] = slab_round<kSlab>(code_at<kCodes>(words[q], b) * s) - off;
-      }
-#pragma unroll
-      for (int t = 0; t < N; ++t) {
-        float sum = 0.f;
-#pragma unroll
-        for (int q = 0; q < 4; ++q) {
-          const float4 xv = xs4[((t * k + j0) >> 2) + q];
-          sum += wv[4 * q] * xv.x + wv[4 * q + 1] * xv.y + wv[4 * q + 2] * xv.z +
-                 wv[4 * q + 3] * xv.w;
-        }
-        acc[t] += sum;
-      }
-    }
-  }
-
-#pragma unroll
-  for (int t = 0; t < N; ++t) {
-    float v = acc[t];
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
-    if (lane == 0) y[(size_t)t * m + row] = v;
   }
 }
 
 template <int N, int kCodes, bool kSlab, class S>
 cudaError_t qgemv_launch(const void* x, const void* codes, const S& scales, void* y, int m,
                          int k, int gs, cudaStream_t stream) {
-  const size_t smem = (size_t)N * k * sizeof(float);
+  const size_t smem = (size_t)N * xpad(k) * sizeof(__nv_bfloat16);
   // beside it the codebook's 64 static bytes (kLut): the default limit of
   // 48 KB holds dynamic and static together
   if (smem + 64 > (size_t)kGemvSmem) return cudaErrorInvalidValue;
-  if (smem + 64 > 48 * 1024) {
-    cudaError_t err = cudaFuncSetAttribute(
-        qgemv_kernel<N, kCodes, kSlab, S>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
+  auto kernel = qgemv_kernel<N, kCodes, kSlab, S>;
+  // blocks per SM by shared memory size, found once per size (a few sizes
+  // per model: one per K)
+  static size_t seen_smem[8];
+  static int seen_blocks[8];
+  static int n_seen = 0;
+  int per_sm = 0;
+  for (int i = 0; i < n_seen; ++i)
+    if (seen_smem[i] == smem) per_sm = seen_blocks[i];
+  if (per_sm == 0) {
+    // the limit once for every size (the codebook's 64 static bytes beside it)
+    cudaError_t err = n_seen > 0 ? cudaSuccess
+                                 : cudaFuncSetAttribute(kernel,
+                                                        cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                                        kGemvSmem - 64);
+    if (err == cudaSuccess)
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kGemvWarps * 32, smem);
     if (err != cudaSuccess) return err;
+    if (per_sm < 1) return cudaErrorInvalidConfiguration;
+    if (n_seen < 8) {
+      seen_smem[n_seen] = smem;
+      seen_blocks[n_seen++] = per_sm;
+    }
   }
-  const int blocks = (m + kGemvWarps - 1) / kGemvWarps;
-  qgemv_kernel<N, kCodes, kSlab, S><<<blocks, kGemvWarps * 32, smem, stream>>>(
+  int dev = 0, sms = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return err;
+  const int lanes = gemv_lanes(gemv_chunks<kCodes>(k), m, sms);
+  const int rows_w = 32 / lanes;
+  const int groups = (m + rows_w - 1) / rows_w;  // one warp's rows each
+  const int need = (groups + kGemvWarps - 1) / kGemvWarps;
+  const int blocks = need < per_sm * sms ? need : per_sm * sms;
+  kernel<<<blocks, kGemvWarps * 32, smem, stream>>>(
       static_cast<const __nv_bfloat16*>(x), static_cast<const uint8_t*>(codes), scales,
-      static_cast<float*>(y), m, k, gs);
+      static_cast<float*>(y), m, k, gs, lanes);
   return cudaGetLastError();
 }
 

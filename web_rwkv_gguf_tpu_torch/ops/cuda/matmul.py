@@ -33,9 +33,9 @@ Two numerics classes, as in the JAX package's ``quant_matmul``
   exact in f32, as the JAX kernel rounds its codebook values to bf16 and
   scales its group sums; the grouped gemv in the JAX kernel's factored
   form ``s·Σq·x − mn·Σx`` per group);
-- the dequant-GEMMs (``csrc/qk_gemm.cu``: bf16 tensor-core tiles; one
-  warp per row on the CUDA cores at n ≤ 8 where M/64 tiles would leave
-  SMs idle) multiply by
+- the dequant-GEMMs (``csrc/qk_gemm.cu``: weights decoded to bf16 in
+  shared memory beside ``wgmma``; rows of lanes on the CUDA cores at
+  n ≤ 8 where M/64 tiles would leave SMs idle) multiply by
   ``bf16(q·s)`` (NF4: ``bf16(lut[idx]·absmax)``) with f32 accumulation
   and subtract the offset term in f32 as ``Σ_g mn[m, g]·xs[n, g]``, xs
   the f32 group sums of the bf16-rounded x.
