@@ -426,14 +426,17 @@ def gemv_compare(got, want):
     return (got - want).abs().max().item(), GEMV_TOL * want.abs().max().item()
 
 
-def q4k_case(torch, mm, op, m, k, n, seed, bf16_peak, dev="cuda"):
+def q4k_case(torch, mm, op, m, k, n, seed, bf16_peak, dev="cuda", relu2=False):
     """``op`` ("gemv" or "gemm") of the Q4_K kernels at [m, k] with n rows.
     The library yardstick (both ops): torch.matmul of the bf16 x against
     the weight dequantized to bf16 ahead of time (bf16(q·s), without the
-    offset term)."""
+    offset term). ``relu2``: x = relu(z)², all ≥ 0, as the FFN value's
+    input."""
     def make(i):
         ints, floats, normal = _rng(torch, dev, seed + 1000 * i)
-        return (normal(n, k).to(torch.bfloat16), ints(0, 256, (m, k // 2), torch.uint8),
+        x = normal(n, k)
+        x = torch.relu(x) ** 2 if relu2 else x
+        return (x.to(torch.bfloat16), ints(0, 256, (m, k // 2), torch.uint8),
                 ints(0, 64, (m, k // 32), torch.uint8), ints(0, 64, (m, k // 32), torch.uint8),
                 floats(m, k // 256) * 1e-2, floats(m, k // 256) * 1e-2)
 
@@ -443,7 +446,8 @@ def q4k_case(torch, mm, op, m, k, n, seed, bf16_peak, dev="cuda"):
         q = mm.q4k_codes(codes)
         return x, (q.view(m, k // 32, 32) * s[..., None]).view(m, k).to(torch.bfloat16).T
 
-    case = dict(name=f"q4k_{op}[m={m},k={k},n={n}]", kernel=getattr(mm, f"q4k_{op}"),
+    tag = "relu2," if relu2 else ""
+    case = dict(name=f"q4k_{op}[{tag}m={m},k={k},n={n}]", kernel=getattr(mm, f"q4k_{op}"),
                 shape=(n, m, k), plain=getattr(mm, f"q4k_{op}_plain"), make_args=make,
                 compare=gemv_compare if op == "gemv" else gemm_compare,
                 nbytes=m * k // 2 + 2 * m * k // 32 + 8 * m * k // 256 + 2 * n * k + 4 * n * m,
@@ -596,8 +600,8 @@ def kernel_cases(torch, k, bf16_peak, f32_peak, full_rows, dev="cuda"):
 
 def kernel_cases6(torch, k, bf16_peak, f32_peak, full_rows, dev="cuda"):
     """The RWKV-6 main paths' kernel calls at the 1.6B widths (C=2048,
-    hidden 7168, H=32): the Q4_K gemv at n = 1 (the B=1 serve's decode),
-    the Q4_K GEMM at n = 512 (an Engine chunk of T=128 at B=4), the Q6_K
+    hidden 7168, H=32): the Q4_K gemv at n = 1 (the B=1 serve's decode;
+    the FFN value also on relu² inputs), the Q4_K GEMM at n = 512 (an Engine chunk of T=128 at B=4), the Q6_K
     head gemv at n = 1 and GEMM at n = 4 (the Engine's decode step: at
     K=2048 the gate sends n ≥ 3 to the GEMM) and at the FULL call's
     ``full_rows``; the V6 WKV scan at T=64 for B=1 and 4 with ragged
@@ -607,6 +611,9 @@ def kernel_cases6(torch, k, bf16_peak, f32_peak, full_rows, dev="cuda"):
     layer_shapes = ((2048, 2048), (7168, 2048), (2048, 7168))
     cases = [q4k_case(torch, mm, "gemv", m, k, 1, 7000 + m + 7 * k, bf16_peak)
              for m, k in layer_shapes]
+    # the FFN value's input is relu² (all ≥ 0): the offset term cancels most
+    # of each group's products
+    cases.append(q4k_case(torch, mm, "gemv", 2048, 7168, 1, 7050, bf16_peak, relu2=True))
     cases += [q4k_case(torch, mm, "gemm", m, k, 512, 7500 + m + 7 * k, bf16_peak)
               for m, k in layer_shapes]
     cases.append(q6k_case(torch, mm, "gemv", 65536, 2048, 1, 8001, bf16_peak))
@@ -640,7 +647,7 @@ def kernel_cases6(torch, k, bf16_peak, f32_peak, full_rows, dev="cuda"):
 def kernel_cases5(torch, k, bf16_peak, f32_peak, full_rows, dev="cuda"):
     """The RWKV-5 main paths' kernel shapes at the World 0.4B widths
     (C=1024, hidden 3584, H=16): the Q4_K gemv at n = 1 (the B=1 serve's
-    decode) and 4, the Q4_K GEMM at n = 512 (an Engine chunk of T=128 at
+    decode) and 4, and at n = 8 at K=1024 (its prompt chunks), the Q4_K GEMM at n = 512 (an Engine chunk of T=128 at
     B=4), the Q6_K head gemv at n = 1 and 4 (at K=1024 the gate keeps n ≤
     4 on the gemv) and GEMM at the FULL call's ``full_rows``; the V6 WKV
     scan as the V5 path calls it (``forward._wkv5``: the static decay [H,
@@ -652,6 +659,9 @@ def kernel_cases5(torch, k, bf16_peak, f32_peak, full_rows, dev="cuda"):
     layer_shapes = ((1024, 1024), (3584, 1024), (1024, 3584))
     cases = [q4k_case(torch, mm, "gemv", m, kk, n, 11000 + m + 7 * kk + n, bf16_peak, dev)
              for m, kk in layer_shapes for n in (1, 4)]
+    # the B=1 serve's 8-token prompt chunks (n·groups ≤ 256 at K=1024)
+    cases += [q4k_case(torch, mm, "gemv", m, kk, 8, 11000 + m + 7 * kk + 8, bf16_peak, dev)
+              for m, kk in layer_shapes[:2]]
     cases += [q4k_case(torch, mm, "gemm", m, kk, 512, 11500 + m + 7 * kk, bf16_peak, dev)
               for m, kk in layer_shapes]
     cases += [q6k_case(torch, mm, "gemv", 65536, 1024, n, 12000 + n, bf16_peak, dev)

@@ -38,8 +38,9 @@ def run_here(tags, match):
         raise SystemExit("torch_kernel_cases: needs a CUDA card")
     torch.backends.cuda.matmul.allow_tf32 = False
     hbm, bf16_peak, f32_peak = cs.peaks(torch.cuda.get_device_name(0))
-    build.build(("q4k_gemv", "q6k_gemv", "qs_gemv", "qkb_gemv", "nf4_gemv", "gemv_grouped",
-                 "qk_gemm", "att_core7", "wkv7_scan", "wkv6_scan", "wkv4_scan"))
+    if not match:  # all at once, in parallel; with --match each at first use
+        build.build(("q4k_gemv", "q6k_gemv", "qs_gemv", "qkb_gemv", "nf4_gemv", "gemv_grouped",
+                     "qk_gemm", "att_core7", "wkv7_scan", "wkv6_scan", "wkv4_scan"))
     rng = np.random.default_rng(cs.ENGINE_SEED)
     [rng.integers(0, cs.VOCAB, n) for n in cs.ENGINE_LENGTHS]  # chip_smoke's draws, in order
     _, _, full_rows = cs.full_input(runtime, _bucket, rng, cs.VOCAB)

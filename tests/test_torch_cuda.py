@@ -42,13 +42,17 @@ def _close(got, want, rel):
     torch.testing.assert_close(got, want, rtol=0, atol=rel * want.abs().max().item())
 
 
+# Q4_K gemv shapes: every n at the 0.1B layer width and at K=3072, ragged M
+# (17, 1000), the V6 FFN value at n = 1 and K=7168 at n = 8 (the largest x)
+Q4K_GEMV_CASES = ([(768, 768, n) for n in range(1, 9)] + [(256, 3072, n) for n in range(1, 9)]
+                  + [(17, 768, 1), (17, 768, 5), (1000, 1024, 3), (1000, 1024, 8),
+                     (2048, 7168, 1), (64, 7168, 8)])
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("n", [1, 3, 8])
-@pytest.mark.parametrize("m,k", [(768, 768), (256, 3072)])
+@pytest.mark.parametrize("m,k,n", Q4K_GEMV_CASES)
 def test_q4k_gemv_on_card(card, m, k, n):
-    raw = _weights(m, k, ggml.quantize_q4_k, seed=m + k)
-    arrays = [torch.from_numpy(np.ascontiguousarray(a)).to(card)
-              for a in (repack.repack_q4_k(raw, m, k)[0], *repack.q4k_scale_factors(raw, m, k))]
+    arrays = _q4k_arrays(m, k, m + k, card)
     x = _x(n, k, n, card)
     before = mm.q4k_gemv.launches
     got = mm.q4k_gemv(x, *arrays)
@@ -57,12 +61,30 @@ def test_q4k_gemv_on_card(card, m, k, n):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("n", [1, 8])
-def test_q6k_gemv_on_card(card, n):
-    m, k = 1024, 768
-    raw = _weights(m, k, ggml.quantize_q6_k, seed=n)
-    arrays = [torch.from_numpy(np.ascontiguousarray(a)).to(card)
-              for a in (repack.repack_q6_k(raw, m, k)[0], *repack.q6k_scale_factors(raw, m, k))]
+@pytest.mark.parametrize("m,k", [(2048, 7168), (768, 3072)])
+def test_q4k_gemv_on_same_signed_inputs_on_card(card, m, k):
+    """``q4k_gemv`` at n = 1 on inputs that are all ≥ 0 (relu², the FFN
+    value's input; the V6 and V7 value matrices of the B=1 serve): the
+    offset term ``mn·Σx`` cancels most of ``s·Σq·x`` in every group."""
+    arrays = _q4k_arrays(m, k, m + k, card)
+    x = torch.relu(_x(1, k, 5, card)) ** 2
+    _close(mm.q4k_gemv(x, *arrays), mm.q4k_gemv_plain(x, *arrays), 1e-4)
+
+
+# Q6_K / Q3_K gemv shapes (GGML-quantized, native factors): every n at
+# [1024, 768], Q3_K's code ranges, ragged M, K=7168 at n = 8, and the 0.1B
+# head at n = 4
+Q6K_GEMV_CASES = ([("Q6_K", 1024, 768, n) for n in range(1, 9)]
+                  + [("Q3_K", 1024, 768, n) for n in (1, 4, 8)]
+                  + [("Q6_K", 17, 256, 2), ("Q3_K", 17, 512, 7), ("Q6_K", 1000, 1024, 6),
+                     ("Q6_K", 64, 7168, 8), ("Q6_K", 65536, 768, 4)])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind,m,k,n", Q6K_GEMV_CASES)
+def test_q6k_gemv_on_card(card, kind, m, k, n):
+    a = _matrix(kind, m, k, n, card).arrays
+    arrays = [a["codes"], a["q6s"], a["q6d"]]
     x = _x(n, k, n + 1, card)
     before = mm.q6k_gemv.launches
     got = mm.q6k_gemv(x, *arrays)

@@ -26,13 +26,16 @@ quantized matmul defines it. The forms, by the kernels that take them:
 Two numerics classes, as in the JAX package's ``quant_matmul``
 (``models/matrix.py`` picks between them):
 
-- the gemvs (``csrc/q4k_gemv.cu``, ``csrc/q6k_gemv.cu``,
-  ``csrc/qkb_gemv.cu``, ``csrc/qs_gemv.cu``, ``csrc/nf4_gemv.cu``,
-  ``csrc/gemv_grouped.cu``: one warp per output row, n ≤ 8) multiply by
-  the exact f32 weight ``q·s − mn`` (NF4: ``bf16(lut[idx])·absmax``,
-  exact in f32, as the JAX kernel rounds its codebook values to bf16 and
-  scales its group sums; the grouped gemv in the JAX kernel's factored
-  form ``s·Σq·x − mn·Σx`` per group);
+- the gemvs (n ≤ 8) compute with the exact f32 weight ``q·s − mn``
+  (NF4: ``bf16(lut[idx])·absmax``, exact in f32, as the JAX kernel rounds
+  its codebook values to bf16 and scales its group sums):
+  ``csrc/qkb_gemv.cu``, ``csrc/qs_gemv.cu`` and ``csrc/nf4_gemv.cu``
+  (``qgemv.cuh``: rows of lanes on the CUDA cores) form it per element;
+  ``csrc/q4k_gemv.cu`` and ``csrc/q6k_gemv.cu`` (``qgemv_mma.cuh``) and
+  ``csrc/gemv_grouped.cu`` take the JAX kernel's factored form
+  ``s·Σq·x − mn·Σx`` per group, the first two with each group's exact
+  code products on the tensor cores (one ``mma.sync`` m16n8k16 per
+  16 codes, from a zero accumulator) and the scales applied in f32;
 - the dequant-GEMMs (``csrc/qk_gemm.cu``: weights decoded to bf16 in
   shared memory beside ``wgmma``; rows of lanes on the CUDA cores at
   n ≤ 8 where M/64 tiles would leave SMs idle) multiply by
@@ -256,6 +259,8 @@ def q4k_gemv(x, codes, sc6, mn6, d8, dm8) -> torch.Tensor:
                  "d8": (m, k // 256), "dm8": (m, k // 256)},
                 {"codes": torch.uint8, "sc6": torch.uint8, "mn6": torch.uint8,
                  "d8": torch.float32, "dm8": torch.float32}, MAX_GEMV_ROWS)
+    if sc6.data_ptr() % 4 or mn6.data_ptr() % 4:
+        raise ValueError("q4k_gemv: sc6 and mn6 must be 4-byte aligned")
     n = x.shape[0]
     y = torch.empty(n, m, dtype=torch.float32, device=x.device)
     with torch.cuda.device(x.device):
@@ -275,8 +280,8 @@ q4k_gemv.shapes = collections.Counter()  # launches by (n, M, K)
 
 
 def q6k_gemv(x, codes, q6s, q6d) -> torch.Tensor:
-    """Q6_K gemv: x ``[n, K]``; codes i8 ``[M, K]``; q6s i8 ``[M, K/16]``;
-    q6d f32 ``[M, K/256]`` → f32 ``[n, M]``."""
+    """Q6_K gemv: x ``[n, K]``; codes i8 ``[M, K]`` (Q6_K −32..31, Q3_K
+    −4..3); q6s i8 ``[M, K/16]``; q6d f32 ``[M, K/256]`` → f32 ``[n, M]``."""
     if not x.is_cuda:
         return q6k_gemv_plain(x, codes, q6s, q6d)
     m = codes.shape[0]
@@ -286,6 +291,8 @@ def q6k_gemv(x, codes, q6s, q6d) -> torch.Tensor:
                 {"codes": (m, k), "q6s": (m, k // 16), "q6d": (m, k // 256)},
                 {"codes": torch.int8, "q6s": torch.int8, "q6d": torch.float32},
                 MAX_GEMV_ROWS)
+    if q6s.data_ptr() % 8:
+        raise ValueError("q6k_gemv: q6s must be 8-byte aligned")
     n = x.shape[0]
     y = torch.empty(n, m, dtype=torch.float32, device=x.device)
     with torch.cuda.device(x.device):
