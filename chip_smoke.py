@@ -107,7 +107,7 @@ MODELS = {
                matrices=(("att", "Wr"), ("att", "Wk"), ("att", "Wv"), ("att", "Wo"),
                          ("ffn", "Wk"), ("ffn", "Wv")),
                wkv=("att_core7_step", "wkv7_scan", None), mega=("mega7", "layer_scan7"),
-               mega_batches=(4,)),
+               mega_batches=(4, 1, 16)),
     # RWKV-6 World 1.6B widths (BlinkDL's RWKV-x060-World-1B6: L=24, C=2048,
     # head 64, hidden int(3.5·C // 32 · 32); time-mix and decay LoRA ranks 32
     # and 64 from RWKV-LM's v6 model.py)
@@ -1008,7 +1008,7 @@ def clone_tree(tree):
     return tree.clone() if hasattr(tree, "clone") else tree
 
 
-def mega_case(torch, mod, mega, state, x, mask, eps, f32_peak, label):
+def mega_case(torch, mod, mega, state, x, mask, eps, bf16_peak, f32_peak, label):
     """The whole-stack decode kernel of ``mod`` (``ops/cuda/layer7`` or
     ``ops/cuda/layer56``) at a decode shape: one token for every lane of
     ``state`` through all layers of ``mega`` (``label`` names the model or
@@ -1140,6 +1140,11 @@ def mega_case(torch, mod, mega, state, x, mask, eps, f32_peak, label):
     else:  # r, k, v, g, Wo, FFN receptance; FFN key and value; V6's adapters
         macs = 6 * C * C + 2 * C * hidden + 10 * mega["R"] * C + 2 * mega["D"] * C
         wkv_flops = 6 * H * hs * hs
+    # RWKV-7's matrices and LoRA pairs run on bf16 tensor cores (the codes
+    # exact in bf16), its WKV step in f32; versions 6 to 4 in f32 throughout
+    flops = B * L * (2 * macs + wkv_flops)
+    ops = (((B * L * 2 * macs, bf16_peak), (B * L * wkv_flops, f32_peak)) if v7
+           else ((flops, f32_peak),))
     tag = "" if v7 else f"version={version},"
     case = dict(
         name=f"{scan.__name__}[{label},{tag}L={L},B={B},C={C},hidden={hidden}]", kernel=scan,
@@ -1147,7 +1152,7 @@ def mega_case(torch, mod, mega, state, x, mask, eps, f32_peak, label):
         check=check,
         # weights once, state in and out, x in and out, the mask
         nbytes=weights + 2 * state_bytes + 8 * B * C + 4 * B,
-        flops=B * L * (2 * macs + wkv_flops), fpeak=f32_peak)
+        flops=flops, fpeak=flops / sum(f / p for f, p in ops))
     return case
 
 
@@ -1791,8 +1796,7 @@ def run(np, torch, files) -> int:
         B4 = dec_x.shape[0]
         mask = torch.tensor([1.0, 1.0, 0.0, 1.0], device="cuda")
         eps = (LN_EPS, GN_EPS, L2_EPS) if v7 else (LN_EPS, GN_EPS)
-        names = (("LN1+mix+r/k/v+LoRA down", "LoRA up+attention", "Wo", "LN2+mix+FFN key",
-                  "FFN value") if v7 else l56.PHASES[mega["version"]])
+        names = l7.PHASES if v7 else l56.PHASES[mega["version"]]
         log(f"{label} whole-stack decode kernel (against its plain version, same inputs, "
             f"layer by layer):")
         failed = []
@@ -1801,7 +1805,7 @@ def run(np, torch, files) -> int:
             case = mega_case(torch, scan_mod, mega,
                              {k: v[:, lanes].contiguous() for k, v in state.items()},
                              dec_x[lanes], mask if B == B4 else torch.ones(B, device="cuda"),
-                             eps, f32_peak, label)
+                             eps, bf16_peak, f32_peak, label)
             try:
                 add_entry(case, run_kernel_case(torch, case, hbm))
             except AssertionError as e:

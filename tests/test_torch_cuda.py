@@ -255,14 +255,35 @@ def test_prefill_routes_through_the_kernels_on_card(card, T):
         _close(st_gpu[key], st_cpu[key], 1e-2)
 
 
+# lanes of the RWKV-7 whole-stack card tests: every NB template of
+# layer7.cu (1, 2, 4, 8, 16), full and ragged (3, 9)
+LAYER7_BATCHES = [1, 2, 3, 8, 9, 16]
+# every slot form an RWKV-7 stack takes (layer7.stack_matrix)
+LAYER7_FORMS = ["Q4_K", "Q5_K", "Q2_K", "Q8_0", "Q6_K", "Q3_K", "Q4_1", "INT8", "BF16"]
+# lanes at which the plain version's own f32 order of the first LayerNorm
+# flips bf16 roundings of layer 0's mixes and moves these layer-0 states
+# past 1e-4 of their max from the kernel's (8 and 16 for the
+# one-warp-a-row kernel before this one's redesign as well; 9 through 7
+# elements of Wo's input, which given the kernel's LayerNorm output are
+# bf16 of the plain version's every one; PERF.md)
+LAYER7_FLIP_BATCHES = {8: ("wkv", "ffn_shift"), 9: ("ffn_shift",), 16: ("wkv", "ffn_shift")}
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("B", [1, 3, 9])
+@pytest.mark.parametrize("B", LAYER7_BATCHES)
 def test_layer_scan7_on_card(card, B):
     """The whole-stack decode kernel against its plain version on a
     two-layer model from a random state, one lane frozen at B ≥ 3: layer
     0's states at 1e-4·max (f32 sums in another order), every output at
     1e-2·max (the bf16 operand flips that layer 0 passes on, as in
-    chip_smoke.py); the frozen lane's state is kept exactly."""
+    chip_smoke.py); the frozen lane's state is kept exactly. At the B of
+    LAYER7_FLIP_BATCHES, the states it names are held at the same
+    1e-4·max against the plain version given the kernel's first LayerNorm
+    output (``ln_out``, as chip_smoke.py holds row 4) and its attention
+    output (``y_in``, from a one-layer launch of layer 0, whose states
+    equal the whole launch's); that attention output is held itself, each
+    element against the plain version's f32 one (given the same LayerNorm
+    output) within its bf16 rounding, 2^-8 of it, and 1e-4·max."""
     from web_rwkv_gguf_tpu_torch.gguf import GgufFile
     from web_rwkv_gguf_tpu_torch.models import embed_tokens, load_model, prepare_decode
     from web_rwkv_gguf_tpu_torch.models.forward import GN_EPS, L2_EPS, LN_EPS
@@ -286,8 +307,24 @@ def test_layer_scan7_on_card(card, B):
     x1, s1 = layer7.layer_scan7(mega, state, x, mask, None, LN_EPS, GN_EPS, L2_EPS)
     assert layer7.layer_scan7.launches == before + 1
     x0, s0 = layer7.layer_scan7_plain(mega, state, x, mask, None, LN_EPS, GN_EPS, L2_EPS)
+    want0 = {key: s0[key][0] for key in s0}
+    if B in LAYER7_FLIP_BATCHES:
+        m_0, s_0 = layer7.mega_layers(mega, 0, 1), {k: v[:1] for k, v in state.items()}
+        eps, ln1 = (LN_EPS, GN_EPS, L2_EPS), (s1["att_shift"][:1], None)
+        staged, staged_p = {}, {}
+        _, s10, _ = layer7.layer_scan7(m_0, s_0, x, mask, None, *eps, (None, 0), staged=staged)
+        for key in s0:
+            assert torch.equal(s10[key][0], s1[key][0])
+        layer7.layer_scan7_plain(m_0, s_0, x, mask, None, *eps, (None, 0), ln_out=ln1,
+                                 staged=staged_p)
+        live = mask > 0
+        yk, yp = staged["y"].float()[live], staged_p["y"][live]
+        assert ((yk - yp).abs() <= 2 ** -8 * yp.abs() + 1e-4 * yp.abs().max()).all()
+        _, sg, _ = layer7.layer_scan7_plain(m_0, s_0, x, mask, None, *eps, (None, 0),
+                                            ln_out=ln1, y_in=staged["y"][None])
+        want0.update({key: sg[key][0] for key in LAYER7_FLIP_BATCHES[B]})
     for key in s0:
-        _close(s1[key][0], s0[key][0], 1e-4)
+        _close(s1[key][0], want0[key], 1e-4)
         _close(s1[key], s0[key], 1e-2)
         if B >= 3:
             assert torch.equal(s1[key][:, 1], state[key][:, 1])
@@ -721,12 +758,34 @@ def test_layer_scan_new_slots_on_card(card, version, kind, B):
     _hold_stack_layers(card, version, kind, B, flips=True)
 
 
-def _hold_stack_layers(card, version, kind, B, flips):
+@pytest.mark.cuda
+@pytest.mark.parametrize("B", LAYER7_BATCHES)
+@pytest.mark.parametrize("kind", LAYER7_FORMS)
+def test_layer_scan7_every_form_on_card(card, kind, B):
+    """The RWKV-7 whole-stack kernel on a stack of every slot form at every
+    NB template, layer by layer as test_layer_scan_stack_forms_on_card
+    holds it (2^-8·max of each layer; a frozen lane keeps its state)."""
+    _hold_stack_layers(card, "v7", kind, B, flips=False)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B", [4, 16])
+@pytest.mark.parametrize("kind", ["Q4_K", "INT8", "BF16"])
+def test_layer_scan7_same_signed_ffn_on_card(card, kind, B):
+    """The same with LN2's weight 16 times larger and its bias 4 up: the
+    FFN key sees large inputs, and the FFN value large same-signed relu²
+    ones (its f32 sums of 16-element tensor-core terms must not drift);
+    held at 2^-8·max of each layer."""
+    _hold_stack_layers(card, "v7", kind, B, flips=False, ffn_gain=16.0)
+
+
+def _hold_stack_layers(card, version, kind, B, flips, ffn_gain=None):
     """Each layer of a two-layer stack of ``kind`` (a GGML block type,
     INT8 for an f16 file requantized at load, BF16 for an f16 file loaded
     as it is) as a one-layer launch against its plain version (module
     tests above); ``flips``: version 6 layers may pass through their
-    staged operands."""
+    staged operands; ``ffn_gain``: an RWKV-7 stack's LN2 weight times
+    that and its bias 4 up."""
     from web_rwkv_gguf_tpu_torch.gguf import GgufFile
     from web_rwkv_gguf_tpu_torch.models import embed_tokens, load_model, prepare_decode
     from web_rwkv_gguf_tpu_torch.models.forward import GN_EPS, L2_EPS, LN_EPS
@@ -744,6 +803,8 @@ def _hold_stack_layers(card, version, kind, B, flips):
                               device=card)
     v7 = version == "v7"
     mega = prepare_decode(params, info, B)["mega7" if v7 else "mega56"]
+    if ffn_gain is not None:
+        mega = {**mega, "ln2": (mega["ln2"][0] * ffn_gain, mega["ln2"][1] + 4.0)}
     state = _random_state56(info, B, card, B)
     x = embed_tokens(params, torch.arange(B, device=card)[:, None] * 7 + 1)[:, 0]
     mask = torch.ones(B, device=card)

@@ -166,6 +166,102 @@ def test_layer_scan7_plain_takes_the_layernorm_outputs(port_model):
     assert torch.equal(s2["wkv"][:, 1], state["wkv"][:, 1])
 
 
+def _random_state7(info, B, seed):
+    L, C, H, hs = info.num_layer, info.num_emb, info.num_head, info.head_size
+    g = torch.Generator().manual_seed(seed)
+    return {"att_shift": torch.randn(L, B, C, generator=g),
+            "wkv": torch.randn(L, B, H, hs, hs, generator=g),
+            "ffn_shift": torch.randn(L, B, C, generator=g)}
+
+
+@pytest.mark.parametrize("which", [0, 1])
+def test_layer_scan7_plain_takes_one_layernorm_output(port_model, which):
+    """``ln_out`` with one of the two LayerNorm outputs given and the other
+    None (the card test holds layer 0 given the kernel's first one only):
+    the plain version's own output gives its result exactly; a moved one
+    moves only the lanes the mask keeps running."""
+    info, params = port_model
+    mega = prepare_decode(params, info, 3)["mega7"]
+    state = _random_state7(info, 3, 6 + which)
+    x = embed_tokens(params, torch.tensor([[5], [8], [13]]))[:, 0]
+    mask = torch.tensor([1.0, 0.0, 1.0])
+    eps = (LN_EPS, GN_EPS, L2_EPS)
+    key = ("att_shift", "ffn_shift")[which]
+    x0, s0 = layer_scan7_plain(mega, state, x, mask, None, *eps)
+
+    def given(t):
+        return layer_scan7_plain(mega, state, x, mask, None, *eps,
+                                 ln_out=(t, None) if which == 0 else (None, t))
+
+    x1, s1 = given(s0[key])
+    assert torch.equal(x1, x0) and all(torch.equal(s1[k], s0[k]) for k in s0)
+    x2, s2 = given(s0[key] * 1.01)
+    assert not torch.equal(x2[2], x0[2]) and torch.equal(x2[1], x0[1])
+    assert all(torch.equal(s2[k][:, 1], state[k][:, 1]) for k in s0)
+
+
+@pytest.mark.parametrize("B", [1, 3])
+def test_layer_scan7_plain_takes_the_attention_output(port_model, monkeypatch, B):
+    """``y_in``, Wo's input (the card test gives the kernel's own, read
+    back through ``layer_scan7(..., staged=)``): the plain version's own
+    attention output gives its result exactly, a frozen lane's entry is
+    never read, and a moved entry moves only its lane's x; ``staged``
+    receives the last layer's."""
+    from web_rwkv_gguf_tpu_torch.ops.cuda import layer7
+
+    info, params = port_model
+    mega = prepare_decode(params, info, B)["mega7"]
+    state = _random_state7(info, B, 20 + B)
+    x = embed_tokens(params, torch.arange(B)[:, None] * 3 + 2)[:, 0]
+    mask = torch.ones(B)
+    if B >= 3:
+        mask[1] = 0.0
+    eps = (LN_EPS, GN_EPS, L2_EPS)
+    ys = []
+    core = layer7.att_core7_plain
+
+    def record(*args):
+        y, wkv = core(*args)
+        ys.append(y.reshape(B, -1))
+        return y, wkv
+
+    monkeypatch.setattr(layer7, "att_core7_plain", record)
+    x0, s0 = layer_scan7_plain(mega, state, x, mask, None, *eps)
+    monkeypatch.setattr(layer7, "att_core7_plain", core)
+    y = torch.stack(ys)
+    assert y.shape == (info.num_layer, B, info.num_emb)
+    if B >= 3:
+        y_frozen = y.clone()
+        y_frozen[:, 1] = 1e3
+        xf, sf = layer_scan7_plain(mega, state, x, mask, None, *eps, y_in=y_frozen)
+        assert torch.equal(xf[1], x0[1]) and all(torch.equal(sf[k], s0[k]) for k in s0)
+    staged = {}
+    xs, ss = layer_scan7_plain(mega, state, x, mask, None, *eps, y_in=y, staged=staged)
+    assert torch.equal(xs, x0) and all(torch.equal(ss[k], s0[k]) for k in s0)
+    assert torch.equal(staged["y"], y[-1])  # the last layer's, as Wo takes it
+    moved = y.clone()
+    moved[:, 0] *= 1.5
+    xm, _ = layer_scan7_plain(mega, state, x, mask, None, *eps, y_in=moved)
+    assert not torch.equal(xm[0], x0[0]) and torch.equal(xm[1:], x0[1:])
+
+
+def test_layer_scan7_counters_are_kept_per_device_and_size(monkeypatch):
+    """The split-K counters: one zero buffer a device and size, the same
+    for every launch at that size (the kernel leaves it zero, so it is
+    never cleared again), another zero one at another size."""
+    from web_rwkv_gguf_tpu_torch.ops.cuda import layer7
+
+    monkeypatch.setattr(layer7, "_COUNTERS", {})
+    dev = torch.device("cpu")
+    a = layer7._counters(dev, 12)
+    assert a.dtype == torch.int32 and a.numel() == 12 and not a.any()
+    a[3] = 7
+    assert layer7._counters(dev, 12) is a and a[3] == 7
+    b = layer7._counters(dev, 40)
+    assert b is not a and b.numel() == 40 and not b.any()
+    assert layer7._counters(dev, 12) is a
+
+
 def test_prepare_decode_takes_only_what_the_kernel_runs(port_model):
     info, params = port_model
     prepared = prepare_decode(params, info, MAX_SCAN_BATCH)

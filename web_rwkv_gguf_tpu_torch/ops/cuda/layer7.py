@@ -25,6 +25,19 @@ bf16 operands with f32 products, the rest is f32.
 With ``v0_carry`` both run a contiguous slice of the stack
 (:func:`mega_layers`), as the JAX kernel's pipeline-stage mode does.
 
+The kernel (its header comment and ``csrc/stack_mma.cuh`` say more) runs
+each matrix as items of a 16-row tile over a K-slice of at most 768
+elements on the tensor cores, one block an item, each block's first item
+of a phase brought into shared memory by TMA bulk copies issued phases
+ahead; a matrix whose K is split adds its slices' partial sums in slice
+order (scratch sized here from an upper bound, and per-tile counters kept
+zero on the card, :func:`_counters`); every phase issues its input copies
+in one batch after its grid barrier; at B ≤ 2, Wo and the FFN value run
+one warp a row instead. Its time on the H100 is each phase's chain of
+dependent steps, not bytes: the five grid barriers a layer (1.1-1.5 µs
+each), the inputs' copies, each block's LayerNorm over the whole row, the
+products (PERF.md).
+
 On a CUDA tensor :func:`layer_scan7` launches the kernel or raises; only
 a tensor on the CPU takes the plain version.
 """
@@ -43,6 +56,9 @@ from .matmul import q4k_gemv_plain, q6k_gemv_plain, qkb_gemv_plain, qs_gemv_plai
 from .wkv7 import HEAD_SIZE, att_core7_plain
 
 MAX_SCAN_BATCH = 16  # lanes one launch takes (the JAX package's limit too)
+# the phases of a layer, each ended by a grid barrier (and a phase_ns stamp)
+PHASES = ("LN1+mix+r/k/v+LoRA down", "LoRA up+attention", "Wo", "LN2+mix+FFN key",
+          "FFN value")
 _MATRICES = (("att", "Wr"), ("att", "Wk"), ("att", "Wv"), ("att", "Wo"),
              ("ffn", "Wk"), ("ffn", "Wv"))
 # the forms of a matrix slot (csrc/decode_common.cuh, MatForm)
@@ -51,6 +67,27 @@ SIGNED_BIT, GS_SHIFT = 3, 4  # a slot descriptor is form | signed << 3 | gs << 4
 # the group sizes each quantized form's kernel row takes
 _FORM_GS = {FORM_Q4K: (32,), FORM_QS_NIB: (32,), FORM_Q6K: (16,), FORM_QKB: (16, 32),
             FORM_QS: (16, 32)}
+
+
+# The split-K tile counters, one buffer a device and size (a size is a
+# model's widths). It is made zero once and every launch leaves it zero (a
+# tile's last block resets its counter), so a launch needs no memset and
+# replays unchanged in a CUDA graph, and no buffer is ever freed under a
+# graph that holds it. Launches that share a buffer therefore run one at a
+# time (on one stream, as the Engine issues them).
+_COUNTERS: dict = {}
+
+
+def _counters(dev, n: int):
+    """``n`` zero int32 counters on ``dev``, the same buffer for every
+    launch there at that size."""
+    buf = _COUNTERS.get((dev, n))
+    if buf is None:
+        if dev.type == "cuda" and torch.cuda.is_current_stream_capturing():
+            raise RuntimeError("layer_scan7: launch once outside a CUDA graph capture first "
+                               "(its split-K counters are made zero then)")
+        buf = _COUNTERS[(dev, n)] = torch.zeros(n, dtype=torch.int32, device=dev)
+    return buf
 
 
 def descriptor(form: int, signed: int, gs: int) -> int:
@@ -232,12 +269,16 @@ def lora_plain(xin, down, up, act=None):
 
 
 def layer_scan7_plain(mega, state, x, mask, rescale, eps_ln, eps_gn, eps_l2,
-                      v0_carry=None, ln_out=None):
+                      v0_carry=None, ln_out=None, y_in=None, staged=None):
     """Plain version of :func:`layer_scan7`. ``ln_out = (xx1, xx2)``, each
-    ``[L, B, C]``, replaces the two LayerNorms' outputs of the lanes the
-    mask keeps running (a check's: the kernel's own, which its new
-    ``att_shift`` and ``ffn_shift`` states hold), so that a comparison
-    with the kernel leaves out the order of the LayerNorms' sums."""
+    ``[L, B, C]`` or None, replaces the two LayerNorms' outputs of the
+    lanes the mask keeps running (a check's: the kernel's own, which its
+    new ``att_shift`` and ``ffn_shift`` states hold), so that a comparison
+    with the kernel leaves out the order of the LayerNorms' sums; ``y_in``
+    ``[L, B, C]`` likewise replaces the attention's output (Wo's bf16
+    input: a one-layer launch's ``staged["y"]``). ``staged``, a dict,
+    receives the last layer's attention output ``y`` (f32 ``[B, C]``, as
+    Wo takes it), as the kernel's does."""
     L, H = mega["L"], mega["H"]
     v_first, first = v0_carry if v0_carry is not None else (None, 0)
     offs = [0]
@@ -262,7 +303,7 @@ def layer_scan7_plain(mega, state, x, mask, rescale, eps_ln, eps_gn, eps_l2,
             return lora_plain(xin, down[offs[j]:offs[j + 1]], up[:, offs[j]:offs[j + 1]], act)
 
         xx = B_.layer_norm(x, mega["ln1"][0][i], mega["ln1"][1][i], eps_ln)
-        if ln_out is not None:
+        if ln_out is not None and ln_out[0] is not None:
             xx = torch.where(keep, ln_out[0][i], xx)
         sh = state["att_shift"][i]
         mixed = xx[:, None] + mega["x_stack"][i][None] * (sh - xx)[:, None]
@@ -280,9 +321,14 @@ def layer_scan7_plain(mega, state, x, mask, rescale, eps_ln, eps_gn, eps_l2,
             heads(g), vec["k_k"][i].reshape(H, -1), vec["k_a"][i].reshape(H, -1),
             mega["gn"][0][i].reshape(H, -1), mega["gn"][1][i].reshape(H, -1),
             mega["r_k"][i], mask, eps_gn, eps_l2)
-        x = x + mat("att.Wo", y.reshape(bsz, C))
+        y = y.reshape(bsz, C)
+        if y_in is not None:
+            y = torch.where(keep, y_in[i].float(), y)
+        if staged is not None:
+            staged["y"] = y
+        x = x + mat("att.Wo", y)
         xx2 = B_.layer_norm(x, mega["ln2"][0][i], mega["ln2"][1][i], eps_ln)
-        if ln_out is not None:
+        if ln_out is not None and ln_out[1] is not None:
             xx2 = torch.where(keep, ln_out[1][i], xx2)
         fsh = state["ffn_shift"][i]
         kx2 = xx2 + vec["ffn_xk"][i] * (fsh - xx2)
@@ -326,7 +372,7 @@ def _operands(mega, dev):
 
 
 def layer_scan7(mega, state, x, mask, rescale, eps_ln, eps_gn, eps_l2, v0_carry=None,
-                phase_ns=None):
+                phase_ns=None, staged=None):
     """One decode token through every layer.
 
     ``state``: layer-stacked ``att_shift`` / ``ffn_shift`` ``[L, B, C]``
@@ -339,8 +385,10 @@ def layer_scan7(mega, state, x, mask, rescale, eps_ln, eps_gn, eps_l2, v0_carry=
     (``v_first``, layer 0's v, is needed when that is not 0) and returns
     ``(x, new_state, v_first)``. ``phase_ns``, an int64 tensor of
     ``1 + 5·L`` on the card, receives the device clock (ns) at the start
-    and after each of every layer's five phases (the kernel only; the
-    plain version leaves it untouched)."""
+    and after each of every layer's five phases (:data:`PHASES`) (the kernel only; the
+    plain version leaves it untouched). ``staged``, a dict, receives the
+    last layer's attention output ``y`` (bf16 ``[B, C]``, Wo's input; the
+    kernel only)."""
     if not x.is_cuda:
         return layer_scan7_plain(mega, state, x, mask, rescale, eps_ln, eps_gn, eps_l2,
                                  v0_carry)
@@ -376,18 +424,26 @@ def layer_scan7(mega, state, x, mask, rescale, eps_ln, eps_gn, eps_l2, v0_carry=
                 else v_first.float().contiguous().clone()),
                torch.empty(bsz, C, dtype=bf, device=dev),
                torch.empty(bsz, hidden, dtype=bf, device=dev)]
+    # split-K scratch, at least what the kernel's plan needs (it checks):
+    # a phase's rows (phase 1: Wr, Wk, Wv and up to four LoRA downs, each
+    # rounded up to 16-row tiles) in K-slices of 256 or more
+    rows = max(3 * C + D + 4 * 16, hidden)
+    part = torch.empty(bsz * C * rows // 256, dtype=f32, device=dev)
     ptrs = [0 if a is None else a.data_ptr() for a in ops] + [
         st["att_shift"].data_ptr(), st["ffn_shift"].data_ptr(), st["wkv"].data_ptr(),
         out["att_shift"].data_ptr(), out["ffn_shift"].data_ptr(), out["wkv"].data_ptr(),
         m.data_ptr(), x_io.data_ptr(), *(a.data_ptr() for a in scratch)]
     if phase_ns is not None:
-        if (phase_ns.dtype != torch.int64 or phase_ns.numel() != 1 + 5 * L
-                or phase_ns.device != dev):
-            raise ValueError(f"layer_scan7: phase_ns must be int64 [{1 + 5 * L}] on {dev}")
-    ptrs.append(0 if phase_ns is None else phase_ns.data_ptr())
-    ints = [L, bsz, C, H, hidden, D, *mega["lora_dims"], rescale or 0, first,
-            *(mega["forms"][f"{part}.{name}"] for part, name in _MATRICES)]
+        n_ns = 1 + len(PHASES) * L
+        if phase_ns.dtype != torch.int64 or phase_ns.numel() != n_ns or phase_ns.device != dev:
+            raise ValueError(f"layer_scan7: phase_ns must be int64 [{n_ns}] on {dev}")
     with torch.cuda.device(dev):
+        cnt = _counters(dev, -(-rows // 16))
+        ptrs += [0 if phase_ns is None else phase_ns.data_ptr(), part.data_ptr(),
+                 cnt.data_ptr()]
+        ints = [L, bsz, C, H, hidden, D, *mega["lora_dims"], rescale or 0, first,
+                *(mega["forms"][f"{p}.{name}"] for p, name in _MATRICES), part.numel(),
+                cnt.numel()]
         stream = torch.cuda.current_stream().cuda_stream
         err = _fn()((ctypes.c_void_p * len(ptrs))(*ptrs), (ctypes.c_int * len(ints))(*ints),
                     (ctypes.c_float * 3)(eps_ln, eps_gn, eps_l2), stream)
@@ -395,6 +451,8 @@ def layer_scan7(mega, state, x, mask, rescale, eps_ln, eps_gn, eps_l2, v0_carry=
     layer_scan7.shapes[(L, bsz, C)] += 1
     if err:
         raise RuntimeError(f"layer_scan7 launch failed: CUDA error {err}")
+    if staged is not None:  # y is stored with each run of 4 as 0, 2, 1, 3
+        staged["y"] = scratch[3].view(bsz, C // 4, 4)[:, :, [0, 2, 1, 3]].reshape(bsz, C)
     return (x_io, out) if v0_carry is None else (x_io, out, scratch[2])
 
 
