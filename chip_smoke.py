@@ -1140,11 +1140,10 @@ def mega_case(torch, mod, mega, state, x, mask, eps, bf16_peak, f32_peak, label)
     else:  # r, k, v, g, Wo, FFN receptance; FFN key and value; V6's adapters
         macs = 6 * C * C + 2 * C * hidden + 10 * mega["R"] * C + 2 * mega["D"] * C
         wkv_flops = 6 * H * hs * hs
-    # RWKV-7's matrices and LoRA pairs run on bf16 tensor cores (the codes
-    # exact in bf16), its WKV step in f32; versions 6 to 4 in f32 throughout
+    # the matrices, LoRA pairs and adapters run on bf16 tensor cores (the
+    # codes exact in bf16), the WKV step in f32
     flops = B * L * (2 * macs + wkv_flops)
-    ops = (((B * L * 2 * macs, bf16_peak), (B * L * wkv_flops, f32_peak)) if v7
-           else ((flops, f32_peak),))
+    ops = ((B * L * 2 * macs, bf16_peak), (B * L * wkv_flops, f32_peak))
     tag = "" if v7 else f"version={version},"
     case = dict(
         name=f"{scan.__name__}[{label},{tag}L={L},B={B},C={C},hidden={hidden}]", kernel=scan,

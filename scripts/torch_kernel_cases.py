@@ -15,16 +15,22 @@ all); ``--match``: keep the cases whose name contains one of the given
 substrings; ``--roots``: run the cases in each of these checkouts (each
 builds its own kernels), in the order given, e.g. ``_archive/parent,.,.,
 _archive/parent`` to compare two versions on one card in turns.
-``--stacks``: whole-stack RWKV-7 decode cases (``layer_scan7``) at the
-0.1B widths at full depth, one per form (GGML block types, ``INT8`` for
-an f16 file requantized at load, ``BF16`` for one loaded as it is; see
-``STACK_FORMS``) and each of ``--batches`` lanes: chip_smoke's
-``mega_case`` (held layer by layer against the plain version, then timed
-in a graph), with its per-phase µs. The files are built once, in worker
-processes, into ``ops/cuda/_build/stacks/`` of the checkout the script
-runs from, and every root reads them there; no model case runs unless
-``tags`` are given too. Prints one line per case and, last, one JSON
-line of every result.
+``--stacks``: whole-stack decode cases at each of ``--batches`` lanes:
+RWKV-7 (``layer_scan7``, row 4) at the 0.1B widths at full depth, one per
+form (GGML block types, ``INT8`` for an f16 file requantized at load,
+``BF16`` for one loaded as it is; see ``STACK_FORMS``), and RWKV-6, -5
+and -4 (``layer_scan56``, row 13) named ``v6-Q4_K`` and so on (see
+``STACKS56``: the 1.6B, 0.4B and 0.1B widths): chip_smoke's ``mega_case``
+(held layer by layer against the plain version, then timed in a graph),
+with its per-phase µs (the phases of the checkout's own ``PHASES``) and,
+for RWKV-7, a digest of the whole launch's outputs (x and the new state,
+bit for bit) on the case's inputs, which are the same in every checkout
+(a random state from numpy, seeded), so that two checkouts' outputs
+compare in one call. The files are built once, in worker processes, into
+``ops/cuda/_build/stacks/`` of the checkout the script runs from, and
+every root reads them there; no model case runs unless ``tags`` are
+given too. Prints one line per case and, last, one JSON line of every
+result.
 """
 
 import json
@@ -36,17 +42,28 @@ import sys
 STACK_FORMS = {"Q4_K": ("Q4_K", None), "Q5_K": ("Q5_K", None), "Q6_K": ("Q6_K", None),
                "Q3_K": ("Q3_K", None), "Q4_1": ("Q4_1", None), "Q2_K": ("Q2_K", None),
                "Q8_0": ("Q8_0", None), "INT8": (None, "INT8"), "BF16": (None, None)}
+# RWKV-6, -5 and -4 stacks: (version, block type, requant, layers); the
+# widths of chip_smoke's v6, v5 and v4 models (World 1.6B, 0.4B, 0.1B),
+# the 1.6B ones at full depth in Q4_K and Q8_0, 6 layers requantized to
+# Int8 and 4 in the slot forms no V6 model reaches (as chip_smoke's slot
+# stacks)
+STACKS56 = {"v6-Q4_K": (6, "Q4_K", None, 24), "v6-Q8_0": (6, "Q8_0", None, 24),
+            "v6-INT8": (6, None, "INT8", 6), "v6-Q6_K": (6, "Q6_K", None, 4),
+            "v6-Q4_0": (6, "Q4_0", None, 4), "v6-BF16": (6, None, None, 4),
+            "v5-Q4_K": (5, "Q4_K", None, 24), "v4-Q4_K": (4, "Q4_K", None, 12)}
 STACK_SEED = 120
 STACK_LANES = 16  # the random state's lanes; a case at B takes the first B
 
 
 def stack_file_path(stack_dir, form):
-    return os.path.join(stack_dir, f"v7-{form}-{STACK_SEED}.gguf")
+    name = form if form in STACKS56 else f"v7-{form}"
+    return os.path.join(stack_dir, f"{name}-{STACK_SEED}.gguf")
 
 
 def build_stack_file(stack_dir, form):
-    """Write the RWKV-7 0.1B file of ``form`` (chip_smoke's slot-stack
-    widths: full depth, a vocabulary of 256) unless it is there."""
+    """Write the file of stack ``form`` (RWKV-7: chip_smoke's slot-stack
+    widths at full depth; RWKV-6, -5, -4: STACKS56; a vocabulary of 256)
+    unless it is there."""
     path = stack_file_path(stack_dir, form)
     if os.path.exists(path):
         return path
@@ -56,9 +73,13 @@ def build_stack_file(stack_dir, form):
     from web_rwkv_gguf_tpu_torch.quant.ggml import GgmlDType
     from web_rwkv_gguf_tpu_torch.utils import synthetic
 
-    kind, _ = STACK_FORMS[form]
+    if form in STACKS56:
+        version, kind, _, layers = STACKS56[form]
+        widths = {**cs.MODELS[f"v{version}"]["widths"], "n_layer": layers, "n_vocab": 256}
+    else:
+        (kind, _), version, widths = STACK_FORMS[form], 7, cs.SLOT_WIDTHS["v7"]
     placement = dict(dtype=np.float16) if kind is None else dict(quantize=GgmlDType[kind])
-    raw = synthetic.make_v7_gguf(**cs.SLOT_WIDTHS["v7"], seed=STACK_SEED, **placement)
+    raw = getattr(synthetic, f"make_v{version}_gguf")(**widths, seed=STACK_SEED, **placement)
     with open(path + ".tmp", "wb") as f:
         f.write(bytes(raw))
     os.replace(path + ".tmp", path)
@@ -75,44 +96,67 @@ def build_stack_files(stack_dir, forms):
 
 
 def stack_cases(torch, stack_dir, forms, batches, bf16_peak, f32_peak):
-    """chip_smoke ``mega_case`` cases of the whole-stack RWKV-7 kernel: each
+    """chip_smoke ``mega_case`` cases of the whole-stack kernels: each
     form's stack on a random state (numpy, seeded: the same inputs in every
-    checkout) at each of ``batches`` lanes (lane 2 frozen at B=4, as
-    chip_smoke's hold_stack does)."""
+    checkout; RWKV-4's pp above its F32_MIN sentinel and bb positive) at
+    each of ``batches`` lanes (lane 2 frozen at B=4, as chip_smoke's
+    hold_stack does), each case with its phases' names."""
     import numpy as np
 
     import chip_smoke as cs
     from web_rwkv_gguf_tpu_torch import models
     from web_rwkv_gguf_tpu_torch.gguf import GgufFile
     from web_rwkv_gguf_tpu_torch.models.forward import GN_EPS, L2_EPS, LN_EPS
-    from web_rwkv_gguf_tpu_torch.ops.cuda import layer7
+    from web_rwkv_gguf_tpu_torch.ops.cuda import layer7, layer56
     from web_rwkv_gguf_tpu_torch.quant import QuantScheme
 
     cases = []
     for form in forms:
         with open(stack_file_path(stack_dir, form), "rb") as f:
             raw = f.read()
-        quant = STACK_FORMS[form][1]
+        v7 = form not in STACKS56
+        quant = STACK_FORMS[form][1] if v7 else STACKS56[form][2]
         info, params = models.load_model(
             GgufFile(raw), quant=QuantScheme[quant] if quant else None, device="cuda")
-        mega = models.prepare_decode(params, info, 4)["mega7"]
+        mega = models.prepare_decode(params, info, 4)["mega7" if v7 else "mega56"]
         L, C, H = info.num_layer, info.num_emb, info.num_head
         rng = np.random.default_rng(STACK_SEED)
         f = lambda *s: torch.from_numpy(  # noqa: E731
             (rng.standard_normal(s) * 0.5).astype(np.float32)).cuda()
-        state = {"att_shift": f(L, STACK_LANES, C), "wkv": f(L, STACK_LANES, H, 64, 64),
-                 "ffn_shift": f(L, STACK_LANES, C)}
+        state = {"att_shift": f(L, STACK_LANES, C), "ffn_shift": f(L, STACK_LANES, C)}
+        if v7 or mega["version"] != 4:
+            state["wkv"] = f(L, STACK_LANES, H, 64, 64)
+        else:
+            state.update(aa=f(L, STACK_LANES, C), bb=f(L, STACK_LANES, C).abs() + 0.1,
+                         pp=f(L, STACK_LANES, C))
         toks = torch.arange(STACK_LANES, device="cuda")[:, None] * 7 + 1
         dec_x = models.embed_tokens(params, toks)[:, 0]
+        mod = layer7 if v7 else layer56
+        eps = (LN_EPS, GN_EPS, L2_EPS) if v7 else (LN_EPS, GN_EPS)
         for B in batches:
             mask = (torch.tensor([1.0, 1.0, 0.0, 1.0], device="cuda") if B == 4
                     else torch.ones(B, device="cuda"))
-            case = cs.mega_case(torch, layer7, mega,
+            case = cs.mega_case(torch, mod, mega,
                                 {k: v[:, :B].contiguous() for k, v in state.items()},
-                                dec_x[:B].contiguous(), mask, (LN_EPS, GN_EPS, L2_EPS),
-                                bf16_peak, f32_peak, f"stack {form}")
+                                dec_x[:B].contiguous(), mask, eps, bf16_peak, f32_peak,
+                                f"stack {form}")
+            case["phases"] = layer7.PHASES if v7 else layer56.PHASES[mega["version"]]
+            case["digest"] = v7
             cases.append(case)
     return cases
+
+
+def digest(torch, case):
+    """sha256 (16 hex digits) of one launch's outputs on the case's first
+    inputs: x and the new state, their bytes in order."""
+    import hashlib
+
+    x, state = case["kernel"](*case["make_args"](0))
+    torch.cuda.synchronize()
+    h = hashlib.sha256()
+    for t in (x, *(state[k] for k in sorted(state))):
+        h.update(t.contiguous().cpu().numpy().tobytes())
+    return h.hexdigest()[:16]
 
 
 def phase_us(torch, case, n_phases, reps=5):
@@ -150,13 +194,23 @@ def run_here(tags, match, stacks=(), batches=(), stack_dir=None):
     _, _, full_rows = cs.full_input(runtime, _bucket, rng, cs.VOCAB)
     kmods = {"matmul": matmul, "wkv7": wkv7, "wkv6": wkv6, "wkv4": wkv4}
     out, seen = [], set()
+    # the fixed cost of a launch as the cases are timed: an empty one (a
+    # one-element fill), 64 to a graph
+    one = torch.zeros(1, device="cuda")
+    empty_ms = cs.time_graph(torch, [one.zero_] * 64, reps=20)
+    print(f"empty launch: {empty_ms * 1e3:.4f} us in a graph", flush=True)
+    out.append({"name": "empty launch", "ms": empty_ms})
     for case in (stack_cases(torch, stack_dir, stacks, batches, bf16_peak, f32_peak)
                  if stacks else ()):
         try:
             fields = cs.run_kernel_case(torch, case, hbm)
-            fields["phase_us"] = phase_us(torch, case, len(layer7.PHASES))
+            fields["phase_us"] = phase_us(torch, case, len(case["phases"]))
+            fields["phases"] = list(case["phases"])
+            if case["digest"]:
+                fields["digest"] = digest(torch, case)
             print(f"{case['name']}: µs per layer by phase: " + ", ".join(
-                f"{n} {t:.2f}" for n, t in zip(layer7.PHASES, fields["phase_us"])), flush=True)
+                f"{n} {t:.2f}" for n, t in zip(case["phases"], fields["phase_us"]))
+                + (f"; outputs {fields['digest']}" if "digest" in fields else ""), flush=True)
         except AssertionError as e:
             fields = {"failed": str(e)}
         out.append({"name": case["name"], **fields})
@@ -188,8 +242,9 @@ def main():
     tags = [a for a in args if a != "--one"]
     match = opts["--match"] or []
     stacks = opts["--stacks"] or []
-    if any(f not in STACK_FORMS for f in stacks):
-        raise SystemExit(f"torch_kernel_cases: stack forms are named from {list(STACK_FORMS)}")
+    if any(f not in STACK_FORMS and f not in STACKS56 for f in stacks):
+        raise SystemExit(f"torch_kernel_cases: stacks are named from {list(STACK_FORMS)} "
+                         f"and {list(STACKS56)}")
     batches = [int(b) for b in opts["--batches"] or ("4", "1", "16")]
     stack_dir = (opts["--stack-dir"] or [os.path.abspath(os.path.join(
         "web_rwkv_gguf_tpu_torch", "ops", "cuda", "_build", "stacks"))])[0]
@@ -218,6 +273,9 @@ def main():
         summary.append(json.loads(proc.stdout.strip().splitlines()[-1]))
     for run in summary:
         for c in run["cases"]:
+            if c["name"] == "empty launch":
+                print(f"{run['root']}: empty launch: {c['ms'] * 1e3:.4f} us")
+                continue
             if "failed" in c:
                 print(f"{run['root']}: {c['name']}: FAILED: {c['failed']}")
                 continue
@@ -227,7 +285,16 @@ def main():
                   f"{'' if lib is None else f', library {lib * 1e3:.4f} us'}{ratio}, bound "
                   f"{c['bound_ms'] * 1e3:.4f} us"
                   + ("" if "phase_us" not in c else ", µs per layer by phase "
-                     + " / ".join(f"{t:.2f}" for t in c["phase_us"])))
+                     + " / ".join(f"{t:.2f}" for t in c["phase_us"]))
+                  + ("" if "digest" not in c else f", outputs {c['digest']}"))
+    digests = {}  # the whole-stack RWKV-7 outputs of every root, by case
+    for run in summary:
+        for c in run["cases"]:
+            if "digest" in c:
+                digests.setdefault(c["name"], set()).add(c["digest"])
+    for name, seen in digests.items():
+        print(f"{name}: outputs {'the same in every root' if len(seen) == 1 else 'DIFFER'} "
+              f"({', '.join(sorted(seen))})")
     print(json.dumps(summary), flush=True)
     return 0
 

@@ -372,7 +372,7 @@ def _v6_model(card, seed=6):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("B", [1, 3, 9])
+@pytest.mark.parametrize("B", LAYER7_BATCHES)
 def test_layer_scan56_on_card(card, B):
     """The whole-stack V6 decode kernel against its plain version on a
     two-layer model (ranks 32/64) from a random state, one lane frozen at
@@ -542,7 +542,7 @@ def _random_state56(info, B, dev, seed):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("B", [1, 3, 9])
+@pytest.mark.parametrize("B", LAYER7_BATCHES)
 @pytest.mark.parametrize("version", [5, 4])
 def test_layer_scan56_v5_v4_on_card(card, version, B):
     """The whole-stack decode kernel's version-5 and version-4 bodies
@@ -779,13 +779,47 @@ def test_layer_scan7_same_signed_ffn_on_card(card, kind, B):
     _hold_stack_layers(card, "v7", kind, B, flips=False, ffn_gain=16.0)
 
 
+# every slot form an RWKV-6 stack takes (layer7.stack_matrix; Q4_0 and Q4_1
+# as f32-scale nibbles)
+LAYER56_FORMS = ["Q4_K", "Q5_K", "Q2_K", "Q8_0", "Q6_K", "Q3_K", "Q4_0", "Q4_1", "INT8", "BF16"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B", LAYER7_BATCHES)
+@pytest.mark.parametrize("kind", LAYER56_FORMS)
+def test_layer_scan56_every_form_on_card(card, kind, B):
+    """The RWKV-6 whole-stack kernel on a stack of every slot form at every
+    NB template, layer by layer as test_layer_scan_new_slots_on_card holds
+    a version 6 stack (2^-8·max of each layer, x through its staged
+    operands where the other order of f32 sums flips bf16 roundings; a
+    frozen lane keeps its state)."""
+    _hold_stack_layers(card, "v6", kind, B, flips=True)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B", [4, 16])
+@pytest.mark.parametrize("kind", ["Q4_K", "INT8", "BF16"])
+def test_layer_scan56_same_signed_ffn_on_card(card, kind, B):
+    """test_layer_scan7_same_signed_ffn_on_card for RWKV-6: LN2's weight 16
+    times larger and its bias 4 up, so the FFN value takes large
+    same-signed relu² inputs (their f32 sums of 16-element tensor-core
+    terms must not drift); held as test_layer_scan_new_slots_on_card holds
+    a version 6 layer: x within 2^-8·max of the plain version, or within 4
+    times that with its staged f32 products within 2^-8·max and x within
+    1e-4·max of its replay from the kernel's own staged operands (which a
+    drifting sum would leave); the large relu² inputs flip bf16 roundings
+    of khid, and the FFN value carries them to x (seen: Q4_K at B=4, 2 of
+    768 elements at 1.41 of the bound)."""
+    _hold_stack_layers(card, "v6", kind, B, flips=True, ffn_gain=16.0)
+
+
 def _hold_stack_layers(card, version, kind, B, flips, ffn_gain=None):
     """Each layer of a two-layer stack of ``kind`` (a GGML block type,
     INT8 for an f16 file requantized at load, BF16 for an f16 file loaded
     as it is) as a one-layer launch against its plain version (module
     tests above); ``flips``: version 6 layers may pass through their
-    staged operands; ``ffn_gain``: an RWKV-7 stack's LN2 weight times
-    that and its bias 4 up."""
+    staged operands; ``ffn_gain``: the stack's LN2 weight times that and
+    its bias 4 up."""
     from web_rwkv_gguf_tpu_torch.gguf import GgufFile
     from web_rwkv_gguf_tpu_torch.models import embed_tokens, load_model, prepare_decode
     from web_rwkv_gguf_tpu_torch.models.forward import GN_EPS, L2_EPS, LN_EPS
@@ -863,14 +897,18 @@ def _grouped(kind, m, k, seed, dev):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("n", [1, 3, 8])
+@pytest.mark.parametrize("n", range(1, 9))
 @pytest.mark.parametrize("kind,m,k", [("Q4_K", 768, 768), ("Q4_0", 768, 768),
                                       ("Q5_K", 768, 768), ("Q6_K", 768, 768),
                                       ("Q8_0", 768, 768), ("INT8", 768, 768),
-                                      ("Q4_K", 2048, 2048), ("Q2_K", 256, 512)])
+                                      ("Q4_K", 2048, 2048), ("Q2_K", 256, 512),
+                                      ("Q8_0", 768, 800), ("Q8_0", 256, 4128),
+                                      ("Q4_0", 256, 4160)])
 def test_quant_gemv_grouped_on_card(card, kind, m, k, n):
     """The grouped r/k/v gemv against its plain version, each matrix with
-    its own input rows (Q2_K: byte codes in 16-groups)."""
+    its own input rows (Q2_K: byte codes in 16-groups; K = 800 in one
+    slice that is no multiple of 256, K = 4128 and 4160 in two whole
+    slices of 2048 and a short one)."""
     mats, grouped = _grouped(kind, m, k, m + k, card)
     assert grouped is not None
     xs = torch.stack([_x(n, k, n + i, card) for i in range(3)])

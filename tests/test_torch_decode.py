@@ -248,8 +248,9 @@ def test_layer_scan7_plain_takes_the_attention_output(port_model, monkeypatch, B
 def test_layer_scan7_counters_are_kept_per_device_and_size(monkeypatch):
     """The split-K counters: one zero buffer a device and size, the same
     for every launch at that size (the kernel leaves it zero, so it is
-    never cleared again), another zero one at another size."""
-    from web_rwkv_gguf_tpu_torch.ops.cuda import layer7
+    never cleared again), another zero one at another size; the RWKV-6/5/4
+    kernel's wrapper takes its counters from the same buffers."""
+    from web_rwkv_gguf_tpu_torch.ops.cuda import layer7, layer56
 
     monkeypatch.setattr(layer7, "_COUNTERS", {})
     dev = torch.device("cpu")
@@ -260,6 +261,7 @@ def test_layer_scan7_counters_are_kept_per_device_and_size(monkeypatch):
     b = layer7._counters(dev, 40)
     assert b is not a and b.numel() == 40 and not b.any()
     assert layer7._counters(dev, 12) is a
+    assert layer56._counters(dev, 12) is a and layer56._counters(dev, 40) is b
 
 
 def test_prepare_decode_takes_only_what_the_kernel_runs(port_model):

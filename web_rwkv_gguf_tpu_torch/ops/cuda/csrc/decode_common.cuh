@@ -1,8 +1,9 @@
 // Device code shared by the whole-stack decode kernels (layer7.cu, layer56.cu):
-// quantized and dense row gemvs for up to 16 lanes in every matrix form the
-// kernels take (MatForm), LayerNorm rows, block and warp sums, staging
-// through L2, L2 prefetch, and the device clock. Each kernel is one
-// cooperative launch of 256-thread blocks that walks the layers.
+// the matrix forms the kernels take (MatForm) and their slot operands,
+// quantized and dense row gemvs for up to 16 lanes in every form (layer7.cu's
+// row path), block and warp sums, L2 prefetch, and the device clock. Each
+// kernel is one cooperative launch of 256-thread blocks that walks the
+// layers.
 //
 // Nibble rows (Q4_K and the f32-scale nibbles of Q4_0 / Q4_1) use the port's
 // split-halves layout (models/matrix.py): code byte j of a row holds
@@ -102,42 +103,6 @@ __device__ __forceinline__ void bf16x8(const uint4 u, float* f) {
     f[2 * i] = __uint_as_float(w[i] << 16);
     f[2 * i + 1] = __uint_as_float(w[i] & 0xFFFF0000u);
   }
-}
-
-// Copy n bf16 (n % 8 == 0) written earlier in this launch into shared memory.
-__device__ void stage(__nv_bfloat16* dst, const __nv_bfloat16* src, int n) {
-  const uint4* s = reinterpret_cast<const uint4*>(src);
-  uint4* d = reinterpret_cast<uint4*>(dst);
-  for (int i = threadIdx.x; i < n / 8; i += blockDim.x) d[i] = __ldcg(s + i);
-  __syncthreads();
-}
-
-// LayerNorm of every lane's row of x [B, C] (written in this launch) into
-// rows [B, C] (shared f32), one warp per lane: two-pass mean and variance,
-// as the plain version computes them.
-__device__ void layer_norm_rows(const float* x, int B, int C, float eps, const float* w,
-                                const float* bias, float* rows) {
-  const int lane = threadIdx.x & 31;
-  for (int b = threadIdx.x >> 5; b < B; b += kWarps) {
-    const float* xr = x + (size_t)b * C;
-    float* row = rows + (size_t)b * C;
-    float s = 0.f;
-#pragma unroll 8
-    for (int c = lane; c < C; c += 32) {
-      const float v = __ldcg(xr + c);
-      row[c] = v;
-      s += v;
-    }
-    const float mean = warp_sum(s) / C;
-    float q = 0.f;
-    for (int c = lane; c < C; c += 32) {
-      const float d = row[c] - mean;
-      q += d * d;
-    }
-    const float rs = rsqrtf(warp_sum(q) / C + eps);
-    for (int c = lane; c < C; c += 32) row[c] = (row[c] - mean) * rs * w[c] + bias[c];
-  }
-  __syncthreads();
 }
 
 // Ask L2 to fetch [p, p + bytes), the lines spread over the whole grid.

@@ -13,36 +13,40 @@
 // [m, G] rows per matrix.
 //
 // Numerics, as the TPU kernel computes them: x rounded to bf16 (by the
-// caller), codes exact, per group the f32 sum of q * x times the f32 scale
-// product s, minus the offset times the group's f32 sum of x (the factored
-// form s * sum q x - mn * sum x; the int8 kind's added offset comes as mn =
-// -min, exact). The sums run per 16-code chunk (a chunk never straddles a
-// group: groups are 16, 32 or 128 elements), so the group sums are taken in
-// another order than the plain version's: f32 rounding only.
+// caller), codes exact, per 16-element step of a group the f32 sum of q * x
+// (one tensor-core product from a zero accumulator: the codes are integers
+// that bf16 holds exactly) times the f32 scale product s, minus the offset
+// times the step's f32 sum of x (the factored form s * sum q x - mn * sum x;
+// the int8 kind's added offset comes as mn = -min, exact), the steps added
+// in f32 (stack_mma.cuh's class; groups are 16, 32 or 128 elements, so a
+// step never straddles one). The group sums are taken in another order than
+// the plain version's: f32 rounding only.
 //
 // Bound on this card: bytes. At n <= 8 each code byte feeds at most 16
 // multiply-adds, far below the ~295 operations per byte where the H100 stops
 // being memory-bound, so the least time is the three matrices' code and
-// scale bytes over HBM bandwidth. Design, as qgemv.cuh: one warp per output
-// row streams the row's codes 16 bytes per lane (one 128-bit load), applies
-// all n inputs to each decoded chunk while it sits in registers, and x is
-// staged once per block in shared memory as f32; a second grid axis picks
-// the matrix, its input rows and its output rows, so the three matrices'
-// 3 * m / 8 blocks fill the card together (one launch where three would each
-// leave most SMs idle at m = 768). Speed work (several rows per warp, native
-// scale factors instead of f32 products) is later work.
+// scale bytes over HBM bandwidth; at the main path's shapes (3 x [768, 768],
+// n = 1: under a microsecond of bytes) the launch and one chain of loads
+// are the time. Design: the tensor-core tile body of the whole-stack
+// kernels (stack_mma.cuh's warp_tile, in the f32-scale byte and nibble slot
+// forms): one block a 16-row tile of one matrix (3 * m / 16 blocks, one
+// wave at m = 768). Its code rows, a K-slice of up to 2048 elements at a
+// time, land in shared memory by cp.async (16 bytes a thread; two buffers:
+// slice s + 2's copies go out when slice s's products are done); while
+// they land the block stages the matrix's x once, as bf16 in the
+// fragments' k order with each step's sum, and builds each slice's table
+// of (s, mn) per row and step from the f32 scales; its 8 warps split the
+// steps of every slice on the tensor cores (mma.sync m16n8k16), and their
+// sums meet in shared memory in warp order. A K that is no multiple of the
+// slice ends in a shorter slice: its positions past K stage zero and take
+// zero factors.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
-
-#include "qscales.cuh"
+#include "stack_mma.cuh"
 
 namespace {
 
-constexpr int kMats = 3;                   // matrices one launch serves
-constexpr int kGroupedWarps = 8;           // output rows per block, one warp each
-constexpr int kGroupedSmem = 232448;       // bytes of shared memory a block may use
+constexpr int kMats = 3;         // matrices one launch serves
+constexpr int kSliceMax = 2048;  // elements of a K-slice
 
 struct Grouped {
   const uint8_t* codes[kMats];  // each [m, k/2] split-halves nibbles or [m, k] bytes
@@ -50,134 +54,191 @@ struct Grouped {
   const float* offsets;         // [kMats, m, G] or null
 };
 
-// sum_e w[e] * x[e] and sum_e x[e] over a 16-element chunk of row t of the
-// staged x, starting at element j0 (a multiple of 4)
-__device__ __forceinline__ void chunk_dot(const float* q, const float4* xs4, int at4, float& p,
-                                          float& sx) {
-  p = 0.f;
-  sx = 0.f;
+// A launch's geometry: the slice, the slices, and the shared-memory regions.
+struct Geo {
+  int ki, S, steps, nbuf, buf;
+  int off_x, off_xsum, off_tab, off_red, smem;
+};
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(stk::smem_u32(dst)), "l"(src)
+               : "memory");
+}
+
+__host__ __device__ inline int round_up(int v, int a) { return (v + a - 1) / a * a; }
+
+// valid elements of slice s (nibbles: of each of its two ranges, in bytes
+// of the row, times 2)
+__device__ __forceinline__ int slice_len(int k, int ki, int s) {
+  return min(ki, k - s * ki);
+}
+
+template <int NB>
+__global__ void __launch_bounds__(kThreads)
+gemv_grouped_kernel(const __nv_bfloat16* __restrict__ x, const Grouped g, float* __restrict__ y,
+                    int m, int k, int gs, int kind, const Geo geo) {
+  extern __shared__ __align__(128) uint8_t smem[];
+  const int mat = blockIdx.y, tile = blockIdx.x;
+  const bool nib = kind == kNib;
+  const int G = k / gs, ki = geo.ki, S = geo.S, steps = geo.steps;
+  const int xstride = ki + stk::kXPad;
+  __nv_bfloat16* xs = reinterpret_cast<__nv_bfloat16*>(smem + geo.off_x);  // [S][NB][xstride]
+  float* xsum = reinterpret_cast<float*>(smem + geo.off_xsum);          // [S][steps][NB]
+  float2* tab = reinterpret_cast<float2*>(smem + geo.off_tab);          // [16][tab_stride]
+  float* red = reinterpret_cast<float*>(smem + geo.off_red);            // [kWarps][16][NB]
+  stk::Job j;
+  j.w = QMat{g.codes[mat], nullptr, nullptr, nullptr, nullptr, nib ? kFormQSNib : kFormQS,
+             kind == kI8, gs};
+  j.K = k;
+  j.ki = ki;
+  j.S = S;
+  j.steps = steps;
+  j.nlo = nib ? ki / 32 : steps;
+  j.code = kind == kI8 ? stk::kCodeI8 : stk::kCodeU8;
+  j.offs = g.offsets != nullptr;
+  const int half = ki / 2;  // a nibble slice's range
+  const int cb = nib ? half : ki, cs = stk::code_stride(j.w.form, ki);
+  const int row_cb = nib ? k / 2 : k;
+  // slice s's code rows into buffer s % nbuf, 16 bytes a thread; one
+  // commit group
+  auto issue = [&](int s) {
+    uint8_t* buf = smem + (s % geo.nbuf) * geo.buf;
+    const int chunks = (nib ? slice_len(k, ki, s) / 2 : slice_len(k, ki, s)) / 16;  // a row's
+    for (int i = threadIdx.x; i < stk::kRows * chunks; i += kThreads) {
+      const int r = i / chunks, c = i - r * chunks;
+      const size_t row = min(tile * stk::kRows + r, m - 1);
+      cp_async16(buf + r * cs + 16 * c, j.w.codes + row * row_cb + (size_t)s * cb + 16 * c);
+    }
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+  };
+  for (int s = 0; s < geo.nbuf; ++s) issue(s);
+  // slice s's (s, mn) of every row and step, zero past K: kBatch entries a
+  // thread loaded at a time (f), then stored in the table
+  const int ts = stk::tab_stride(steps), ents = stk::kRows * steps;
+  constexpr int kBatch = 4;
+  float2 f[kBatch];
+  auto load_tab = [&](int s, int i0) {
+    const int len = slice_len(k, ki, s);
+#pragma unroll
+    for (int u = 0; u < kBatch; ++u) {
+      const int i = i0 + u * kThreads, r = i / steps, st = i - r * steps;
+      const int off = nib ? (st < j.nlo ? 16 * st : 16 * (st - j.nlo)) : 16 * st;
+      f[u] = make_float2(0.f, 0.f);
+      if (i < ents && (nib ? 2 * off < len : off < len)) {
+        const size_t at = ((size_t)mat * m + min(tile * stk::kRows + r, m - 1)) * G +
+                          stk::step_elem(j, s, st) / gs;
+        f[u] = make_float2(__ldg(g.scales + at),
+                           g.offsets != nullptr ? __ldg(g.offsets + at) : 0.f);
+      }
+    }
+  };
+  auto store_tab = [&](int i0) {
+#pragma unroll
+    for (int u = 0; u < kBatch; ++u) {
+      const int i = i0 + u * kThreads, r = i / steps;
+      if (i < ents) tab[r * ts + (i - r * steps)] = f[u];
+    }
+  };
+  load_tab(0, threadIdx.x);  // its loads in flight with x's
+  // x of this matrix, once: position i of slice s of lane n as bf16 in the
+  // staged order (runs of 4 as 0, 2, 1, 3), zero past K; each step's sum
+  const __nv_bfloat16* xm = x + (size_t)mat * NB * k;
+  const int runs = ki / 4, total = S * NB * runs;
+  for (int q0 = 0; q0 < total; q0 += kThreads) {
+    const int q = q0 + threadIdx.x;  // (s, n, run), run fastest
+    uint2 u = make_uint2(0u, 0u);
+    const int run = q % runs, sn = q / runs, n = sn % NB, s = sn / NB;
+    if (q < total) {
+      const int i = 4 * run, len = slice_len(k, ki, s);
+      int e = -1;  // the element of position i, -1 past K
+      if (nib) {
+        const int r = i < half ? i : i - half;
+        if (2 * r < len) e = (i < half ? 0 : k / 2) + s * half + r;
+      } else if (i < len) {
+        e = s * ki + i;
+      }
+      if (e >= 0) {
+        const uint2 v = *reinterpret_cast<const uint2*>(xm + (size_t)n * k + e);
+        u = make_uint2(__byte_perm(v.x, v.y, 0x5410), __byte_perm(v.x, v.y, 0x7632));
+      }
+      *reinterpret_cast<uint2*>(xs + ((size_t)s * NB + n) * xstride + i) = u;
+    }
+    // the step's 4 runs are neighbouring threads (runs % 4 == 0)
+    float v = stk::bf16_sum4(u);
+    v += __shfl_xor_sync(0xffffffffu, v, 1);
+    v += __shfl_xor_sync(0xffffffffu, v, 2);
+    if (q < total && (run & 3) == 0) xsum[((size_t)s * steps + run / 4) * NB + n] = v;
+  }
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int gq = lane >> 2, t = lane & 3;
+  float tot[4] = {0.f, 0.f, 0.f, 0.f};  // rows gq, gq + 8 by lanes 2t, 2t + 1
+  for (int s = 0; s < S; ++s) {
+    if (s > 0) __syncthreads();  // the previous slice's readers of tab are done
+    for (int i0 = threadIdx.x; i0 < ents; i0 += kBatch * kThreads) {
+      if (s > 0 || i0 != (int)threadIdx.x) load_tab(s, i0);
+      store_tab(i0);
+    }
+    // slice s's copies (at most the next slice's still in flight)
+    if (s + 1 < S) asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+    else asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+    __syncthreads();
+    const uint8_t* buf = smem + (s % geo.nbuf) * geo.buf;
+    float acc[1][4];
+    stk::warp_tile_by_mode<NB>(j, buf, tab, xs + (size_t)s * NB * xstride,
+                               xsum + (size_t)s * steps * NB, acc);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) tot[i] += acc[0][i];
+    if (s + geo.nbuf < S) {
+      __syncthreads();  // every warp is done with the buffer
+      issue(s + geo.nbuf);
+    }
+  }
+  // the warps' sums, in warp order
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
-    const float4 xv = xs4[at4 + i];
-    p += q[4 * i] * xv.x + q[4 * i + 1] * xv.y + q[4 * i + 2] * xv.z + q[4 * i + 3] * xv.w;
-    sx += (xv.x + xv.y) + (xv.z + xv.w);
+    const int r = gq + 8 * (i >> 1), n = 2 * t + (i & 1);
+    if (n < NB) red[(warp * stk::kRows + r) * NB + n] = tot[i];
   }
-}
-
-template <int N, int kCodes>
-__global__ void __launch_bounds__(kGroupedWarps * 32)
-gemv_grouped_kernel(const __nv_bfloat16* __restrict__ x, const Grouped g,
-                    float* __restrict__ y, int m, int k, int gs) {
-  extern __shared__ float4 xs4[];  // this matrix's [N, k] input rows in f32
-  float* xs = reinterpret_cast<float*>(xs4);
-  const int mat = blockIdx.y;
-  const __nv_bfloat16* xm = x + (size_t)mat * N * k;
-  for (int i = threadIdx.x; i < N * k; i += blockDim.x) xs[i] = __bfloat162float(xm[i]);
   __syncthreads();
-
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int row = blockIdx.x * kGroupedWarps + warp;
-  if (row >= m) return;
-
-  const int G = k / gs;
-  const F32Scales sc{g.scales + (size_t)mat * m * G,
-                     g.offsets != nullptr ? g.offsets + (size_t)mat * m * G : nullptr, G};
-  float acc[N];
-#pragma unroll
-  for (int t = 0; t < N; ++t) acc[t] = 0.f;
-
-  if constexpr (kCodes == kNib) {
-    const int half = k >> 1;  // code bytes per row
-    const uint8_t* crow = g.codes[mat] + (size_t)row * half;
-    for (int c = lane; c < (half >> 4); c += 32) {
-      const int j0 = c << 4;  // elements j0.. (low nibbles) and j0 + K/2.. (high)
-      const uint4 raw = *reinterpret_cast<const uint4*>(crow + j0);
-      float slo, mlo, shi, mhi;
-      sc.get(row, j0 / gs, slo, mlo);
-      sc.get(row, (j0 + half) / gs, shi, mhi);
-      const uint32_t words[4] = {raw.x, raw.y, raw.z, raw.w};
-      float qlo[16], qhi[16];
-#pragma unroll
-      for (int q = 0; q < 4; ++q) {
-#pragma unroll
-        for (int b = 0; b < 4; ++b) {
-          const uint32_t byte = (words[q] >> (8 * b)) & 0xFFu;
-          qlo[4 * q + b] = (float)(byte & 0xFu);
-          qhi[4 * q + b] = (float)(byte >> 4);
-        }
-      }
-#pragma unroll
-      for (int t = 0; t < N; ++t) {
-        float plo, xlo, phi, xhi;
-        chunk_dot(qlo, xs4, (t * k + j0) >> 2, plo, xlo);
-        chunk_dot(qhi, xs4, (t * k + half + j0) >> 2, phi, xhi);
-        acc[t] += (plo * slo - mlo * xlo) + (phi * shi - mhi * xhi);
-      }
-    }
-  } else {
-    const uint8_t* crow = g.codes[mat] + (size_t)row * k;
-    for (int c = lane; c < (k >> 4); c += 32) {
-      const int j0 = c << 4;  // elements j0 .. j0 + 15, within one group
-      const uint4 raw = *reinterpret_cast<const uint4*>(crow + j0);
-      float s, off;
-      sc.get(row, j0 / gs, s, off);
-      const uint32_t words[4] = {raw.x, raw.y, raw.z, raw.w};
-      float qv[16];
-#pragma unroll
-      for (int q = 0; q < 4; ++q) {
-#pragma unroll
-        for (int b = 0; b < 4; ++b) qv[4 * q + b] = code_at<kCodes>(words[q], b);
-      }
-#pragma unroll
-      for (int t = 0; t < N; ++t) {
-        float p, sx;
-        chunk_dot(qv, xs4, (t * k + j0) >> 2, p, sx);
-        acc[t] += p * s - off * sx;
-      }
-    }
-  }
-
-#pragma unroll
-  for (int t = 0; t < N; ++t) {
-    float v = acc[t];
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
-    if (lane == 0) y[((size_t)mat * N + t) * m + row] = v;
+  if ((int)threadIdx.x < stk::kRows * NB) {
+    const int r = threadIdx.x / NB, n = threadIdx.x - r * NB;
+    const int row = tile * stk::kRows + r;
+    float v = 0.f;
+    for (int w = 0; w < kWarps; ++w) v += red[(w * stk::kRows + r) * NB + n];
+    if (row < m) y[((size_t)mat * NB + n) * m + row] = v;
   }
 }
 
-template <int N, int kCodes>
-cudaError_t launch(const void* x, const Grouped& g, void* y, int m, int k, int gs,
+Geo geometry(int n, int k, bool nib) {
+  Geo geo;
+  geo.ki = k <= kSliceMax ? k : kSliceMax;
+  geo.S = (k + geo.ki - 1) / geo.ki;
+  geo.steps = geo.ki / 16;
+  geo.nbuf = geo.S < 2 ? geo.S : 2;
+  const int form = nib ? kFormQSNib : kFormQS;
+  geo.buf = round_up(stk::kRows * stk::code_stride(form, geo.ki), 128);
+  geo.off_x = geo.nbuf * geo.buf;
+  geo.off_xsum = geo.off_x + round_up(geo.S * n * (geo.ki + stk::kXPad) * 2, 128);
+  geo.off_tab = geo.off_xsum + round_up(geo.S * geo.steps * n * 4, 128);
+  geo.off_red = geo.off_tab + round_up(stk::kRows * stk::tab_stride(geo.steps) * 8, 128);
+  geo.smem = geo.off_red + kWarps * stk::kRows * n * 4;
+  return geo;
+}
+
+template <int NB>
+cudaError_t launch(const void* x, const Grouped& g, void* y, int m, int k, int gs, int kind,
                    cudaStream_t stream) {
-  const size_t smem = (size_t)N * k * sizeof(float);
-  if (smem > (size_t)kGroupedSmem) return cudaErrorInvalidValue;
-  if (smem > 48 * 1024) {
-    cudaError_t err = cudaFuncSetAttribute(gemv_grouped_kernel<N, kCodes>,
-                                           cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                           (int)smem);
+  const Geo geo = geometry(NB, k, kind == kNib);
+  if (geo.smem > kMaxSmem) return cudaErrorInvalidValue;
+  if (geo.smem > 48 * 1024) {
+    cudaError_t err = cudaFuncSetAttribute(gemv_grouped_kernel<NB>,
+                                           cudaFuncAttributeMaxDynamicSharedMemorySize, geo.smem);
     if (err != cudaSuccess) return err;
   }
-  const dim3 grid((m + kGroupedWarps - 1) / kGroupedWarps, kMats);
-  gemv_grouped_kernel<N, kCodes><<<grid, kGroupedWarps * 32, smem, stream>>>(
-      static_cast<const __nv_bfloat16*>(x), g, static_cast<float*>(y), m, k, gs);
+  const dim3 grid((m + stk::kRows - 1) / stk::kRows, kMats);
+  gemv_grouped_kernel<NB><<<grid, kThreads, geo.smem, stream>>>(
+      static_cast<const __nv_bfloat16*>(x), g, static_cast<float*>(y), m, k, gs, kind, geo);
   return cudaGetLastError();
-}
-
-template <int kCodes>
-int dispatch(const void* x, const Grouped& g, void* y, int n, int m, int k, int gs,
-             cudaStream_t s) {
-  switch (n) {
-    case 1: return (int)launch<1, kCodes>(x, g, y, m, k, gs, s);
-    case 2: return (int)launch<2, kCodes>(x, g, y, m, k, gs, s);
-    case 3: return (int)launch<3, kCodes>(x, g, y, m, k, gs, s);
-    case 4: return (int)launch<4, kCodes>(x, g, y, m, k, gs, s);
-    case 5: return (int)launch<5, kCodes>(x, g, y, m, k, gs, s);
-    case 6: return (int)launch<6, kCodes>(x, g, y, m, k, gs, s);
-    case 7: return (int)launch<7, kCodes>(x, g, y, m, k, gs, s);
-    case 8: return (int)launch<8, kCodes>(x, g, y, m, k, gs, s);
-    default: return (int)cudaErrorInvalidValue;
-  }
 }
 
 }  // namespace
@@ -192,17 +253,23 @@ extern "C" int quant_gemv_grouped(const void* x, const void* codes_r, const void
                                   const void* codes_v, const void* scales, const void* offsets,
                                   void* y, int n, int m, int k, int gs, int code_kind,
                                   void* stream) {
-  if (m <= 0 || k % 32 || (gs != 16 && gs != 32 && gs != 128) || k % gs ||
-      (code_kind == kNib && (gs != 32 || k % 64)))
+  if (m <= 0 || k <= 0 || k % 32 || (gs != 16 && gs != 32 && gs != 128) || k % gs ||
+      (code_kind == kNib && (gs != 32 || k % 64)) ||
+      (code_kind != kNib && code_kind != kU8 && code_kind != kI8))
     return (int)cudaErrorInvalidValue;
   const Grouped g{{static_cast<const uint8_t*>(codes_r), static_cast<const uint8_t*>(codes_k),
                    static_cast<const uint8_t*>(codes_v)},
                   static_cast<const float*>(scales), static_cast<const float*>(offsets)};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (code_kind) {
-    case kNib: return dispatch<kNib>(x, g, y, n, m, k, gs, s);
-    case kU8: return dispatch<kU8>(x, g, y, n, m, k, gs, s);
-    case kI8: return dispatch<kI8>(x, g, y, n, m, k, gs, s);
+  switch (n) {
+    case 1: return (int)launch<1>(x, g, y, m, k, gs, code_kind, s);
+    case 2: return (int)launch<2>(x, g, y, m, k, gs, code_kind, s);
+    case 3: return (int)launch<3>(x, g, y, m, k, gs, code_kind, s);
+    case 4: return (int)launch<4>(x, g, y, m, k, gs, code_kind, s);
+    case 5: return (int)launch<5>(x, g, y, m, k, gs, code_kind, s);
+    case 6: return (int)launch<6>(x, g, y, m, k, gs, code_kind, s);
+    case 7: return (int)launch<7>(x, g, y, m, k, gs, code_kind, s);
+    case 8: return (int)launch<8>(x, g, y, m, k, gs, code_kind, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

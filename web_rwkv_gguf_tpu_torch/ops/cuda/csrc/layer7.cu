@@ -75,7 +75,7 @@
 
 #include <cooperative_groups.h>
 
-#include "stack_mma.cuh"
+#include "stack_phase.cuh"
 
 namespace cg = cooperative_groups;
 
@@ -142,10 +142,9 @@ __device__ __forceinline__ const stk::Job* phase_jobs(const Plan& p, int phase, 
 }
 
 __device__ __forceinline__ int phase_items(const Plan& p, int phase) {
-  int n, items = 0;
+  int n;
   const stk::Job* jobs = phase_jobs(p, phase, n);
-  for (int i = 0; i < n; ++i) items += jobs[i].tiles * jobs[i].S;
-  return items;
+  return stk::jobs_items(jobs, n);
 }
 
 // item -> (job, tile, slice); tbase: the job's first tile in the phase
@@ -153,47 +152,12 @@ __device__ __forceinline__ const stk::Job& locate(const Plan& p, int phase, int 
                                                   int& s, int& tbase) {
   int n;
   const stk::Job* jobs = phase_jobs(p, phase, n);
-  tbase = 0;
-  int i = 0;
-  for (; i < n - 1 && item >= jobs[i].tiles * jobs[i].S; ++i) {
-    item -= jobs[i].tiles * jobs[i].S;
-    tbase += jobs[i].tiles;
-  }
-  tile = item / jobs[i].S;
-  s = item - tile * jobs[i].S;
-  return jobs[i];
+  return stk::locate_item(jobs, n, item, tile, s, tbase);
 }
 
-// The staged position's element (input channel): a nibble slice is its
-// low range, then its high range.
-__device__ __forceinline__ int slice_elem(const stk::Job& j, int s, int i) {
-  if (stk::is_nib(j.w.form)) {
-    const int j0 = s * (j.ki / 2);
-    return i < j.ki / 2 ? j0 + i : j.K / 2 + j0 + (i - j.ki / 2);
-  }
-  return s * j.ki + i;
-}
-
-// The block's copy barriers (shared memory): 0 weight buffer A, 1 weight
-// buffer B, 2 staged inputs. The n-th arming of one completes its phase
-// n - 1; bit i of `armed` is the parity of barrier i's armings (a
-// register: no indexed array, which would live in local memory).
-struct Bars {
-  uint64_t* bar;
-  uint32_t armed;
-  __device__ void arm(int i) { armed ^= 1u << i; }
-  __device__ void wait(int i) const { stk::mbar_wait(bar + i, ((armed >> i) & 1u) ^ 1u); }
-};
-
-// The bulk copies of item (tile, s) of job j at layer l (its weight tile)
-// into buf, by warp 1; every thread counts the arming.
-__device__ void load_job_item(const Args& a, const Plan& p, const stk::Job& j, int l, int tile,
-                              int s, uint8_t* buf, Bars& bs, int which) {
-  bs.arm(which);
-  if ((threadIdx.x >> 5) == 1)
-    stk::load_item(j, l, tile, s, buf, bs.bar + which, 0, 0u,
-                   [](int, void*&, const void*&, uint32_t&) {});
-}
+// The block's copy barriers (stk::Bars): 0 weight buffer A, 1 weight
+// buffer B, 2 staged inputs.
+using stk::Bars;
 
 // the copies of this block's first item of a phase at layer l into buffer
 // `which` (none for phase 0: nothing follows)
@@ -202,22 +166,8 @@ __device__ void prefetch_phase(const Args& a, const Plan& p, int phase, int l, u
   if (phase > 0 && (int)blockIdx.x < phase_items(p, phase)) {
     int tile, s, tbase;
     const stk::Job& j = locate(p, phase, blockIdx.x, tile, s, tbase);
-    load_job_item(a, p, j, l, tile, s, buf, bs, which);
+    stk::load_job_item(j, l, tile, s, buf, bs, which);
   }
-}
-
-// Each 16-element step's sum of the staged bf16 inputs of lane n (f32),
-// from thread t's 4 of them (t = 4 st + q: the step's 4 threads are
-// neighbouring lanes); the first of them writes it.
-__device__ __forceinline__ void step_sum(float v, int t, int n, int nb, float* xsum) {
-  v += __shfl_xor_sync(0xffffffffu, v, 1);
-  v += __shfl_xor_sync(0xffffffffu, v, 2);
-  if ((t & 3) == 0) xsum[(t >> 2) * nb + n] = v;
-}
-
-__device__ __forceinline__ float bf16_sum4(uint2 u) {
-  return (__uint_as_float(u.x << 16) + __uint_as_float(u.x & 0xFFFF0000u)) +
-         (__uint_as_float(u.y << 16) + __uint_as_float(u.y & 0xFFFF0000u));
 }
 
 // Stage the bf16 input of item slice s of job j into xs [nb][ki + kXPad]
@@ -242,23 +192,7 @@ __device__ __forceinline__ void stage_input(const Args& a, const Plan& p, const 
   const int t = threadIdx.x, groups = ki / 4;
   __nv_bfloat16* xs = reinterpret_cast<__nv_bfloat16*>(smem + p.off_x);
   if (j.input == kInY || j.input == kInKhid) {
-    const __nv_bfloat16* src = j.input == kInY ? a.y : a.khid;
-    bs.arm(2);
-    if (copier)
-      stk::warp_bulk(bs.bar + 2, B * ki * 2, B * nr, true,
-                     [&](int i, void*& dst, const void*& from, uint32_t& size) {
-                       const int n = i / nr, e = (i - n * nr) * span;
-                       dst = xs + (size_t)n * xstride + e;
-                       from = src + (size_t)n * j.K + slice_elem(j, s, e);
-                       size = span * 2;
-                     });
-    meanwhile();
-    bs.wait(2);
-    if (j.offs && t < groups) {
-      for (int n = 0; n < B; ++n)
-        step_sum(bf16_sum4(*reinterpret_cast<const uint2*>(xs + (size_t)n * xstride + 4 * t)),
-                 t, n, nb, xsum);
-    }
+    stk::stage_copied(j, s, B, nb, j.input == kInY ? a.y : a.khid, xs, xsum, bs, 2, meanwhile);
     return;
   }
   const bool ffn = j.input == kInMix2;
@@ -269,7 +203,7 @@ __device__ __forceinline__ void stage_input(const Args& a, const Plan& p, const 
   // (read-only; loaded while the copies land)
   float4 w = make_float4(0.f, 0.f, 0.f, 0.f), bb = w, mix = w;
   if (t < groups) {
-    const int c = slice_elem(j, s, 4 * t);
+    const int c = stk::slice_elem(j, s, 4 * t);
     const size_t lc = (size_t)l * C + c;
     w = __ldg(reinterpret_cast<const float4*>((ffn ? a.ln2_w : a.ln1_w) + lc));
     bb = __ldg(reinterpret_cast<const float4*>((ffn ? a.ln2_b : a.ln1_b) + lc));
@@ -293,7 +227,7 @@ __device__ __forceinline__ void stage_input(const Args& a, const Plan& p, const 
                        }
                        const int r = (i - 1) / nr, e = (i - 1 - r * nr) * span;
                        dst = shch + r * ki + e;
-                       from = sh + (size_t)(n0 + r) * C + slice_elem(j, s, e);
+                       from = sh + (size_t)(n0 + r) * C + stk::slice_elem(j, s, e);
                        size = span * 4;
                      });
     if (n0 == 0) meanwhile();
@@ -334,7 +268,7 @@ __device__ __forceinline__ void stage_input(const Args& a, const Plan& p, const 
       }
     }
     if (t < groups) {
-      const int i4 = 4 * t, c = slice_elem(j, s, i4);
+      const int i4 = 4 * t, c = stk::slice_elem(j, s, i4);
       for (int r = 0; r < nl; ++r) {
         const int n = n0 + r;
         const float4 xv = *reinterpret_cast<const float4*>(xch + r * C + c);
@@ -350,7 +284,7 @@ __device__ __forceinline__ void stage_input(const Args& a, const Plan& p, const 
             make_uint2(stk::bf2(xx.x + mix.x * (sv.x - xx.x), xx.z + mix.z * (sv.z - xx.z)),
                        stk::bf2(xx.y + mix.y * (sv.y - xx.y), xx.w + mix.w * (sv.w - xx.w)));
         *reinterpret_cast<uint2*>(xs + (size_t)n * xstride + i4) = u;
-        if (j.offs) step_sum(bf16_sum4(u), t, n, nb, xsum);
+        if (j.offs) stk::step_sum(stk::bf16_sum4(u), t, n, nb, xsum);
       }
     }
   }
@@ -437,7 +371,6 @@ __device__ void row_phase(const Args& a, const Plan& p, int phase, int l, unsign
 template <int NB>
 __device__ void mat_phase(const Args& a, const Plan& p, int phase, int l, int which,
                           unsigned char* smem, Bars& bs) {
-  constexpr int NF = NB > 8 ? 2 : 1;
   if (row_path<NB>(phase)) {
     row_phase<NB>(a, p, phase, l, smem);
     return;
@@ -453,15 +386,13 @@ __device__ void mat_phase(const Args& a, const Plan& p, int phase, int l, int wh
   float *mean = misc, *rs = misc + kMaxB;
   unsigned int* flag = reinterpret_cast<unsigned int*>(misc + 2 * kMaxB + kWarps);
   const int B = a.B, outs = stk::kRows * B;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = lane & 3;
   for (int item = blockIdx.x; item < items; item += gridDim.x) {
     int tile, s, tbase;
     const stk::Job& j = locate(p, phase, item, tile, s, tbase);
     const bool first = item == (int)blockIdx.x;
     if (!first) {  // a later item: its copies now
       __syncthreads();
-      load_job_item(a, p, j, l, tile, s, buf, bs, which);
+      stk::load_job_item(j, l, tile, s, buf, bs, which);
     }
     const bool resid = j.out == kOutX || j.out == kOutXFfn;
     const int m_own = tile * stk::kRows + (threadIdx.x < outs ? threadIdx.x / B : 0);
@@ -476,54 +407,13 @@ __device__ void mat_phase(const Args& a, const Plan& p, int phase, int l, int wh
       bs.wait(which);
       stk::factor_table(j, s, buf, tab);
     });
-    __syncthreads();
-    float acc[NF][4];
-    stk::warp_tile<NB>(j, buf, tab, xs, xsum, acc);
-#pragma unroll
-    for (int f = 0; f < NF; ++f) {
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int r = g + 8 * (i >> 1), n = 8 * f + 2 * t + (i & 1);
-        if (n < NB) red[(warp * stk::kRows + r) * NB + n] = acc[f][i];
-      }
-    }
-    __syncthreads();
-    float v = 0.f;
-    int r = 0, n = 0;
-    if ((int)threadIdx.x < outs) {
-      r = threadIdx.x / B;
-      n = threadIdx.x - r * B;
-      for (int w = 0; w < kWarps; ++w) v += red[(w * stk::kRows + r) * NB + n];
-    }
-    if (j.S == 1) {
-      if ((int)threadIdx.x < outs) epilogue(a, j, l, tile, r, n, v, xold);
-      continue;
-    }
-    // a split tile: the partial sums of this slice, then the last of the
-    // tile's S blocks adds the S slices in slice order
-    const size_t tix = (size_t)tbase + tile;
-    if ((int)threadIdx.x < outs) a.part[(tix * j.S + s) * outs + threadIdx.x] = v;
-    __threadfence();
-    __syncthreads();
-    if (threadIdx.x == 0) {
-      const unsigned int prev = atomicAdd(a.cnt + tix, 1u);
-      const bool last = prev == (unsigned int)j.S - 1;
-      if (last) a.cnt[tix] = 0u;  // for the next use (a later phase, past a barrier)
-      *flag = last;
-    }
-    __syncthreads();
-    if (*flag && (int)threadIdx.x < outs) {
-      __threadfence();
-      const int m = tile * stk::kRows + r;
-      if (resid && m < j.M) xold = __ldcg(a.x + (size_t)n * a.C + m);
-      float sum = 0.f;
-#pragma unroll 4
-      for (int q = 0; q < j.S; ++q) sum += __ldcg(a.part + (tix * j.S + q) * outs + threadIdx.x);
-      epilogue(a, j, l, tile, r, n, sum, xold);
-    }
+    stk::item_products<NB>(j, tile, s, tbase, B, buf, tab, xs, xsum, red, flag, a.part, a.cnt,
+                           resid ? a.x : nullptr, a.C, xold, [] {},
+                           [&](int r, int n, float v, float xo) {
+                             epilogue(a, j, l, tile, r, n, v, xo);
+                           });
   }
 }
-
 
 // Ask L2 for what this block's attention items of layer l read from
 // device memory: the head's LoRA-up rows and the lane's state of the head.

@@ -1,9 +1,12 @@
-// Tensor-core matrix tiles for the whole-stack decode kernel (layer7.cu):
-// one 16-row tile of a layer matrix, over one K-slice of it, against the
-// staged bf16 inputs of up to 16 lanes, in every slot form of
-// decode_common.cuh (MatForm), with mma.sync m16n8k16.
+// Tensor-core matrix tiles for the whole-stack decode kernels (layer7.cu,
+// layer56.cu, through stack_phase.cuh) and the grouped gemv
+// (gemv_grouped.cu): one 16-row tile of a layer matrix, over one K-slice of
+// it, against the staged bf16 inputs of up to 16 lanes, in every slot form
+// of decode_common.cuh (MatForm), with mma.sync m16n8k16 (warp_tile; or
+// warp_tile_by_mode, the same steps with the code mode chosen once a loop).
 //
-// An item is (matrix, 16-row tile, K-slice s of item_k(K) elements). A block
+// An item is (matrix, 16-row tile, K-slice s of item_k(K) elements, or of
+// a slice its kernel picks: job_geometry). A block
 // takes an item whole: its codes (16 row slices) and the tile's raw factors
 // (whole rows: contiguous) land in shared memory through TMA bulk copies
 // (cp.async.bulk, completing on an mbarrier; issued phases ahead of use, so
@@ -82,9 +85,10 @@ __host__ __device__ inline ScaleLayout scale_layout(int form, int gs, bool has_m
   return s;
 }
 
-// bytes of an item's weight buffer: 16 rows of codes, then 16 rows of factors
-__host__ __device__ inline int buffer_bytes(int form, int gs, bool has_mn, int K) {
-  return kRows * (code_stride(form, item_k(K)) + scale_layout(form, gs, has_mn, K).row());
+// bytes of an item's weight buffer: 16 rows of codes, then 16 rows of
+// factors (ki: the item's K-slice; 0: item_k(K))
+__host__ __device__ inline int buffer_bytes(int form, int gs, bool has_mn, int K, int ki = 0) {
+  return kRows * (code_stride(form, ki ? ki : item_k(K)) + scale_layout(form, gs, has_mn, K).row());
 }
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
@@ -246,9 +250,11 @@ __host__ __device__ inline int log2i(int v) {
   return r;
 }
 
-__host__ __device__ inline void job_geometry(Job& j) {
+// ki: the K-slice of the job's items (a multiple of 256 that divides K;
+// 0: item_k(K))
+__host__ __device__ inline void job_geometry(Job& j, int ki = 0) {
   const int f = j.w.form;
-  j.ki = item_k(j.K);
+  j.ki = ki ? ki : item_k(j.K);
   j.S = j.K / j.ki;
   j.tiles = (j.M + kRows - 1) / kRows;
   j.steps = j.ki / 16;
@@ -425,6 +431,113 @@ __device__ __forceinline__ void warp_tile(const Job& j, const uint8_t* buf, cons
       }
     }
   }
+}
+
+// warp_tile's steps [st0, st1) (step st0 + warp, + 8, ...) with the code
+// mode fixed (kMode: a CodeMode, or 0 for dense bf16 weights), chunk st -
+// c0 of the buffer's rows: the same products and sums, without warp_tile's
+// per-step choice of mode.
+template <int NB, int kMode>
+__device__ __forceinline__ void tile_steps(const Job& j, const uint8_t* buf, const float2* tab,
+                                           const __nv_bfloat16* xs, const float* xsum, int st0,
+                                           int st1, int c0, float (&acc)[NB > 8 ? 2 : 1][4]) {
+  constexpr int NF = NB > 8 ? 2 : 1;
+  constexpr bool dense = kMode == 0;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int xstride = j.ki + kXPad, cs = code_stride(j.w.form, j.ki), ts = tab_stride(j.steps);
+  const bool offs = j.offs;
+  const uint8_t* rg = buf + g * cs;  // rows g and g + 8
+  const uint8_t* rh = buf + (g + 8) * cs;
+#pragma unroll 2
+  for (int st = st0 + warp; st < st1; st += kWarps) {
+    uint32_t a0, a1, a2, a3;  // rows g, g + 8 by k slots (2t, 2t+1), (2t+8, 2t+9)
+    float2 f0 = make_float2(1.f, 0.f), f1 = f0;  // (s, mn) of rows g, g + 8
+    if constexpr (dense) {
+      const uint2 lo = *reinterpret_cast<const uint2*>(rg + 32 * st + 8 * t);
+      const uint2 hi = *reinterpret_cast<const uint2*>(rh + 32 * st + 8 * t);
+      a0 = __byte_perm(lo.x, lo.y, 0x5410);
+      a2 = __byte_perm(lo.x, lo.y, 0x7632);
+      a1 = __byte_perm(hi.x, hi.y, 0x5410);
+      a3 = __byte_perm(hi.x, hi.y, 0x7632);
+    } else {
+      const int chunk = st - c0;
+      code_pairs(*reinterpret_cast<const uint32_t*>(rg + 16 * chunk + 4 * t), kMode, a0, a2);
+      code_pairs(*reinterpret_cast<const uint32_t*>(rh + 16 * chunk + 4 * t), kMode, a1, a3);
+      f0 = tab[g * ts + st];
+      f1 = tab[(g + 8) * ts + st];
+    }
+#pragma unroll
+    for (int f = 0; f < NF; ++f) {
+      const int n = 8 * f + g;  // this lane's B column
+      uint2 b = make_uint2(0u, 0u);
+      if (n < NB) b = *reinterpret_cast<const uint2*>(xs + n * xstride + 16 * st + 4 * t);
+      float c[4];
+      mma16(c, a0, a1, a2, a3, b.x, b.y);
+      if constexpr (dense) {
+#pragma unroll
+        for (int i = 0; i < 4; ++i) acc[f][i] += c[i];
+      } else {
+        float2 x2 = make_float2(0.f, 0.f);  // step sums of columns 2t, 2t + 1
+        if (offs) {
+          const int cc = 8 * f + 2 * t;
+          if (cc < NB) x2.x = xsum[st * NB + cc];
+          if (cc + 1 < NB) x2.y = xsum[st * NB + cc + 1];
+        }
+        acc[f][0] = fmaf(f0.x, c[0], fmaf(-f0.y, x2.x, acc[f][0]));
+        acc[f][1] = fmaf(f0.x, c[1], fmaf(-f0.y, x2.y, acc[f][1]));
+        acc[f][2] = fmaf(f1.x, c[2], fmaf(-f1.y, x2.x, acc[f][2]));
+        acc[f][3] = fmaf(f1.x, c[3], fmaf(-f1.y, x2.y, acc[f][3]));
+      }
+    }
+  }
+}
+
+// warp_tile with the form's code mode chosen once, outside the steps (a
+// loop for each mode; a nibble slice's low steps, then its high ones): the
+// same steps for each warp in the same order, the same products and sums.
+template <int NB>
+__device__ __forceinline__ void warp_tile_by_mode(const Job& j, const uint8_t* buf,
+                                                  const float2* tab, const __nv_bfloat16* xs,
+                                                  const float* xsum,
+                                                  float (&acc)[NB > 8 ? 2 : 1][4]) {
+  constexpr int NF = NB > 8 ? 2 : 1;
+#pragma unroll
+  for (int f = 0; f < NF; ++f)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) acc[f][i] = 0.f;
+  const int steps = j.steps;
+  if (j.w.form == kFormDense) {
+    tile_steps<NB, 0>(j, buf, tab, xs, xsum, 0, steps, 0, acc);
+  } else if (is_nib(j.w.form)) {
+    // a warp's low steps st = warp + 8 i < nlo, then its high ones from the
+    // first of them at or past nlo
+    const int nlo = j.nlo, warp = threadIdx.x >> 5;
+    const int hi0 = nlo + ((warp - nlo) % kWarps + kWarps) % kWarps - warp;
+    tile_steps<NB, kCodeLow>(j, buf, tab, xs, xsum, 0, nlo, 0, acc);
+    tile_steps<NB, kCodeHigh>(j, buf, tab, xs, xsum, hi0, steps, nlo, acc);
+  } else {
+    switch (j.code) {
+      case kCode7: tile_steps<NB, kCode7>(j, buf, tab, xs, xsum, 0, steps, 0, acc); break;
+      case kCode6: tile_steps<NB, kCode6>(j, buf, tab, xs, xsum, 0, steps, 0, acc); break;
+      case kCodeU8: tile_steps<NB, kCodeU8>(j, buf, tab, xs, xsum, 0, steps, 0, acc); break;
+      default: tile_steps<NB, kCodeI8>(j, buf, tab, xs, xsum, 0, steps, 0, acc);
+    }
+  }
+}
+
+// Each 16-element step's sum of the staged bf16 inputs of lane n (f32),
+// from thread t's 4 of them (t = 4 st + q: the step's 4 threads are
+// neighbouring lanes); the first of them writes it.
+__device__ __forceinline__ void step_sum(float v, int t, int n, int nb, float* xsum) {
+  v += __shfl_xor_sync(0xffffffffu, v, 1);
+  v += __shfl_xor_sync(0xffffffffu, v, 2);
+  if ((t & 3) == 0) xsum[(t >> 2) * nb + n] = v;
+}
+
+__device__ __forceinline__ float bf16_sum4(uint2 u) {
+  return (__uint_as_float(u.x << 16) + __uint_as_float(u.x & 0xFFFF0000u)) +
+         (__uint_as_float(u.y << 16) + __uint_as_float(u.y & 0xFFFF0000u));
 }
 
 // Position of element i of a staged row: each run of 4 in the order 0, 2, 1, 3.

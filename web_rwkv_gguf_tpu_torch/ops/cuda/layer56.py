@@ -30,6 +30,21 @@ With ``first_layer`` both run a contiguous slice of the stack
 (:func:`mega_layers`) from that global layer, so the rescale stays
 aligned, as the JAX kernel's ``goff`` keeps it.
 
+The kernel (its header comment says more) runs every layer matrix and the
+two dense adapters of version 6 as tensor-core items of
+``csrc/stack_mma.cuh`` through ``csrc/stack_phase.cuh``, the code it
+shares with ``layer7.cu``: a 16-row tile over a K-slice of up to 2048
+elements, one block an item, each block's weights streaming through a
+ring of buffers in shared memory by TMA bulk copies issued items ahead,
+across the grid barriers (at B ≤ 2, Wo and the FFN value one warp a
+row instead). A matrix whose K is split adds its slices
+partial sums in slice order (scratch sized here from an upper bound the
+kernel checks, and per-tile counters kept zero on the card,
+``layer7._counters``, the same buffers as row 4's). The attention output
+``y`` and the FFN key's ``khid`` are stored in the staged k order, which
+``staged=`` hands back in logical order. Its time on the H100 is each
+item's chain of loads, products and waits, not bytes (PERF.md).
+
 On a CUDA tensor :func:`layer_scan56` launches the kernel or raises;
 only a tensor on the CPU takes the plain version.
 """
@@ -45,8 +60,8 @@ import torch
 from .. import basic as B_
 from .. import wkv as W
 from . import build
-from .layer7 import (MAX_SCAN_BATCH, check_operands, mega_layers, slot_gemv_plain,
-                     slot_operands, stack_matrix)
+from .layer7 import (MAX_SCAN_BATCH, _counters, check_operands, mega_layers, slot_gemv_plain,
+                     slot_operands, stack_matrix, unstage)
 
 __all__ = ["MAX_SCAN_BATCH", "PHASES", "layer_scan56", "layer_scan56_plain", "mega_layers",
            "prep_decode56", "replay_staged"]
@@ -58,7 +73,7 @@ PHASES = {
         "LN2+FFN key+receptance", "FFN value"),
     5: ("LN1+mixes+r/k/v/g", "attention+gn+gate", "Wo", "LN2+FFN key+receptance",
         "FFN value"),
-    4: ("LN1+mixes+r/k/v+WKV", "Wo", "LN2+FFN key+receptance", "FFN value"),
+    4: ("LN1+mixes+r/k/v", "WKV", "Wo", "LN2+FFN key+receptance", "FFN value"),
 }
 _ATT = {6: ("Wr", "Wk", "Wv", "Wg", "Wo"), 5: ("Wr", "Wk", "Wv", "Wg", "Wo"),
         4: ("Wr", "Wk", "Wv", "Wo")}
@@ -264,6 +279,7 @@ _ORDER = (
     "att_shift", "ffn_shift", "wkv", "att_shift_out", "ffn_shift_out", "wkv_out", "mask", "x",
     "xx", "z", "mixed", "rkvg", "dz", "y", "khid", "rf", "phase_ns",
     "mix_k", "mix_v", "mix_r", "mix_g", "aa", "bb", "pp", "aa_out", "bb_out", "pp_out",
+    "part", "cnt",
 )
 
 
@@ -354,6 +370,12 @@ def layer_scan56(mega, state, x, mask, rescale, eps_ln, eps_gn, first_layer=0,
                         "z": torch.empty(bsz, 5 * R, dtype=bf, device=dev),
                         "mixed": torch.empty(5, bsz, C, dtype=bf, device=dev),
                         "dz": torch.empty(bsz, D, dtype=bf, device=dev)})
+    # split-K scratch, at least what the kernel's plan needs (it checks): a
+    # phase's rows (V6's r/k/v/g and decay down, the FFN key and receptance,
+    # the time-mix down, each rounded up to 16-row tiles) in K-slices of 256
+    # or more
+    rows = max(4 * C + D + 16, hidden + C, 5 * R + 16)
+    scratch["part"] = torch.empty(bsz * C * rows // 256, dtype=f32, device=dev)
     ptr.update({k: a.data_ptr() for k, a in scratch.items()})
     ptr["mask"], ptr["x"] = m.data_ptr(), x_io.data_ptr()
     if phase_ns is not None:
@@ -361,10 +383,13 @@ def layer_scan56(mega, state, x, mask, rescale, eps_ln, eps_gn, first_layer=0,
         if phase_ns.dtype != torch.int64 or phase_ns.numel() != n or phase_ns.device != dev:
             raise ValueError(f"layer_scan56: phase_ns must be int64 [{n}] on {dev}")
         ptr["phase_ns"] = phase_ns.data_ptr()
-    ptrs = [ptr.get(name, 0) for name in _ORDER]
-    ints = [L, bsz, C, H, hidden, R, D, rescale or 0, first_layer, version,
-            *(mega["forms"].get(m, 0) for m in _MATRIX_SLOTS)]
     with torch.cuda.device(dev):
+        cnt = _counters(dev, -(-rows // 16))
+        ptr["cnt"] = cnt.data_ptr()
+        ptrs = [ptr.get(name, 0) for name in _ORDER]
+        ints = [L, bsz, C, H, hidden, R, D, rescale or 0, first_layer, version,
+                *(mega["forms"].get(m, 0) for m in _MATRIX_SLOTS), scratch["part"].numel(),
+                cnt.numel()]
         stream = torch.cuda.current_stream().cuda_stream
         err = _fn()((ctypes.c_void_p * len(ptrs))(*ptrs), (ctypes.c_int * len(ints))(*ints),
                     (ctypes.c_float * 2)(eps_ln, eps_gn), stream)
@@ -372,8 +397,9 @@ def layer_scan56(mega, state, x, mask, rescale, eps_ln, eps_gn, first_layer=0,
     layer_scan56.shapes[(version, L, bsz, C)] += 1
     if err:
         raise RuntimeError(f"layer_scan56 launch failed: CUDA error {err}")
-    if staged is not None:
-        staged.update({k: scratch[k] for k in ("rkvg", "y", "khid", "rf")})
+    if staged is not None:  # y and khid are stored in the staged order
+        staged.update(rkvg=scratch["rkvg"], y=unstage(scratch["y"]),
+                      khid=unstage(scratch["khid"]), rf=scratch["rf"])
     return x_io, out
 
 

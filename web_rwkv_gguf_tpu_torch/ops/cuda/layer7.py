@@ -80,14 +80,22 @@ _COUNTERS: dict = {}
 
 def _counters(dev, n: int):
     """``n`` zero int32 counters on ``dev``, the same buffer for every
-    launch there at that size."""
+    launch there at that size (of ``layer_scan7`` and ``layer56.
+    layer_scan56`` alike: each leaves it zero)."""
     buf = _COUNTERS.get((dev, n))
     if buf is None:
         if dev.type == "cuda" and torch.cuda.is_current_stream_capturing():
-            raise RuntimeError("layer_scan7: launch once outside a CUDA graph capture first "
-                               "(its split-K counters are made zero then)")
+            raise RuntimeError("a whole-stack decode kernel: launch once outside a CUDA graph "
+                               "capture first (its split-K counters are made zero then)")
         buf = _COUNTERS[(dev, n)] = torch.zeros(n, dtype=torch.int32, device=dev)
     return buf
+
+
+def unstage(t):
+    """A ``[B, K]`` operand the kernels store in the staged order (each run
+    of 4 elements as 0, 2, 1, 3) in logical order."""
+    b, k = t.shape
+    return t.view(b, k // 4, 4)[:, :, [0, 2, 1, 3]].reshape(b, k)
 
 
 def descriptor(form: int, signed: int, gs: int) -> int:
@@ -451,8 +459,8 @@ def layer_scan7(mega, state, x, mask, rescale, eps_ln, eps_gn, eps_l2, v0_carry=
     layer_scan7.shapes[(L, bsz, C)] += 1
     if err:
         raise RuntimeError(f"layer_scan7 launch failed: CUDA error {err}")
-    if staged is not None:  # y is stored with each run of 4 as 0, 2, 1, 3
-        staged["y"] = scratch[3].view(bsz, C // 4, 4)[:, :, [0, 2, 1, 3]].reshape(bsz, C)
+    if staged is not None:  # y is stored in the staged order
+        staged["y"] = unstage(scratch[3])
     return (x_io, out) if v0_carry is None else (x_io, out, scratch[2])
 
 
