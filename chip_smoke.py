@@ -533,7 +533,8 @@ def kernel_cases(torch, k, bf16_peak, f32_peak, full_rows, dev="cuda"):
     and at B=4 (H=12, hs=64); the Q4_K dequant-GEMM at the layer shapes
     (n = 4: decode at B=4; 128 and 512: prefill chunks), the Q6_K head
     GEMM at the FULL call's ``full_rows``, and the WKV scan at T=64 for
-    B=1 and 4 with ragged lengths. ``k``: the kernel modules by name."""
+    B=1 and 4 with ragged lengths and at T=8 for B=1 (the serve's prompt
+    chunks). ``k``: the kernel modules by name."""
     dev = torch.device(dev)
     mm, core = k["matmul"], k["wkv7"]
     layer_shapes = ((768, 768), (3072, 768), (768, 3072))
@@ -572,12 +573,13 @@ def kernel_cases(torch, k, bf16_peak, f32_peak, full_rows, dev="cuda"):
               for m, k in layer_shapes for n in (4, 128, 512)]
     cases.append(q6k_case(torch, mm, "gemm", 65536, 768, full_rows, 5001, bf16_peak))
 
-    T = 64
-    for lens in ((50,), (64, 40, 17, 0)):
+    # (T, lengths, seed): a lane of an Engine chunk, B=4 ragged, and the B=1
+    # serve's 8-token prompt chunk
+    for T, lens, seed in ((64, (50,), 1), (64, (64, 40, 17, 0), 4), (8, (8,), 108)):
         B = len(lens)
 
-        def make_scan(i, B=B, lens=lens):
-            _, _, normal = _rng(torch, dev, 6000 * i + B)
+        def make_scan(i, B=B, T=T, lens=lens, seed=seed):
+            _, _, normal = _rng(torch, dev, 6000 * i + seed)
             f = lambda *s: normal(*s) * 0.5  # noqa: E731
             kk = torch.nn.functional.normalize(f(B, T, H, K), dim=-1)
             mask = (torch.arange(T, device=dev)[None, :]
@@ -605,7 +607,8 @@ def kernel_cases6(torch, k, bf16_peak, f32_peak, full_rows, dev="cuda"):
     head gemv at n = 1 and GEMM at n = 4 (the Engine's decode step: at
     K=2048 the gate sends n ≥ 3 to the GEMM) and at the FULL call's
     ``full_rows``; the V6 WKV scan at T=64 for B=1 and 4 with ragged
-    lengths."""
+    lengths, and at B=1 for T = 8 and 1 (the serve's prompt chunks and its
+    per-layer decode)."""
     dev = torch.device(dev)
     mm, wkv6 = k["matmul"], k["wkv6"]
     layer_shapes = ((2048, 2048), (7168, 2048), (2048, 7168))
@@ -620,12 +623,15 @@ def kernel_cases6(torch, k, bf16_peak, f32_peak, full_rows, dev="cuda"):
     cases += [q6k_case(torch, mm, "gemm", 65536, 2048, n, 8100 + n, bf16_peak)
               for n in (4, full_rows)]
 
-    H, K, T = 32, 64, 64
-    for lens in ((50,), (64, 40, 17, 0)):
+    H, K = 32, 64
+    # (T, lengths, seed): a lane of an Engine chunk, B=4 ragged, the B=1
+    # serve's 8-token prompt chunk and its per-layer decode token
+    for T, lens, seed in ((64, (50,), 1), (64, (64, 40, 17, 0), 4), (8, (8,), 108),
+                          (1, (1,), 101)):
         B = len(lens)
 
-        def make_scan(i, B=B, lens=lens):
-            _, _, normal = _rng(torch, dev, 9000 * i + B)
+        def make_scan(i, B=B, T=T, lens=lens, seed=seed):
+            _, _, normal = _rng(torch, dev, 9000 * i + seed)
             f = lambda *s: normal(*s) * 0.5  # noqa: E731
             mask = (torch.arange(T, device=dev)[None, :]
                     < torch.tensor(lens, device=dev)[:, None])

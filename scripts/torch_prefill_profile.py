@@ -6,8 +6,10 @@ For each model of ``chip_smoke.MODELS`` named (default all) it loads the
 model's file (built once, by chip_smoke's own ``build_file`` in worker
 processes, and shared by every checkout), runs chip_smoke's Engine at B=4
 (the four prompts, chunked prefill, one token) and profiles it as
-chip_smoke's "profile" lines do: device µs per prompt token, and the
-dequant-GEMM's (``qk_gemm_kernel``) µs per prompt token and share of it;
+chip_smoke's "profile" lines do: device µs per prompt token, the
+dequant-GEMM's (``qk_gemm_kernel``) µs per prompt token and share of it,
+and the same for the WKV chunk scans (``wkv7_scan_kernel``,
+``wkv6_scan_kernel``, ``wkv4_scan_kernel``);
 then the decode segment of 32 steps: device µs and ms per step. From the
 repo root:
 
@@ -58,6 +60,8 @@ def run_here(tags, files):
         busy, _, rows = cs.profile(
             torch, lambda: (eng.reset_state(), eng.generate(prompts, 1)), n_pre)
         gemm = sum(us for us, key, _ in rows if "qk_gemm_kernel" in key)
+        scans = sum(us for us, key, _ in rows
+                    if any(f"wkv{v}_scan_kernel" in key for v in (7, 6, 4)))
         eng.reset_state()
         first, gen = eng._gen_prefill(prompts, 0.0, 0, 0.0, 0)
         steps = 32
@@ -71,7 +75,9 @@ def run_here(tags, files):
         ms_step = (time.perf_counter() - t0) / steps * 1e3
         dec_busy, _, _ = cs.profile(torch, lambda: segment(eng.params, state, first, None), steps)
         row = {"tag": tag, "prefill_device_us_per_token": busy, "qk_gemm_us_per_token": gemm,
-               "qk_gemm_share": gemm / busy if busy else None, "decode_ms_per_step": ms_step,
+               "qk_gemm_share": gemm / busy if busy else None,
+               "wkv_scan_us_per_token": scans, "wkv_scan_share": scans / busy if busy else None,
+               "decode_ms_per_step": ms_step,
                "decode_device_us_per_step": dec_busy}
         print(json.dumps(row), flush=True)
         out.append(row)

@@ -172,10 +172,10 @@ def test_q6k_gemm_on_card(card, m, k, n):
     _close(got, mm.q6k_gemm_plain(x, *arrays), 1e-4)
 
 
-def _wkv_args(B, T, lens, dev, seed=0):
+def _wkv_args(B, T, lens, dev, seed=0, H=12):
     g = torch.Generator(device=dev).manual_seed(seed)
     f = lambda *s: torch.randn(*s, generator=g, device=dev) * 0.5  # noqa: E731
-    H, K = 12, 64
+    K = 64
     kk = torch.nn.functional.normalize(f(B, T, H, K), dim=-1)
     mask = torch.arange(T, device=dev)[None, :] < torch.tensor(lens, device=dev)[:, None]
     return (f(B, H, K, K), f(B, T, H, K), torch.exp(-0.606531 * torch.sigmoid(f(B, T, H, K))),
@@ -194,6 +194,73 @@ def test_wkv7_scan_on_card(card, lens):
     _close(s1, s0, 1e-4)
     if 0 in lens:
         assert torch.equal(s1[lens.index(0)], args[0][lens.index(0)])
+
+
+# the scans' shapes: T = 1 (V6/V5 decode), 8 (the B=1 serve's prompt
+# chunks), 64 (an Engine chunk) and 127 (the longest scan chunk); B = 1, 4,
+# 16; H = 12 (V7 0.1B), 16 (V5 0.4B), 32 (V6 1.6B)
+SCAN_SHAPES = [(B, T, H) for B in (1, 4, 16) for T in (1, 8, 64, 127) for H in (12, 16, 32)]
+
+
+def _scan_lens(B, T):
+    """Ragged lengths: lane 0 whole, the others shorter, the last one
+    empty from B=4 on."""
+    lens = [max(0, T - (13 * b) % (T + 1)) for b in range(B)]
+    if B >= 4:
+        lens[-1] = 0
+    return tuple(lens)
+
+
+def _scan_check(kernel, plain, args, y_at=None):
+    """One launch of ``kernel``, held against ``plain`` at 1e-4·max|plain|
+    on y (at every position, or where ``y_at`` is set) and the state."""
+    before = kernel.launches
+    y1, s1 = kernel(*args)
+    assert kernel.launches == before + 1
+    y0, s0 = plain(*args)
+    if y_at is None:
+        _close(y1, y0, 1e-4)
+    else:
+        _close(y1[y_at], y0[y_at], 1e-4)
+    _close(s1, s0, 1e-4)
+    return y1, s1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,T,H", SCAN_SHAPES)
+def test_wkv7_scan_shapes_on_card(card, B, T, H):
+    """The V7 scan at every shape of SCAN_SHAPES, ragged lanes; an empty
+    lane keeps its state bit for bit."""
+    lens = _scan_lens(B, T)
+    args = _wkv_args(B, T, lens, card, seed=B * 1000 + T * 10 + H, H=H)
+    _, s1 = _scan_check(core.wkv7_scan, core.wkv7_scan_plain, args)
+    for b in (b for b, n in enumerate(lens) if n == 0):
+        assert torch.equal(s1[b], args[0][b])
+
+
+@pytest.mark.cuda
+def test_wkv7_scan_mask_with_holes_on_card(card):
+    """Padded tokens between live ones (not a prefix mask): each leaves
+    the state as it was, y read from it."""
+    B, T = 3, 40
+    args = list(_wkv_args(B, T, (T,) * B, card, seed=5))
+    g = torch.Generator(device=card).manual_seed(6)
+    args[-1] = torch.rand(B, T, generator=g, device=card) < 0.6
+    args[-1][2] = False  # a lane with no live token
+    _, s1 = _scan_check(core.wkv7_scan, core.wkv7_scan_plain, args)
+    assert torch.equal(s1[2], args[0][2])
+
+
+@pytest.mark.cuda
+def test_wkv7_scan_padding_leaves_the_state_exactly_on_card(card):
+    """A lane of 37 tokens at T=64 (27 padded) and at T=37 ends in the same
+    state, bit for bit: the kernel's split does not depend on T, and a
+    padded token changes nothing."""
+    args = _wkv_args(1, 64, (37,), card, seed=7)
+    short = [a[:, :37] if a.dim() == 4 and a.shape[1] == 64 else a for a in args[:-1]]
+    _, s64 = core.wkv7_scan(*args)
+    _, s37 = core.wkv7_scan(*short, args[-1][:, :37])
+    assert torch.equal(s64, s37)
 
 
 @pytest.mark.cuda
@@ -331,13 +398,16 @@ def test_layer_scan7_on_card(card, B):
     _close(x1, x0, 1e-2)
 
 
-def _wkv6_args(B, T, lens, dev, seed=0):
+def _wkv6_args(B, T, lens, dev, seed=0, H=12, static_w=False):
+    """The V6 scan's inputs; ``static_w``: V5's decay, one [H, K] tensor
+    ``expand``ed over lanes and tokens as ``forward._wkv5`` passes it."""
     g = torch.Generator(device=dev).manual_seed(seed)
     f = lambda *s: torch.randn(*s, generator=g, device=dev) * 0.5  # noqa: E731
-    H, K = 12, 64
+    K = 64
     mask = torch.arange(T, device=dev)[None, :] < torch.tensor(lens, device=dev)[:, None]
-    return (f(B, H, K, K), f(B, T, H, K), f(B, T, H, K), f(B, T, H, K), f(H, K),
-            torch.exp(-torch.exp(f(B, T, H, K))), mask)
+    w = (torch.exp(-torch.exp(f(H, K))).expand(B, T, H, K) if static_w
+         else torch.exp(-torch.exp(f(B, T, H, K))))
+    return (f(B, H, K, K), f(B, T, H, K), f(B, T, H, K), f(B, T, H, K), f(H, K), w, mask)
 
 
 @pytest.mark.cuda
@@ -358,6 +428,54 @@ def test_wkv6_scan_on_card(card, lens):
     _close(s1, s0, 1e-4)
     if 0 in lens:
         assert torch.equal(s1[lens.index(0)], args[0][lens.index(0)])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("static_w", [False, True], ids=["v6", "v5_static_w"])
+@pytest.mark.parametrize("B,T,H", SCAN_SHAPES)
+def test_wkv6_scan_shapes_on_card(card, B, T, H, static_w):
+    """The V6 scan at every shape of SCAN_SHAPES, ragged lanes, y at every
+    position; with V5's static decay as the expanded view, which the kernel
+    reads in place. An empty lane keeps its state bit for bit."""
+    from web_rwkv_gguf_tpu_torch.ops.cuda import wkv6
+
+    lens = _scan_lens(B, T)
+    args = _wkv6_args(B, T, lens, card, seed=B * 1000 + T * 10 + H, H=H, static_w=static_w)
+    if static_w:  # read in place, never widened to [B, T, H, 64]
+        got, static = wkv6.decay_operand(args[5])
+        assert static and got.data_ptr() == args[5].data_ptr()
+    _, s1 = _scan_check(wkv6.wkv6_scan, wkv6.wkv6_scan_plain, args)
+    for b in (b for b, n in enumerate(lens) if n == 0):
+        assert torch.equal(s1[b], args[0][b])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("static_w", [False, True], ids=["v6", "v5_static_w"])
+def test_wkv6_scan_mask_with_holes_on_card(card, static_w):
+    """Padded tokens between live ones (not a prefix mask)."""
+    from web_rwkv_gguf_tpu_torch.ops.cuda import wkv6
+
+    B, T = 3, 40
+    args = list(_wkv6_args(B, T, (T,) * B, card, seed=5, H=32, static_w=static_w))
+    g = torch.Generator(device=card).manual_seed(6)
+    args[-1] = torch.rand(B, T, generator=g, device=card) < 0.6
+    args[-1][2] = False  # a lane with no live token
+    _, s1 = _scan_check(wkv6.wkv6_scan, wkv6.wkv6_scan_plain, args)
+    assert torch.equal(s1[2], args[0][2])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("static_w", [False, True], ids=["v6", "v5_static_w"])
+def test_wkv6_scan_padding_leaves_the_state_exactly_on_card(card, static_w):
+    """A lane of 37 tokens at T=64 and at T=37 ends in the same state, bit
+    for bit."""
+    from web_rwkv_gguf_tpu_torch.ops.cuda import wkv6
+
+    args = _wkv6_args(1, 64, (37,), card, seed=7, H=32, static_w=static_w)
+    short = [a[:, :37] if a.dim() == 4 and a.shape[1] == 64 else a for a in args[:-1]]
+    _, s64 = wkv6.wkv6_scan(*args)
+    _, s37 = wkv6.wkv6_scan(*short, args[-1][:, :37])
+    assert torch.equal(s64, s37)
 
 
 def _v6_model(card, seed=6):

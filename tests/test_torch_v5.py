@@ -152,6 +152,30 @@ def test_wkv5_through_wkv6_scan_matches_pallas(interpret_mode):
     assert torch.equal(s[2], _t(state)[2])  # the empty lane keeps its state
 
 
+def test_wkv6_scan_reads_the_static_decay_in_place():
+    """The V5 route's static decay reaches the scan kernel without a
+    [B, T, H, K] copy: ``decay_operand`` hands on the ``expand``ed [H, K]
+    view itself, marked static (so is a [1, 1, H, K] decay); a contiguous
+    f32 decay goes as it is; any other (bf16; keys not contiguous; a decay
+    that repeats over lanes or tokens only) becomes a contiguous f32
+    copy."""
+    from web_rwkv_gguf_tpu_torch.ops.cuda.wkv6 import decay_operand
+
+    B, T, H, K = 3, 5, 4, 64
+    w = torch.rand(H, K)
+    for view in (w.expand(B, T, H, K), w.expand(1, 1, H, K), w.expand(B, 1, H, K)):
+        got, static = decay_operand(view)
+        assert got.data_ptr() == w.data_ptr() and static
+    full = torch.rand(B, T, H, K)
+    got, static = decay_operand(full)
+    assert got is full and not static
+    for other in (full.bfloat16(), full.transpose(2, 3).contiguous().transpose(2, 3),
+                  w.expand(B, T, H, K).bfloat16(), full[:, :1].expand(B, T, H, K)):
+        got, static = decay_operand(other)
+        assert got.is_contiguous() and got.dtype == torch.float32 and not static
+        assert torch.equal(got, other.float())
+
+
 @pytest.mark.parametrize("T", [1, 9, 128])
 def test_wkv5_reference_matches_jax(T):
     """The port's V5 WKV route (``forward._wkv5``: the V6 scan's plain

@@ -124,7 +124,8 @@ def _wkv6(state, r, k, v, u, w, mask):
 
 def _wkv5(state, r, k, v, u, w, mask):
     """The V5 recurrence over a chunk: V6's routes with the static decay
-    ``w`` [H, K] broadcast over the tokens."""
+    ``w`` [H, K] broadcast over the tokens (a view, which the scan kernel
+    reads in place)."""
     return _wkv6(state, r, k, v, u, w.expand(r.shape), mask)
 
 

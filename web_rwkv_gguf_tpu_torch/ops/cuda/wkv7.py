@@ -125,6 +125,13 @@ def wkv7_scan_plain(state, r, w, k, v, a, b, mask):
     return torch.stack(ys, dim=1), S
 
 
+def scan_operand(x):
+    """``x`` as the scan kernels read it: f32, contiguous, its first
+    element 16-byte aligned (the base address a TMA copy takes)."""
+    x = x.float().contiguous()
+    return x if x.data_ptr() % 16 == 0 else x.clone()
+
+
 @functools.cache
 def _scan_fn():
     fn = build.load("wkv7_scan").wkv7_scan
@@ -158,7 +165,7 @@ def wkv7_scan(state, r, w, k, v, a, b, mask):
         if x.device != state.device:
             raise ValueError(f"wkv7_scan: {key} on {x.device}, state on "
                              f"{state.device}")
-        ops[key] = (x.to(torch.uint8) if key == "mask" else x.float()).contiguous()
+        ops[key] = x.to(torch.uint8).contiguous() if key == "mask" else scan_operand(x)
     st = state.float().contiguous()
     y = torch.empty(bsz, t, h, vdim, dtype=torch.float32, device=state.device)
     s1 = torch.empty_like(st)
