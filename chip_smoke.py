@@ -529,8 +529,8 @@ def form_case(torch, mm, kind, op, m, k, n, seed, bf16_peak, dev="cuda"):
 def kernel_cases(torch, k, bf16_peak, f32_peak, full_rows, dev="cuda"):
     """The RWKV-7 main paths' kernel calls at their shapes (0.1B widths):
     Q4_K gemv at the layer shapes (n = 1, 4 and 8), the Q6_K head gemv
-    (n = 1 and 4), the attention core at B=1, at B=3 with a masked lane
-    and at B=4 (H=12, hs=64); the Q4_K dequant-GEMM at the layer shapes
+    (n = 1 and 4), the attention core at B=1, at B=3 with a masked lane,
+    at B=4 and at B=16 (H=12, hs=64); the Q4_K dequant-GEMM at the layer shapes
     (n = 4: decode at B=4; 128 and 512: prefill chunks), the Q6_K head
     GEMM at the FULL call's ``full_rows``, and the WKV scan at T=64 for
     B=1 and 4 with ragged lengths and at T=8 for B=1 (the serve's prompt
@@ -543,8 +543,8 @@ def kernel_cases(torch, k, bf16_peak, f32_peak, full_rows, dev="cuda"):
     cases += [q6k_case(torch, mm, "gemv", 65536, 768, n, 2000 + n, bf16_peak) for n in (1, 4)]
 
     H, K = 12, 64
-    for B in (1, 3, 4):
-        lanes = {1: [True], 3: [True, False, True], 4: [True] * 4}[B]
+    for B in (1, 3, 4, 16):
+        lanes = {1: [True], 3: [True, False, True], 4: [True] * 4, 16: [True] * 16}[B]
         active = [b for b in range(B) if lanes[b]]  # lanes the mask keeps running
 
         def make_att(i, B=B, lanes=lanes):
@@ -565,8 +565,9 @@ def kernel_cases(torch, k, bf16_peak, f32_peak, full_rows, dev="cuda"):
             name=f"att_core7[B={B},H={H},hs={K}]", kernel=core.att_core7_step,
             shape=(B, H, K),
             plain=core.att_core7_plain, make_args=make_att, compare=att_compare,
-            # state in and out; r, w, k, a, v, g in and y out; 5 params; mask
-            nbytes=4 * (2 * B * H * K * K + 7 * B * H * K + 5 * H * K + B),
+            # state in and out; r, w, k, a, v, g in and y out; 5 params; the
+            # mask, a byte a lane
+            nbytes=4 * (2 * B * H * K * K + 7 * B * H * K + 5 * H * K) + B,
             flops=8 * B * H * K * K, fpeak=f32_peak))
 
     cases += [q4k_case(torch, mm, "gemm", m, k, n, 4000 + m + 7 * k + n, bf16_peak)
@@ -700,23 +701,30 @@ def kernel_cases5(torch, k, bf16_peak, f32_peak, full_rows, dev="cuda"):
 def kernel_cases4(torch, k, bf16_peak, f32_peak, full_rows, dev="cuda"):
     """The RWKV-4 main paths' new kernel: the V4 WKV scan at the World 0.1B
     width (C=768) at B=1, T=64; B=4, T=64 with lengths (64, 40, 17, 0);
-    and B=4, T=128 (its matrices have the RWKV-7 0.1B shapes, held in
-    kernel_cases). Lane 0 starts from the initial state (pp at F32_MIN),
-    the others from a random one."""
+    B=4, T=128; B=4, T=16 and T=32 (an Engine chunk of a short prompt);
+    and the B=1 serve's decode step (T=1) and 8-token prompt chunk (its
+    matrices have the RWKV-7 0.1B shapes, held in kernel_cases). Lane 0
+    starts from the initial state (pp at F32_MIN), the others from a
+    random one; in the serve's cases lane 0 carries a random state, as a
+    decode step does."""
     from web_rwkv_gguf_tpu_torch.ops.wkv import F32_MIN
 
     wkv4 = k["wkv4"]
     dev = torch.device(dev)
     C = 768
     cases = []
-    for T, lens in ((64, (64,)), (64, (64, 40, 17, 0)), (128, (128,) * 4)):
+    # (T, lengths, whether lane 0 starts from the initial state)
+    for T, lens, fresh in ((64, (64,), True), (64, (64, 40, 17, 0), True),
+                           (128, (128,) * 4, True), (16, (16, 16, 9, 0), True),
+                           (32, (32, 32, 17, 0), True), (1, (1,), False), (8, (8,), False)):
         B = len(lens)
 
-        def make_scan(i, B=B, T=T, lens=lens):
+        def make_scan(i, B=B, T=T, lens=lens, fresh=fresh):
             _, _, normal = _rng(torch, dev, 13000 * i + B + T)
             f = lambda *s: normal(*s) * 0.5  # noqa: E731
             state = torch.stack([f(B, C), f(B, C).abs() + 0.1, f(B, C)], dim=-1)
-            state[0] = torch.tensor([0.0, 0.0, F32_MIN], device=dev)
+            if fresh:
+                state[0] = torch.tensor([0.0, 0.0, F32_MIN], device=dev)
             mask = (torch.arange(T, device=dev)[None, :]
                     < torch.tensor(lens, device=dev)[:, None])
             return (state, f(B, T, C), f(B, T, C), f(B, T, C), f(C), -torch.exp(f(C)), mask)

@@ -8,13 +8,17 @@ version, then timed in a CUDA graph beside the library call, as
 chip_smoke's kernel phase does. From the repo root:
 
     python3 scripts/torch_kernel_cases.py [--roots A,B,...] [--match 's|...'] \
-        [--stacks Q4_K,Q6_K,...] [--batches 4,1,16] [tags]
+        [--stacks Q4_K,Q6_K,...] [--batches 4,1,16] [--time-only R,...] [tags]
 
 ``tags``: models of ``chip_smoke.MODELS`` whose cases to take (default
 all); ``--match``: keep the cases whose name contains one of the given
 substrings; ``--roots``: run the cases in each of these checkouts (each
 builds its own kernels), in the order given, e.g. ``_archive/parent,.,.,
 _archive/parent`` to compare two versions on one card in turns.
+``--time-only``: roots (of ``--roots``) whose cases are timed without
+the comparison, for a variant with parts of a kernel switched off (its
+outputs are wrong by design; ``max_abs_err`` reads NaN); without
+``--roots``, this checkout's cases are timed so.
 ``--stacks``: whole-stack decode cases at each of ``--batches`` lanes:
 RWKV-7 (``layer_scan7``, row 4) at the 0.1B widths at full depth, one per
 form (GGML block types, ``INT8`` for an f16 file requantized at load,
@@ -171,8 +175,9 @@ def phase_us(torch, case, n_phases, reps=5):
     return torch.stack(stamps).median(0).values.tolist()
 
 
-def run_here(tags, match, stacks=(), batches=(), stack_dir=None):
-    """The cases of this checkout (the working directory)."""
+def run_here(tags, match, stacks=(), batches=(), stack_dir=None, time_only=False):
+    """The cases of this checkout (the working directory); ``time_only``:
+    timed without the comparison."""
     sys.path.insert(0, os.getcwd())
     import numpy as np
     import torch
@@ -220,10 +225,14 @@ def run_here(tags, match, stacks=(), batches=(), stack_dir=None):
             if case["name"] in seen or (match and not any(s in case["name"] for s in match)):
                 continue
             seen.add(case["name"])
+            if time_only:
+                case = {**case, "check": lambda args: (0.0, 0.0)}
             try:
                 fields = cs.run_kernel_case(torch, case, hbm)
             except AssertionError as e:  # logged; the other cases still run
                 fields = {"failed": str(e)}
+            if time_only and "failed" not in fields:
+                fields["max_abs_err"] = float("nan")
             out.append({"name": case["name"], **fields})
             torch.cuda.empty_cache()
     return out
@@ -232,7 +241,7 @@ def run_here(tags, match, stacks=(), batches=(), stack_dir=None):
 def main():
     args = sys.argv[1:]
     opts = {"--roots": None, "--match": None, "--stacks": None, "--batches": None,
-            "--stack-dir": None}
+            "--stack-dir": None, "--time-only": None}
     for key in opts:
         if key in args:
             i = args.index(key)
@@ -252,13 +261,16 @@ def main():
         sys.path.insert(0, os.getcwd())
         build_stack_files(stack_dir, stacks)
     if one or opts["--roots"] is None:
-        results = run_here(tags, match, stacks, batches, stack_dir)
+        results = run_here(tags, match, stacks, batches, stack_dir,
+                           opts["--time-only"] is not None)
         print(json.dumps({"root": os.getcwd(), "cases": results}), flush=True)
         return 0
     here = os.path.abspath(__file__)
     summary = []
     for root in opts["--roots"]:
         cmd = [sys.executable, here, "--one", *tags]
+        if root in (opts["--time-only"] or ()):
+            cmd += ["--time-only", root]
         if match:
             cmd += ["--match", "|".join(match)]
         if stacks:

@@ -108,12 +108,16 @@ def test_gemv_refuses_what_the_kernel_does_not_take(card):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("B", [1, 3])
+@pytest.mark.parametrize("B", [1, 3, 4, 16])
 def test_att_core7_on_card(card, B):
+    """At H=12: the B=1 serve, B=3 with lane 1 masked, the Engine's B=4,
+    and B=16 with lanes 1, 5 and 11 masked; a masked lane keeps its state
+    bit for bit, and each call is one launch."""
     H, K = 12, 64
     g = torch.Generator(device=card).manual_seed(B)
     f = lambda *s: torch.randn(*s, generator=g, device=card) * 0.5  # noqa: E731
-    mask = torch.tensor([True, False, True][:B], device=card)
+    mask = torch.ones(B, dtype=torch.bool, device=card)
+    mask[{3: [1], 16: [1, 5, 11]}.get(B, [])] = False
     args = (f(B, H, K, K), f(B, H, K), f(B, H, K), f(B, H, K), f(B, H, K), f(B, H, K),
             torch.sigmoid(f(B, H, K)), f(H, K), f(H, K), 1 + 0.1 * f(H, K),
             0.1 * f(H, K), f(H, K), mask, 64e-5, 1e-12)
@@ -123,8 +127,7 @@ def test_att_core7_on_card(card, B):
     y0, s0 = core.att_core7_plain(*args)
     torch.testing.assert_close(s1, s0, rtol=0, atol=1e-4)
     torch.testing.assert_close(y1[mask], y0[mask], rtol=0, atol=1e-4)
-    if B == 3:
-        assert torch.equal(s1[1], args[0][1])  # the masked lane keeps its state
+    assert torch.equal(s1[~mask], args[0][~mask])  # masked lanes keep their state
 
 
 def _q4k_arrays(m, k, seed, dev):
@@ -610,15 +613,12 @@ def _close_pp(got, want, rel):
     _close(got[~sentinel], want[~sentinel], rel)
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("lens", [(1, 0, 1), (2,), (64, 40, 17, 0), (128, 128)])
-def test_wkv4_scan_on_card(card, lens):
-    """The V4 WKV scan against its plain version: y at live positions,
-    aa and bb at 1e-4·max|plain|, pp absolutely (_close_pp); a lane of
-    length 0 keeps its state bit for bit."""
+def _check_wkv4(args):
+    """One launch of the V4 scan against its plain version: y at live
+    positions, aa and bb at 1e-4·max|plain|, pp by _close_pp; a lane with
+    every token padded keeps its state bit for bit. Returns the state."""
     from web_rwkv_gguf_tpu_torch.ops.cuda import wkv4
 
-    args = _wkv4_args(len(lens), max(lens), lens, card)
     before = wkv4.wkv4_scan.launches
     y1, s1 = wkv4.wkv4_scan(*args)
     assert wkv4.wkv4_scan.launches == before + 1
@@ -627,8 +627,61 @@ def test_wkv4_scan_on_card(card, lens):
     _close(y1[mask], y0[mask], 1e-4)
     _close(s1[..., :2], s0[..., :2], 1e-4)
     _close_pp(s1[..., 2], s0[..., 2], 1e-4)
-    if 0 in lens:
-        assert torch.equal(s1[lens.index(0)], args[0][lens.index(0)])
+    idle = ~mask.any(1)
+    assert torch.equal(s1[idle], args[0][idle])
+    return s1
+
+
+# T at and around each of the kernel's splits by T (one warp at T = 1, 8
+# warps of one token to T = 8, segments of 1, 2, 4 and 8 tokens over 16
+# warps to T = 16, 32, 64 and 128, rounds past 128)
+WKV4_HOLES = ([(T, B) for T in (1, 8, 64, 127, 128) for B in (1, 4, 16)]
+              + [(T, 4) for T in (9, 16, 17, 32, 33, 37, 65, 200)])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lens", [(1, 0, 1), (2,), (64, 40, 17, 0), (128, 128)])
+def test_wkv4_scan_on_card(card, lens):
+    """The V4 WKV scan against its plain version (_check_wkv4) on ragged
+    lengths; a lane of length 0 keeps its state bit for bit."""
+    _check_wkv4(_wkv4_args(len(lens), max(lens), lens, card))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T,B", WKV4_HOLES)
+def test_wkv4_scan_mask_holes_on_card(card, T, B):
+    """Masks with holes (each token live with probability 0.7), lane 0 from
+    the F32_MIN sentinel with its last token live; at B > 1 the last lane starts at the sentinel
+    with every token padded and keeps its state bit for bit, F32_MIN too."""
+    from web_rwkv_gguf_tpu_torch.ops.wkv import F32_MIN
+
+    args = list(_wkv4_args(B, T, [T] * B, card, seed=T + B))
+    g = torch.Generator(device=card).manual_seed(7 * T + B)
+    mask = torch.rand(B, T, generator=g, device=card) < 0.7
+    mask[0, -1] = True  # lane 0 leaves the sentinel
+    if B > 1:
+        mask[-1] = False
+        args[0][-1] = torch.tensor([0.0, 0.0, F32_MIN], device=card)
+    args[-1] = mask
+    s1 = _check_wkv4(args)
+    if B > 1:
+        assert bool((s1[-1, :, 2] == F32_MIN).all())
+
+
+@pytest.mark.cuda
+def test_wkv4_scan_split_does_not_depend_on_T_on_card(card):
+    """One lane of length 37 run at T = 37, 64 and 128. The kernel splits a
+    chunk by T (segments of 4 tokens over 16 warps at T = 37 and 64, of 8
+    at T = 128), so the runs may fold the same tokens in other segments and
+    round them apart (pp + n·w in one step for n steps, the sums in another
+    order): their final states agree at 1e-4·max, pp by _close_pp. Each
+    run is held to the plain version too."""
+    args = _wkv4_args(1, 128, (37,), card, seed=37)
+    states = [_check_wkv4(tuple(a[:, :T] if a.dim() >= 2 and a.shape[1] == 128 else a
+                                for a in args)) for T in (37, 64, 128)]
+    for s1 in states[1:]:
+        _close(s1[..., :2], states[0][..., :2], 1e-4)
+        _close_pp(s1[..., 2], states[0][..., 2], 1e-4)
 
 
 def _v45_model(card, version, seed=6):

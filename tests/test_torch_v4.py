@@ -15,6 +15,10 @@ Tolerances:
   ulp); pp absolutely at 2e-5 on those lanes (its scale is logarithmic,
   and a lane that never ran holds ``F32_MIN``, which makes a relative
   check empty); a lane of length 0 keeps its state bit for bit;
+- the card kernel's split of the scan into segments (written in torch)
+  against the plain scan: y, aa and bb at 1e-4·max, pp at 1e-4·max over
+  the entries that left ``F32_MIN`` (the kernel's tolerance on the card:
+  pp + n·w in place of n additions, and sums in another order);
 - f32 dense forward and Engine: logits at rtol = atol = 2e-4, as
   tests/test_oracle.py:228 holds the JAX forward to its scalar oracle;
   the residual x and the states at atol = 2e-4·max (V4 has no
@@ -65,7 +69,7 @@ from web_rwkv_gguf_tpu_torch.models import (
 )
 from web_rwkv_gguf_tpu_torch.models.forward import GN_EPS, LN_EPS
 from web_rwkv_gguf_tpu_torch.ops.cuda.layer56 import layer_scan56, mega_layers
-from web_rwkv_gguf_tpu_torch.ops.cuda.wkv4 import wkv4_scan
+from web_rwkv_gguf_tpu_torch.ops.cuda.wkv4 import wkv4_scan, wkv4_scan_plain
 from web_rwkv_gguf_tpu_torch.ops import wkv as W
 from web_rwkv_gguf_tpu_torch.ops.wkv import F32_MIN
 from web_rwkv_gguf_tpu_torch.quant.ggml import GgmlDType
@@ -169,6 +173,74 @@ def test_wkv4_scan_plain_matches_pallas(interpret_mode):
     _close_to_max(s.numpy()[ran][..., :2], js[ran][..., :2], SCAN_TOL)
     np.testing.assert_allclose(s.numpy()[ran][..., 2], js[ran][..., 2], rtol=0, atol=SCAN_TOL)
     assert torch.equal(s[2], _t(state)[2])  # the empty lane keeps its state, F32_MIN too
+
+
+def _wkv4_split(state, k, v, r, u, w, mask, S):
+    """The card kernel's split of a chunk (``csrc/wkv4_scan.cu``) written
+    in torch: the T tokens in S segments of ceil(T / S); pass 1 folds each
+    segment from the empty state (0, 0, F32_MIN) into its summary (sa, sb,
+    sp) and its live count n; the combine applies the summaries in order,
+    q = max(pp + n·w, sp), aa' = e^(pp + n·w - q)·aa + e^(sp - q)·sa (bb
+    alike), pp' = q, an empty segment (n = 0) by a select; pass 2 replays
+    each segment from its incoming state. The last segment's replay gives
+    the chunk's state (its incoming state where it is empty)."""
+    B, T, C = k.shape
+    L = -(-T // S)
+    segs = [slice(min(T, s * L), min(T, (s + 1) * L)) for s in range(S)]
+    empty = torch.stack([torch.zeros(B, C), torch.zeros(B, C), torch.full((B, C), F32_MIN)], -1)
+    st, ins = state.float(), []
+    for g in segs:
+        ins.append(st)
+        if g.start == g.stop:
+            continue
+        sa, sb, sp = W.wkv4(empty, k[:, g], v[:, g], r[:, g], u, w, mask[:, g])[1].unbind(-1)
+        n = mask[:, g].sum(1, keepdim=True).float()
+        aa, bb, pp = st.unbind(-1)
+        p1 = pp + n * w
+        q = torch.maximum(p1, sp)
+        e1, e2 = torch.exp(p1 - q), torch.exp(sp - q)
+        st = torch.where((n > 0)[..., None],
+                         torch.stack([e1 * aa + e2 * sa, e1 * bb + e2 * sb, q], -1), st)
+    ys, final = [], ins[-1]
+    for g, st in zip(segs, ins):
+        if g.start < g.stop:
+            y, final = W.wkv4(st, k[:, g], v[:, g], r[:, g], u, w, mask[:, g])
+            ys.append(y)
+    return torch.cat(ys, 1), final if segs[-1].start < segs[-1].stop else ins[-1]
+
+
+@pytest.mark.parametrize("T", [1, 37, 64, 128])
+@pytest.mark.parametrize("S", [1, 2, 8, 16])
+def test_wkv4_split_matches_the_plain_scan(S, T):
+    """The kernel's segment split (_wkv4_split) against ``wkv4_scan_plain``
+    at C = 64 on five lanes: 0 from the initial state (pp at F32_MIN) and 1
+    from a random one, both with holes in their masks; 2 (random) and 3
+    (F32_MIN) with every token padded; 4 from F32_MIN with only its last
+    token live, so that every earlier segment is empty. y at the live
+    positions and aa/bb at 1e-4·max, pp at 1e-4·max over the entries that
+    left F32_MIN and equal on the others; lanes 2 and 3 keep their state bit
+    for bit (largest errors seen: y 1.5e-7 of max, aa/bb 1.3e-7, pp 0; with
+    one decay step a segment in place of n, y is off by 0.41 of max)."""
+    rng = np.random.default_rng(100 * S + T)
+    B, C = 5, 64
+    f = lambda *s: (rng.normal(size=s) * 0.5).astype(np.float32)  # noqa: E731
+    state = np.stack([f(B, C), np.abs(f(B, C)) + 0.1, f(B, C)], axis=-1)
+    state[[0, 3, 4]] = np.array([0.0, 0.0, F32_MIN], np.float32)
+    mask = rng.random((B, T)) < 0.7
+    mask[2:] = False
+    mask[4, -1] = True
+    args = [_t(a) for a in (state, f(B, T, C), f(B, T, C), f(B, T, C), f(C), -np.exp(f(C)),
+                            mask)]
+    y, s = _wkv4_split(*args, S)
+    y0, s0 = wkv4_scan_plain(*args)
+    live = args[-1]
+    _close_to_max(y.numpy()[mask], y0.numpy()[mask], 1e-4)
+    _close_to_max(s[..., :2].numpy(), s0[..., :2].numpy(), 1e-4)
+    sentinel = s0[..., 2] == F32_MIN
+    assert torch.equal(s[..., 2][sentinel], s0[..., 2][sentinel])
+    _close_to_max(s[..., 2][~sentinel].numpy(), s0[..., 2][~sentinel].numpy(), 1e-4)
+    assert torch.equal(s[2:4], args[0][2:4])  # every token padded: the state bit for bit
+    assert bool(live[4, -1]) and not bool(sentinel[4].any())  # lane 4 left F32_MIN
 
 
 @pytest.mark.parametrize("T", [1, 9])

@@ -1,9 +1,9 @@
 """The RWKV-4 WKV scan (``csrc/wkv4_scan.cu``) and its plain version.
 
-``wkv4_scan`` runs the V4 recurrence over a chunk of tokens with each
-channel's running-max state (aa, bb, pp) kept in registers. V4 has no
-chunk-parallel form, so every V4 chunk takes it, T = 1 and T ≥ 128
-included.
+``wkv4_scan`` runs the V4 recurrence over a chunk of tokens, each
+channel's tokens split over up to 16 warps whose segments meet through
+the update's associative form (``csrc/wkv4_scan.cu``). Every V4 chunk
+takes it, T = 1 and T ≥ 128 included.
 
 On a CUDA tensor it launches the kernel or raises; only a tensor on the
 CPU takes the plain version.
@@ -19,6 +19,7 @@ import torch
 
 from .. import wkv as W
 from . import build
+from .wkv7 import mask_bytes
 
 
 def wkv4_scan_plain(state, k, v, r, u, w, mask):
@@ -56,7 +57,7 @@ def wkv4_scan(state, k, v, r, u, w, mask):
             raise ValueError(f"wkv4_scan: {key} must be {want}, got {tuple(x.shape)}")
         if x.device != state.device:
             raise ValueError(f"wkv4_scan: {key} on {x.device}, state on {state.device}")
-        ops[key] = (x.to(torch.uint8) if key == "mask" else x.float()).contiguous()
+        ops[key] = mask_bytes(x) if key == "mask" else x.float().contiguous()
     st = state.float().contiguous()
     y = torch.empty(bsz, t, c, dtype=torch.float32, device=state.device)
     s1 = torch.empty_like(st)

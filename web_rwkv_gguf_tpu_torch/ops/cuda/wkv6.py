@@ -23,7 +23,7 @@ import torch
 
 from .. import wkv as W
 from . import build
-from .wkv7 import scan_operand
+from .wkv7 import mask_bytes, scan_operand
 
 HEAD_SIZE = 64  # the head size the kernel takes
 
@@ -81,7 +81,7 @@ def wkv6_scan(state, r, k, v, u, w, mask):
         if x.device != state.device:
             raise ValueError(f"wkv6_scan: {key} on {x.device}, state on {state.device}")
         if key == "mask":
-            ops[key] = x.to(torch.uint8).contiguous()
+            ops[key] = mask_bytes(x)
         elif key == "w":
             ops[key], static_w = decay_operand(x)
         else:

@@ -87,8 +87,9 @@ def att_core7_step(state, r, w_raw, k_raw, v, a_raw, g, k_k, k_a, gn_w, gn_b,
         if a.device != state.device:
             raise ValueError(f"att_core7: {key} on {a.device}, state on "
                              f"{state.device}")
-        ops[key] = a.float().contiguous()
-    st = state.float().contiguous()
+        # the kernel reads 16 bytes at a time, and the mask as bytes
+        ops[key] = mask_bytes(a) if key == "mask" else scan_operand(a)
+    st = scan_operand(state)
     y = torch.empty(b, h, vdim, dtype=torch.float32, device=state.device)
     s1 = torch.empty_like(st)
     with torch.cuda.device(state.device):
@@ -126,10 +127,18 @@ def wkv7_scan_plain(state, r, w, k, v, a, b, mask):
 
 
 def scan_operand(x):
-    """``x`` as the scan kernels read it: f32, contiguous, its first
-    element 16-byte aligned (the base address a TMA copy takes)."""
+    """``x`` as the scan kernels and the attention core read it: f32,
+    contiguous, its first element 16-byte aligned (the base address a TMA
+    copy or a 16-byte load takes)."""
     x = x.float().contiguous()
     return x if x.data_ptr() % 16 == 0 else x.clone()
+
+
+def mask_bytes(mask):
+    """``mask`` as the kernels read it: one byte an element, 0 where
+    masked. A contiguous bool tensor is read in place, with no launch."""
+    m = mask if mask.dtype == torch.bool else mask != 0
+    return m.contiguous().view(torch.uint8)
 
 
 @functools.cache
@@ -165,7 +174,7 @@ def wkv7_scan(state, r, w, k, v, a, b, mask):
         if x.device != state.device:
             raise ValueError(f"wkv7_scan: {key} on {x.device}, state on "
                              f"{state.device}")
-        ops[key] = x.to(torch.uint8).contiguous() if key == "mask" else scan_operand(x)
+        ops[key] = mask_bytes(x) if key == "mask" else scan_operand(x)
     st = state.float().contiguous()
     y = torch.empty(bsz, t, h, vdim, dtype=torch.float32, device=state.device)
     s1 = torch.empty_like(st)
