@@ -32,11 +32,26 @@ exactly just after:
   ``models.unroll_params(params)``, the JAX package's unrolled decode
   form, where each layer's r, k and v take one ``quant_gemv_grouped``
   launch (the per-layer kernels at decode);
-- ``runtime.Engine(num_batch=4)``: ``generate`` on four prompts of
-  different lengths (chunked prefill as the scheduler plans it, then
-  32 greedy tokens on all lanes, each step one launch of the
+- ``runtime.Engine(num_batch=4)`` under the default dense-prefill policy
+  (chunks of at least 64 tokens on a dense bf16 copy where it clearly
+  fits; the Q8_0 model's Engine without the copy): ``generate`` on four
+  prompts of different lengths (chunked prefill as the scheduler plans
+  it, then 32 greedy tokens on all lanes, each step one launch of the
   whole-stack decode kernel, or the per-layer path for NF4, which has
-  none), then one ``infer`` with a FULL lane.
+  none), then one ``infer`` with a FULL lane;
+- serving (RWKV-7 Q4_K_M, RWKV-6 Q4_K_M): the prefill with and without
+  the dense copy, timed, and held against each other on the card-vs-CPU
+  model's two layers; an ``runtime.EnginePool`` of 32 lanes (two engines
+  of 16 decoding on dense weights in the whole-stack kernel's dense
+  slot, one params object, one dense copy while it is built) against two
+  standalone engines, timed beside one engine of 16 lanes; dense against
+  quantized decode at 16 lanes on the two layers; an RWKV-6 Engine of 8
+  lanes decoding one step in the dense slot;
+- files: a lane's state through ``io.save_state`` / ``io.load_state``
+  (RWKV-7, RWKV-4), a file's ``time_state`` through
+  ``models.load_initial_state``, a ``.rwkvz`` snapshot of the NF4 model
+  and a ``.safetensors`` file of the bf16 model, each loaded back bit
+  for bit.
 
 For each model it holds the whole-stack decode kernel against its plain
 version layer by layer (and, beside the Q6_K and f16 models, stacks in
@@ -66,8 +81,10 @@ import contextlib
 import json
 import math
 import multiprocessing
+import os
 import subprocess
 import sys
+import tempfile
 import time
 
 VOCAB = 65536  # every model's vocabulary
@@ -96,7 +113,15 @@ _V6_MATRICES = (("att", "Wr"), ("att", "Wk"), ("att", "Wv"), ("att", "Wg"), ("at
 # whole-stack form, and the Engine decodes layer by layer). "grouped": an
 # RWKV-7 model whose r, k and v group (models.unroll_params attaches
 # att["Wrkv_g"] to every layer), served at B=1 on the unrolled params.
-# MODEL_CASES holds each model's kernel cases.
+# MODEL_CASES holds each model's kernel cases. The serving and file phases
+# run where a model says so: "engine", the Engine's arguments (the Q8_0
+# model prefills without the dense copy, so the dequant-GEMM keeps an Engine
+# path of its own at every chunk); "dense_compare", the prefill on the
+# dense copy against an Engine without it; "dense8", an Engine of 8 lanes
+# decoding on dense weights; "pool", an EnginePool of POOL_LANES lanes;
+# "state_file", a lane through a state file; "initial_state", a file's
+# time_state; "snapshot", a .rwkvz snapshot; "safetensors", a .safetensors
+# file of the model.
 MODELS = {
     # RWKV-7 0.1B widths (L=12, C=768, head 64, hidden 4·C, LoRA ranks
     # w/a/g/v 64/64/128/32)
@@ -107,7 +132,8 @@ MODELS = {
                matrices=(("att", "Wr"), ("att", "Wk"), ("att", "Wv"), ("att", "Wo"),
                          ("ffn", "Wk"), ("ffn", "Wv")),
                wkv=("att_core7_step", "wkv7_scan", None), mega=("mega7", "layer_scan7"),
-               mega_batches=(4, 1, 16)),
+               mega_batches=(4, 1, 16), dense_compare=True, pool=True, state_file=True,
+               initial_state=True),
     # RWKV-6 World 1.6B widths (BlinkDL's RWKV-x060-World-1B6: L=24, C=2048,
     # head 64, hidden int(3.5·C // 32 · 32); time-mix and decay LoRA ranks 32
     # and 64 from RWKV-LM's v6 model.py)
@@ -117,13 +143,16 @@ MODELS = {
                widths=dict(n_layer=12, n_emb=2048, head_size=64, n_vocab=VOCAB, n_hidden=7168,
                            rank_tm=32, rank_td=64),
                matrices=_V6_MATRICES, wkv=("wkv6_scan", "wkv6_scan", None),
-               mega=("mega56", "layer_scan56"), mega_batches=(4, 1, 16)),
+               mega=("mega56", "layer_scan56"), mega_batches=(4, 1, 16), dense_compare=True,
+               dense8=True),
     # RWKV-5 World 0.4B widths (BlinkDL's RWKV-5-World-0.4B-v2: L=24, C=1024,
     # head 64, hidden int(3.5·C // 32 · 32) from RWKV-LM's v5 train.py); the
     # WKV is RWKV-6's with the static decay broadcast over the tokens
     "v5": dict(make="make_v5_gguf", seed=20, quantize="Q4_K", head_quantize="Q6_K",
                kinds=("qk", "qk_nomin"),
-               widths=dict(n_layer=24, n_emb=1024, head_size=64, n_vocab=VOCAB, n_hidden=3584),
+               # 12 of the model's 24 layers: beside the serving and file
+               # phases, the run stays within its time
+               widths=dict(n_layer=12, n_emb=1024, head_size=64, n_vocab=VOCAB, n_hidden=3584),
                matrices=_V6_MATRICES, wkv=("wkv6_scan", "wkv6_scan", None),
                mega=("mega56", "layer_scan56"), mega_batches=(4, 1, 16)),
     # RWKV-4 World 0.1B widths (BlinkDL's RWKV-4-World-0.1B: L=12, C=768,
@@ -134,7 +163,7 @@ MODELS = {
                matrices=(("att", "Wr"), ("att", "Wk"), ("att", "Wv"), ("att", "Wo"),
                          ("ffn", "Wk"), ("ffn", "Wv"), ("ffn", "Wr")),
                wkv=("wkv4_scan",) * 3, mega=("mega56", "layer_scan56"),
-               mega_batches=(4, 1, 16)),
+               mega_batches=(4, 1, 16), state_file=True),
     # RWKV-7 0.1B widths in llama.cpp's Q5_K_M placement, made uniform
     # across layers as the Q4_K_M one is (Q5_K layers, Q6_K head)
     # Its card-vs-CPU model is seed 42's, not seed + 1's: seed 41's model
@@ -156,12 +185,14 @@ MODELS = {
     # head included)
     "v6q8": dict(make="make_v6_gguf", seed=50, quantize="Q8_0", head_quantize="Q8_0",
                  kinds=("qk_nomin", "qk_nomin"),
-                 # 12 of the model's 24 layers: beside the other models and the
-                 # slot stacks, the run stays within its time
-                 widths=dict(n_layer=12, n_emb=2048, head_size=64, n_vocab=VOCAB, n_hidden=7168,
+                 # 6 of the model's 24 layers: beside the other models, the slot
+                 # stacks and the serving and file phases, the run stays within
+                 # its time
+                 widths=dict(n_layer=6, n_emb=2048, head_size=64, n_vocab=VOCAB, n_hidden=7168,
                              rank_tm=32, rank_td=64),
                  matrices=_V6_MATRICES, wkv=("wkv6_scan", "wkv6_scan", None),
-                 mega=("mega56", "layer_scan56"), mega_batches=(4, 1, 16)),
+                 mega=("mega56", "layer_scan56"), mega_batches=(4, 1, 16),
+                 engine=dict(prefill_dense=False)),
     # RWKV-7 0.1B widths from an f16 file, requantized at load as the
     # reference's --quant int8 does (u8 codes per 128 with f16 bounds)
     "v7i8": dict(make="make_v7_gguf", seed=60, quantize=None, quant="INT8",
@@ -185,7 +216,8 @@ MODELS = {
                               n_hidden=3072, lora_w=64, lora_a=64, lora_g=128, lora_v=32),
                   matrices=(("att", "Wr"), ("att", "Wk"), ("att", "Wv"), ("att", "Wo"),
                             ("ffn", "Wk"), ("ffn", "Wv")),
-                  wkv=("att_core7_step", "wkv7_scan", None), mega=None, mega_batches=()),
+                  wkv=("att_core7_step", "wkv7_scan", None), mega=None, mega_batches=(),
+                  snapshot=True),
     # RWKV-6 World 1.6B widths requantized as --quant int8 does
     "v6i8": dict(make="make_v6_gguf", seed=80, quantize=None, quant="INT8",
                  kinds=("int8", "dense"),
@@ -209,7 +241,7 @@ MODELS = {
     "v7f16": dict(make="make_v7_gguf", seed=100, quantize=None, kinds=("dense", "dense"),
                   widths=_V7_WIDTHS, matrices=_V7_MATRICES,
                   wkv=("att_core7_step", "wkv7_scan", None), mega=("mega7", "layer_scan7"),
-                  mega_batches=(4, 1, 16)),
+                  mega_batches=(4, 1, 16), safetensors=True),
 }
 PROMPTS = ([11, 2041, 7, 65000, 310, 42, 9, 1234], [5, 5, 60000, 88, 901, 3, 77, 12])
 DECODE_STEPS = 32
@@ -228,6 +260,19 @@ FULL_LANES = ((60, "full"), (3, "last"), (0, "last"), (1, "last"))
 # card-vs-CPU prefill: (T, lengths per lane) of two chunks at B=3
 COMPARE_PREFILL = [(37, (37, 20, 0)), (128, (128, 90, 128))]
 COMPARE_SEED = 2  # its prefill tokens
+# the dense weights against the quantized ones (the Engine's prefill copy, and
+# decode at B=16), × max|logit|: bf16-rounded weights against the kernels'
+# classes, as the CPU tests hold them against the JAX package; or twice the
+# quantized path's own distance from the f32-weight function where that is
+# larger (RWKV-6 at the 1.6B widths: the quantized prefill sits 3.8e-2 from
+# it on the CPU at two layers; PERF.md, Findings)
+DENSE_TOL = 3e-2
+# the pool: 32 lanes (two engines of 16), prompts of 8-47 tokens from
+# POOL_SEED, one 32-token segment
+POOL_LANES = 32
+POOL_TOKENS = 33
+POOL_SEED = 9
+STATE_TOKENS = (17, 4000, 65535)  # a lane's tokens after its state file is loaded
 
 # peaks of the card from NVIDIA's data sheets (dense): HBM bytes/s,
 # bf16 tensor-core FLOP/s, f32 (non-tensor) FLOP/s
@@ -1388,6 +1433,22 @@ def build_slot_file(version, kind, seed):
     return raw, time.perf_counter() - t0
 
 
+def model_convention(reader):
+    """The model-convention tensors of a GGUF file (``blocks.0.att.key.weight``
+    ...), each in its stored type (f16 or f32), for a .safetensors file."""
+    import numpy as np
+
+    from web_rwkv_gguf_tpu_torch.quant.ggml import GgmlDType
+
+    out = {}
+    for name in reader.names():
+        if name in reader.name_map and (name.startswith("blocks.")
+                                        or name.split(".")[0] in ("emb", "ln_out", "head")):
+            f16 = reader.tensors[reader.name_map[name]].dtype == GgmlDType.F16
+            out[name] = reader.tensor(name, np.float16 if f16 else np.float32)
+    return out
+
+
 def load(models, raw, spec, device):
     """``models.load_model`` of a model file, requantized by the model's
     scheme where it has one."""
@@ -1675,8 +1736,9 @@ def main() -> int:
 
 
 def run(np, torch, files) -> int:
+    from web_rwkv_gguf_tpu_torch import io as rio
     from web_rwkv_gguf_tpu_torch import models, runtime
-    from web_rwkv_gguf_tpu_torch.gguf import GgufFile
+    from web_rwkv_gguf_tpu_torch.gguf import GgufFile, GgufWriter
     from web_rwkv_gguf_tpu_torch.models import matrix as matrix_mod
     from web_rwkv_gguf_tpu_torch.models.forward import WKV7_CHUNKED_MIN_T
     from web_rwkv_gguf_tpu_torch.models.forward import GN_EPS, L2_EPS, LN_EPS
@@ -1853,6 +1915,370 @@ def run(np, torch, files) -> int:
                                                          device="cuda"))[:, 0]
         hold_stack(label, mega_key, prepared[mega_key], state, dec_x, SLOT_BATCHES[version])
 
+    def last_logits(eng, prompts):
+        """Each lane's logits after its prompt, through ``Engine.infer`` from
+        a reset state (numpy, one row a lane)."""
+        eng.reset_state()
+        inp = runtime.RnnInput([runtime.RnnInputBatch(list(p)) for p in prompts], ENGINE_CHUNK)
+        last = [None] * len(prompts)
+        while inp.num_token:
+            for b, o in enumerate(eng.infer(inp)):
+                if len(o):
+                    last[b] = o[-1]
+        return np.stack(last)
+
+    def rel_err(got, want):
+        return float(np.abs(got - want).max() / np.abs(want).max())
+
+    def dense_against_quantized(tag, info, params, eng, busy_pre, n_pre, t_pre):
+        """Phase (a): the Engine's prefill on its dense copy against an
+        Engine of the same lanes with ``prefill_dense=False``: device µs a
+        prompt token of each, and how far apart each lane's last logits sit
+        at full depth (logged; dense_logits holds them on two layers)."""
+        eng_q = runtime.Engine(info, params, num_batch=len(ENGINE_LENGTHS),
+                               token_chunk_size=ENGINE_CHUNK, prefill_dense=False,
+                               device="cuda")
+        eng_q.generate(engine_prompts, 1)  # first call: warm-up
+        eng_q.reset_state()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        eng_q.generate(engine_prompts, 1)
+        torch.cuda.synchronize()
+        t_q = time.perf_counter() - t0
+        busy_q, _, rows_q = profile(
+            torch, lambda: (eng_q.reset_state(), eng_q.generate(engine_prompts, 1)), n_pre)
+        gemm_q = sum(us for us, key, _ in rows_q if "qk_gemm_kernel" in key)
+        if busy_pre is None or busy_q is None:
+            log(f"{tag} prefill with and without the dense copy: no device time recorded "
+                "(not measured)")
+        else:
+            log(f"{tag} prefill device us a prompt token: dense copy {busy_pre:.2f}, quantized "
+                f"{busy_q:.2f} (qk_gemm_kernel {gemm_q:.2f}); quantized / dense "
+                f"{busy_q / busy_pre:.3f}; wall ms a prompt token {t_pre / n_pre * 1e3:.3f} "
+                f"against {t_q / n_pre * 1e3:.3f}, on {smi}")
+        err = rel_err(last_logits(eng, engine_prompts), last_logits(eng_q, engine_prompts))
+        log(f"{tag} prefill logits at full depth, dense copy against quantized: max|d-q|/max|q| "
+            f"{err:.3e} (not held here: {info.num_layer} random layers amplify the two "
+            f"rounding classes apart; held on the {COMPARE_LAYERS}-layer model below)")
+
+    def dense_logits(tag, spec, info2, p_gpu):
+        """The dense weights against the quantized ones on the card, on the
+        card-vs-CPU model (COMPARE_LAYERS layers; at full depth the random
+        layers amplify any rounding difference chaotically): every lane's
+        logits after its prompt with and without the dense prefill copy; for
+        the pool's model also one decode step of 16 lanes on dense weights
+        against quantized ones, from the same state. Each pair is held
+        within DENSE_TOL·max, or within twice the quantized path's own
+        distance from the model's exact function (the same lanes on f32
+        weights, measured here) where that is larger: a dense copy no less
+        exact than the quantized path sits at most that far from it."""
+        kw = dict(token_chunk_size=ENGINE_CHUNK, device="cuda")
+        B4 = len(ENGINE_LENGTHS)
+        exact = models.densify_matrices(p_gpu, torch.float32)
+        runs = {"prefill, dense copy against quantized (B=4)": [
+            last_logits(runtime.Engine(info2, p, B4, prefill_dense=d, unroll=u, **kw),
+                        engine_prompts)
+            for p, d, u in ((p_gpu, True, None), (p_gpu, False, None), (exact, False, False))]}
+        if spec.get("pool"):
+            prompts, _ = pool_prompts()
+            quant = runtime.Engine(info2, p_gpu, 16, decode_dense=False, prefill_dense=False,
+                                   **kw)
+            runs["B=16 one decode step from the same state, dense against quantized"] = (
+                decode_step(quant, [runtime.Engine(info2, p_gpu, 16, decode_dense=True, **kw),
+                                    quant, runtime.Engine(info2, exact, 16, decode_dense=False,
+                                                          prefill_dense=False, unroll=False,
+                                                          **kw)], prompts[:16]))
+        failed = []
+        for label, (dense, quant_, exact_) in runs.items():
+            err, spread = rel_err(dense, quant_), rel_err(quant_, exact_)
+            limit = max(DENSE_TOL, 2 * spread)
+            log(f"{tag} {label}, L={COMPARE_LAYERS}: max|d-q|/max|q| {err:.3e} (limit "
+                f"{limit:.3e}); quantized against f32 weights {spread:.3e}, dense against f32 "
+                f"weights {rel_err(dense, exact_):.3e}")
+            if not err <= limit:
+                failed.append(label)
+        if failed:
+            raise AssertionError(f"{tag}: the dense weights disagree with the quantized ones "
+                                 f"({failed})")
+
+    def decode_dense8(tag, spec, info, params):
+        """Phase (b), RWKV-6: an Engine of 8 lanes decodes on dense weights by
+        default (the whole-stack kernel's dense slot): one step, counted."""
+        L = info.num_layer
+        e8 = runtime.Engine(info, params, num_batch=8, token_chunk_size=ENGINE_CHUNK,
+                            device="cuda")
+        dense_slot = l7.descriptor(l7.FORM_DENSE, 0, 0)
+        if (e8.params_quantized is not params or "mega56" not in e8.params
+                or set(e8.params["mega56"]["forms"].values()) != {dense_slot}):
+            raise AssertionError(f"{tag}: Engine(num_batch=8) did not decode in the dense slot")
+        prompts8 = [engine_prompts[i % 4][:12 + i] for i in range(8)]
+        Ts = engine_plans(runtime, _bucket, [len(p) for p in prompts8], ENGINE_CHUNK)
+        e8_layers = layer_params(e8.params, L)
+        want = collections.Counter({"layer_scan56": 1})
+        for T in Ts:
+            want += expected_chunk(WKV7_CHUNKED_MIN_T, spec, e8_layers, 8, T)
+        toks = counted(f"{tag} engine decode on dense weights (B=8, one step)", want,
+                       lambda: e8.generate(prompts8, 2, segment=1))
+        if [len(t) for t in toks] != [2] * 8:
+            raise AssertionError(f"{tag}: Engine(num_batch=8) gave {toks}")
+        log(f"{tag} engine at B=8: auto decode_dense (dense_cache_bytes "
+            f"{models.dense_cache_bytes(params)}), prompt chunks T={Ts}, one decode step in "
+            f"layer_scan56's dense slot; tokens {toks[0]}")
+
+    def decode_segments(info, engines, groups, steps):
+        """Wall seconds and device µs a step of one decode segment of
+        ``steps`` steps on each engine, dispatched engine by engine before
+        anything is read back (as ``EnginePool.generate`` dispatches them),
+        each from its own prefill of its prompts."""
+        segment = models.make_generator(info, steps=steps)
+        starts = []
+        for e, prompts in zip(engines, groups):
+            e.reset_state()
+            first, gen = e._gen_prefill(prompts, 0.0, 0, 0.0, 0)
+            starts.append((e.state, first, gen))
+
+        def run():
+            return [segment(e.params, st, first, gen)[0]
+                    for e, (st, first, gen) in zip(engines, starts)]
+
+        run()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        busy = profile(torch, run, steps)[0]
+        return wall, busy
+
+    def pool_phase(tag, spec, info, params):
+        """Phase (b): ``EnginePool(num_lanes=POOL_LANES)``: groups of 16,
+        dense decode by default, one params object and one dense copy; its
+        decode counted (one whole-stack launch an engine a step); its tokens
+        against two standalone Engines of 16 lanes; decode tok/s and device
+        µs a step of the pool and of one B=16 Engine, dense and quantized
+        (dense_logits holds the two against each other)."""
+        L = info.num_layer
+        prompts, _ = pool_prompts()
+        dense_bytes = models.dense_cache_bytes(params)
+        torch.cuda.synchronize()
+        m0 = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        pool = runtime.EnginePool(info, params, POOL_LANES, token_chunk_size=ENGINE_CHUNK,
+                                  device="cuda")
+        torch.cuda.synchronize()
+        t_build = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() - m0
+        held = torch.cuda.memory_allocated() - m0
+        dense_slot = l7.descriptor(l7.FORM_DENSE, 0, 0)
+        log(f"{tag} pool: {POOL_LANES} lanes in groups {pool.group_sizes}, built in "
+            f"{t_build:.2f} s; dense_cache_bytes {dense_bytes}; during construction the card "
+            f"held at most {peak} bytes more than before ({peak / dense_bytes:.3f} x one dense "
+            f"copy), {held} after ({held / dense_bytes:.3f} x)")
+        if (pool.group_sizes != [16, 16] or pool.params_quantized is not params
+                or any(e.params is not pool.params for e in pool.engines)
+                or set(pool.params["mega7"]["forms"].values()) != {dense_slot}):
+            raise AssertionError(f"{tag}: the pool is not two engines of 16 lanes over one "
+                                 "dense params object")
+        if not (dense_bytes <= held and peak < 2 * dense_bytes):
+            raise AssertionError(f"{tag}: the pool's construction held more than one dense copy")
+        # counted: each engine's prefill (one chunk on the dense params: the
+        # WKV scan only) and one segment of 32 steps, one layer_scan7 launch
+        # an engine a step (the head is dense)
+        pool_layers = layer_params(pool.params, L)
+        want = collections.Counter()
+        for i, g in enumerate(pool.group_sizes):
+            lens = [len(p) for p in prompts[16 * i:16 * i + g]]
+            for T in engine_plans(runtime, _bucket, lens, ENGINE_CHUNK):
+                want += expected_chunk(WKV7_CHUNKED_MIN_T, spec, pool_layers, g, T)
+        want["layer_scan7"] += len(pool.engines) * (POOL_TOKENS - 1)
+        got = counted(f"{tag} pool generate ({POOL_LANES} lanes)", want,
+                      lambda: pool.generate(prompts, POOL_TOKENS))
+        alone = [runtime.Engine(info, params, num_batch=16, token_chunk_size=ENGINE_CHUNK,
+                                decode_dense=True, device="cuda") for _ in range(2)]
+        want_toks = [t for i, e in enumerate(alone)
+                     for t in e.generate(prompts[16 * i:16 * (i + 1)], POOL_TOKENS, seed=i)]
+        if got != want_toks:
+            bad = [b for b, (a, w) in enumerate(zip(got, want_toks)) if a != w]
+            raise AssertionError(f"{tag}: pool lanes {bad} differ from standalone engines")
+        log(f"{tag} pool tokens equal two standalone Engine(num_batch=16, decode_dense=True) "
+            f"lane for lane ({POOL_LANES} x {POOL_TOKENS}); lane 0 {got[0][:8]}...")
+        quant = runtime.Engine(info, params, num_batch=16, token_chunk_size=ENGINE_CHUNK,
+                               decode_dense=False, prefill_dense=False, device="cuda")
+        steps = 64
+        for label, engines in (("pool", pool.engines), ("one B=16 Engine (dense)", alone[:1]),
+                               ("one B=16 Engine (quantized)", [quant])):
+            lanes = 16 * len(engines)
+            t, dev = decode_segments(info, engines, [prompts[16 * i:16 * (i + 1)]
+                                                     for i in range(len(engines))], steps)
+            dev_s = "not measured" if dev is None else f"{dev:.1f} device us/step"
+            log(f"{tag} {label} decode: {lanes * steps / t:.2f} tok/s ({t / steps * 1e3:.3f} "
+                f"ms/step over {steps} steps, {lanes} lanes), {dev_s}, on {smi}")
+        # the dense slot against the quantized one from the same state: one
+        # decode step of the 16 lanes at full depth (logged; held on the
+        # card-vs-CPU model's two layers by dense_logits)
+        err = rel_err(*decode_step(quant, [alone[0], quant], prompts[:16]))
+        log(f"{tag} B=16 one decode step from the same state, dense against quantized, "
+            f"L={L}: max|d-q|/max|q| {err:.3e} (not held here)")
+        del pool, alone, quant
+
+    def decode_step(source, engines, prompts):
+        """Each engine's logits of one decode step of every lane from the
+        same state: ``source``'s after ``prompts``."""
+        last_logits(source, prompts)
+        state = clone_tree(source.state)
+        _, step = pool_prompts()
+        out = []
+        for e in engines:
+            e.state = clone_tree(state)
+            out.append(last_logits_continue(e, step))
+        return out
+
+    def pool_prompts():
+        """The pool's prompts (POOL_LANES of 8-47 tokens) and one decode
+        token for each of the first 16 lanes, from POOL_SEED."""
+        prng = np.random.default_rng(POOL_SEED)
+        prompts = [[int(t) for t in prng.integers(0, VOCAB, int(n))]
+                   for n in prng.integers(8, 48, POOL_LANES)]
+        return prompts, [[int(t)] for t in prng.integers(0, VOCAB, 16)]
+
+    def last_logits_continue(eng, tokens):
+        """One more chunk (``tokens`` a lane) after ``last_logits``: each
+        lane's logits."""
+        inp = runtime.RnnInput([runtime.RnnInputBatch(list(t)) for t in tokens], ENGINE_CHUNK)
+        return np.stack([o[-1] for o in eng.infer(inp)])
+
+    def state_file_phase(tag, info, eng):
+        """Phase (c): one lane's state through ``back_state`` →
+        ``save_state`` → ``load_state`` into the lane after a reset: three
+        more tokens on that lane give the same logits and state bit for bit
+        as before the reset."""
+        with tempfile.TemporaryDirectory() as tmp:
+            path = f"{tmp}/lane.npz"
+            snap = eng.back_state(1)
+            rio.save_state(path, info, snap)
+            ref = rio.state_to_reference_layout(info, snap)
+
+            def cont():
+                inp = runtime.RnnInput([runtime.RnnInputBatch([]) for _ in range(4)],
+                                       ENGINE_CHUNK)
+                out = []
+                for t in STATE_TOKENS:
+                    inp.batches[1].push(t)
+                    out.append(eng.infer(inp)[1])
+                return np.concatenate(out), eng.back_state(1)
+
+            before, st_before = cont()
+            eng.reset_state(1)
+            fresh = models.init_state(info, 1, device="cpu")
+            if any(not np.array_equal(eng.back_state(1)[k], fresh[k][:, 0].numpy())
+                   for k in fresh):
+                raise AssertionError(f"{tag}: reset_state did not reset the lane")
+            loaded = rio.load_state(path)
+            eng.load_state(1, loaded)
+            after, st_after = cont()
+            same = np.array_equal(before, after) and all(
+                np.array_equal(st_before[k], st_after[k]) for k in st_before)
+            log(f"{tag} state file: lane 1 ({os.path.getsize(path)} bytes, reference layout "
+                f"{list(ref.shape)}) saved, the lane reset and loaded back: {len(STATE_TOKENS)} "
+                f"more tokens give {'the same' if same else 'OTHER'} logits and state bit for "
+                f"bit")
+            if not same or sorted(loaded) != sorted(snap):
+                raise AssertionError(f"{tag}: the lane did not continue from its state file")
+
+    def initial_state_phase(tag, info, params):
+        """Phase (c): a file's time_state (``load_initial_state``) as every
+        lane's initial WKV state: each lane, and a reset lane after a prompt,
+        holds the file's state bit for bit."""
+        H, hs = info.num_head, info.head_size
+        srng = np.random.default_rng(POOL_SEED)
+        w = GgufWriter()
+        w.add_metadata("rwkv7.wkv.head_size", hs)
+        for i in range(info.num_layer):
+            w.add_tensor(f"blk.{i}.attn_time_state",
+                         srng.normal(size=(info.num_emb, hs)).astype(np.float32) * 0.1)
+        wkv = models.load_initial_state(GgufFile(w.tobytes()), info)
+        e = runtime.Engine(info, params, num_batch=4, token_chunk_size=ENGINE_CHUNK,
+                           initial_wkv=wkv, device="cuda")
+        ok = all(np.array_equal(e.back_state(b)["wkv"], wkv) for b in range(4))
+        lg = last_logits(e, engine_prompts)  # from a reset: the file's state again
+        moved = not np.array_equal(e.back_state(2)["wkv"], wkv)
+        e.reset_state(2)
+        ok = ok and moved and np.array_equal(e.back_state(2)["wkv"], wkv) and bool(
+            np.isfinite(lg).all())
+        log(f"{tag} initial state: load_initial_state {list(wkv.shape)} from a file's "
+            f"time_state; every lane and a reset lane hold it bit for bit: {ok}")
+        if not ok:
+            raise AssertionError(f"{tag}: Engine(initial_wkv=) did not start from the file")
+
+    def same_params(a, b, path="params"):
+        """Paths where two parameter trees differ (values, dtype, shape)."""
+        if isinstance(a, dict):
+            if set(a) != set(b):
+                return [path]
+            return [d for k in a for d in same_params(a[k], b[k], f"{path}.{k}")]
+        if isinstance(a, list):
+            if len(a) != len(b):
+                return [path]
+            return [d for i, (x, y) in enumerate(zip(a, b))
+                    for d in same_params(x, y, f"{path}[{i}]")]
+        if isinstance(a, Matrix):
+            if (a.kind, a.shape) != (b.kind, b.shape):
+                return [path]
+            return same_params(a.arrays, b.arrays, path)
+        ok = a.dtype == b.dtype and a.shape == b.shape and torch.equal(a, b)
+        return [] if ok else [path]
+
+    def snapshot_phase(tag, info, params, t_load):
+        """Phase (c): a snapshot of a requantized model reloads with no
+        requantization; params and Engine logits bit for bit."""
+        with tempfile.TemporaryDirectory() as tmp:
+            path = f"{tmp}/model.rwkvz"
+            t0 = time.perf_counter()
+            rio.save_model(path, info, params)
+            t_save = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            info2, p2 = rio.load_model_snapshot(path, device="cuda")
+            torch.cuda.synchronize()
+            t_snap = time.perf_counter() - t0
+            size = os.path.getsize(path)
+        diff = same_params(p2, params)
+        lg = [last_logits(runtime.Engine(i, p, num_batch=len(ENGINE_LENGTHS),
+                                         token_chunk_size=ENGINE_CHUNK, device="cuda"),
+                          engine_prompts) for i, p in ((info, params), (info2, p2))]
+        same = np.array_equal(*lg)
+        log(f"{tag} snapshot: {size / 1e6:.1f} MB written in {t_save:.2f} s; load_model_snapshot "
+            f"on cuda {t_snap:.2f} s against load_model with requantization {t_load:.2f} s; "
+            f"arrays differing: {diff or 'none'}; Engine logits bit for bit: {same}")
+        if diff or not same or info2 != info:
+            raise AssertionError(f"{tag}: the snapshot did not give the model back")
+
+    def safetensors_phase(tag, info, params, raw):
+        """Phase (c): the model written as a model-convention .safetensors file
+        (each tensor in its stored type) loads with load_model(SafetensorsFile)
+        to the GGUF load's params and Engine logits, bit for bit."""
+        g = GgufFile(raw)
+        tensors = model_convention(g)
+        with tempfile.TemporaryDirectory() as tmp:
+            path = f"{tmp}/model.st"
+            rio.write_safetensors(path, tensors)
+            size = os.path.getsize(path)
+            t0 = time.perf_counter()
+            info2, p2 = models.load_model(rio.SafetensorsFile(path), device="cuda")
+            torch.cuda.synchronize()
+            t_st = time.perf_counter() - t0
+        diff = same_params(p2, params)
+        lg = [last_logits(runtime.Engine(i, p, num_batch=len(ENGINE_LENGTHS),
+                                         token_chunk_size=ENGINE_CHUNK, device="cuda"),
+                          engine_prompts) for i, p in ((info, params), (info2, p2))]
+        same = np.array_equal(*lg)
+        log(f"{tag} safetensors: {len(tensors)} tensors, {size / 1e6:.1f} MB; "
+            f"load_model(SafetensorsFile) on cuda {t_st:.2f} s; arrays differing: "
+            f"{diff or 'none'}; Engine logits bit for bit: {same}")
+        if diff or not same or info2 != info:
+            raise AssertionError(f"{tag}: the safetensors file did not give the model back")
+
+
     def drive(tag, spec, info, params):
         """The main paths of one model: two requests at B=1 on the loaded
         params (the per-layer kernels; for a "grouped" RWKV-7 model on
@@ -1909,14 +2335,35 @@ def run(np, torch, files) -> int:
                     t_gen2 / n_dec * 1e6, "token")
 
         # ---- main path: the Engine at B=4 ----------------------------------
-        eng = runtime.Engine(info, params, num_batch=len(ENGINE_LENGTHS),
-                             token_chunk_size=ENGINE_CHUNK, device="cuda")
+        # under the default dense-prefill policy (or the model's "engine"
+        # arguments): chunks from prefill_dense_min_t tokens on run on the
+        # dense bf16 copy, the head included where every lane asks for its
+        # last row
         B4 = len(ENGINE_LENGTHS)
+        eng_kw = spec.get("engine", {})
+        eng = runtime.Engine(info, params, num_batch=B4, token_chunk_size=ENGINE_CHUNK,
+                             device="cuda", **eng_kw)
+        dense_bytes = models.dense_cache_bytes(params)
+        free, total = torch.cuda.mem_get_info()
+        dense_on = eng_kw.get("prefill_dense", runtime.auto_prefill_dense(dense_bytes, total))
+        log(f"{tag} engine dense prefill policy: dense_cache_bytes {dense_bytes} "
+            f"({dense_bytes / 1e9:.3f} GB); mem_get_info free {free}, total {total} bytes; "
+            f"2.3 x extra < 0.6 x total: {2.3 * dense_bytes < 0.6 * total}; prefill_dense "
+            f"{eng_kw.get('prefill_dense', 'default')} -> {dense_on}, chunks of T >= "
+            f"{eng._prefill_min_t} on the dense copy")
+        if (eng._params_prefill is not None) != dense_on:
+            raise AssertionError(f"{tag}: the Engine's dense prefill copy is not what its "
+                                 "policy says")
+        dense_layers = layer_params(eng._params_prefill, L) if dense_on else None
+
+        def on_dense(T):
+            return dense_on and T >= eng._prefill_min_t
+
         Ts = engine_plans(runtime, _bucket, ENGINE_LENGTHS, ENGINE_CHUNK)
         decode_steps = -(-(ENGINE_TOKENS - 1) // 32) * 32  # whole 32-token segments
         want = collections.Counter()
-        for T in Ts:
-            want += chunk(B4, T) + head(B4)
+        for T in Ts:  # an all-LAST chunk's head: from the chunk's own params
+            want += (chunk(B4, T, dense_layers) if on_dense(T) else chunk(B4, T) + head(B4))
         if (mega_key in eng.params) != (mega_key is not None) or (
                 mega_key is None and {"mega7", "mega56"} & set(eng.params)):
             raise AssertionError(f"{tag}: the Engine arranged whole-stack blocks "
@@ -1927,7 +2374,8 @@ def run(np, torch, files) -> int:
         for _ in range(decode_steps):
             want += step
         log(f"{tag} engine: prompts of {list(ENGINE_LENGTHS)} tokens, prefill chunks T={Ts} "
-            f"(token_chunk_size {ENGINE_CHUNK}), then {decode_steps} decode steps at B={B4}, "
+            f"(token_chunk_size {ENGINE_CHUNK}; on the dense copy: "
+            f"{[T for T in Ts if on_dense(T)]}), then {decode_steps} decode steps at B={B4}, "
             f"each {dict(step)} (the head: {matmul_kernel(params['head'], B4) or 'dense'} "
             f"at n={B4})")
         out_gen = counted(f"{tag} engine generate (B=4)", want,
@@ -1938,7 +2386,8 @@ def run(np, torch, files) -> int:
                                  f"{[len(o) for o in out_gen]} tokens")
 
         T_full = _bucket(max(p.len for p in full_plan), ENGINE_CHUNK)
-        want = chunk(B4, T_full) + head(full_rows)
+        # a FULL chunk's head runs on the Engine's own params, as the JAX Engine's
+        want = chunk(B4, T_full, dense_layers if on_dense(T_full) else layers) + head(full_rows)
         inp = runtime.RnnInput([runtime.RnnInputBatch(list(b.tokens), b.option)
                                 for b in full_inp.batches], ENGINE_CHUNK)
         out_full = counted(f"{tag} engine infer with a FULL lane", want, lambda: eng.infer(inp))
@@ -1983,14 +2432,28 @@ def run(np, torch, files) -> int:
         log(f"{tag} engine decode at B={B4}: {B4 * decode_steps / t_dec:.2f} tok/s "
             f"({t_dec / decode_steps * 1e3:.3f} ms/step, {decode_steps} steps timed alone), "
             f"on {smi}")
-        busy, prof_wall_us, rows = profile(
+        busy_pre, prof_wall_us, rows = profile(
             torch, lambda: (eng.reset_state(), eng.generate(engine_prompts, 1)), n_pre)
-        log_profile(f"{tag} engine prefill of {n_pre} prompt tokens", busy, prof_wall_us, rows,
-                    t_pre / n_pre * 1e6, "prompt token")
-        if busy is not None:  # the dequant-GEMM's part (every instantiation)
+        log_profile(f"{tag} engine prefill of {n_pre} prompt tokens", busy_pre, prof_wall_us,
+                    rows, t_pre / n_pre * 1e6, "prompt token")
+        if busy_pre is not None:  # the dequant-GEMM's part (every instantiation)
             gemm_us = sum(us for us, key, _ in rows if "qk_gemm_kernel" in key)
             log(f"{tag} engine prefill: qk_gemm_kernel {gemm_us:.2f} us/prompt token, "
-                f"{gemm_us / busy:.3f} of the prefill's device time")
+                f"{gemm_us / busy_pre:.3f} of the prefill's device time")
+        held_state = clone_tree(eng.state)  # what the whole-stack check below starts from
+        t_phases = time.perf_counter()
+        if spec.get("dense_compare"):
+            dense_against_quantized(tag, info, params, eng, busy_pre, n_pre, t_pre)
+        if spec.get("dense8"):
+            decode_dense8(tag, spec, info, params)
+        if spec.get("pool"):
+            pool_phase(tag, spec, info, params)
+        if spec.get("state_file"):
+            state_file_phase(tag, info, eng)
+        if spec.get("initial_state"):
+            initial_state_phase(tag, info, params)
+        eng.state = held_state
+        log(f"{tag} serving and file phases: {time.perf_counter() - t_phases:.1f} s")
         busy, prof_wall_us, rows = profile(
             torch, lambda: segment(eng.params, pre_state, first, None), decode_steps)
         log_profile(f"{tag} engine decode at B={B4}", busy, prof_wall_us, rows,
@@ -2158,9 +2621,9 @@ def run(np, torch, files) -> int:
             f"process ({spec['widths']}, seed {spec['seed']})")
         t0 = time.perf_counter()
         info, params = load(models, raw, spec, "cuda")
-        del raw
         torch.cuda.synchronize()
-        log(f"{tag} load_model on cuda: {time.perf_counter() - t0:.1f} s; "
+        t_load = time.perf_counter() - t0
+        log(f"{tag} load_model on cuda: {t_load:.1f} s; "
             f"{torch.cuda.memory_allocated() / 1e6:.1f} MB on the card; {info}")
         blocks = params["blocks"]
         layer_kind, head_kind = spec["kinds"]
@@ -2168,11 +2631,23 @@ def run(np, torch, files) -> int:
                 or any(blocks[p][n].kind != layer_kind for p, n in spec["matrices"])):
             raise AssertionError(f"{tag}: the model did not load as {spec['kinds']}")
         drive(tag, spec, info, params)
-        del info, params, blocks
+        t0 = time.perf_counter()
+        if spec.get("snapshot"):
+            snapshot_phase(tag, info, params, t_load)
+        if spec.get("safetensors"):
+            safetensors_phase(tag, info, params, raw)
+        if spec.get("snapshot") or spec.get("safetensors"):
+            log(f"{tag} file phases: {time.perf_counter() - t0:.1f} s")
+        del raw, info, params, blocks
         t0 = time.perf_counter()
         raw2, t_file = files[tag]["compare"].get()
         info2, p_gpu = load(models, raw2, spec, "cuda")
         card_vs_cpu(tag, spec, info2, p_gpu, load(models, raw2, spec, "cpu")[1])
+        if spec.get("dense_compare"):
+            t1 = time.perf_counter()
+            dense_logits(tag, spec, info2, p_gpu)
+            log(f"{tag} dense against quantized on L={COMPARE_LAYERS}: "
+                f"{time.perf_counter() - t1:.1f} s")
         log(f"{tag} card vs CPU: {time.perf_counter() - t0:.1f} s (its file built in "
             f"{t_file:.1f} s in a worker process, seed {compare_seed(spec)})")
         del raw2, info2, p_gpu

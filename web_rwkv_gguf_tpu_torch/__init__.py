@@ -13,7 +13,8 @@ Layer map:
   quant/     block formats, numpy dequant, repack into logical arrays
   ops/       plain ops (basic, wkv) and the CUDA kernels (ops/cuda)
   models/    metadata, matrices, loader, forward, generation
-  runtime/   chunk scheduler and the inference Engine
+  runtime/   chunk scheduler, the inference Engine and EnginePool
+  io/        model snapshots, state files, safetensors
   utils/     synthetic model files
 """
 

@@ -127,6 +127,93 @@ def unroll_params(params: dict) -> dict:
     return {**params, "blocks": layers}
 
 
+def _walk_matrices(tree):
+    """Every :class:`Matrix` of a parameter tree (dicts and lists)."""
+    if isinstance(tree, Matrix):
+        yield tree
+    elif isinstance(tree, dict):
+        for v in tree.values():
+            yield from _walk_matrices(v)
+    elif isinstance(tree, list):
+        for v in tree:
+            yield from _walk_matrices(v)
+
+
+def dense_cache_bytes(params: dict, itemsize: int = 2) -> int:
+    """Device bytes that :func:`densify_matrices` would add: a dense copy
+    of every quantized matrix of the head and the blocks at ``itemsize``
+    bytes an element (the JAX package's ``dense_cache_bytes``, which the
+    Engine's dense policies read)."""
+    total = 0
+    for mat in _walk_matrices([params.get("head"), params.get("blocks")]):
+        if mat.kind != "dense":
+            m, k = mat.dims()
+            codes = mat.arrays["codes"]
+            total += (codes.shape[0] if codes.dim() == 3 else 1) * m * k * itemsize
+    return total
+
+
+# elements of f32 weight a densify step holds at once (16 MB)
+_DENSIFY_ELEMENTS = 1 << 22
+
+
+def _densify(mat: Matrix, dtype) -> Matrix:
+    """A dense copy of ``mat`` in ``dtype``, dequantized a layer and a block
+    of rows at a time into the preallocated result, so that no f32 weight
+    larger than :data:`_DENSIFY_ELEMENTS` is held beside it."""
+    m, k = mat.dims()
+    codes = mat.arrays["codes"]
+    stacked = codes.dim() == 3
+    layers = codes.shape[0] if stacked else 1
+    out = torch.empty((layers, m, k), dtype=dtype, device=codes.device)
+    rows = max(1, _DENSIFY_ELEMENTS // k)
+    for i in range(layers):
+        layer = mat.layer(i) if stacked else mat
+        for r0 in range(0, m, rows):
+            part = Matrix(mat.kind, mat.shape, {
+                key: a if key == "lut" else a[r0:r0 + rows] for key, a in layer.arrays.items()})
+            out[i, r0:r0 + rows] = part.dequantize()
+    return Matrix.dense(out if stacked else out[0])
+
+
+def densify_matrices(params: dict, dtype=torch.bfloat16) -> dict:
+    """Params with a dense ``dtype`` copy of every quantized matrix, the
+    head included, for stacked and per-layer (list) blocks alike (the JAX
+    package's ``densify_matrices``): the Engine's dense prefill cache and
+    its dense decode weights. Each copy is made a layer and a block of
+    rows at a time (:func:`_densify`). The whole-stack decode blocks
+    (``mega7``, ``mega56``) and the grouped gemv operands (``Wrkv_g``)
+    multiply the quantized arrays and are left out; ``prepare_decode``
+    rebuilds them from the dense copy."""
+
+    def walk(tree):
+        if isinstance(tree, Matrix):
+            return tree if tree.kind == "dense" else _densify(tree, dtype)
+        if isinstance(tree, dict):
+            return {k: walk(v) for k, v in tree.items() if k != "Wrkv_g"}
+        if isinstance(tree, list):
+            return [walk(v) for v in tree]
+        return tree
+
+    out = {k: v for k, v in params.items() if k not in ("mega7", "mega56")}
+    out["head"] = walk(params["head"])
+    out["blocks"] = walk(params["blocks"])
+    return out
+
+
+def load_initial_state(reader, info) -> np.ndarray:
+    """A pretrained ``time_state`` (each layer's initial WKV state) from a
+    file, as the ``[L, H, K, V]`` f32 array ``Engine(initial_wkv=)`` takes
+    (the JAX package's ``load_initial_state``; ref: v7.rs:1229-1262). Each
+    layer's ``blocks.{i}.att.time_state`` is stored ``[H·V, K]``."""
+    L, H, hs = info.num_layer, info.num_head, info.head_size
+    out = np.zeros((L, H, hs, hs), np.float32)
+    for layer in range(L):
+        st = _np(reader, f"blocks.{layer}.att.time_state")
+        out[layer] = st.reshape(H, hs, hs).transpose(0, 2, 1)
+    return out
+
+
 def prepare_decode(params: dict, info, batch_hint: int = 1) -> dict:
     """Params arranged for decode, as the JAX package's ``prepare_decode``
     arranges them for its Engine: the whole-stack decode blocks attached,

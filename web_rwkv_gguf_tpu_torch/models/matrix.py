@@ -262,7 +262,8 @@ class Matrix:
 
         Dense weights multiply in f32 after rounding x to the weight's
         dtype (a bf16 weight gives bf16 operands and an f32 product, not
-        a bf16 one). Quantized kinds go through their form's gemv where
+        a bf16 one: on the card one ``torch.mm`` with an f32 output, as
+        the JAX package's ``preferred_element_type``). Quantized kinds go through their form's gemv where
         :meth:`takes_gemv` says so and through its dequant-GEMM otherwise
         (``ops/cuda/matmul.py``), as the JAX package's ``quant_matmul``
         dispatches: native Q4_K factors → ``q4k_*``, native Q5_K / Q2_K →
@@ -278,6 +279,8 @@ class Matrix:
             w = a["w"]
             if w.dtype == torch.float32:
                 y = x2.float() @ w.T
+            elif w.is_cuda:  # bf16 operands on the tensor cores, f32 out
+                y = torch.mm(x2.to(w.dtype), w.T, out_dtype=torch.float32)
             else:
                 y = x2.to(w.dtype).float() @ w.float().T
             return y.reshape(lead + (m,))

@@ -2,7 +2,9 @@
 
 Ref: src/runtime/mod.rs (Runtime trait) and src/runtime/infer/rnn.rs
 (RnnInput / RnnIter / redirect), as the JAX package's ``runtime`` ports
-them; ``EnginePool`` and the multi-device engines are later slices.
+them: the scheduler, the ``Engine`` with its dense prefill and decode
+weights and their policies, and ``EnginePool``. The multi-device engines
+(``runtime/distributed.py``) and vision are not ported yet.
 """
 
 from .scheduler import (  # noqa: F401
@@ -15,4 +17,13 @@ from .scheduler import (  # noqa: F401
     plan_chunk,
     redirect,
 )
-from .engine import Engine, RnnOutput, softmax  # noqa: F401
+from .engine import (  # noqa: F401
+    DECODE_DENSE_MIN_B,
+    Engine,
+    EnginePool,
+    RnnOutput,
+    auto_decode_dense,
+    auto_prefill_dense,
+    memory_limit,
+    softmax,
+)

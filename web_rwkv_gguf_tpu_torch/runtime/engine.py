@@ -12,6 +12,16 @@ chunk takes the same WKV route (the scan kernel below T = 128, the
 chunk-parallel form from it) and each matmul the same numerics class.
 Logits come back to the host as numpy arrays, as the JAX engine returns
 them; ``generate`` keeps them on the device and fetches only token ids.
+
+Dense weights, as the JAX engine arranges them: chunks of at least
+``prefill_dense_min_t`` tokens may run on a dense bf16 copy of every
+quantized matrix (``prefill_dense``), and an engine of
+``DECODE_DENSE_MIN_B`` lanes or more may decode on dense bf16 weights
+through the whole-stack kernels' dense slot (``decode_dense``), each by
+default where the copy clearly fits in the card's memory
+(:func:`auto_prefill_dense`, :func:`auto_decode_dense`). :class:`EnginePool`
+serves more lanes than one whole-stack launch takes as several engines
+over one shared set of weights.
 """
 
 from __future__ import annotations
@@ -25,8 +35,68 @@ from ..errors import EngineError, TensorError, UnsupportedFeature
 from ..models.forward import forward_chunk, init_state, logits_head
 from ..models.generate import make_generator, make_sampler
 from ..models.info import ModelInfo, ModelVersion
-from ..models.loader import prepare_decode
+from ..models.loader import dense_cache_bytes, densify_matrices, prepare_decode
+from ..ops.cuda.layer7 import MAX_SCAN_BATCH
 from .scheduler import RnnInput, RnnInputBatch, RnnOption
+
+
+def memory_limit(device) -> int | None:
+    """The bytes of memory of ``device`` that the dense policies weigh
+    against: the card's total (``torch.cuda.mem_get_info``); None on the
+    CPU, where the JAX package reads no memory limit either."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        return None
+    return int(torch.cuda.mem_get_info(device)[1])
+
+
+def auto_prefill_dense(extra_bytes: int, limit: int | None) -> bool:
+    """Default of ``Engine(prefill_dense=None)``: cache dense bf16 prefill
+    weights when the extra memory clearly fits (the JAX package's fit
+    rule: 2.3 × the extra bytes below 0.6 of the limit); never with no
+    known limit or nothing quantized."""
+    return bool(limit) and extra_bytes > 0 and 2.3 * extra_bytes < 0.6 * limit
+
+
+# The smallest batch at which Engine(decode_dense=None) decodes on dense
+# bf16 weights: the JAX package's default. This card's own crossover
+# between the whole-stack kernels' dense and quantized slots is in PERF.md.
+DECODE_DENSE_MIN_B = 8
+
+
+def auto_decode_dense(num_batch: int, extra_bytes: int, limit: int | None) -> bool:
+    """Default of ``Engine(decode_dense=None)``: decode on dense bf16
+    weights (the whole-stack kernels' dense slot; the quantized params
+    kept as the cold copy) from ``DECODE_DENSE_MIN_B`` lanes on, where the
+    dense copy clearly fits (:func:`auto_prefill_dense`'s rule). Accuracy
+    class: weights rounded to bf16, as the reference's f16 dequantization
+    at load (ref: gguf.rs:1785)."""
+    return num_batch >= DECODE_DENSE_MIN_B and auto_prefill_dense(extra_bytes, limit)
+
+
+def _dense_weights(params: dict, num_batch: int, decode_dense, prefill_dense, limit):
+    """The Engine's dense arrangement of ``params`` (the JAX Engine's):
+    ``(params to serve, the quantized cold copy or None, the dense prefill
+    copy or None)``.
+
+    ``decode_dense=None`` decodes on dense weights where
+    :func:`auto_decode_dense` says so, the batch fits one whole-stack launch
+    and the blocks are stacked, and never where whole-stack blocks are
+    attached already: prepared params keep their decode form. The cold copy
+    is kept only where the params hold a quantized matrix. Dense decode
+    needs no separate prefill copy; otherwise ``prefill_dense=None`` makes
+    one where :func:`auto_prefill_dense` says so."""
+    extra = dense_cache_bytes(params)
+    if decode_dense is None:
+        decode_dense = (num_batch <= MAX_SCAN_BATCH
+                        and not isinstance(params.get("blocks"), list)
+                        and not {"mega7", "mega56"} & set(params)
+                        and auto_decode_dense(num_batch, extra, limit))
+    if decode_dense:
+        return densify_matrices(params), (params if extra else None), None
+    if prefill_dense is None:
+        prefill_dense = auto_prefill_dense(extra, limit)
+    return params, None, (densify_matrices(params) if prefill_dense else None)
 
 
 def _bucket(n: int, cap: int) -> int:
@@ -82,17 +152,28 @@ class Engine:
         token_chunk_size: int = 128,
         rescale: int | None = None,
         initial_wkv: np.ndarray | None = None,
+        prefill_dense: bool | None = None,
+        prefill_dense_min_t: int = 64,
+        decode_dense: bool | None = None,
+        unroll: bool | None = None,
         device="cuda",
     ):
         self.info = info
+        self.device = torch.device(device)
+        # dense bf16 weights for decode, or a dense copy for the chunks of
+        # at least prefill_dense_min_t tokens (_dense_weights)
+        params, self.params_quantized, self._params_prefill = _dense_weights(
+            params, num_batch, decode_dense, prefill_dense, memory_limit(self.device))
+        self._prefill_min_t = prefill_dense_min_t
         # decode of up to MAX_SCAN_BATCH lanes runs as one whole-stack
         # kernel launch per token (ops/cuda/layer7), as the JAX engine's
-        # default single-device prepare_decode arranges it
-        self.params = prepare_decode(params, info, batch_hint=num_batch)
+        # default single-device prepare_decode arranges it; unroll=False
+        # keeps the params as given
+        self.params = params if unroll is False else prepare_decode(
+            params, info, batch_hint=num_batch)
         self.num_batch = num_batch
         self.token_chunk_size = token_chunk_size
         self.rescale = rescale
-        self.device = torch.device(device)
         # pretrained time_state: [L, H, K, V], broadcast over the lanes
         if initial_wkv is not None and info.version == ModelVersion.V4:
             raise UnsupportedFeature(
@@ -149,19 +230,25 @@ class Engine:
         return tokens
 
     def _forward(self, tokens: np.ndarray, lens: list[int]):
+        """The chunk's forward on the params its length T routes it to: the
+        dense prefill copy from ``prefill_dense_min_t`` tokens on, where the
+        engine has one (engine.py:483-487 of the JAX package)."""
+        params = self.params
+        if self._params_prefill is not None and tokens.shape[1] >= self._prefill_min_t:
+            params = self._params_prefill
         tok = torch.as_tensor(tokens, device=self.device)
         ln = torch.as_tensor(lens, dtype=torch.long, device=self.device)
-        x, state = forward_chunk(self.info, self.params, self.state, tok, ln,
+        x, state = forward_chunk(self.info, params, self.state, tok, ln,
                                  rescale=self.rescale)
-        return x, ln, state
+        return x, ln, state, params
 
     def _forward_last(self, tokens: np.ndarray, lens: list[int]):
         """The chunk's forward and each lane's last-token logits ``[B, V]``
-        (on the device)."""
-        x, ln, state = self._forward(tokens, lens)
+        (on the device), the head from the same params as the chunk."""
+        x, ln, state, params = self._forward(tokens, lens)
         idx = torch.clamp(ln - 1, 0, x.shape[1] - 1)
         rows = x[torch.arange(x.shape[0], device=x.device), idx]
-        return logits_head(self.params, rows), state
+        return logits_head(params, rows), state
 
     def infer(self, input: RnnInput) -> RnnOutput:
         """Process one chunk of ``input`` (tokens are consumed in place).
@@ -191,7 +278,7 @@ class Engine:
                 out[b] = host[i : i + 1]
             return RnnOutput(out)
 
-        x, _, self.state = self._forward(tokens, lens)
+        x, _, self.state, _ = self._forward(tokens, lens)
         rows_b, rows_t, counts = [], [], []
         for b, p in enumerate(plan):
             if p.option is None or p.len == 0:
@@ -269,23 +356,110 @@ class Engine:
         samples a stop token freezes (its state stops advancing) and the
         loop ends once every lane has stopped; surplus tokens are trimmed.
         Tokens stay on the device until the end."""
-        first, generator = self._gen_prefill(prompts, temperature, top_k, top_p,
-                                             seed)
-        stop_tokens = stop_tokens or set()
-        run = make_generator(self.info, steps=segment, temperature=temperature,
-                             top_k=top_k, top_p=top_p, rescale=self.rescale,
-                             stop_ids=tuple(sorted(stop_tokens)))
-        token, segs, produced = first, [], 1
-        while produced < max_tokens:
-            toks, _, self.state, generator, done = run(self.params, self.state,
-                                                       token, generator)
-            segs.append(toks)
-            produced += segment
-            token = toks[:, -1:]
-            if stop_tokens and bool(done.all()):
-                break  # every lane froze on its stop token
-        results = [[t] for t in first[:, 0].tolist()]
-        if segs:
-            for b, row in enumerate(torch.cat(segs, dim=1).tolist()):
-                results[b].extend(row)
-        return _trim_stop(results, max_tokens, stop_tokens)
+        return _generate([self], [prompts], max_tokens, temperature, top_k, top_p,
+                         stop_tokens, seed, segment)
+
+
+def _generate(engines, groups, max_tokens, temperature, top_k, top_p, stop_tokens, seed,
+              segment) -> list[list[int]]:
+    """``generate`` over engines of one model, engine i on prompt group i
+    with sampling seed ``seed + i``: every engine's prefill, then every
+    engine's segment of each round, is dispatched before anything is read
+    back from the device; the rounds end once every lane of every engine
+    has stopped. The lanes' tokens, group after group."""
+    stop_tokens = stop_tokens or set()
+    run = make_generator(engines[0].info, steps=segment, temperature=temperature, top_k=top_k,
+                         top_p=top_p, rescale=engines[0].rescale,
+                         stop_ids=tuple(sorted(stop_tokens)))
+    firsts, generators = zip(*(e._gen_prefill(g, temperature, top_k, top_p, seed + i)
+                               for i, (e, g) in enumerate(zip(engines, groups))))
+    tokens, generators = list(firsts), list(generators)
+    segs = [[] for _ in engines]
+    produced = 1
+    while produced < max_tokens:
+        dones = []
+        for i, e in enumerate(engines):
+            toks, _, e.state, generators[i], done = run(e.params, e.state, tokens[i],
+                                                        generators[i])
+            segs[i].append(toks)
+            tokens[i] = toks[:, -1:]
+            dones.append(done)
+        produced += segment
+        if stop_tokens and all(bool(d.all()) for d in dones):
+            break  # every lane froze on its stop token
+    results = []
+    for first, eng_segs in zip(firsts, segs):
+        rows = [[t] for t in first[:, 0].tolist()]
+        if eng_segs:
+            for b, row in enumerate(torch.cat(eng_segs, dim=1).tolist()):
+                rows[b].extend(row)
+        results.extend(rows)
+    return _trim_stop(results, max_tokens, stop_tokens)
+
+
+class EnginePool:
+    """More lanes than one whole-stack decode launch takes, served as a
+    pool of engines over one set of weights (the JAX package's
+    ``EnginePool``).
+
+    ``num_lanes`` splits into near-equal groups of at most
+    ``lanes_per_engine`` (default ``MAX_SCAN_BATCH``), one engine each.
+    Dense decode and the decode preparation are resolved once here, so
+    every engine holds the same params object; where chunks prefill on a
+    dense copy, that copy is built once, before the engines, and every
+    engine holds the same one (a second copy never exists, where the JAX
+    pool builds one per engine and keeps the first). ``engine_kwargs`` go
+    to each :class:`Engine`."""
+
+    def __init__(self, info: ModelInfo, params, num_lanes: int, *,
+                 lanes_per_engine: int | None = None, device="cuda", **engine_kwargs):
+        if lanes_per_engine is None:
+            lanes_per_engine = MAX_SCAN_BATCH
+        if num_lanes <= 0:
+            raise EngineError("num_lanes must be positive")
+        n_eng = -(-num_lanes // lanes_per_engine)
+        base, rem = divmod(num_lanes, n_eng)
+        self.group_sizes = [base + (1 if i < rem else 0) for i in range(n_eng)]
+        self.info = info
+        self.device = torch.device(device)
+        first = self.group_sizes[0]
+        params, self.params_quantized, prefill = _dense_weights(
+            params, first, engine_kwargs.pop("decode_dense", None),
+            engine_kwargs.pop("prefill_dense", None), memory_limit(self.device))
+        min_t = engine_kwargs.pop("prefill_dense_min_t", 64)
+        if engine_kwargs.get("unroll") is not False:
+            params = prepare_decode(params, info, batch_hint=first)
+        self.params = params
+        self.engines = [Engine(info, params, g, decode_dense=False, prefill_dense=False,
+                               prefill_dense_min_t=min_t, device=device, **engine_kwargs)
+                        for g in self.group_sizes]
+        for eng in self.engines:
+            eng._params_prefill = prefill
+
+    @property
+    def num_lanes(self) -> int:
+        return sum(self.group_sizes)
+
+    def generate(
+        self,
+        prompts: list[list[int]],
+        max_tokens: int,
+        *,
+        temperature: float = 0.0,
+        top_k: int = 0,
+        top_p: float = 0.0,
+        stop_tokens: set[int] | None = None,
+        seed: int = 0,
+        segment: int = 32,
+    ) -> list[list[int]]:
+        """:meth:`Engine.generate` over the pool: lane i takes prompt i, and
+        engine i samples from seed + i, so each lane gives what a
+        standalone engine of its group's size gives. Every engine's prefill
+        and then every engine's segment is dispatched before anything is
+        read back from the card."""
+        if len(prompts) != self.num_lanes:
+            raise TensorError.batch(len(prompts), self.num_lanes)
+        bounds = np.cumsum([0] + self.group_sizes)
+        return _generate(self.engines, [prompts[bounds[i]:bounds[i + 1]]
+                                        for i in range(len(self.engines))],
+                         max_tokens, temperature, top_k, top_p, stop_tokens, seed, segment)
