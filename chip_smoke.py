@@ -51,7 +51,15 @@ exactly just after:
   (RWKV-7, RWKV-4), a file's ``time_state`` through
   ``models.load_initial_state``, a ``.rwkvz`` snapshot of the NF4 model
   and a ``.safetensors`` file of the bf16 model, each loaded back bit
-  for bit.
+  for bit;
+- the model surface: ``Engine(hooks=)`` with a tap on every name (RWKV-7:
+  a hooked chunk bit for bit against the unhooked one, then the hooked
+  decode, counted and profiled) or an example's hook (RWKV-6's
+  puzzle15), embedding vectors as Engine input, ``runtime.infer_vision``,
+  ``load_model(lora=)`` (dense and NF4, and on layer 0 alone of a
+  quantized file) and ``GgufFile(allow_quantized_direct=False)``; the
+  example hooks, vision, the LoRA loads and the direct load also on the
+  card-vs-CPU model against the CPU.
 
 For each model it holds the whole-stack decode kernel against its plain
 version layer by layer (and, beside the Q6_K and f16 models, stacks in
@@ -121,7 +129,14 @@ _V6_MATRICES = (("att", "Wr"), ("att", "Wk"), ("att", "Wv"), ("att", "Wg"), ("at
 # decoding on dense weights; "pool", an EnginePool of POOL_LANES lanes;
 # "state_file", a lane through a state file; "initial_state", a file's
 # time_state; "snapshot", a .rwkvz snapshot; "safetensors", a .safetensors
-# file of the model.
+# file of the model. The model surface: "hooks", the
+# Engine with taps (RWKV-7: every tap observed, a hooked chunk against the
+# unhooked one bit for bit, the hooked decode counted and profiled) and the
+# modifying pair of the named example (HOOK_EXAMPLES) against the CPU;
+# "embeds", embedding vectors as Engine input (Token::Embed); "vision",
+# infer_vision; "direct", the file loaded with allow_quantized_direct=False;
+# "lora", LoRA merged at load, dense and with NF4; "lora_layer0", a LoRA on
+# layer 0 alone of a quantized file (per-layer blocks).
 MODELS = {
     # RWKV-7 0.1B widths (L=12, C=768, head 64, hidden 4·C, LoRA ranks
     # w/a/g/v 64/64/128/32)
@@ -133,7 +148,8 @@ MODELS = {
                          ("ffn", "Wk"), ("ffn", "Wv")),
                wkv=("att_core7_step", "wkv7_scan", None), mega=("mega7", "layer_scan7"),
                mega_batches=(4, 1, 16), dense_compare=True, pool=True, state_file=True,
-               initial_state=True),
+               initial_state=True, hooks="othello", embeds=True, vision=True, direct=True,
+               lora_layer0=True),
     # RWKV-6 World 1.6B widths (BlinkDL's RWKV-x060-World-1B6: L=24, C=2048,
     # head 64, hidden int(3.5·C // 32 · 32); time-mix and decay LoRA ranks 32
     # and 64 from RWKV-LM's v6 model.py)
@@ -144,7 +160,7 @@ MODELS = {
                            rank_tm=32, rank_td=64),
                matrices=_V6_MATRICES, wkv=("wkv6_scan", "wkv6_scan", None),
                mega=("mega56", "layer_scan56"), mega_batches=(4, 1, 16), dense_compare=True,
-               dense8=True),
+               dense8=True, hooks="puzzle15"),
     # RWKV-5 World 0.4B widths (BlinkDL's RWKV-5-World-0.4B-v2: L=24, C=1024,
     # head 64, hidden int(3.5·C // 32 · 32) from RWKV-LM's v5 train.py); the
     # WKV is RWKV-6's with the static decay broadcast over the tokens
@@ -241,7 +257,7 @@ MODELS = {
     "v7f16": dict(make="make_v7_gguf", seed=100, quantize=None, kinds=("dense", "dense"),
                   widths=_V7_WIDTHS, matrices=_V7_MATRICES,
                   wkv=("att_core7_step", "wkv7_scan", None), mega=("mega7", "layer_scan7"),
-                  mega_batches=(4, 1, 16), safetensors=True),
+                  mega_batches=(4, 1, 16), safetensors=True, lora=True),
 }
 PROMPTS = ([11, 2041, 7, 65000, 310, 42, 9, 1234], [5, 5, 60000, 88, 901, 3, 77, 12])
 DECODE_STEPS = 32
@@ -273,6 +289,66 @@ POOL_LANES = 32
 POOL_TOKENS = 33
 POOL_SEED = 9
 STATE_TOKENS = (17, 4000, 65535)  # a lane's tokens after its state file is loaded
+HOOK_STEPS = 16  # decode steps of the hooked Engine
+VISION_SEED = 9  # its patches [16, 16, 3, 64]: 16·16·3 = 768 = C, one T=64 chunk
+LORA_RANK = 32
+LORA_SEED = 12
+LORA_ALPHA = 0.5  # matrices gain α/rank·B@A
+LORA_VECTOR = ("blocks.1.att.x_k", 0.6)  # the one blended vector and its α
+EMBED_TOKENS = 40  # the embeds phase's lanes: this many tokens each
+
+
+def othello_hooks(wkv7_act_w):
+    """The othello example's two RWKV-7 taps (the JAX package's
+    apps/othello.py:50-64, in PyTorch): a ← 2a after the adapters, and
+    a ← act_w(w)·a after control-k."""
+    def post_att_adapt(layer, *, w, a, g):
+        return {"a": a * 2.0}
+
+    def post_att_control(layer, *, k, kk, a, w):
+        return {"a": wkv7_act_w(w) * a}
+
+    return {"post_att_adapt": post_att_adapt, "post_att_control": post_att_control}
+
+
+def puzzle15_hooks(torch):
+    """The puzzle15 example's RWKV-6 tap (the JAX package's
+    apps/puzzle15.py:36-45, in PyTorch): k ← exp(min(w, 0))·k before the
+    decay's activation."""
+    def pre_att_decay_activate(layer, *, w, k):
+        return {"k": k * torch.exp(torch.clamp_max(w, 0.0)).reshape(k.shape)}
+
+    return {"pre_att_decay_activate": pre_att_decay_activate}
+
+
+HOOK_EXAMPLES = {"othello": lambda torch, W: othello_hooks(W.wkv7_act_w),
+                 "puzzle15": lambda torch, W: puzzle15_hooks(torch)}
+# taps that fire once a forward (or head), at layer -1
+MODEL_TAPS = {"post_embed_loaded", "post_embed_layer_norm", "pre_head", "post_head_layer_norm",
+              "post_head"}
+
+
+def lora_tensors(reader, n_layer, matrices, seed):
+    """A rank-LORA_RANK LoRA of every layer matrix (``matrices``: model
+    names after ``blocks.{i}.``) of ``n_layer`` layers of ``reader``'s
+    model, (A, B) from ``seed``, and the LORA_VECTOR."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    out = {}
+    for i in range(n_layer):
+        for m in matrices:
+            name = f"blocks.{i}.{m}"
+            rows, cols = reader.shape(name)
+            out[f"{name}.lora.0"] = (rng.normal(size=(LORA_RANK, cols)) * 0.02).astype(np.float32)
+            out[f"{name}.lora.1"] = (rng.normal(size=(rows, LORA_RANK)) * 0.02).astype(np.float32)
+    vec, _ = LORA_VECTOR
+    out[vec] = rng.normal(size=int(np.prod(reader.shape(vec)))).astype(np.float32)
+    return out
+
+
+LORA_MATRICES = ("att.key.weight", "att.value.weight", "att.receptance.weight",
+                 "att.output.weight", "ffn.key.weight", "ffn.value.weight")
 
 # peaks of the card from NVIDIA's data sheets (dense): HBM bytes/s,
 # bf16 tensor-core FLOP/s, f32 (non-tensor) FLOP/s
@@ -619,9 +695,10 @@ def kernel_cases(torch, k, bf16_peak, f32_peak, full_rows, dev="cuda"):
               for m, k in layer_shapes for n in (4, 128, 512)]
     cases.append(q6k_case(torch, mm, "gemm", 65536, 768, full_rows, 5001, bf16_peak))
 
-    # (T, lengths, seed): a lane of an Engine chunk, B=4 ragged, and the B=1
-    # serve's 8-token prompt chunk
-    for T, lens, seed in ((64, (50,), 1), (64, (64, 40, 17, 0), 4), (8, (8,), 108)):
+    # (T, lengths, seed): a lane of an Engine chunk, B=4 ragged, the B=1
+    # serve's 8-token prompt chunk, and the hooked Engine's decode step (T=1)
+    for T, lens, seed in ((64, (50,), 1), (64, (64, 40, 17, 0), 4), (8, (8,), 108),
+                          (1, (1, 1, 1, 1), 110)):
         B = len(lens)
 
         def make_scan(i, B=B, T=T, lens=lens, seed=seed):
@@ -1560,17 +1637,18 @@ def full_input(runtime, _bucket, rng, vocab):
     return inp, plan, _bucket(rows, 1 << 30)
 
 
-def run_chunks(torch, models, info, params, chunks, device):
+def run_chunks(torch, models, info, params, chunks, device, hooks=None):
     """Per chunk, on the host: the live lanes' last-token logits and the
-    state; ``chunks`` is a list of (tokens [B, T], lengths [B])."""
+    state; ``chunks`` is a list of (tokens [B, T], lengths [B]); ``hooks``
+    go to the forward and the head."""
     st = models.init_state(info, len(chunks[0][1]), device=device)
     out = []
     for toks, lens in chunks:
         t = torch.as_tensor(toks, device=device)
         n = torch.as_tensor(lens, device=device)
-        x, st = models.forward_chunk(info, params, st, t, n)
+        x, st = models.forward_chunk(info, params, st, t, n, hooks=hooks)
         live = (n > 0).nonzero()[:, 0]  # a zero-length lane's x is unspecified
-        logits = models.logits_head(params, x[live, n[live] - 1])
+        logits = models.logits_head(params, x[live, n[live] - 1], hooks=hooks)
         out.append({"logits": logits.cpu(), **{k: v.cpu() for k, v in st.items()}})
     return out
 
@@ -2613,6 +2691,328 @@ def run(np, torch, files) -> int:
         if failed:
             raise AssertionError(f"{tag}: the card disagrees with the CPU ({failed})")
 
+    # ---- the model surface: hooks, embedding input, vision, LoRA, direct --
+
+    def hooked_step(spec, layers, B):
+        """Launches of one hooked decode step of B lanes on the per-layer
+        path: the matrices as at T=1, the WKV as the scan kernel at T=1
+        (the fused att-core kernel and the grouped gemv are left out)."""
+        want = collections.Counter()
+        for blk in layers:
+            for part, name in spec["matrices"]:
+                want[matmul_kernel(blk[part][name], B)] += 1
+        at_1 = spec["wkv"][0]
+        want["wkv7_scan" if at_1 == "att_core7_step" else at_1] += len(layers)
+        return want
+
+    def hooks_phase(tag, spec, info, params):
+        """RWKV-7: observer taps on every name of HOOK_NAMES: a T=64 chunk
+        of four lanes with and without them, x and state bit for bit, every
+        tap fired at every layer; then the Engine at B=4 with the taps
+        (the usual prompts, then HOOK_STEPS greedy steps), counted: no
+        whole-stack, att-core or grouped launch, the WKV as wkv7_scan at
+        T=1 a layer a step; the hooked step's device µs. Other versions:
+        the Engine with the model's example hook, counted."""
+        from web_rwkv_gguf_tpu_torch.models.forward import HOOK_NAMES
+        from web_rwkv_gguf_tpu_torch.ops import wkv as W
+
+        t0 = time.perf_counter()
+        L, B4 = info.num_layer, len(ENGINE_LENGTHS)
+        v7 = info.version.value == "v7"
+        fired = collections.defaultdict(list)
+        taps = {n: (lambda name: lambda layer, **t: fired[name].append(layer))(n)
+                for n in HOOK_NAMES[info.version]}
+        hooks = taps if v7 else HOOK_EXAMPLES[spec["hooks"]](torch, W)
+        if v7:
+            lens = [min(n, 64) for n in ENGINE_LENGTHS]
+            toks = torch.tensor([p[:64] + [0] * (64 - len(p[:64])) for p in engine_prompts],
+                                device="cuda")
+            ln = torch.tensor(lens, device="cuda")
+            st0 = models.init_state(info, B4, device="cuda")
+            x0, s0 = models.forward_chunk(info, params, st0, toks, ln)
+            x1, s1 = models.forward_chunk(info, params, st0, toks, ln, hooks=taps)
+            models.logits_head(params, x1[:, -1], hooks=taps)
+            same = torch.equal(x0, x1) and all(torch.equal(s0[k], s1[k]) for k in s0)
+            bad = [n for n in taps if fired[n] != ([-1] if n in MODEL_TAPS else list(range(L)))]
+            log(f"{tag} hooks: {len(taps)} observer taps on a T=64 chunk of lanes {lens}: x "
+                f"and state {'equal' if same else 'DIFFER from'} the unhooked chunk's bit for "
+                f"bit; taps that did not fire once at every layer: {bad or 'none'}")
+            if not same or bad:
+                raise AssertionError(f"{tag}: the hooked chunk is not the unhooked one")
+        eng = runtime.Engine(info, params, num_batch=B4, token_chunk_size=ENGINE_CHUNK,
+                             hooks=hooks, device="cuda")
+        layers = layer_params(eng.params, L)
+        dense_layers = (layer_params(eng._params_prefill, L)
+                        if eng._params_prefill is not None else None)
+        want = collections.Counter()
+        for T in engine_plans(runtime, _bucket, ENGINE_LENGTHS, ENGINE_CHUNK):
+            if dense_layers is not None and T >= eng._prefill_min_t:
+                want += expected_chunk(WKV7_CHUNKED_MIN_T, spec, dense_layers, B4, T)
+            else:
+                want += expected_chunk(WKV7_CHUNKED_MIN_T, spec, layers, B4, T)
+                want[matmul_kernel(params["head"], B4)] += 1
+        step = hooked_step(spec, layers, B4)
+        step[matmul_kernel(params["head"], B4)] += 1
+        for _ in range(HOOK_STEPS):
+            want += step
+        fired.clear()
+        label = "every tap" if v7 else f"{spec['hooks']}'s tap"
+        toks = counted(f"{tag} hooks engine generate (B={B4}, {label})", want,
+                       lambda: eng.generate(engine_prompts, 1 + HOOK_STEPS, segment=HOOK_STEPS))
+        if [len(t) for t in toks] != [1 + HOOK_STEPS] * B4:
+            raise AssertionError(f"{tag}: the hooked Engine gave {[len(t) for t in toks]}")
+        if v7:
+            steps = len(engine_plans(runtime, _bucket, ENGINE_LENGTHS, ENGINE_CHUNK)) + HOOK_STEPS
+            bad = [n for n in taps if n not in MODEL_TAPS and fired[n] != list(range(L)) * steps]
+            if bad:
+                raise AssertionError(f"{tag}: taps {bad} did not fire at every layer")
+        # the hooked decode step alone: device and wall µs
+        eng.reset_state()
+        first, gen = eng._gen_prefill(engine_prompts, 0.0, 0, 0.0, 0)
+        segment = models.make_generator(info, steps=HOOK_STEPS, hooks=hooks)
+        state = eng.state
+        segment(eng.params, state, first, None)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        segment(eng.params, state, first, None)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t1) / HOOK_STEPS * 1e6
+        busy, prof_wall_us, rows = profile(
+            torch, lambda: segment(eng.params, state, first, None), HOOK_STEPS)
+        log_profile(f"{tag} hooked engine decode at B={B4} ({label})", busy, prof_wall_us, rows,
+                    wall_us, "step")
+        log(f"{tag} hooks phase: {time.perf_counter() - t0:.1f} s")
+
+    def embeds_phase(tag, info, params):
+        """Token::Embed: an Engine of four lanes, EMBED_TOKENS tokens each:
+        lane 0 token ids, lane 1 the same tokens as their embedding rows,
+        lane 2 ids and rows in turn, lane 3 ids of another prompt; lanes 0
+        and 1 give the same logits bit for bit, lane 2 within rounding."""
+        t0 = time.perf_counter()
+        ids = engine_prompts[0][:EMBED_TOKENS]
+        rows = params["emb"][torch.tensor(ids, device="cuda")].float().cpu().numpy()
+        lanes = [ids, list(rows), [t if i % 2 == 0 else rows[i] for i, t in enumerate(ids)],
+                 engine_prompts[1][:EMBED_TOKENS]]
+        eng = runtime.Engine(info, params, num_batch=len(lanes), token_chunk_size=ENGINE_CHUNK,
+                             device="cuda")
+        inp = runtime.RnnInput([runtime.RnnInputBatch(list(t)) for t in lanes], ENGINE_CHUNK)
+        last = [None] * len(lanes)
+        while inp.num_token:
+            for b, o in enumerate(eng.infer(inp)):
+                if len(o):
+                    last[b] = o[-1]
+        same = np.array_equal(last[0], last[1])
+        finite = all(np.isfinite(o).all() for o in last)
+        log(f"{tag} embeds: lanes of {EMBED_TOKENS} ids / rows / mixed / ids through "
+            f"Engine.infer (chunk T={_bucket(EMBED_TOKENS, ENGINE_CHUNK)}, dense prefill copy "
+            f"{eng._params_prefill is not None}): lane 1 (rows) against lane 0 (ids) "
+            f"{'equal' if same else 'DIFFERENT'} bit for bit; lane 2 (mixed) "
+            f"max|d|/max {rel_err(last[2], last[0]):.3e}; finite {finite}; "
+            f"{time.perf_counter() - t0:.1f} s")
+        if not same or not finite:
+            raise AssertionError(f"{tag}: embedding rows did not give the ids' logits")
+
+    def vision_patches():
+        return (np.random.default_rng(VISION_SEED).normal(size=(16, 16, 3, 64))
+                .astype(np.float32))
+
+    def vision_phase(tag, info, params):
+        """infer_vision at full depth: patches [16, 16, 3, 64] as one T=64
+        chunk of input embeddings, counted; the embedding finite."""
+        t0 = time.perf_counter()
+        layers = layer_params(params, info.num_layer)
+        want = expected_chunk(WKV7_CHUNKED_MIN_T, MODELS[tag], layers, 1, 64)
+        emb, st = counted(f"{tag} vision (infer_vision, 64 patches)", want,
+                          lambda: runtime.infer_vision(info, params,
+                                                       runtime.VisionInput(vision_patches())))
+        ok = emb.shape == (info.num_emb,) and bool(np.isfinite(emb).all())
+        log(f"{tag} vision: embedding {emb.shape}, finite {ok}, max|emb| "
+            f"{np.abs(emb).max():.4g}; {time.perf_counter() - t0:.1f} s")
+        if not ok:
+            raise AssertionError(f"{tag}: infer_vision gave no finite embedding")
+
+    def held_against_cpu(tag, label, card, cpu):
+        """Per chunk, the card's results against the CPU's at
+        card_cpu_limit; logged, raised past it."""
+        per_chunk = rel_diff(card, cpu)
+        worst, at, key = max((v / card_cpu_limit(k), i, k)
+                             for i, rel in enumerate(per_chunk) for k, v in rel.items())
+        fmt = ", ".join(f"{k} {v:.3e}" for k, v in per_chunk[at].items())
+        log(f"{tag} {label}, card vs CPU, L={COMPARE_LAYERS}: worst share of the limit "
+            f"{worst:.3f} ({key}, chunk {at}: {fmt})")
+        if not worst <= 1.0:
+            raise AssertionError(f"{tag}: {label}: the card disagrees with the CPU")
+
+    def held_sequences(tag, label, info2, pg, pc, hooks=None):
+        """card_vs_cpu's two sequences, each from a zero state, on the card
+        and on the CPU: the decode steps (COMPARE_STEPS) and the first
+        prefill chunk (COMPARE_PREFILL); each held by held_against_cpu."""
+        prng = np.random.default_rng(COMPARE_SEED)
+        T, lens = COMPARE_PREFILL[0]
+        for what, chunks in (
+                ("decode steps", [(np.array(t)[:, None], np.array(n)) for t, n in COMPARE_STEPS]),
+                (f"prefill T={T}", [(prng.integers(0, VOCAB, (len(lens), T)), np.array(lens))])):
+            held_against_cpu(tag, f"{label}, {what}",
+                             run_chunks(torch, models, info2, pg, chunks, "cuda", hooks),
+                             run_chunks(torch, models, info2, pc, chunks, "cpu", hooks))
+
+    def surface_vs_cpu(tag, spec, raw2, info2, p_gpu, p_cpu):
+        """The compare model (COMPARE_LAYERS layers, full widths) on the card
+        against the CPU: the example hooks and a LoRA merged at load (dense
+        and NF4) on card_vs_cpu's decode steps and prefill chunk, each from
+        a zero state (chained, prefill then decode, V6 puzzle15's first step
+        carries the prefill's state past the limit with PyTorch's own ops on
+        the card as with the kernels: scripts/torch_trace_compare.py --hooks
+        puzzle15 --prefill; PERF.md, Findings), the vision chunk, and
+        the file loaded with allow_quantized_direct=False (one prefill,
+        counted)."""
+        from web_rwkv_gguf_tpu_torch.models.loader import _walk_matrices
+        from web_rwkv_gguf_tpu_torch.ops import wkv as W
+        from web_rwkv_gguf_tpu_torch.quant import QuantScheme
+
+        t0 = time.perf_counter()
+        prng = np.random.default_rng(COMPARE_SEED)
+        T, lens = COMPARE_PREFILL[0]
+        prefill = [(prng.integers(0, VOCAB, (len(lens), T)), np.array(lens))]
+        if spec.get("hooks"):
+            held_sequences(tag, f"{spec['hooks']} hooks", info2, p_gpu, p_cpu,
+                           HOOK_EXAMPLES[spec["hooks"]](torch, W))
+        if spec.get("vision"):
+            out = []
+            for p in (p_gpu, p_cpu):
+                emb, st = runtime.infer_vision(info2, p, runtime.VisionInput(vision_patches()))
+                out.append([{"x": torch.from_numpy(emb), **{k: v.cpu() for k, v in st.items()}}])
+            held_against_cpu(tag, "vision (infer_vision, 64 patches)", *out)
+        if spec.get("direct"):
+            direct = [models.load_model(GgufFile(raw2, allow_quantized_direct=False), device=d)
+                      for d in ("cuda", "cpu")]
+            (info_d, pg), (_, pc) = direct
+            mats = [m for m in _walk_matrices([pg["head"], pg["blocks"]]) if m.kind != "dense"]
+            if mats:
+                raise AssertionError(f"{tag}: allow_quantized_direct=False loaded "
+                                     f"{len(mats)} quantized matrices")
+            want = expected_chunk(WKV7_CHUNKED_MIN_T, spec, layer_params(pg, info_d.num_layer),
+                                  len(lens), T)
+            card = counted(f"{tag} direct (allow_quantized_direct=False, dense, prefill T={T})",
+                           want, lambda: run_chunks(torch, models, info_d, pg, prefill, "cuda"))
+            held_against_cpu(tag, "allow_quantized_direct=False, every matrix dense, prefill",
+                             card, run_chunks(torch, models, info_d, pc, prefill, "cpu"))
+        if spec.get("lora"):
+            reader = GgufFile(raw2)
+            with tempfile.TemporaryDirectory() as tmp:
+                path = f"{tmp}/lora.st"
+                rio.write_safetensors(path, lora_tensors(reader, info2.num_layer, LORA_MATRICES,
+                                                         LORA_SEED + 1))
+                blend = models.LoraPatch.blend_matrices(LORA_ALPHA) + [LORA_VECTOR]
+                for quant in (None, QuantScheme.NF4):
+                    loaded = [models.load_model(GgufFile(raw2), quant=quant, device=d,
+                                                lora=[models.LoraPatch(
+                                                    rio.SafetensorsFile(path), blend)])
+                              for d in ("cuda", "cpu")]
+                    (info_l, pg), (_, pc) = loaded
+                    held_sequences(tag, f"LoRA rank {LORA_RANK} on every layer matrix, "
+                                        f"{quant.name if quant else 'dense'}", info_l, pg, pc)
+        log(f"{tag} surface against the CPU: {time.perf_counter() - t0:.1f} s")
+
+    def lora_phase(tag, spec, info, raw):
+        """LoRA merged at load at full depth: a rank-LORA_RANK pair on every
+        layer matrix and LORA_VECTOR, loaded (a) with no scheme: dense bf16
+        weights equal to numpy's merge through the f16 round trip, decoded
+        at B=4 by the Engine in layer7.cu's dense slot (counted); (b) with
+        quant=NF4: NF4 matrices equal to the NF4 of numpy's merge."""
+        from web_rwkv_gguf_tpu_torch.quant import QuantScheme
+
+        t0 = time.perf_counter()
+        reader = GgufFile(raw)
+        tensors = lora_tensors(reader, info.num_layer, LORA_MATRICES, LORA_SEED)
+        blend = models.LoraPatch.blend_matrices(LORA_ALPHA) + [LORA_VECTOR]
+        checks = (("blocks.0.att.key.weight", 0, "att", "Wk"),
+                  (f"blocks.{info.num_layer - 1}.ffn.value.weight", info.num_layer - 1,
+                   "ffn", "Wv"))
+        B4 = len(ENGINE_LENGTHS)
+        with tempfile.TemporaryDirectory() as tmp:
+            path = f"{tmp}/lora.st"
+            rio.write_safetensors(path, tensors)
+            for quant in (None, QuantScheme.NF4):
+                _, p = models.load_model(GgufFile(raw), quant=quant, device="cuda", lora=[
+                    models.LoraPatch(rio.SafetensorsFile(path), blend)])
+                bad = []
+                for name, i, part, key in checks:
+                    a, b = tensors[f"{name}.lora.0"], tensors[f"{name}.lora.1"]
+                    merged = (reader.tensor(name, np.float32)
+                              + (LORA_ALPHA / LORA_RANK) * (b @ a)).astype(np.float16)
+                    want = Matrix.from_f16(merged, quant or QuantScheme.NONE, torch.bfloat16,
+                                           "cuda").dequantize()
+                    got = p["blocks"][part][key].layer(i)
+                    if got.kind != ("nf4" if quant else "dense") or not torch.equal(
+                            got.dequantize(), want):
+                        bad.append(name)
+                vec, alpha = LORA_VECTOR
+                i_v = int(vec.split(".")[1])
+                v_want = alpha * tensors[vec] + (1 - alpha) * reader.tensor(vec, np.float32)
+                if not np.array_equal(p["blocks"]["att"]["x_k"][i_v].cpu().numpy(), v_want):
+                    bad.append(vec)
+                qname = quant.name if quant else "dense"
+                log(f"{tag} lora ({qname}): {len(tensors)} tensors, every layer matrix merged; "
+                    f"weights against numpy's merge: {bad or 'equal'}")
+                if bad:
+                    raise AssertionError(f"{tag}: the LoRA merge differs from numpy's ({bad})")
+                if quant is None:
+                    eng = runtime.Engine(info, p, num_batch=B4, token_chunk_size=ENGINE_CHUNK,
+                                         device="cuda")
+                    dense_slot = l7.descriptor(l7.FORM_DENSE, 0, 0)
+                    if set(eng.params["mega7"]["forms"].values()) != {dense_slot}:
+                        raise AssertionError(f"{tag}: the merged model is not in the dense slot")
+                    layers = layer_params(eng.params, info.num_layer)
+                    want = collections.Counter()
+                    for T in engine_plans(runtime, _bucket, ENGINE_LENGTHS, ENGINE_CHUNK):
+                        want += expected_chunk(WKV7_CHUNKED_MIN_T, spec, layers, B4, T)
+                    want["layer_scan7"] += 8
+                    toks = counted(f"{tag} lora engine generate (B={B4}, dense slot)", want,
+                                   lambda: eng.generate(engine_prompts, 9, segment=8))
+                    if not all(len(t) == 9 for t in toks):
+                        raise AssertionError(f"{tag}: the merged Engine gave {toks}")
+                    del eng
+                del p
+                torch.cuda.empty_cache()
+        log(f"{tag} lora phase: {time.perf_counter() - t0:.1f} s")
+
+    def lora_layer0_phase(tag, spec, info, raw):
+        """A LoRA on layer 0 alone of the quantized file: layer 0 loads
+        dense, the others keep their blocks, so the blocks load per layer;
+        one decode step of four lanes on the Engine's params (unrolled: no
+        whole-stack form for mixed layers), counted."""
+        t0 = time.perf_counter()
+        reader = GgufFile(raw)
+        tensors = lora_tensors(reader, 1, LORA_MATRICES, LORA_SEED + 2)
+        del tensors[LORA_VECTOR[0]]
+        B4 = len(ENGINE_LENGTHS)
+        with tempfile.TemporaryDirectory() as tmp:
+            path = f"{tmp}/lora.st"
+            rio.write_safetensors(path, tensors)
+            _, p = models.load_model(GgufFile(raw), device="cuda", lora=[models.LoraPatch(
+                rio.SafetensorsFile(path), models.LoraPatch.blend_layer_matrices(0, 1.0))])
+        if not isinstance(p["blocks"], list) or p["blocks"][0]["att"]["Wk"].kind != "dense":
+            raise AssertionError(f"{tag}: a layer-0 LoRA did not give per-layer blocks")
+        prepared = models.prepare_decode(p, info, B4)
+        layers = layer_params(prepared, info.num_layer)
+        want = expected_chunk(WKV7_CHUNKED_MIN_T, spec, layers, B4, 1)
+        want[matmul_kernel(p["head"], B4)] += 1
+        tok = torch.tensor([[o[0]] for o in engine_prompts], device="cuda")
+
+        def step():
+            x, st = models.forward_chunk(info, prepared, models.init_state(info, B4, "cuda"),
+                                         tok, torch.ones(B4, dtype=torch.long, device="cuda"))
+            return models.logits_head(prepared, x[:, 0])
+
+        logits = counted(f"{tag} lora layer 0 (per-layer blocks, one decode step B={B4})",
+                         want, step)
+        if not bool(torch.isfinite(logits).all()):
+            raise AssertionError(f"{tag}: the layer-0 LoRA step is not finite")
+        log(f"{tag} lora layer 0: layer kinds "
+            f"{[blk['att']['Wk'].kind for blk in p['blocks']][:3]}...; "
+            f"{time.perf_counter() - t0:.1f} s")
+
     for tag in files:
         spec = MODELS[tag]
         log(f"{tag}: {time.perf_counter() - t_start:.1f} s into the run")
@@ -2631,6 +3031,16 @@ def run(np, torch, files) -> int:
                 or any(blocks[p][n].kind != layer_kind for p, n in spec["matrices"])):
             raise AssertionError(f"{tag}: the model did not load as {spec['kinds']}")
         drive(tag, spec, info, params)
+        if spec.get("hooks"):
+            hooks_phase(tag, spec, info, params)
+        if spec.get("embeds"):
+            embeds_phase(tag, info, params)
+        if spec.get("vision"):
+            vision_phase(tag, info, params)
+        if spec.get("lora"):
+            lora_phase(tag, spec, info, raw)
+        if spec.get("lora_layer0"):
+            lora_layer0_phase(tag, spec, info, raw)
         t0 = time.perf_counter()
         if spec.get("snapshot"):
             snapshot_phase(tag, info, params, t_load)
@@ -2642,7 +3052,10 @@ def run(np, torch, files) -> int:
         t0 = time.perf_counter()
         raw2, t_file = files[tag]["compare"].get()
         info2, p_gpu = load(models, raw2, spec, "cuda")
-        card_vs_cpu(tag, spec, info2, p_gpu, load(models, raw2, spec, "cpu")[1])
+        p_cpu = load(models, raw2, spec, "cpu")[1]
+        card_vs_cpu(tag, spec, info2, p_gpu, p_cpu)
+        if any(spec.get(k) for k in ("hooks", "vision", "direct", "lora")):
+            surface_vs_cpu(tag, spec, raw2, info2, p_gpu, p_cpu)
         if spec.get("dense_compare"):
             t1 = time.perf_counter()
             dense_logits(tag, spec, info2, p_gpu)
@@ -2650,7 +3063,7 @@ def run(np, torch, files) -> int:
                 f"{time.perf_counter() - t1:.1f} s")
         log(f"{tag} card vs CPU: {time.perf_counter() - t0:.1f} s (its file built in "
             f"{t_file:.1f} s in a worker process, seed {compare_seed(spec)})")
-        del raw2, info2, p_gpu
+        del raw2, info2, p_gpu, p_cpu
         torch.cuda.empty_cache()
         for j, (version, slot_kind) in enumerate(SLOT_STACKS.get(tag, ())):
             label = f"slot {version} {slot_kind or 'bf16'}"

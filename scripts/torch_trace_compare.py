@@ -21,10 +21,13 @@ ways:
   how much it carries from the steps before.
 
 It prints max|a - b| / max|b| per chunk as chip_smoke does (logits,
-shifts, each layer's WKV state). Needs one CUDA card; from the repo
-root:
+shifts, each layer's WKV state). ``--hooks NAME`` runs every forward and
+head with an example's hooks (``chip_smoke.HOOK_EXAMPLES``), and
+``--prefill`` puts chip_smoke's first prefill chunk (T=37, lengths 37,
+20, 0) before the decode steps, as its surface phase holds them. Needs
+one CUDA card; from the repo root:
 
-    python3 scripts/torch_trace_compare.py [tag:seed ...]
+    python3 scripts/torch_trace_compare.py [--hooks NAME] [--prefill] [tag:seed ...]
 """
 
 import contextlib
@@ -39,6 +42,7 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 import chip_smoke as cs  # noqa: E402
 from web_rwkv_gguf_tpu_torch import models  # noqa: E402
 from web_rwkv_gguf_tpu_torch.gguf import GgufFile  # noqa: E402
+from web_rwkv_gguf_tpu_torch.ops import wkv as wkv_ops  # noqa: E402
 from web_rwkv_gguf_tpu_torch.ops.cuda import layer7, layer56, matmul, wkv4, wkv6, wkv7  # noqa: E402
 
 # every kernel wrapper, its plain version, and how a call is compared: each
@@ -140,16 +144,17 @@ def swapped(mode, worst):
             setattr(mod, attr, val)
 
 
-def run_from(info, params, state, chunks, device):
+def run_from(info, params, state, chunks, device, hooks=None):
     """chip_smoke.run_chunks from ``state`` (host tensors) instead of a
     zero state."""
     st = {k: v.to(device) for k, v in state.items()}
     out = []
     for toks, lens in chunks:
         n = torch.as_tensor(lens, device=device)
-        x, st = models.forward_chunk(info, params, st, torch.as_tensor(toks, device=device), n)
+        x, st = models.forward_chunk(info, params, st, torch.as_tensor(toks, device=device), n,
+                                     hooks=hooks)
         live = (n > 0).nonzero()[:, 0]
-        logits = models.logits_head(params, x[live, n[live] - 1])
+        logits = models.logits_head(params, x[live, n[live] - 1], hooks=hooks)
         out.append({"logits": logits.cpu(), **{k: v.cpu() for k, v in st.items()}})
     return out
 
@@ -162,25 +167,29 @@ def over(rel):
     return [k for k, v in rel.items() if not v <= cs.card_cpu_limit(k)]
 
 
-def trace(tag, seed):
+def trace(tag, seed, hooks=None, prefill=False):
     raw, _ = cs.build_file(tag, cs.COMPARE_LAYERS, seed)
     info, p_card = models.load_model(GgufFile(raw), device="cuda")
     _, p_cpu = models.load_model(GgufFile(raw), device="cpu")
     decode = [(np.array(t)[:, None], np.array(n)) for t, n in cs.COMPARE_STEPS]
+    if prefill:
+        T, lens = cs.COMPARE_PREFILL[0]
+        prng = np.random.default_rng(cs.COMPARE_SEED)
+        decode = [(prng.integers(0, cs.VOCAB, (len(lens), T)), np.array(lens))] + decode
     batch = len(cs.COMPARE_STEPS[0][1])
     for label, a, b in (("per-layer kernels", p_card, p_cpu),
                         ("whole-stack kernel", models.prepare_decode(p_card, info, batch),
                          models.prepare_decode(p_cpu, info, batch))):
         print(f"{tag} seed {seed}, {label} (limits {cs.CARD_CPU_TOL}, later layers' WKV "
               f"{cs.CARD_CPU_WKV_TOL}):", flush=True)
-        cpu = cs.run_chunks(torch, models, info, b, decode, "cpu")
+        cpu = cs.run_chunks(torch, models, info, b, decode, "cpu", hooks)
         worst = {}
         with swapped("checked", worst):
-            card = cs.run_chunks(torch, models, info, a, decode, "cuda")
+            card = cs.run_chunks(torch, models, info, a, decode, "cuda", hooks)
         print("  every kernel call against its plain version on its own inputs, worst share "
               "of its tolerance: " + ", ".join(f"{k} {v:.3f}" for k, v in worst.items()))
         with swapped("plain", {}):
-            card_plain = cs.run_chunks(torch, models, info, a, decode, "cuda")
+            card_plain = cs.run_chunks(torch, models, info, a, decode, "cuda", hooks)
         for name, x, y in (("card kernels vs CPU", card, cpu),
                            ("card plain versions vs CPU", card_plain, cpu),
                            ("card kernels vs card plain versions", card, card_plain)):
@@ -190,8 +199,8 @@ def trace(tag, seed):
               f"{cs.wkv_max_at(card, cpu)}")
         for i in range(1, len(decode)):
             start = {k: v for k, v in cpu[i - 1].items() if k != "logits"}
-            one_card = run_from(info, a, start, decode[i:i + 1], "cuda")
-            one_cpu = run_from(info, b, start, decode[i:i + 1], "cpu")
+            one_card = run_from(info, a, start, decode[i:i + 1], "cuda", hooks)
+            one_cpu = run_from(info, b, start, decode[i:i + 1], "cpu", hooks)
             rel = cs.rel_diff(one_card, one_cpu)[0]
             print(f"  chunk {i} alone from the CPU's state before it, card kernels vs CPU: "
                   f"{fmt(rel)}", flush=True)
@@ -202,9 +211,16 @@ def main() -> int:
         print("torch_trace_compare: no CUDA card", file=sys.stderr)
         return 1
     torch.backends.cuda.matmul.allow_tf32 = False
-    for item in sys.argv[1:] or ("v7q5:41", "v7q5:42"):
+    args = sys.argv[1:]
+    hooks = None
+    if "--hooks" in args:
+        i = args.index("--hooks")
+        hooks = cs.HOOK_EXAMPLES[args[i + 1]](torch, wkv_ops)
+        del args[i:i + 2]
+    prefill = "--prefill" in args
+    for item in [a for a in args if a != "--prefill"] or ("v7q5:41", "v7q5:42"):
         tag, seed = item.split(":")
-        trace(tag, int(seed))
+        trace(tag, int(seed), hooks, prefill)
     return 0
 
 

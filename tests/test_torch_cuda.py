@@ -186,8 +186,11 @@ def _wkv_args(B, T, lens, dev, seed=0, H=12):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("lens", [(2,), (37, 20, 0)])
+@pytest.mark.parametrize("lens", [(1,), (1, 0, 1), (2,), (37, 20, 0)])
 def test_wkv7_scan_on_card(card, lens):
+    """The V7 WKV scan against its plain version; T = 1 is the hooked
+    decode step's (forward_chunk with hooks leaves the fused att-core
+    kernel), a lane of length 0 keeps its state."""
     args = _wkv_args(len(lens), max(lens), lens, card)
     before = core.wkv7_scan.launches
     y1, s1 = core.wkv7_scan(*args)
@@ -399,6 +402,84 @@ def test_layer_scan7_on_card(card, B):
         if B >= 3:
             assert torch.equal(s1[key][:, 1], state[key][:, 1])
     _close(x1, x0, 1e-2)
+
+
+@pytest.mark.cuda
+def test_layer_scan7_q4_1_stack_at_seed_120_b16_on_card(card, tmp_path):
+    """The case of ``scripts/torch_kernel_cases.py --stacks Q4_1 --batches
+    16`` (the 0.1B widths at full depth in Q4_1 nibbles, ``STACK_SEED`` =
+    120, its random state, 16 live lanes) through that script's own
+    check (chip_smoke.py's ``mega_case``: every layer of the whole-stack
+    kernel against the plain version given the kernel's LayerNorm outputs,
+    at 2^-8·max). It failed at layers 1 and 11 (the WKV state 1.41 and
+    1.57 of the limit) while layer7.cu fused each token-shift mix into one
+    multiply-add; the mixes now round as the plain version rounds them."""
+    import os
+    import sys
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    for path in (root, os.path.join(root, "scripts")):
+        if path not in sys.path:
+            sys.path.insert(0, path)
+    import chip_smoke as cs
+    import torch_kernel_cases as kc
+
+    kc.build_stack_file(str(tmp_path), "Q4_1")
+    _, bf16_peak, f32_peak = cs.peaks(torch.cuda.get_device_name(0))
+    (case,) = kc.stack_cases(torch, str(tmp_path), ["Q4_1"], [16], bf16_peak, f32_peak)
+    err, limit = case["check"](case["make_args"](0))
+    assert err <= limit
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("prepared", ["whole_stack", "unrolled"])
+def test_hooked_v7_decode_step_launches_on_card(card, prepared):
+    """A T=1 step of a two-layer RWKV-7 Q4_K model on the Engine's decode
+    params (``prepare_decode``: the whole-stack block; ``unroll_params`` at
+    one lane: the grouped r/k/v gemv). ``hooks={}`` leaves the whole-stack
+    kernel only; a non-empty ``hooks`` also leaves the fused att-core kernel
+    and the grouped gemv, and its WKV runs as ``wkv7_scan`` at T=1, one
+    launch a layer. Every tap fires at both layers, and the hooked step's
+    logits and state match the unhooked step's at the card's 1e-2·max."""
+    from web_rwkv_gguf_tpu_torch.gguf import GgufFile
+    from web_rwkv_gguf_tpu_torch.models import (
+        forward_chunk, init_state, load_model, logits_head, prepare_decode, unroll_params,
+    )
+    from web_rwkv_gguf_tpu_torch.models.forward import HOOK_NAMES
+    from web_rwkv_gguf_tpu_torch.ops.cuda import layer7
+    from web_rwkv_gguf_tpu_torch.utils.synthetic import make_v7_gguf
+
+    raw = make_v7_gguf(n_layer=2, n_emb=256, head_size=64, n_vocab=512, n_hidden=1024,
+                       quantize=ggml.GgmlDType.Q4_K, head_quantize=ggml.GgmlDType.Q6_K,
+                       seed=4)
+    info, params = load_model(GgufFile(raw), device=card)
+    B = 1
+    params = prepare_decode(params, info, B) if prepared == "whole_stack" else unroll_params(params)
+    tok = torch.tensor([[5]], device=card)
+    lens = torch.ones(B, dtype=torch.long, device=card)
+    fired = []
+    taps = {n: (lambda name: lambda layer, **t: fired.append((name, layer)))(n)
+            for n in HOOK_NAMES[info.version]}
+    counters = (layer7.layer_scan7, core.att_core7_step, mm.quant_gemv_grouped, core.wkv7_scan)
+    out = {}
+    for tag, hooks in (("none", None), ("empty", {}), ("taps", taps)):
+        before = [c.launches for c in counters]
+        x, st = forward_chunk(info, params, init_state(info, B, device=card), tok, lens,
+                              hooks=hooks)
+        out[tag] = (logits_head(params, x[:, 0], hooks=hooks), st,
+                    [c.launches - b for c, b in zip(counters, before)])
+    stacked = prepared == "whole_stack"
+    assert out["none"][2] == ([1, 0, 0, 0] if stacked else [0, 2, 2, 0])
+    assert out["empty"][2] == ([0, 2, 0, 0] if stacked else [0, 2, 2, 0])
+    assert out["taps"][2] == [0, 0, 0, 2]
+    model_level = {"post_embed_loaded", "post_embed_layer_norm", "pre_head",
+                   "post_head_layer_norm", "post_head"}
+    for name in HOOK_NAMES[info.version]:
+        want = [-1] if name in model_level else [0, 1]
+        assert [layer for n, layer in fired if n == name] == want, name
+    _close(out["taps"][0], out["none"][0], 1e-2)
+    for key in out["none"][1]:
+        _close(out["taps"][1][key], out["none"][1][key], 1e-2)
 
 
 def _wkv6_args(B, T, lens, dev, seed=0, H=12, static_w=False):

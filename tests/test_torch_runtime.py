@@ -23,7 +23,7 @@ from web_rwkv_gguf_tpu.gguf import GgufFile as JaxGgufFile
 from web_rwkv_gguf_tpu.models import load_model as jax_load_model
 from web_rwkv_gguf_tpu.runtime import Engine as JaxEngine
 import web_rwkv_gguf_tpu_torch.runtime.scheduler as port_sched
-from web_rwkv_gguf_tpu_torch.errors import EngineError, TensorError, UnsupportedFeature
+from web_rwkv_gguf_tpu_torch.errors import EngineError, TensorError
 from web_rwkv_gguf_tpu_torch.gguf import GgufFile
 from web_rwkv_gguf_tpu_torch.models import load_model
 from web_rwkv_gguf_tpu_torch.quant.ggml import GgmlDType
@@ -215,9 +215,11 @@ def test_engine_typed_errors(f32_models):
         eng.generate([[1, 2]], 3)
     with pytest.raises(EngineError):
         eng.generate([[1, 2], []], 3)
-    with pytest.raises(UnsupportedFeature):
-        eng.infer(RnnInput([RnnInputBatch([1, np.zeros(128, np.float32)]),
+    # an embedding token (Token::Embed) must be one row of the model's width
+    with pytest.raises(TensorError) as e:
+        eng.infer(RnnInput([RnnInputBatch([1, np.zeros(129, np.float32)]),
                             RnnInputBatch([2])], CHUNK))
+    assert e.value.kind == "size"
 
 
 def test_engine_q4km_logits_match_jax():

@@ -262,9 +262,13 @@ class GgufFile:
 
     API mirrors the reference ``Reader`` trait: ``names`` / ``contains`` /
     ``shape`` / ``tensor`` / ``quantized_tensor`` plus metadata access.
+    ``allow_quantized_direct=False`` makes ``quantized_tensor`` return
+    None, so every matrix loads through dequantization (dense, or by the
+    loader's scheme), as ``apps/ppl.py --compare-f16`` of the JAX package
+    loads its f16 reference.
     """
 
-    def __init__(self, data):
+    def __init__(self, data, *, allow_quantized_direct: bool = True):
         self._own_mmap = None
         if isinstance(data, (str, Path)):
             f = open(data, "rb")
@@ -274,6 +278,7 @@ class GgufFile:
         elif isinstance(data, (bytes, bytearray)):
             data = memoryview(data)
         self.data = data
+        self.allow_quantized_direct = allow_quantized_direct
 
         cur = _Cursor(data)
         magic = cur.scalar("<I")
@@ -434,8 +439,11 @@ class GgufFile:
         (:data:`DIRECT_TYPES`: Q8_0, Q4_0, Q4_1, Q5_0, Q5_1 and Q2_K to
         Q6_K) comes back as ``(dtype, raw bytes)``; any other type, and a
         slice of a fused tensor, returns None and loads through
-        dequantization.
+        dequantization; so does every tensor of a file opened with
+        ``allow_quantized_direct=False``.
         """
+        if not self.allow_quantized_direct:
+            return None
         if self._fused_slice(name) is not None:
             return None
         gname = self.name_map.get(name)

@@ -3,6 +3,7 @@
 from .info import ModelInfo, ModelVersion, detect_info  # noqa: F401
 from .matrix import Matrix  # noqa: F401
 from .loader import (  # noqa: F401
+    LoraPatch,
     dense_cache_bytes,
     densify_matrices,
     group_gemv_matrices,

@@ -68,13 +68,16 @@ def make_generator(
     top_p: float = 0.0,
     rescale: int | None = None,
     stop_ids: tuple[int, ...] = (),
+    hooks: dict | None = None,
 ):
     """Build ``(params, state, token [B, 1], generator=None) ->
     (tokens [B, steps], logits [B, V], state, generator, done [B])`` that
     decodes ``steps`` tokens, each through ``forward_chunk`` at T=1 and
     ``logits_head``. Lanes that emit a token in ``stop_ids`` freeze
     (state kept, stop id re-emitted); ``done`` reports which lanes have
-    stopped by the end. ``logits`` are the last step's."""
+    stopped by the end. ``logits`` are the last step's. ``hooks`` tap
+    every step's forward and head (the JAX package's generator takes none,
+    so its ``Engine.generate`` decodes a hooked engine unhooked)."""
     sample = make_sampler(temperature, top_k, top_p)
 
     def run(params, state, token, generator=None):
@@ -89,8 +92,8 @@ def make_generator(
             # done lanes run with length 0: the padding mask freezes them
             lens = torch.where(done, 0, 1)
             x, state = _forward(info, params, layers, state, token, lens,
-                                rescale)
-            logits = logits_head(params, x[:, 0])
+                                rescale, hooks)
+            logits = logits_head(params, x[:, 0], hooks=hooks)
             nxt = torch.where(done, token[:, 0], sample(logits, generator))
             done = done | torch.isin(nxt, stop)
             token = nxt[:, None]

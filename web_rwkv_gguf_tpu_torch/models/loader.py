@@ -17,11 +17,20 @@ torch tensors on one device:
   -exp(raw) per channel);
 - the embedding table stays f16.
 
+``load_model(lora=)`` merges LoRA patches at load (:class:`LoraPatch`),
+as the JAX package's ``_Loader`` does: a vector becomes α·lora + (1−α)·x
+before any activation at load, and a matrix gains α/rank·B@A on its f32
+weight before the f16 round trip and its layer's scheme (a LoRA'd matrix
+never loads direct-quantized).
+
 The load computes in numpy and moves each finished array to ``device``
 once.
 """
 
 from __future__ import annotations
+
+import re
+from dataclasses import dataclass, field
 
 import numpy as np
 import torch
@@ -39,6 +48,94 @@ GROUP_KINDS = ("qk", "qk_b", "qk_nomin", "int8")
 
 def _np(reader, name, dtype=np.float32) -> np.ndarray:
     return np.asarray(reader.tensor(name, dtype))
+
+
+@dataclass
+class LoraPatch:
+    """A LoRA to merge at load (the JAX package's ``LoraPatch``; ref:
+    loader.rs Lora / LoraBlend).
+
+    ``reader``: any reader with ``contains`` and ``tensor`` (``GgufFile``,
+    ``io.SafetensorsFile``) holding vectors under the model's names and
+    matrices as ``{name}.lora.0`` (A, [rank, K]) and ``{name}.lora.1`` (B,
+    [M, rank]). ``blend`` maps regex patterns to α; the last pattern that
+    matches a name wins (ref: loader.rs:373-441)."""
+
+    reader: object
+    blend: list[tuple[str, float]] = field(default_factory=list)
+
+    # the reference's big-matrix pattern (loader.rs:166-174)
+    MATRIX_PATTERN = (r"blocks\.([0-9]+)\.(att|ffn)\."
+                      r"(key|value|receptance|gate|output)\.weight")
+
+    @classmethod
+    def full(cls, reader, alpha: float) -> "LoraPatch":
+        """Replace every vector, add to every matrix with ``alpha`` (ref:
+        loader.rs:150-155 ``LoraBlend::full``)."""
+        return cls(reader, cls.blend_full(alpha))
+
+    @staticmethod
+    def blend_full(alpha: float) -> list[tuple[str, float]]:
+        return LoraPatch.blend_nominal(1.0) + LoraPatch.blend_matrices(alpha)
+
+    @staticmethod
+    def blend_nominal(alpha: float) -> list[tuple[str, float]]:
+        """Every tensor with factor ``alpha`` (ref: loader.rs:158-163)."""
+        return [(r".+", alpha)]
+
+    @staticmethod
+    def blend_matrices(alpha: float) -> list[tuple[str, float]]:
+        """Every big matrix with ``alpha`` (ref: loader.rs:166-174)."""
+        return [(LoraPatch.MATRIX_PATTERN, alpha)]
+
+    @staticmethod
+    def blend_layer_nominal(layer: int, alpha: float) -> list[tuple[str, float]]:
+        """Every tensor of one layer (ref: loader.rs:177-182)."""
+        return [(rf"blocks\.{layer}", alpha)]
+
+    @staticmethod
+    def blend_layer_matrices(layer: int, alpha: float) -> list[tuple[str, float]]:
+        """The big matrices of one layer (ref: loader.rs:185-191)."""
+        return [(rf"blocks\.{layer}\.(att|ffn)\.(key|value|receptance|gate|output)\.weight",
+                 alpha)]
+
+    def alpha(self, name: str) -> float | None:
+        """α of the last pattern that matches ``name``; None if none does."""
+        out = None
+        for pattern, a in self.blend:
+            if re.search(pattern, name):
+                out = a
+        return out
+
+
+def _lora_vector(patches, name, v: np.ndarray) -> np.ndarray:
+    """``v`` blended with every patch that holds ``name``: α·lora + (1−α)·v
+    (ref: loader.rs:459-476)."""
+    for patch in patches:
+        alpha = patch.alpha(name) if patch.reader.contains(name) else None
+        if alpha is not None:
+            v = alpha * _np(patch.reader, name).reshape(-1) + (1.0 - alpha) * v
+    return v
+
+
+def _lora_pairs(patches, name) -> list:
+    """``(α, A, B)`` of every patch that holds a pair for matrix ``name``."""
+    out = []
+    for patch in patches:
+        a_name, b_name = f"{name}.lora.0", f"{name}.lora.1"
+        if patch.reader.contains(a_name) and patch.reader.contains(b_name):
+            alpha = patch.alpha(name)
+            if alpha is not None:
+                out.append((alpha, _np(patch.reader, a_name), _np(patch.reader, b_name)))
+    return out
+
+
+def _lora_matrix(pairs, w: np.ndarray) -> np.ndarray:
+    """``w`` plus α/rank·B@A of every pair (ref: loader.rs blend_lora)."""
+    for alpha, a, b in pairs:
+        rank = a.shape[0] if a.ndim == 2 else 1
+        w = w + (alpha / rank) * (b @ a)
+    return w
 
 
 def _stack_matrices(mats: list[Matrix]):
@@ -238,8 +335,8 @@ def prepare_decode(params: dict, info, batch_hint: int = 1) -> dict:
     return unroll_params(params)
 
 
-def load_model(reader, *, quant=None, dtype=torch.bfloat16, rescale: int | None = None,
-               device="cuda"):
+def load_model(reader, *, quant=None, lora: list[LoraPatch] | None = None,
+               dtype=torch.bfloat16, rescale: int | None = None, device="cuda"):
     """Load an RWKV-7, -6, -5 or -4 model into ``(info, params)`` on ``device``.
 
     ``quant``: the engine's requantization, one ``QuantScheme`` for every
@@ -253,9 +350,13 @@ def load_model(reader, *, quant=None, dtype=torch.bfloat16, rescale: int | None 
     ``att.output`` / ``ffn.value`` at layer i are pre-multiplied by
     ``2^-(i // rescale)`` (those matrices then load dense or by the
     layer's scheme) and the forward halves the residual every
-    ``rescale`` layers.
+    ``rescale`` layers. ``lora``: patches merged at load
+    (:class:`LoraPatch`); a merged matrix loads through the f16 round trip
+    and its layer's scheme, never direct-quantized, so a file whose
+    layers differ in that way loads as per-layer blocks.
     """
     info = detect_info(reader)
+    lora = lora or []
     if isinstance(quant, QuantScheme):
         quant = {i: quant for i in range(info.num_layer)}
     quant = quant or {}
@@ -266,21 +367,23 @@ def load_model(reader, *, quant=None, dtype=torch.bfloat16, rescale: int | None 
         return torch.from_numpy(np.require(a, requirements="CW")).to(device)
 
     def vector(name):
-        return _np(reader, name).reshape(-1)
+        return _lora_vector(lora, name, _np(reader, name).reshape(-1))
 
-    def matrix_f32(name):
-        return _np(reader, name)
+    def matrix_f32(name, pairs=None):
+        return _lora_matrix(_lora_pairs(lora, name) if pairs is None else pairs,
+                            _np(reader, name))
 
     def to_dtype(a: np.ndarray) -> torch.Tensor:
         return dev(a.astype(np.float32)).to(dtype)
 
     def matrix(name, discount=1.0, layer=None) -> Matrix:
-        if discount == 1.0:
+        pairs = _lora_pairs(lora, name)
+        if discount == 1.0 and not pairs:
             qt = reader.quantized_tensor(name)
             if qt is not None:
                 return Matrix.from_gguf_blocks(qt[0], qt[1], reader.shape(name),
                                                device=device)
-        w = matrix_f32(name) * discount
+        w = matrix_f32(name, pairs) * discount
         # the f16 round trip the reference loader applies before its scheme
         return Matrix.from_f16(w.astype(np.float16), quant.get(layer, QuantScheme.NONE),
                                dtype, device)

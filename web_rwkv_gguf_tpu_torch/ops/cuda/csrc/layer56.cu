@@ -31,7 +31,9 @@
 // one by its bf16 weight with f32 sums, the four adapters take bf16
 // operands and accumulate in f32 (their tanh outputs rounded to bf16 before
 // the up product), everything else is f32 with IEEE expf (no fast math:
-// StableExp and the group norm stay exact to f32).
+// StableExp and the group norm stay exact to f32); each token-shift mix
+// rounds after its product and its sum, as the plain version's
+// (stk::mix_rn, not a fused multiply-add).
 //
 // Version 5 is version 6 without the adapters: the four inputs are static
 // mixes sh + mix_s (xx - sh) (not reversed), the decay w is static per
@@ -370,11 +372,11 @@ __device__ void stage_ln(const Args& a, const stk::Job& j, int l, int s, bool wr
         }
         float4 in;
         if (rev)
-          in = make_float4(xx.x + mix.x * (sq.x - xx.x), xx.y + mix.y * (sq.y - xx.y),
-                           xx.z + mix.z * (sq.z - xx.z), xx.w + mix.w * (sq.w - xx.w));
+          in = make_float4(stk::mix_rn(xx.x, mix.x, sq.x), stk::mix_rn(xx.y, mix.y, sq.y),
+                           stk::mix_rn(xx.z, mix.z, sq.z), stk::mix_rn(xx.w, mix.w, sq.w));
         else
-          in = make_float4(sq.x + mix.x * (xx.x - sq.x), sq.y + mix.y * (xx.y - sq.y),
-                           sq.z + mix.z * (xx.z - sq.z), sq.w + mix.w * (xx.w - sq.w));
+          in = make_float4(stk::mix_rn(sq.x, mix.x, xx.x), stk::mix_rn(sq.y, mix.y, xx.y),
+                           stk::mix_rn(sq.z, mix.z, xx.z), stk::mix_rn(sq.w, mix.w, xx.w));
         const uint2 u = make_uint2(stk::bf2(in.x, in.z), stk::bf2(in.y, in.w));
         *reinterpret_cast<uint2*>(xs + (size_t)n * xstride + 4 * q) = u;
         if (j.offs) stk::step_sum(stk::bf16_sum4(u), q, n, NB, xsum);
@@ -511,7 +513,7 @@ __device__ void phase_mix(const Args& a, int l, float* s_z) {
         const float sh = __ldg(a.ash_in + (size_t)l * B * C + i);
         const float mix = acc[b] + tm;
         a.mixed[(size_t)s * B * C + (size_t)b * C + stk::perm4(c)] =
-            __float2bfloat16_rn(xx + mix * (sh - xx));
+            __float2bfloat16_rn(stk::mix_rn(xx, mix, sh));
       }
     }
   }

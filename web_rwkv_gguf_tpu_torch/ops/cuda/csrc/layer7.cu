@@ -22,7 +22,9 @@
 // stack_mma.cuh says (exact code products of each k16 step on the tensor
 // cores, the step's factors and offset in f32), a dense bf16 matrix
 // multiplies it by its bf16 weight with f32 sums, the LoRA pairs take bf16
-// operands and accumulate in f32, everything else is f32.
+// operands and accumulate in f32, everything else is f32; each token-shift
+// mix rounds after its product and its sum, as the plain version's
+// (stk::mix_rn, not a fused multiply-add).
 //
 // Design. The TPU kernel is a grid over layers whose steps Pallas pipelines;
 // a GPU has no such sequential grid, so this is one cooperative launch of a
@@ -281,8 +283,8 @@ __device__ __forceinline__ void stage_input(const Args& a, const Plan& p, const 
           *reinterpret_cast<float4*>(o) = a.mask[n] == 0.f ? sv : xx;
         }
         const uint2 u =
-            make_uint2(stk::bf2(xx.x + mix.x * (sv.x - xx.x), xx.z + mix.z * (sv.z - xx.z)),
-                       stk::bf2(xx.y + mix.y * (sv.y - xx.y), xx.w + mix.w * (sv.w - xx.w)));
+            make_uint2(stk::bf2(stk::mix_rn(xx.x, mix.x, sv.x), stk::mix_rn(xx.z, mix.z, sv.z)),
+                       stk::bf2(stk::mix_rn(xx.y, mix.y, sv.y), stk::mix_rn(xx.w, mix.w, sv.w)));
         *reinterpret_cast<uint2*>(xs + (size_t)n * xstride + i4) = u;
         if (j.offs) stk::step_sum(stk::bf16_sum4(u), t, n, nb, xsum);
       }

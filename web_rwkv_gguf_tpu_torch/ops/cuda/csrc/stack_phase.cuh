@@ -32,6 +32,18 @@ struct Bars {
 };
 
 // items of a phase's n jobs
+// A token-shift mix x + m (s - x), rounded after the difference, the
+// product and the sum, as the plain versions (and the JAX package) round
+// it. A fused multiply-add, which the compiler contracts this to otherwise,
+// rounds once; where the mix sits at a bf16 tie the two round it to
+// neighbouring bf16 operands of the products after it (the Q4_1 RWKV-7
+// stack of scripts/torch_kernel_cases.py at B = 16 moved its WKV state
+// 1.41-1.57 of MEGA_LAYER_TOL from the plain version's so;
+// scripts/torch_stack_chain.py).
+__device__ __forceinline__ float mix_rn(float x, float m, float s) {
+  return __fadd_rn(x, __fmul_rn(m, __fsub_rn(s, x)));
+}
+
 __device__ __forceinline__ int jobs_items(const Job* jobs, int n) {
   int items = 0;
   for (int i = 0; i < n; ++i) items += jobs[i].tiles * jobs[i].S;

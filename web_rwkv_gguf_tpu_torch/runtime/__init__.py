@@ -3,8 +3,9 @@
 Ref: src/runtime/mod.rs (Runtime trait) and src/runtime/infer/rnn.rs
 (RnnInput / RnnIter / redirect), as the JAX package's ``runtime`` ports
 them: the scheduler, the ``Engine`` with its dense prefill and decode
-weights and their policies, and ``EnginePool``. The multi-device engines
-(``runtime/distributed.py``) and vision are not ported yet.
+weights and their policies, hooks and embedding input, ``EnginePool``,
+and vision input (``VisionInput``, ``infer_vision``). The multi-device
+engines (``runtime/distributed.py``) are not ported yet.
 """
 
 from .scheduler import (  # noqa: F401
@@ -27,3 +28,4 @@ from .engine import (  # noqa: F401
     memory_limit,
     softmax,
 )
+from .vision import VisionInput, infer_vision  # noqa: F401

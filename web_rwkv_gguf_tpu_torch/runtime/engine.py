@@ -22,6 +22,11 @@ default where the copy clearly fits in the card's memory
 (:func:`auto_prefill_dense`, :func:`auto_decode_dense`). :class:`EnginePool`
 serves more lanes than one whole-stack launch takes as several engines
 over one shared set of weights.
+
+``Engine(hooks=)`` taps every forward and head, ``generate``'s decode
+steps included, and leaves the whole-stack kernels (``forward_chunk``);
+a lane's token may be a ``[C]`` embedding vector (the reference's
+``Token::Embed``), and a chunk holding one runs as ``input_embeds``.
 """
 
 from __future__ import annotations
@@ -156,6 +161,7 @@ class Engine:
         prefill_dense_min_t: int = 64,
         decode_dense: bool | None = None,
         unroll: bool | None = None,
+        hooks: dict | None = None,
         device="cuda",
     ):
         self.info = info
@@ -180,6 +186,11 @@ class Engine:
                 "initial_wkv (pretrained time_state) needs a matrix-state model "
                 "(V5/V6/V7); V4 carries per-channel (aa, bb, pp) state")
         self._initial_wkv = initial_wkv
+        # model-structure taps on every forward and head, decode steps of
+        # generate() included (the reference's Bundle::new_with_hooks; the
+        # othello and puzzle15 examples); hooks leave the whole-stack
+        # kernels, which the params keep for an unhooked call
+        self.hooks = hooks
         self.state = self._fresh_state()
 
     def _fresh_state(self) -> dict:
@@ -215,40 +226,67 @@ class Engine:
         return RnnOutput([np.zeros((0, self.info.num_vocab), np.float32)]
                          * self.num_batch)
 
-    def _chunk_tokens(self, batches, plan) -> np.ndarray:
+    def _chunk_tokens(self, batches, plan):
         """The planned tokens as ``[B, T]`` ids, T bucketed to a power of
-        two (engine.py:476, :661 of the JAX package)."""
+        two (engine.py:476, :661 of the JAX package); where a lane holds an
+        embedding vector (the reference's ``Token::Embed``), the chunk as
+        ``[B, T, C]`` f32 embeddings on the engine's device instead: the
+        ids' rows of ``params["emb"]`` beside the given vectors."""
         T = _bucket(max(p.len for p in plan), self.token_chunk_size)
-        tokens = np.zeros((self.num_batch, T), np.int64)
-        for b, (batch, p) in enumerate(zip(batches, plan)):
-            chunk = batch.tokens[: p.len]
-            if not all(isinstance(t, (int, np.integer)) for t in chunk):
-                raise UnsupportedFeature(
-                    "embedding tokens (the reference's Token::Embed) belong to "
-                    "the port's vision slice; pass token ids")
-            tokens[b, : p.len] = chunk
-        return tokens
+        chunks = [batch.tokens[: p.len] for batch, p in zip(batches, plan)]
+        if all(isinstance(t, (int, np.integer)) for c in chunks for t in c):
+            tokens = np.zeros((self.num_batch, T), np.int64)
+            for b, chunk in enumerate(chunks):
+                tokens[b, : len(chunk)] = chunk
+            return tokens
+        at_ids, ids, at_vecs, vecs = [], [], [], []
+        for b, chunk in enumerate(chunks):
+            for t, tok in enumerate(chunk):
+                if isinstance(tok, (int, np.integer)):
+                    at_ids.append(b * T + t)
+                    ids.append(int(tok))
+                else:
+                    vec = np.asarray(tok, np.float32).reshape(-1)
+                    if vec.size != self.info.num_emb:
+                        raise TensorError.size(vec.size, self.info.num_emb)
+                    at_vecs.append(b * T + t)
+                    vecs.append(vec)
+        embeds = torch.zeros(self.num_batch * T, self.info.num_emb, device=self.device)
+        if ids:
+            rows = torch.tensor(ids, device=self.device)
+            embeds[torch.tensor(at_ids, device=self.device)] = self.params["emb"][rows].float()
+        embeds[torch.tensor(at_vecs, device=self.device)] = torch.from_numpy(
+            np.stack(vecs)).to(self.device)
+        return embeds.view(self.num_batch, T, -1)
 
-    def _forward(self, tokens: np.ndarray, lens: list[int]):
-        """The chunk's forward on the params its length T routes it to: the
-        dense prefill copy from ``prefill_dense_min_t`` tokens on, where the
-        engine has one (engine.py:483-487 of the JAX package)."""
+    def _forward(self, chunk, lens: list[int]):
+        """The chunk's forward (ids ``[B, T]`` or embeddings ``[B, T, C]``,
+        from :meth:`_chunk_tokens`) on the params its length T routes it
+        to: the dense prefill copy from ``prefill_dense_min_t`` tokens on,
+        where the engine has one (engine.py:483-487 of the JAX package)."""
         params = self.params
-        if self._params_prefill is not None and tokens.shape[1] >= self._prefill_min_t:
+        if self._params_prefill is not None and chunk.shape[1] >= self._prefill_min_t:
             params = self._params_prefill
-        tok = torch.as_tensor(tokens, device=self.device)
         ln = torch.as_tensor(lens, dtype=torch.long, device=self.device)
-        x, state = forward_chunk(self.info, params, self.state, tok, ln,
-                                 rescale=self.rescale)
+        tokens, embeds = ((None, chunk) if isinstance(chunk, torch.Tensor)
+                          else (torch.as_tensor(chunk, device=self.device), None))
+        x, state = forward_chunk(self.info, params, self.state, tokens, ln,
+                                 rescale=self.rescale, hooks=self.hooks, input_embeds=embeds)
         return x, ln, state, params
 
-    def _forward_last(self, tokens: np.ndarray, lens: list[int]):
+    def _forward_last(self, chunk, lens: list[int]):
         """The chunk's forward and each lane's last-token logits ``[B, V]``
         (on the device), the head from the same params as the chunk."""
-        x, ln, state, params = self._forward(tokens, lens)
+        x, ln, state, params = self._forward(chunk, lens)
         idx = torch.clamp(ln - 1, 0, x.shape[1] - 1)
         rows = x[torch.arange(x.shape[0], device=x.device), idx]
-        return logits_head(params, rows), state
+        return self._head(params, rows), state
+
+    def _head(self, params, rows):
+        """The head on ``rows``, with the engine's hooks where it has any."""
+        if self.hooks is None:
+            return logits_head(params, rows)
+        return logits_head(params, rows, hooks=self.hooks)
 
     def infer(self, input: RnnInput) -> RnnOutput:
         """Process one chunk of ``input`` (tokens are consumed in place).
@@ -265,7 +303,9 @@ class Engine:
             return self._empty()
         tokens = self._chunk_tokens(input.batches, plan)
 
-        if all(p.option in (None, RnnOption.LAST) for p in plan):
+        # an embedding chunk takes the general path, as in the JAX engine
+        if (not isinstance(tokens, torch.Tensor)
+                and all(p.option in (None, RnnOption.LAST) for p in plan)):
             # one head call on every lane's last row; only the lanes that
             # finish their prompt this chunk are fetched
             logits, self.state = self._forward_last(tokens, lens)
@@ -303,7 +343,7 @@ class Engine:
         bi[:n] = torch.tensor(rows_b)
         ti[:n] = torch.tensor(rows_t)
         rows = x[bi.to(x.device), ti.to(x.device)]
-        logits = logits_head(self.params, rows)[:n].cpu().numpy()
+        logits = self._head(self.params, rows)[:n].cpu().numpy()
         out, off = [], 0
         for c in counts:
             out.append(logits[off : off + c])
@@ -370,7 +410,7 @@ def _generate(engines, groups, max_tokens, temperature, top_k, top_p, stop_token
     stop_tokens = stop_tokens or set()
     run = make_generator(engines[0].info, steps=segment, temperature=temperature, top_k=top_k,
                          top_p=top_p, rescale=engines[0].rescale,
-                         stop_ids=tuple(sorted(stop_tokens)))
+                         stop_ids=tuple(sorted(stop_tokens)), hooks=engines[0].hooks)
     firsts, generators = zip(*(e._gen_prefill(g, temperature, top_k, top_p, seed + i)
                                for i, (e, g) in enumerate(zip(engines, groups))))
     tokens, generators = list(firsts), list(generators)
