@@ -59,7 +59,16 @@ exactly just after:
   ``load_model(lora=)`` (dense and NF4, and on layer 0 alone of a
   quantized file) and ``GgufFile(allow_quantized_direct=False)``; the
   example hooks, vision, the LoRA loads and the direct load also on the
-  card-vs-CPU model against the CPU.
+  card-vs-CPU model against the CPU;
+- the apps (``web_rwkv_gguf_tpu_torch/apps``), each through its ``main``
+  on the model's file and a byte-level vocabulary built here: gen per
+  token and fused, batch, chat (retry and reset), ppl and ppl
+  --compare-f16, serde then gen from the snapshot, inspect, othello and
+  convert (a checkpoint written by torch.save, converted to q8_0 in a
+  worker process, one Engine step on it) on RWKV-7 Q4_K_M, puzzle15 on
+  RWKV-6, gen --quant nf4 on the NF4 model's f16 file; gen under
+  ``utils.trace.trace_to``; the native library's load against numpy's;
+  ppl's nll on the card against the CPU on the two-layer model.
 
 For each model it holds the whole-stack decode kernel against its plain
 version layer by layer (and, beside the Q6_K and f16 models, stacks in
@@ -86,10 +95,13 @@ from __future__ import annotations
 
 import collections
 import contextlib
+import io
+import itertools
 import json
 import math
 import multiprocessing
 import os
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -136,7 +148,8 @@ _V6_MATRICES = (("att", "Wr"), ("att", "Wk"), ("att", "Wv"), ("att", "Wg"), ("at
 # "embeds", embedding vectors as Engine input (Token::Embed); "vision",
 # infer_vision; "direct", the file loaded with allow_quantized_direct=False;
 # "lora", LoRA merged at load, dense and with NF4; "lora_layer0", a LoRA on
-# layer 0 alone of a quantized file (per-layer blocks).
+# layer 0 alone of a quantized file (per-layer blocks). "apps": the parts of
+# the apps phase the model runs (see APP_PROMPT).
 MODELS = {
     # RWKV-7 0.1B widths (L=12, C=768, head 64, hidden 4·C, LoRA ranks
     # w/a/g/v 64/64/128/32)
@@ -149,26 +162,28 @@ MODELS = {
                wkv=("att_core7_step", "wkv7_scan", None), mega=("mega7", "layer_scan7"),
                mega_batches=(4, 1, 16), dense_compare=True, pool=True, state_file=True,
                initial_state=True, hooks="othello", embeds=True, vision=True, direct=True,
-               lora_layer0=True),
+               lora_layer0=True, apps=("gen", "batch", "chat", "ppl", "serde", "inspect",
+                                       "othello", "trace", "native", "convert")),
     # RWKV-6 World 1.6B widths (BlinkDL's RWKV-x060-World-1B6: L=24, C=2048,
     # head 64, hidden int(3.5·C // 32 · 32); time-mix and decay LoRA ranks 32
     # and 64 from RWKV-LM's v6 model.py)
     "v6": dict(make="make_v6_gguf", seed=10, quantize="Q4_K", head_quantize="Q6_K",
                kinds=("qk", "qk_nomin"),
-               # 12 of the model's 24 layers, and the run stays within its time
-               widths=dict(n_layer=12, n_emb=2048, head_size=64, n_vocab=VOCAB, n_hidden=7168,
+               # 6 of the model's 24 layers (12 until the apps phase came), and
+               # the run stays within its time
+               widths=dict(n_layer=6, n_emb=2048, head_size=64, n_vocab=VOCAB, n_hidden=7168,
                            rank_tm=32, rank_td=64),
                matrices=_V6_MATRICES, wkv=("wkv6_scan", "wkv6_scan", None),
                mega=("mega56", "layer_scan56"), mega_batches=(4, 1, 16), dense_compare=True,
-               dense8=True, hooks="puzzle15"),
+               dense8=True, hooks="puzzle15", apps=("puzzle15",)),
     # RWKV-5 World 0.4B widths (BlinkDL's RWKV-5-World-0.4B-v2: L=24, C=1024,
     # head 64, hidden int(3.5·C // 32 · 32) from RWKV-LM's v5 train.py); the
     # WKV is RWKV-6's with the static decay broadcast over the tokens
     "v5": dict(make="make_v5_gguf", seed=20, quantize="Q4_K", head_quantize="Q6_K",
                kinds=("qk", "qk_nomin"),
-               # 12 of the model's 24 layers: beside the serving and file
-               # phases, the run stays within its time
-               widths=dict(n_layer=12, n_emb=1024, head_size=64, n_vocab=VOCAB, n_hidden=3584),
+               # 6 of the model's 24 layers (12 until the apps phase came): beside
+               # the serving, file and apps phases, the run stays within its time
+               widths=dict(n_layer=6, n_emb=1024, head_size=64, n_vocab=VOCAB, n_hidden=3584),
                matrices=_V6_MATRICES, wkv=("wkv6_scan", "wkv6_scan", None),
                mega=("mega56", "layer_scan56"), mega_batches=(4, 1, 16)),
     # RWKV-4 World 0.1B widths (BlinkDL's RWKV-4-World-0.1B: L=12, C=768,
@@ -213,7 +228,8 @@ MODELS = {
     # reference's --quant int8 does (u8 codes per 128 with f16 bounds)
     "v7i8": dict(make="make_v7_gguf", seed=60, quantize=None, quant="INT8",
                  kinds=("int8", "dense"), grouped=True,
-                 widths=dict(n_layer=12, n_emb=768, head_size=64, n_vocab=VOCAB, n_hidden=3072,
+                 # 6 of the model's 12 layers, and the run stays within its time
+                 widths=dict(n_layer=6, n_emb=768, head_size=64, n_vocab=VOCAB, n_hidden=3072,
                              lora_w=64, lora_a=64, lora_g=128, lora_v=32),
                  matrices=(("att", "Wr"), ("att", "Wk"), ("att", "Wv"), ("att", "Wo"),
                            ("ffn", "Wk"), ("ffn", "Wv")),
@@ -228,12 +244,14 @@ MODELS = {
     # PERF.md, Findings)
     "v7nf4": dict(make="make_v7_gguf", seed=70, compare_seed=72, quantize=None, quant="NF4",
                   kinds=("nf4", "dense"),
-                  widths=dict(n_layer=12, n_emb=768, head_size=64, n_vocab=VOCAB,
+                  # 6 of the model's 12 layers: its decode is the per-layer path,
+                  # host-bound, and the run stays within its time
+                  widths=dict(n_layer=6, n_emb=768, head_size=64, n_vocab=VOCAB,
                               n_hidden=3072, lora_w=64, lora_a=64, lora_g=128, lora_v=32),
                   matrices=(("att", "Wr"), ("att", "Wk"), ("att", "Wv"), ("att", "Wo"),
                             ("ffn", "Wk"), ("ffn", "Wv")),
                   wkv=("att_core7_step", "wkv7_scan", None), mega=None, mega_batches=(),
-                  snapshot=True),
+                  snapshot=True, apps=("gen_nf4",)),
     # RWKV-6 World 1.6B widths requantized as --quant int8 does
     "v6i8": dict(make="make_v6_gguf", seed=80, quantize=None, quant="INT8",
                  kinds=("int8", "dense"),
@@ -248,14 +266,16 @@ MODELS = {
     # included: the native Q6_K slot of layer7.cu through the Engine, the
     # grouped r/k/v gemv on Q6_K's signed byte codes at B=1
     "v7q6": dict(make="make_v7_gguf", seed=90, quantize="Q6_K", head_quantize="Q6_K",
-                 kinds=("qk_nomin", "qk_nomin"), grouped=True, widths=_V7_WIDTHS,
+                 # 6 of the model's 12 layers, and the run stays within its time
+                 kinds=("qk_nomin", "qk_nomin"), grouped=True, widths={**_V7_WIDTHS, "n_layer": 6},
                  matrices=_V7_MATRICES, wkv=("att_core7_step", "wkv7_scan", None),
                  mega=("mega7", "layer_scan7"), mega_batches=(4, 1, 16)),
     # RWKV-7 0.1B widths from an f16 file loaded as it is (no quant=): every
     # matrix dense bf16, the head included; the dense slot of layer7.cu
     # through the Engine; no grouped kind
     "v7f16": dict(make="make_v7_gguf", seed=100, quantize=None, kinds=("dense", "dense"),
-                  widths=_V7_WIDTHS, matrices=_V7_MATRICES,
+                  # 6 of the model's 12 layers, and the run stays within its time
+                  widths={**_V7_WIDTHS, "n_layer": 6}, matrices=_V7_MATRICES,
                   wkv=("att_core7_step", "wkv7_scan", None), mega=("mega7", "layer_scan7"),
                   mega_batches=(4, 1, 16), safetensors=True, lora=True),
 }
@@ -298,31 +318,21 @@ LORA_VECTOR = ("blocks.1.att.x_k", 0.6)  # the one blended vector and its α
 EMBED_TOKENS = 40  # the embeds phase's lanes: this many tokens each
 
 
-def othello_hooks(wkv7_act_w):
-    """The othello example's two RWKV-7 taps (the JAX package's
-    apps/othello.py:50-64, in PyTorch): a ← 2a after the adapters, and
-    a ← act_w(w)·a after control-k."""
-    def post_att_adapt(layer, *, w, a, g):
-        return {"a": a * 2.0}
+def _app_hooks(name):
+    def make(num_layer):
+        from importlib import import_module
 
-    def post_att_control(layer, *, k, kk, a, w):
-        return {"a": wkv7_act_w(w) * a}
+        return getattr(import_module(f"web_rwkv_gguf_tpu_torch.apps.{name}"),
+                       f"make_{name}_hooks")(num_layer)
 
-    return {"post_att_adapt": post_att_adapt, "post_att_control": post_att_control}
+    return make
 
 
-def puzzle15_hooks(torch):
-    """The puzzle15 example's RWKV-6 tap (the JAX package's
-    apps/puzzle15.py:36-45, in PyTorch): k ← exp(min(w, 0))·k before the
-    decay's activation."""
-    def pre_att_decay_activate(layer, *, w, k):
-        return {"k": k * torch.exp(torch.clamp_max(w, 0.0)).reshape(k.shape)}
-
-    return {"pre_att_decay_activate": pre_att_decay_activate}
-
-
-HOOK_EXAMPLES = {"othello": lambda torch, W: othello_hooks(W.wkv7_act_w),
-                 "puzzle15": lambda torch, W: puzzle15_hooks(torch)}
+# the example apps' modifying hooks, by app: othello's two RWKV-7 taps (a ← 2a
+# after the adapters, a ← act_w(w)·a after control-k) and puzzle15's RWKV-6
+# tap (k ← exp(min(w, 0))·k before the decay's activation); each takes the
+# model's layer count
+HOOK_EXAMPLES = {name: _app_hooks(name) for name in ("othello", "puzzle15")}
 # taps that fire once a forward (or head), at layer -1
 MODEL_TAPS = {"post_embed_loaded", "post_embed_layer_norm", "pre_head", "post_head_layer_norm",
               "post_head"}
@@ -349,6 +359,105 @@ def lora_tensors(reader, n_layer, matrices, seed):
 
 LORA_MATRICES = ("att.key.weight", "att.value.weight", "att.receptance.weight",
                  "att.output.weight", "ffn.key.weight", "ffn.value.weight")
+
+# The apps phase (a model's "apps" parts), through each app's main() on the
+# model's file and a byte-level vocabulary of VOCAB entries (256 bytes, then
+# "<tokN>"), so every prompt byte is one token: gen per token and fused
+# (APP_TOKENS greedy tokens after the APP_PROMPT), batch fused on its four
+# default prompts, chat scripted (CHAT_LINES: a turn, retry, reset, a turn),
+# ppl over PPL_TOKENS tokens of text from PPL_SEED in chunks of PPL_CHUNK
+# (and --compare-f16 over its first chunk), serde and gen from the snapshot,
+# inspect, othello / puzzle15 (GAME_TOKENS), gen under utils.trace.trace_to,
+# the native library's load against numpy's, and convert: a BlinkDL-layout
+# RWKV-7 checkpoint at the 0.1B widths and CONVERT_LAYERS layers from
+# CONVERT_SEED, written by torch.save and converted to q8_0 in a worker
+# process, then one Engine step on it
+APP_PROMPT = "The city"
+APP_TOKENS = 32
+CHAT_LINES = ("Hello there", "+", "-", "Hi")
+CHAT_TOKENS = 16
+PPL_TOKENS = 1024
+PPL_CHUNK = 256
+PPL_SEED = 13
+PPL_TOL = 1e-2  # the nll, card against CPU on the two-layer model, relative
+GAME_TOKENS = 8
+CONVERT_SEED = 14
+CONVERT_LAYERS = 2
+
+
+def byte_vocab(n):
+    """A byte-level vocabulary of ``n`` entries in the tokenizer's JSON form."""
+    vocab = {str(i): [i] for i in range(256)}
+    vocab.update({str(i): f"<tok{i}>" for i in range(256, n)})
+    return vocab
+
+
+def ppl_text():
+    """PPL_TOKENS + 1 printable ASCII characters from PPL_SEED (one token each)."""
+    import numpy as np
+
+    return bytes(np.random.default_rng(PPL_SEED).integers(32, 127, PPL_TOKENS + 1)
+                 .astype(np.uint8)).decode()
+
+
+def v7_checkpoint(seed, n_layer):
+    """A BlinkDL-layout RWKV-7 state dict at the 0.1B widths (torch tensors,
+    the LoRA pairs as x @ w1: [in, out]) with weights from ``seed``."""
+    import numpy as np
+    import torch
+
+    w = _V7_WIDTHS
+    C, head_size, V, hidden = w["n_emb"], w["head_size"], w["n_vocab"], w["n_hidden"]
+    rw, ra, rg, rv = w["lora_w"], w["lora_a"], w["lora_g"], w["lora_v"]
+    rng = np.random.default_rng(seed)
+
+    def t(*shape, scale=0.3):
+        return torch.from_numpy((rng.normal(size=shape) * scale).astype(np.float32))
+
+    sd = {"emb.weight": t(V, C), "blocks.0.ln0.weight": 1 + t(C, scale=0.05),
+          "blocks.0.ln0.bias": t(C, scale=0.05), "ln_out.weight": 1 + t(C, scale=0.05),
+          "ln_out.bias": t(C, scale=0.05), "head.weight": t(V, C, scale=0.05)}
+    for i in range(n_layer):
+        p = f"blocks.{i}."
+        sd.update({p + "ln1.weight": 1 + t(C, scale=0.05), p + "ln1.bias": t(C, scale=0.05),
+                   p + "ln2.weight": 1 + t(C, scale=0.05), p + "ln2.bias": t(C, scale=0.05),
+                   **{p + f"att.x_{m}": t(1, 1, C) for m in "rwkvag"},
+                   p + "att.w0": t(1, 1, C), p + "att.w1": t(C, rw, scale=0.05),
+                   p + "att.w2": t(rw, C, scale=0.05), p + "att.a0": t(1, 1, C),
+                   p + "att.a1": t(C, ra, scale=0.05), p + "att.a2": t(ra, C, scale=0.05),
+                   p + "att.g1": t(C, rg, scale=0.05), p + "att.g2": t(rg, C, scale=0.05),
+                   p + "att.k_k": t(1, 1, C), p + "att.k_a": t(1, 1, C),
+                   p + "att.r_k": t(C // head_size, head_size),
+                   **{p + f"att.{m}.weight": t(C, C, scale=0.05)
+                      for m in ("key", "value", "receptance", "output")},
+                   p + "att.ln_x.weight": 1 + t(C, scale=0.05),
+                   p + "att.ln_x.bias": t(C, scale=0.05), p + "ffn.x_k": t(1, 1, C),
+                   p + "ffn.key.weight": t(hidden, C, scale=0.05),
+                   p + "ffn.value.weight": t(C, hidden, scale=0.05)})
+        if i > 0:
+            sd.update({p + "att.v0": t(1, 1, C), p + "att.v1": t(C, rv, scale=0.05),
+                       p + "att.v2": t(rv, C, scale=0.05)})
+    return sd
+
+
+def convert_checkpoint():
+    """The convert app on a checkpoint from CONVERT_SEED (torch.save to a
+    .pth, then ``apps.convert.main`` to q8_0), in a worker process: the
+    output file's bytes, the app's seconds and its printed lines."""
+    import torch
+
+    from web_rwkv_gguf_tpu_torch.apps import convert
+
+    with tempfile.TemporaryDirectory() as tmp:
+        torch.save(v7_checkpoint(CONVERT_SEED, CONVERT_LAYERS), f"{tmp}/model.pth")
+        out = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            convert.main([f"{tmp}/model.pth", "--output", f"{tmp}/model.gguf",
+                          "--outtype", "q8_0"])
+        seconds = time.perf_counter() - t0
+        with open(f"{tmp}/model.gguf", "rb") as f:
+            return f.read(), seconds, out.getvalue().splitlines()
 
 # peaks of the card from NVIDIA's data sheets (dense): HBM bytes/s,
 # bf16 tensor-core FLOP/s, f32 (non-tensor) FLOP/s
@@ -652,8 +761,9 @@ def kernel_cases(torch, k, bf16_peak, f32_peak, full_rows, dev="cuda"):
     Q4_K gemv at the layer shapes (n = 1, 4 and 8), the Q6_K head gemv
     (n = 1 and 4), the attention core at B=1, at B=3 with a masked lane,
     at B=4 and at B=16 (H=12, hs=64); the Q4_K dequant-GEMM at the layer shapes
-    (n = 4: decode at B=4; 128 and 512: prefill chunks), the Q6_K head
-    GEMM at the FULL call's ``full_rows``, and the WKV scan at T=64 for
+    (n = 4: decode at B=4; 128 and 512: prefill chunks; 256: the ppl app's
+    chunks), the Q6_K head GEMM at the FULL call's ``full_rows`` and at
+    n = 256 (a ppl chunk's rows), and the WKV scan at T=64 for
     B=1 and 4 with ragged lengths and at T=8 for B=1 (the serve's prompt
     chunks). ``k``: the kernel modules by name."""
     dev = torch.device(dev)
@@ -692,8 +802,9 @@ def kernel_cases(torch, k, bf16_peak, f32_peak, full_rows, dev="cuda"):
             flops=8 * B * H * K * K, fpeak=f32_peak))
 
     cases += [q4k_case(torch, mm, "gemm", m, k, n, 4000 + m + 7 * k + n, bf16_peak)
-              for m, k in layer_shapes for n in (4, 128, 512)]
-    cases.append(q6k_case(torch, mm, "gemm", 65536, 768, full_rows, 5001, bf16_peak))
+              for m, k in layer_shapes for n in (4, 128, 256, 512)]
+    cases += [q6k_case(torch, mm, "gemm", 65536, 768, n, seed, bf16_peak)
+              for n, seed in ((full_rows, 5001), (PPL_CHUNK, 5002))]
 
     # (T, lengths, seed): a lane of an Engine chunk, B=4 ragged, the B=1
     # serve's 8-token prompt chunk, and the hooked Engine's decode step (T=1)
@@ -1772,6 +1883,37 @@ def sensitivity(torch, models, Matrix, info, params, chunks, device, clean):
     return out
 
 
+def write_bytes(path, fn, *args):
+    """``fn(*args)`` (in a worker process): its bytes written to ``path``,
+    the rest of what it returns given back. A file of up to ~1.2 GB crosses
+    the pool's one result pipe slowly, each after the last; the disk does
+    not serialise them."""
+    raw, *rest = fn(*args)
+    with open(path, "wb") as f:
+        f.write(raw)
+    return rest
+
+
+class FileJob:
+    """A file built by ``fn(*args)`` in a worker of ``pool``, handed over
+    through ``path``: ``get()`` gives what ``fn`` returned, the bytes read
+    back (once)."""
+
+    def __init__(self, pool, path, fn, *args):
+        self.path = path
+        self.result = pool.apply_async(write_bytes, (path, fn, *args))
+
+    def wait(self):
+        self.result.wait()
+
+    def get(self):
+        rest = self.result.get()
+        with open(self.path, "rb") as f:
+            raw = f.read()
+        os.unlink(self.path)
+        return (raw, *rest)
+
+
 def main() -> int:
     try:
         import numpy as np
@@ -1795,22 +1937,31 @@ def main() -> int:
         print(f"chip_smoke: models are named from {list(MODELS)}", file=sys.stderr)
         return 2
     # the model files are built in worker processes while the kernels
-    # build; every worker is stopped on the way out
+    # build, each handed over on disk; every worker is stopped and every
+    # file removed on the way out
     workers = multiprocessing.get_context("spawn").Pool(5)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_files_")
     try:
-        files = {tag: {"full": workers.apply_async(
-                           build_file, (tag, MODELS[tag]["widths"]["n_layer"],
-                                        MODELS[tag]["seed"])),
-                       "compare": workers.apply_async(
-                           build_file, (tag, COMPARE_LAYERS, compare_seed(MODELS[tag]))),
-                       **{f"slot {version} {kind or 'bf16'}": workers.apply_async(
-                           build_slot_file, (version, kind, SLOT_SEED + j))
-                          for j, (version, kind) in enumerate(SLOT_STACKS.get(tag, ()))}}
-                 for tag in tags}
+        names = itertools.count()
+
+        def job(fn, *args):
+            return FileJob(workers, os.path.join(tmp, f"file{next(names)}"), fn, *args)
+
+        files = {}
+        for tag in tags:
+            spec = MODELS[tag]
+            files[tag] = {"full": job(build_file, tag, spec["widths"]["n_layer"], spec["seed"]),
+                          "compare": job(build_file, tag, COMPARE_LAYERS, compare_seed(spec))}
+            for j, (version, kind) in enumerate(SLOT_STACKS.get(tag, ())):
+                files[tag][f"slot {version} {kind or 'bf16'}"] = job(
+                    build_slot_file, version, kind, SLOT_SEED + j)
+            if "convert" in spec.get("apps", ()):
+                files[tag]["convert"] = job(convert_checkpoint)
         return run(np, torch, files)
     finally:
         workers.terminate()
         workers.join()
+        shutil.rmtree(tmp, ignore_errors=True)
 
 
 def run(np, torch, files) -> int:
@@ -1922,13 +2073,17 @@ def run(np, torch, files) -> int:
     path_shapes = {}  # main path -> kernel -> Counter of launches by shape
 
     def counted(path, want, drive):
-        """Drive one main path with every count at 0; check the counts."""
+        """Drive one main path with every count at 0; check the counts
+        against ``want`` (or ``want(result)``, where the path's length
+        depends on what it returned)."""
         for fn in counters.values():
             fn.launches = 0
             fn.shapes.clear()
         result = drive()
         torch.cuda.synchronize()
         got = {name: fn.launches for name, fn in counters.items()}
+        if callable(want):
+            want = want(result)
         want = {name: want.get(name, 0) for name in COUNTED}
         log(f"{path} launches: {got} (expected {want})")
         log(f"{path} launches by shape: "
@@ -2714,7 +2869,6 @@ def run(np, torch, files) -> int:
         T=1 a layer a step; the hooked step's device µs. Other versions:
         the Engine with the model's example hook, counted."""
         from web_rwkv_gguf_tpu_torch.models.forward import HOOK_NAMES
-        from web_rwkv_gguf_tpu_torch.ops import wkv as W
 
         t0 = time.perf_counter()
         L, B4 = info.num_layer, len(ENGINE_LENGTHS)
@@ -2722,7 +2876,7 @@ def run(np, torch, files) -> int:
         fired = collections.defaultdict(list)
         taps = {n: (lambda name: lambda layer, **t: fired[name].append(layer))(n)
                 for n in HOOK_NAMES[info.version]}
-        hooks = taps if v7 else HOOK_EXAMPLES[spec["hooks"]](torch, W)
+        hooks = taps if v7 else HOOK_EXAMPLES[spec["hooks"]](L)
         if v7:
             lens = [min(n, 64) for n in ENGINE_LENGTHS]
             toks = torch.tensor([p[:64] + [0] * (64 - len(p[:64])) for p in engine_prompts],
@@ -2741,20 +2895,8 @@ def run(np, torch, files) -> int:
                 raise AssertionError(f"{tag}: the hooked chunk is not the unhooked one")
         eng = runtime.Engine(info, params, num_batch=B4, token_chunk_size=ENGINE_CHUNK,
                              hooks=hooks, device="cuda")
-        layers = layer_params(eng.params, L)
-        dense_layers = (layer_params(eng._params_prefill, L)
-                        if eng._params_prefill is not None else None)
-        want = collections.Counter()
-        for T in engine_plans(runtime, _bucket, ENGINE_LENGTHS, ENGINE_CHUNK):
-            if dense_layers is not None and T >= eng._prefill_min_t:
-                want += expected_chunk(WKV7_CHUNKED_MIN_T, spec, dense_layers, B4, T)
-            else:
-                want += expected_chunk(WKV7_CHUNKED_MIN_T, spec, layers, B4, T)
-                want[matmul_kernel(params["head"], B4)] += 1
-        step = hooked_step(spec, layers, B4)
-        step[matmul_kernel(params["head"], B4)] += 1
-        for _ in range(HOOK_STEPS):
-            want += step
+        want = (engine_prefill(spec, eng, ENGINE_LENGTHS)
+                + times(engine_step(spec, eng), HOOK_STEPS))
         fired.clear()
         label = "every tap" if v7 else f"{spec['hooks']}'s tap"
         toks = counted(f"{tag} hooks engine generate (B={B4}, {label})", want,
@@ -2867,7 +3009,6 @@ def run(np, torch, files) -> int:
         the file loaded with allow_quantized_direct=False (one prefill,
         counted)."""
         from web_rwkv_gguf_tpu_torch.models.loader import _walk_matrices
-        from web_rwkv_gguf_tpu_torch.ops import wkv as W
         from web_rwkv_gguf_tpu_torch.quant import QuantScheme
 
         t0 = time.perf_counter()
@@ -2876,7 +3017,7 @@ def run(np, torch, files) -> int:
         prefill = [(prng.integers(0, VOCAB, (len(lens), T)), np.array(lens))]
         if spec.get("hooks"):
             held_sequences(tag, f"{spec['hooks']} hooks", info2, p_gpu, p_cpu,
-                           HOOK_EXAMPLES[spec["hooks"]](torch, W))
+                           HOOK_EXAMPLES[spec["hooks"]](info2.num_layer))
         if spec.get("vision"):
             out = []
             for p in (p_gpu, p_cpu):
@@ -3013,6 +3154,368 @@ def run(np, torch, files) -> int:
             f"{[blk['att']['Wk'].kind for blk in p['blocks']][:3]}...; "
             f"{time.perf_counter() - t0:.1f} s")
 
+    # ---- the apps -------------------------------------------------------------
+
+    def times(want, n):
+        return collections.Counter({k: v * n for k, v in want.items()})
+
+    def head_of(params, n):
+        kernel = matmul_kernel(params["head"], n)
+        return collections.Counter({kernel: 1} if kernel else {})
+
+    def engine_prefill(spec, eng, lengths):
+        """Launches of an Engine's prefill of prompts of ``lengths``: each
+        chunk on the dense copy from its least T on, else on the Engine's
+        params with the head on the lanes' last rows."""
+        L, B = eng.info.num_layer, eng.num_batch
+        layers = layer_params(eng.params, L)
+        dense = layer_params(eng._params_prefill, L) if eng._params_prefill is not None else None
+        want = collections.Counter()
+        for T in engine_plans(runtime, _bucket, lengths, eng.token_chunk_size):
+            if dense is not None and T >= eng._prefill_min_t:
+                want += expected_chunk(WKV7_CHUNKED_MIN_T, spec, dense, B, T)
+            else:
+                want += (expected_chunk(WKV7_CHUNKED_MIN_T, spec, layers, B, T)
+                         + head_of(eng.params, B))
+        return want
+
+    def engine_step(spec, eng):
+        """Launches of one decode step of an Engine's lanes: the hooked
+        per-layer step where it has hooks, else the whole-stack kernel where
+        its params hold one, else the per-layer path at T=1; the head."""
+        B = eng.num_batch
+        layers = layer_params(eng.params, eng.info.num_layer)
+        if eng.hooks is not None:
+            want = hooked_step(spec, layers, B)
+        elif "mega7" in eng.params or "mega56" in eng.params:
+            want = collections.Counter({"layer_scan7" if "mega7" in eng.params
+                                        else "layer_scan56": 1})
+        else:
+            want = expected_chunk(WKV7_CHUNKED_MIN_T, spec, layers, B, 1)
+        return want + head_of(eng.params, B)
+
+    def segments(n_tokens):
+        """Decode steps of Engine.generate for ``n_tokens``: whole segments
+        of 32 after the prefill's token."""
+        return -(-(n_tokens - 1) // 32) * 32
+
+    @contextlib.contextmanager
+    def scripted_input(lines):
+        """``input()`` answers ``lines``, then raises EOFError."""
+        import builtins
+
+        answers, saved = iter(lines), builtins.input
+
+        def answer(prompt=""):
+            print(prompt, end="")
+            try:
+                return next(answers)
+            except StopIteration:
+                raise EOFError from None
+
+        builtins.input = answer
+        try:
+            yield
+        finally:
+            builtins.input = saved
+
+    def quiet(fn, argv, lines=None):
+        """An app's ``main(argv)`` with its printed output kept (and
+        ``input()`` answering ``lines``): its result, its seconds (the
+        load included) and its stdout and stderr lines."""
+        out, err = io.StringIO(), io.StringIO()
+        with contextlib.ExitStack() as stack:
+            stack.enter_context(contextlib.redirect_stdout(out))
+            stack.enter_context(contextlib.redirect_stderr(err))
+            if lines is not None:
+                stack.enter_context(scripted_input(lines))
+            t0 = time.perf_counter()
+            res = fn(argv)
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+        return res, secs, out.getvalue().split("\n"), err.getvalue().split("\n")
+
+    @contextlib.contextmanager
+    def numpy_only():
+        """The load path as on a machine without g++: numpy dequantizes."""
+        from web_rwkv_gguf_tpu_torch import native
+
+        saved = native._lib, native._tried
+        native._lib, native._tried = None, True
+        try:
+            yield
+        finally:
+            native._lib, native._tried = saved
+
+    def greedy_loop(eng, tok, prompt, n_tokens, stopped):
+        """gen's per-token loop on ``eng`` (Engine.infer, the greedy host
+        sampler): the tokens after ``prompt`` until ``stopped(text)``."""
+        from web_rwkv_gguf_tpu_torch.utils.sampling import GreedySampler
+
+        eng.reset_state()
+        inp = runtime.RnnInput([runtime.RnnInputBatch(list(prompt), runtime.RnnOption.LAST)],
+                               eng.token_chunk_size)
+        while inp.num_token:
+            out = eng.infer(inp)
+            if len(out[0]):
+                logits = out[0][-1]
+        toks, text = [], ""
+        for _ in range(n_tokens):
+            toks.append(GreedySampler().sample(runtime.softmax(logits[None, :])[0]))
+            text += tok.decode([toks[-1]]).decode("utf-8", "replace")
+            if stopped(text):
+                break
+            inp.batches[0].push(toks[-1])
+            logits = eng.infer(inp)[0][-1]
+        return toks
+
+    def apps_phase(tag, spec, info, params, raw, converted):
+        """The apps (``spec["apps"]``, see APP_PROMPT) through their main()
+        on the model's file: each counted where its route is fixed, its
+        tokens against the same Engine's library path, a line each."""
+        from web_rwkv_gguf_tpu_torch import native
+        from web_rwkv_gguf_tpu_torch.apps import (batch, chat, gen, inspect, othello, ppl,
+                                                  puzzle15, serde)
+        from web_rwkv_gguf_tpu_torch.utils import trace
+        from web_rwkv_gguf_tpu_torch.utils.tokenizer import Tokenizer
+
+        parts, L = spec["apps"], info.num_layer
+        t_phase = time.perf_counter()
+        tmp = tempfile.mkdtemp()
+        try:
+            model, vocab = f"{tmp}/{tag}.gguf", f"{tmp}/vocab.json"
+            with open(model, "wb") as f:
+                f.write(raw)
+            with open(vocab, "w") as f:
+                json.dump(byte_vocab(info.num_vocab), f)
+            tok = Tokenizer.from_file(vocab)
+            base = ["--model", model, "--vocab", vocab, "--device", "cuda"]
+            greedy = ["--sampler", "greedy", "--prompt", APP_PROMPT]
+            prompt = tok.encode(APP_PROMPT)
+            eng = runtime.Engine(info, params, 1, device="cuda")
+            pre, step = engine_prefill(spec, eng, [len(prompt)]), engine_step(spec, eng)
+            fused_want = pre + times(step, segments(APP_TOKENS))
+
+            def stopped(text):  # gen's default stop
+                return "\n\n" in text
+
+            def gen_infers(toks):  # gen's infer calls after the prompt
+                text = ""
+                for i, t in enumerate(toks):
+                    text += tok.decode([t]).decode("utf-8", "replace")
+                    if stopped(text):
+                        return i
+                return len(toks)
+
+            if "gen" in parts:
+                toks, secs, _, err = counted(
+                    f"{tag} apps gen (per token)",
+                    lambda r: pre + times(step, gen_infers(r[0])),
+                    lambda: quiet(gen.main, base + greedy + ["--max-tokens", str(APP_TOKENS)]))
+                same = toks == greedy_loop(eng, tok, prompt, APP_TOKENS, stopped)
+                log(f"{tag} apps gen (per token): {len(toks)} greedy tokens after a "
+                    f"{len(prompt)}-token prompt, each step {dict(step)}; {secs:.2f} s with the "
+                    f"load; tokens {'equal' if same else 'DIFFER from'} the Engine.infer loop's; "
+                    f"the app's line {err[-2]!r}, on {smi}")
+                if not same:
+                    raise AssertionError(f"{tag}: gen's tokens are not the Engine's")
+            if "gen" in parts or "serde" in parts:
+                fused, secs, _, err = counted(
+                    f"{tag} apps gen --fused", fused_want,
+                    lambda: quiet(gen.main, base + greedy + ["--fused", "--max-tokens",
+                                                             str(APP_TOKENS)]))
+                eng.reset_state()
+                same = fused == eng.generate([prompt], APP_TOKENS)[0]
+                log(f"{tag} apps gen --fused: {len(fused)} tokens, {segments(APP_TOKENS)} "
+                    f"decode steps; {secs:.2f} s with the load; tokens "
+                    f"{'equal' if same else 'DIFFER from'} Engine.generate's; the app's line "
+                    f"{err[-2]!r}, on {smi}")
+                if not same:
+                    raise AssertionError(f"{tag}: gen --fused's tokens are not the Engine's")
+            if "gen_nf4" in parts:
+                toks, secs, out, _ = counted(
+                    f"{tag} apps gen --quant nf4 --fused", fused_want,
+                    lambda: quiet(gen.main, base + ["--quant", "nf4"] + greedy
+                                  + ["--fused", "--max-tokens", str(APP_TOKENS)]))
+                eng.reset_state()
+                same = toks == eng.generate([prompt], APP_TOKENS)[0]
+                log(f"{tag} apps gen --quant nf4 --fused: {len(toks)} tokens, each step "
+                    f"{dict(step)}; {secs:.2f} s with the load ({out[0]!r}); tokens "
+                    f"{'equal' if same else 'DIFFER from'} Engine.generate's on the same load")
+                if not same:
+                    raise AssertionError(f"{tag}: gen --quant nf4's tokens are not the Engine's")
+            if "batch" in parts:
+                prompts = [tok.encode(p) for p in batch.DEFAULT_PROMPTS]
+                eng4 = runtime.Engine(info, params, len(prompts), device="cuda")
+                want = (engine_prefill(spec, eng4, [len(p) for p in prompts])
+                        + times(engine_step(spec, eng4), segments(APP_TOKENS)))
+                outs, secs, out, _ = counted(
+                    f"{tag} apps batch --fused", want,
+                    lambda: quiet(batch.main, base + ["--sampler", "greedy", "--fused",
+                                                      "--max-tokens", str(APP_TOKENS)]))
+                same = outs == eng4.generate(prompts, APP_TOKENS)
+                log(f"{tag} apps batch --fused: {len(prompts)} lanes of "
+                    f"{[len(p) for p in prompts]} prompt tokens, {APP_TOKENS} tokens each; "
+                    f"{secs:.2f} s with the load; tokens {'equal' if same else 'DIFFER from'} "
+                    f"Engine.generate's; the app's line {out[-2]!r}")
+                del eng4
+                if not same:
+                    raise AssertionError(f"{tag}: batch --fused's tokens are not the Engine's")
+            if "chat" in parts:
+                loads, real = [], runtime.Engine.load_state
+
+                def load_state(self, lane, snapshot):
+                    real(self, lane, snapshot)
+                    loads.append(all(np.array_equal(self.back_state(lane)[k], snapshot[k])
+                                     for k in snapshot))
+
+                runtime.Engine.load_state = load_state
+                try:
+                    _, secs, out, _ = quiet(chat.main, base + ["--sampler", "greedy",
+                                                               "--max-tokens", str(CHAT_TOKENS)],
+                                            CHAT_LINES)
+                finally:
+                    runtime.Engine.load_state = real
+                replies = [line for line in out if line.startswith("Bob: Alice:")]
+                retried = len(replies) == 3 and replies[0] == replies[1]
+                ok = loads == [True, True] and retried and "Bob: [conversation reset]" in out
+                log(f"{tag} apps chat (fused segments of 8, greedy): lines {list(CHAT_LINES)}; "
+                    f"the '+' and '-' loads give back_state's state bit for bit: {loads}; the "
+                    f"retried reply equals the first: {retried}; {secs:.2f} s with the load")
+                if not ok:
+                    raise AssertionError(f"{tag}: chat's retry or reset did not restore the state")
+            if "ppl" in parts:
+                text = f"{tmp}/text.txt"
+                with open(text, "w") as f:
+                    f.write(ppl_text())
+                layers, n = layer_params(params, L), PPL_TOKENS + 1
+                want = collections.Counter()
+                for pos in range(0, n, PPL_CHUNK):
+                    T = min(PPL_CHUNK, n - pos)
+                    want += expected_chunk(WKV7_CHUNKED_MIN_T, spec, layers, 1, T)
+                    if n - pos - 1 > 0:
+                        want += head_of(params, min(T, n - pos - 1))
+                (pp, nll, scored), secs, out, _ = counted(
+                    f"{tag} apps ppl", want,
+                    lambda: quiet(ppl.main, base + ["--text", text, "--max-tokens",
+                                                    str(PPL_TOKENS), "--chunk", str(PPL_CHUNK)]))
+                log(f"{tag} apps ppl: {scored} tokens in chunks of {PPL_CHUNK}: nll {nll:.6f}, "
+                    f"ppl {pp:.3f}; {secs:.2f} s with the load; the app's line {out[-2]!r}")
+                if not (scored == PPL_TOKENS and math.isfinite(nll)):
+                    raise AssertionError(f"{tag}: ppl scored {scored} tokens, nll {nll}")
+                res, secs, out, _ = quiet(ppl.main, base + [
+                    "--text", text, "--max-tokens", str(PPL_CHUNK), "--chunk", str(PPL_CHUNK),
+                    "--compare-f16"])
+                log(f"{tag} apps ppl --compare-f16 ({PPL_CHUNK} tokens): "
+                    + "; ".join(f"{mode} nll {r[1]:.6f}, load {r[3]:.2f} s"
+                                for mode, r in res.items())
+                    + f"; {out[2]!r}; {out[3]!r} (random weights: the bar is for a trained "
+                    f"model); {secs:.2f} s")
+            if "serde" in parts:
+                snap = f"{tmp}/model.rwkvz"
+                _, secs, out, _ = quiet(serde.main, base + ["--output", snap])
+                toks, secs2, _, _ = counted(
+                    f"{tag} apps gen --fused from the serde snapshot", fused_want,
+                    lambda: quiet(gen.main, ["--model", snap] + base[2:] + greedy
+                                  + ["--fused", "--max-tokens", "8"]))
+                log(f"{tag} apps serde: {out[-2]!r}; gen --fused from it: {secs2:.2f} s with "
+                    f"the load; its 8 tokens {'equal' if toks == fused[:8] else 'DIFFER from'} "
+                    f"gen --fused's from the GGUF file")
+                if toks != fused[:8]:
+                    raise AssertionError(f"{tag}: gen from the snapshot gave other tokens")
+            if "inspect" in parts:
+                _, secs, out, _ = quiet(inspect.main, [model, "--tensors", "--detect"])
+                log(f"{tag} apps inspect --tensors --detect: {len(out) - 1} lines, "
+                    f"{out[1]!r}, {out[-2][:100]!r}; {secs:.2f} s")
+                if not out[-2].startswith("detected: ModelInfo(version=<ModelVersion.V7"):
+                    raise AssertionError(f"{tag}: inspect did not detect the model")
+            for app_name in ("othello", "puzzle15"):
+                if app_name not in parts:
+                    continue
+                app = othello if app_name == "othello" else puzzle15
+                h_eng = runtime.Engine(info, params, 1, hooks=HOOK_EXAMPLES[app_name](L),
+                                       device="cuda")
+                h_pre = engine_prefill(spec, h_eng, [len(tok.encode(app.DEFAULT_PROMPT))])
+                h_step = engine_step(spec, h_eng)
+                toks, secs, _, _ = counted(
+                    f"{tag} apps {app_name}",
+                    lambda r: h_pre + times(h_step, len(r[0]) - (r[0][-1] in app.STOP_TOKENS)),
+                    lambda: quiet(app.main, base + ["--max-tokens", str(GAME_TOKENS)]))
+                log(f"{tag} apps {app_name}: {len(tok.encode(app.DEFAULT_PROMPT))}-token "
+                    f"prompt, {len(toks)} greedy tokens {toks}, each step {dict(h_step)}; "
+                    f"{secs:.2f} s with the load")
+                del h_eng
+            if "trace" in parts:
+                tdir = f"{tmp}/trace"
+                with trace.trace_to(tdir) as prof:
+                    with trace.span("apps gen --fused"):
+                        quiet(gen.main, base + greedy + ["--fused", "--max-tokens", "8"])
+                names = []
+                for path in os.listdir(tdir):
+                    with open(f"{tdir}/{path}") as f:
+                        names += [e.get("name", "") for e in json.load(f)["traceEvents"]]
+                n7 = sum("layer7_kernel" in name for name in names)
+                log(f"{tag} apps trace (utils.trace.trace_to around gen --fused, 8 tokens): "
+                    f"{len(names)} events in {os.listdir(tdir)}; {n7} name layer7_kernel; the "
+                    f"span named: {'apps gen --fused' in names}; "
+                    f"{len(prof.key_averages())} keys")
+                if n7 < segments(8) or "apps gen --fused" not in names:
+                    raise AssertionError(f"{tag}: the trace does not name layer7's kernel")
+            if "native" in parts:
+                loaded = native.get_lib() is not None
+                direct = {}
+                for label in ("native", "numpy"):
+                    with numpy_only() if label == "numpy" else contextlib.nullcontext():
+                        t0 = time.perf_counter()
+                        direct[label] = models.load_model(
+                            GgufFile(raw, allow_quantized_direct=False), device="cuda")[1]
+                        torch.cuda.synchronize()
+                        direct[label + " s"] = time.perf_counter() - t0
+                diff = same_params(direct["native"], direct["numpy"])
+                log(f"{tag} apps native: get_lib() loaded {loaded}; load_model(GgufFile("
+                    f"allow_quantized_direct=False)) on cuda {direct['native s']:.2f} s with the "
+                    f"C++ dequant against {direct['numpy s']:.2f} s with numpy's (warm file "
+                    f"cache); params differing: {diff or 'none'}")
+                del direct
+                if not loaded or diff:
+                    raise AssertionError(f"{tag}: the native library is not what loads the model")
+            if converted is not None:
+                data, secs, out = converted.get()
+                info_c, p_c = models.load_model(GgufFile(data), device="cuda")
+                eng_c = runtime.Engine(info_c, p_c, 1, device="cuda")
+                want = engine_prefill(spec, eng_c, [len(prompt)]) + engine_step(spec, eng_c)
+                toks = counted(f"{tag} apps convert q8_0, one Engine step", want,
+                               lambda: eng_c.generate([prompt], 2, segment=1))
+                kinds = (p_c["blocks"]["att"]["Wk"].kind, p_c["head"].kind)
+                log(f"{tag} apps convert: {out} in {secs:.2f} s in a worker process "
+                    f"({CONVERT_LAYERS} layers at the 0.1B widths, seed {CONVERT_SEED}); loaded "
+                    f"as {kinds}, {info_c}; prefill and one step {dict(want)}; tokens {toks}")
+                if info_c.num_layer != CONVERT_LAYERS or not all(0 <= t < VOCAB for t in toks[0]):
+                    raise AssertionError(f"{tag}: the converted model did not run")
+                del eng_c, p_c
+            del eng
+        finally:
+            shutil.rmtree(tmp, ignore_errors=True)
+        torch.cuda.empty_cache()
+        log(f"{tag} apps phase: {time.perf_counter() - t_phase:.1f} s")
+
+    def ppl_vs_cpu(tag, info2, p_gpu, p_cpu):
+        """apps.ppl.evaluate_ppl of the PPL_TOKENS-token text on the two-layer
+        model, the card against the CPU, within PPL_TOL relative."""
+        from web_rwkv_gguf_tpu_torch.apps.ppl import evaluate_ppl
+        from web_rwkv_gguf_tpu_torch.utils.tokenizer import Tokenizer
+
+        tok = Tokenizer(byte_vocab(info2.num_vocab))
+        t0 = time.perf_counter()
+        card, cpu = (evaluate_ppl(info2, p, tok, ppl_text(), chunk=PPL_CHUNK,
+                                  max_tokens=PPL_TOKENS) for p in (p_gpu, p_cpu))
+        rel = abs(card[1] - cpu[1]) / abs(cpu[1])
+        log(f"{tag} apps ppl, card vs CPU, L={COMPARE_LAYERS}: nll {card[1]:.6f} against "
+            f"{cpu[1]:.6f} ({card[2]} tokens), relative {rel:.3e} (limit {PPL_TOL}); "
+            f"{time.perf_counter() - t0:.1f} s")
+        if not rel <= PPL_TOL:
+            raise AssertionError(f"{tag}: ppl's nll on the card disagrees with the CPU")
+
     for tag in files:
         spec = MODELS[tag]
         log(f"{tag}: {time.perf_counter() - t_start:.1f} s into the run")
@@ -3041,6 +3544,8 @@ def run(np, torch, files) -> int:
             lora_phase(tag, spec, info, raw)
         if spec.get("lora_layer0"):
             lora_layer0_phase(tag, spec, info, raw)
+        if spec.get("apps"):
+            apps_phase(tag, spec, info, params, raw, files[tag].get("convert"))
         t0 = time.perf_counter()
         if spec.get("snapshot"):
             snapshot_phase(tag, info, params, t_load)
@@ -3054,6 +3559,8 @@ def run(np, torch, files) -> int:
         info2, p_gpu = load(models, raw2, spec, "cuda")
         p_cpu = load(models, raw2, spec, "cpu")[1]
         card_vs_cpu(tag, spec, info2, p_gpu, p_cpu)
+        if "ppl" in spec.get("apps", ()):
+            ppl_vs_cpu(tag, info2, p_gpu, p_cpu)
         if any(spec.get(k) for k in ("hooks", "vision", "direct", "lora")):
             surface_vs_cpu(tag, spec, raw2, info2, p_gpu, p_cpu)
         if spec.get("dense_compare"):

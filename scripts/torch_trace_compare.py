@@ -42,7 +42,6 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 import chip_smoke as cs  # noqa: E402
 from web_rwkv_gguf_tpu_torch import models  # noqa: E402
 from web_rwkv_gguf_tpu_torch.gguf import GgufFile  # noqa: E402
-from web_rwkv_gguf_tpu_torch.ops import wkv as wkv_ops  # noqa: E402
 from web_rwkv_gguf_tpu_torch.ops.cuda import layer7, layer56, matmul, wkv4, wkv6, wkv7  # noqa: E402
 
 # every kernel wrapper, its plain version, and how a call is compared: each
@@ -215,7 +214,7 @@ def main() -> int:
     hooks = None
     if "--hooks" in args:
         i = args.index("--hooks")
-        hooks = cs.HOOK_EXAMPLES[args[i + 1]](torch, wkv_ops)
+        hooks = cs.HOOK_EXAMPLES[args[i + 1]](cs.COMPARE_LAYERS)
         del args[i:i + 2]
     prefill = "--prefill" in args
     for item in [a for a in args if a != "--prefill"] or ("v7q5:41", "v7q5:42"):

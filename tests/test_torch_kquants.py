@@ -108,10 +108,16 @@ def test_quantizer_bytes_match_jax(kind):
 
 @pytest.mark.parametrize("kind", KINDS)
 def test_dequantizer_bits_match_jax(kind):
+    """The numpy dequantizer and the load path's entry point (the C++
+    dequantizer, native/, which gives f32) against the JAX package's numpy
+    dequantizer: the same values."""
     raw = _raw(kind, 8, 512, seed=2)
-    got = ggml.dequantize(GgmlDType[kind], raw, 8 * 512)
     want = jax_ggml._DEQUANTIZERS[JaxGgmlDType[kind]](raw, 8 * 512)
-    assert got.dtype == want.dtype  # f32; f64 for Q3_K, as the JAX package's
+    numpy_got = ggml._DEQUANTIZERS[GgmlDType[kind]](raw, 8 * 512)
+    assert numpy_got.dtype == want.dtype  # f32; f64 for Q3_K, as the JAX package's
+    np.testing.assert_array_equal(numpy_got, want)
+    got = ggml.dequantize(GgmlDType[kind], raw, 8 * 512)
+    assert got.dtype == np.float32
     np.testing.assert_array_equal(got, want)
 
 

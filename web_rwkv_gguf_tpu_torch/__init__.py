@@ -15,7 +15,9 @@ Layer map:
   models/    metadata, matrices, loader, forward, generation
   runtime/   chunk scheduler, the inference Engine and EnginePool
   io/        model snapshots, state files, safetensors
-  utils/     synthetic model files
+  native/    C++ host code (g++): GGML dequant, Q4_K repack, tokenizer encode
+  utils/     synthetic model files, host samplers, tokenizer, tracing
+  apps/      the example apps (gen, chat, batch, ppl, convert, ...)
 """
 
 __version__ = "0.1.0"

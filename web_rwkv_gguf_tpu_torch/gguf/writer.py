@@ -153,3 +153,7 @@ class GgufWriter:
             pad = -(-nxt // self.alignment) * self.alignment - nxt
             buf.write(b"\x00" * pad)
         return buf.getvalue()
+
+    def write(self, path):
+        with open(path, "wb") as f:
+            f.write(self.tobytes())

@@ -40,6 +40,14 @@ def l2_normalize(x: torch.Tensor, eps: float = 1e-12) -> torch.Tensor:
     return x32 * torch.rsqrt(ss + eps)
 
 
+def rms_norm(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, eps: float) -> torch.Tensor:
+    """x * rsqrt(mean(x^2) + eps) over the last axis in f32, then ``w``, ``b``."""
+    x32 = x.float()
+    ms = (x32 * x32).mean(dim=-1, keepdim=True)
+    y = x32 * torch.rsqrt(ms + eps)
+    return y * w.float() + b.float()
+
+
 def lerp(a: torch.Tensor, b: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
     """mix(a, b, t) = a + t*(b-a)."""
     return a + t * (b - a)

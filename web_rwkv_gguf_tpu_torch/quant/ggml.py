@@ -346,14 +346,19 @@ DIRECT_TYPES = frozenset(_DEQUANTIZERS)
 
 
 def dequantize(dtype: GgmlDType, data, num_elements: int) -> np.ndarray:
-    """Dequantize raw block bytes of the given ggml type to float32."""
+    """Dequantize raw block bytes of the given ggml type to float32: in
+    C++ (``native``, threaded), or by the numpy dequantizers above, which
+    give the same bits, where the machine has no g++."""
     try:
         fn = _DEQUANTIZERS[dtype]
     except KeyError:
         raise UnsupportedTensorType(
             f"unsupported quantized ggml type: {dtype!r}"
         ) from None
-    return fn(data, num_elements)
+    from .. import native
+
+    out = native.dequantize(dtype.name.lower(), data, num_elements)
+    return fn(data, num_elements) if out is None else out
 
 
 # ---------------------------------------------------------------------------

@@ -35,7 +35,18 @@ def repack_q4_k(raw, m: int, k: int):
     low nibble and element ``j + K/2`` in its high nibble (contraction
     over K is order-invariant, and the per-32-group scales stay aligned
     because K/2 is a multiple of 32).
+
+    Runs in C++ (``native.repack_q4_k``), or as :func:`repack_q4_k_numpy`,
+    which gives the same arrays, where the machine has no g++.
     """
+    from .. import native
+
+    out = native.repack_q4_k(raw, m, k)
+    return repack_q4_k_numpy(raw, m, k) if out is None else out
+
+
+def repack_q4_k_numpy(raw, m: int, k: int):
+    """:func:`repack_q4_k` in numpy."""
     b = _blocks(raw, 144)
     n = b.shape[0]
     if n * 256 != m * k:

@@ -1,1 +1,1 @@
-"""Synthetic model files for tests and the chip smoke run."""
+"""Synthetic model files, host samplers, the tokenizer and tracing helpers."""
