@@ -6,7 +6,7 @@ Run from the root of a checkout, with no arguments:
     python3 chip_smoke.py
 
 (``python3 chip_smoke.py v7q5,v6q8`` runs only the models named, tags of
-``MODELS``, in that order.)
+``MODELS``, in that order; ``parallel`` names the parallel phase.)
 
 It builds every CUDA kernel of the port from ``web_rwkv_gguf_tpu_torch/
 ops/cuda/csrc`` with nvcc (one nvcc per source, all started together),
@@ -69,6 +69,21 @@ exactly just after:
   RWKV-6, gen --quant nf4 on the NF4 model's f16 file; gen under
   ``utils.trace.trace_to``; the native library's load against numpy's;
   ppl's nll on the card against the CPU on the two-layer model.
+
+The parallel phase serves across ranks (``web_rwkv_gguf_tpu_torch/
+parallel``, ``runtime/distributed.py``) on the RWKV-7 0.1B Q4_K_M model
+at 12 layers: (a) in this process at world size 1 over NCCL, the
+Engine on mesh (1, 1) in both ``tp_mode``s against the meshless
+per-layer Engine, bit for bit; (b) in two spawned ranks sharing the card
+over gloo (NCCL refuses two ranks on one device), tensor parallel (1, 2)
+in both ``tp_mode``s and data parallel (2, 1) through the same B=4
+traffic, every rank-local kernel call of a replay held against its
+plain version, rank 0's logits against (a)'s within ``PARALLEL_TOL``;
+the DistributedEngine's scenario (workers in ``serve()``) against a
+single Engine; and the pipelined whole-stack decode of the RWKV-7 and
+RWKV-4 0.1B Q4_K_M models (two stages of 6 layers, 2 groups of 4 lanes,
+16 steps) against the single-rank generator, tokens and state bit for
+bit. Kernel cases at the rank-local shapes join the kernels line.
 
 For each model it holds the whole-stack decode kernel against its plain
 version layer by layer (and, beside the Q6_K and f16 models, stacks in
@@ -776,30 +791,7 @@ def kernel_cases(torch, k, bf16_peak, f32_peak, full_rows, dev="cuda"):
     H, K = 12, 64
     for B in (1, 3, 4, 16):
         lanes = {1: [True], 3: [True, False, True], 4: [True] * 4, 16: [True] * 16}[B]
-        active = [b for b in range(B) if lanes[b]]  # lanes the mask keeps running
-
-        def make_att(i, B=B, lanes=lanes):
-            _, _, normal = _rng(torch, dev, 3000 * i + B)
-            f = lambda *s: normal(*s) * 0.5  # noqa: E731
-            mask = torch.tensor(lanes, device=dev)
-            return (f(B, H, K, K), f(B, H, K), f(B, H, K), f(B, H, K), f(B, H, K),
-                    f(B, H, K), torch.sigmoid(f(B, H, K)), f(H, K), f(H, K),
-                    1 + 0.1 * f(H, K), 0.1 * f(H, K), f(H, K), mask, 64e-5, 1e-12)
-
-        def att_compare(got, want, active=active):
-            (y1, s1), (y0, s0) = got, want  # masked lanes' y is unspecified
-            err = max((s1 - s0).abs().max().item(),
-                      (y1[active] - y0[active]).abs().max().item())
-            return err, ATT_TOL
-
-        cases.append(dict(
-            name=f"att_core7[B={B},H={H},hs={K}]", kernel=core.att_core7_step,
-            shape=(B, H, K),
-            plain=core.att_core7_plain, make_args=make_att, compare=att_compare,
-            # state in and out; r, w, k, a, v, g in and y out; 5 params; the
-            # mask, a byte a lane
-            nbytes=4 * (2 * B * H * K * K + 7 * B * H * K + 5 * H * K) + B,
-            flops=8 * B * H * K * K, fpeak=f32_peak))
+        cases.append(att_case(torch, core, H, K, lanes, f32_peak, dev))
 
     cases += [q4k_case(torch, mm, "gemm", m, k, n, 4000 + m + 7 * k + n, bf16_peak)
               for m, k in layer_shapes for n in (4, 128, 256, 512)]
@@ -810,27 +802,86 @@ def kernel_cases(torch, k, bf16_peak, f32_peak, full_rows, dev="cuda"):
     # serve's 8-token prompt chunk, and the hooked Engine's decode step (T=1)
     for T, lens, seed in ((64, (50,), 1), (64, (64, 40, 17, 0), 4), (8, (8,), 108),
                           (1, (1, 1, 1, 1), 110)):
-        B = len(lens)
+        cases.append(scan_case(torch, core, T, H, K, lens, seed, f32_peak, dev))
+    return cases
 
-        def make_scan(i, B=B, T=T, lens=lens, seed=seed):
-            _, _, normal = _rng(torch, dev, 6000 * i + seed)
-            f = lambda *s: normal(*s) * 0.5  # noqa: E731
-            kk = torch.nn.functional.normalize(f(B, T, H, K), dim=-1)
-            mask = (torch.arange(T, device=dev)[None, :]
-                    < torch.tensor(lens, device=dev)[:, None])
-            return (f(B, H, K, K), f(B, T, H, K),
-                    torch.exp(-0.606531 * torch.sigmoid(f(B, T, H, K))), f(B, T, H, K),
-                    f(B, T, H, K), -kk, kk * torch.sigmoid(f(B, T, H, K)), mask)
 
-        live = sum(lens)
-        cases.append(dict(
-            name=f"wkv7_scan[B={B},T={T},H={H},hs={K},lens={list(lens)}]",
-            kernel=core.wkv7_scan, shape=(B, T, H, K), plain=core.wkv7_scan_plain,
-            make_args=make_scan, compare=scan_compare,
-            # state in and out; r, w, k, v, a, b in and y out; the mask
-            nbytes=4 * (2 * B * H * K * K + 7 * B * T * H * K) + B * T,
-            # 8·K·V per live token (update and y), 2·K·V per padded one (y)
-            flops=(8 * live + 2 * (B * T - live)) * H * K * K, fpeak=f32_peak))
+def att_case(torch, core, H, K, lanes, f32_peak, dev):
+    """The attention core at B = len(lanes) (False: a masked lane), H heads
+    of K: y of the live lanes and the state within ATT_TOL."""
+    B = len(lanes)
+    active = [b for b in range(B) if lanes[b]]  # lanes the mask keeps running
+
+    def make_att(i):
+        _, _, normal = _rng(torch, dev, 3000 * i + B)
+        f = lambda *s: normal(*s) * 0.5  # noqa: E731
+        mask = torch.tensor(lanes, device=dev)
+        return (f(B, H, K, K), f(B, H, K), f(B, H, K), f(B, H, K), f(B, H, K),
+                f(B, H, K), torch.sigmoid(f(B, H, K)), f(H, K), f(H, K),
+                1 + 0.1 * f(H, K), 0.1 * f(H, K), f(H, K), mask, 64e-5, 1e-12)
+
+    def att_compare(got, want):
+        (y1, s1), (y0, s0) = got, want  # masked lanes' y is unspecified
+        err = max((s1 - s0).abs().max().item(),
+                  (y1[active] - y0[active]).abs().max().item())
+        return err, ATT_TOL
+
+    return dict(
+        name=f"att_core7[B={B},H={H},hs={K}]", kernel=core.att_core7_step,
+        shape=(B, H, K),
+        plain=core.att_core7_plain, make_args=make_att, compare=att_compare,
+        # state in and out; r, w, k, a, v, g in and y out; 5 params; the
+        # mask, a byte a lane
+        nbytes=4 * (2 * B * H * K * K + 7 * B * H * K + 5 * H * K) + B,
+        flops=8 * B * H * K * K, fpeak=f32_peak)
+
+
+def scan_case(torch, core, T, H, K, lens, seed, f32_peak, dev):
+    """The RWKV-7 WKV scan at B = len(lens) lanes of those lengths, T
+    tokens, H heads of K."""
+    B = len(lens)
+
+    def make_scan(i):
+        _, _, normal = _rng(torch, dev, 6000 * i + seed)
+        f = lambda *s: normal(*s) * 0.5  # noqa: E731
+        kk = torch.nn.functional.normalize(f(B, T, H, K), dim=-1)
+        mask = (torch.arange(T, device=dev)[None, :]
+                < torch.tensor(lens, device=dev)[:, None])
+        return (f(B, H, K, K), f(B, T, H, K),
+                torch.exp(-0.606531 * torch.sigmoid(f(B, T, H, K))), f(B, T, H, K),
+                f(B, T, H, K), -kk, kk * torch.sigmoid(f(B, T, H, K)), mask)
+
+    live = sum(lens)
+    return dict(
+        name=f"wkv7_scan[B={B},T={T},H={H},hs={K},lens={list(lens)}]",
+        kernel=core.wkv7_scan, shape=(B, T, H, K), plain=core.wkv7_scan_plain,
+        make_args=make_scan, compare=scan_compare,
+        # state in and out; r, w, k, v, a, b in and y out; the mask
+        nbytes=4 * (2 * B * H * K * K + 7 * B * T * H * K) + B * T,
+        # 8·K·V per live token (update and y), 2·K·V per padded one (y)
+        flops=(8 * live + 2 * (B * T - live)) * H * K * K, fpeak=f32_peak)
+
+
+def kernel_cases_tp(torch, k, bf16_peak, f32_peak, dev="cuda"):
+    """The rank-local shapes of the RWKV-7 0.1B model over two ranks on
+    ``model`` (the parallel phase): the Q4_K gemv at decode (n = 4) on the
+    column cuts [384, 768] (att), [1536, 768] (FFN key) and the row cut
+    [768, 1536] (the FFN value under ``gspmd``); the Q4_K dequant-GEMM at
+    n = 4 on [384, 3072] (the FFN value's column cut under
+    ``shard_map``, past the gemv gate) and at n = 512 (a B=4 prefill chunk
+    of T=128) on all four; the Q6_K head's vocabulary half [32768, 768] at
+    n = 4; the attention core and the WKV scan at H = 6 (B=4; the scan at
+    T=64 with ragged lengths)."""
+    dev = torch.device(dev)
+    mm, core = k["matmul"], k["wkv7"]
+    cases = [q4k_case(torch, mm, "gemv", m, kk, 4, 7000 + m + kk, bf16_peak)
+             for m, kk in ((384, 768), (1536, 768), (768, 1536))]
+    cases.append(q4k_case(torch, mm, "gemm", 384, 3072, 4, 7100, bf16_peak, relu2=True))
+    cases += [q4k_case(torch, mm, "gemm", m, kk, 512, 7200 + m + kk, bf16_peak)
+              for m, kk in ((384, 768), (1536, 768), (384, 3072), (768, 1536))]
+    cases.append(q6k_case(torch, mm, "gemv", 32768, 768, 4, 7300, bf16_peak))
+    cases.append(att_case(torch, core, 6, 64, [True] * 4, f32_peak, dev))
+    cases.append(scan_case(torch, core, 64, 6, 64, (64, 40, 17, 0), 7400, f32_peak, dev))
     return cases
 
 
@@ -1883,6 +1934,442 @@ def sensitivity(torch, models, Matrix, info, params, chunks, device, clean):
     return out
 
 
+# --------------------------------------------------------------------------
+# the parallel phase: the port's serving across ranks on the one card
+# --------------------------------------------------------------------------
+
+# (a) runs in this process at world size 1 over NCCL; (b) in two spawned
+# ranks that share the card over gloo (NCCL refuses two ranks on one
+# device). Both serve the RWKV-7 0.1B Q4_K_M model at 12 layers with the
+# Engine's B=4 traffic; the pipelined decode also serves RWKV-4 0.1B
+# Q4_K_M at 12 layers.
+PARALLEL_MODELS = ("v7", "v4")
+PARALLEL_MESHES = (("tp shard_map", 1, 2, "shard_map"), ("tp gspmd", 1, 2, "gspmd"),
+                   ("dp gspmd", 2, 1, "gspmd"))
+# rank 0's gathered logits against (a)'s, × max|logit|, stated before the
+# first card run (PERF.md, PR 18): the card-vs-CPU tolerance. Held on the
+# card-vs-CPU model's COMPARE_LAYERS layers: at 12 layers of random weights
+# one last-bit difference (another row count in a kernel's tiles, partial
+# sums added in another order) grows to O(1) logits, data parallelism's
+# too (PERF.md, PR 18), so the 12-layer distance is logged, not held
+PARALLEL_TOL = 1e-2
+PP_GROUPS, PP_BATCH, PP_STEPS = 2, 4, 16  # two generate calls of PP_STEPS / 2
+# decode steps of the 12-layer replay (its logits logged, its kernel calls
+# held; the 2-layer replay takes all ENGINE_TOKENS - 1) and of the timed
+# decode, so that the phase stays within its time
+REPLAY_STEPS = 8
+TIMED_STEPS = 8
+PP_SEED = 8  # the pipelined decode's first tokens
+PARALLEL_DEADLINE = 300  # seconds for the two ranks, their loads included
+
+
+def replay(torch, runtime, eng, prompts, forced, full_lanes):
+    """The Engine's B=4 traffic replayed: from a reset state the prompts'
+    prefill through ``infer``, each of ``forced`` (a lane's tokens a step,
+    the one-rank Engine's generated ones) as one decode step, and one
+    ``infer`` of ``full_lanes`` (a FULL lane). Returns every step's
+    last-token logits ``[S, B, V]`` and the FULL infer's rows, on the
+    host."""
+    import numpy as np
+
+    eng.reset_state()
+    inp = runtime.RnnInput([runtime.RnnInputBatch(list(p)) for p in prompts], ENGINE_CHUNK)
+    steps = []
+    last = [None] * len(prompts)
+    while inp.num_token:
+        for b, r in enumerate(eng.infer(inp).batches):
+            if len(r):
+                last[b] = r[-1]
+    steps.append(torch.from_numpy(np.stack(last)))
+    for step in forced:
+        inp = runtime.RnnInput([runtime.RnnInputBatch([int(t)]) for t in step], ENGINE_CHUNK)
+        steps.append(torch.from_numpy(np.stack([r[-1] for r in eng.infer(inp).batches])))
+    opts = {"full": runtime.RnnOption.FULL, "last": runtime.RnnOption.LAST}
+    inp = runtime.RnnInput([runtime.RnnInputBatch(list(t), opts[o]) for t, o in full_lanes],
+                           ENGINE_CHUNK)
+    full = []
+    while inp.num_token:
+        full.extend(torch.from_numpy(r) for r in eng.infer(inp).batches)
+    return torch.stack(steps), full
+
+
+def logits_err(torch, got, want):
+    """``(max |got - want|, its limit PARALLEL_TOL·max|want|, the prefill
+    logits' error alone)`` over a replay's steps and FULL rows."""
+    steps_g, full_g = got
+    steps_w, full_w = want
+    err = (steps_g - steps_w).abs().max().item()
+    scale = steps_w.abs().max().item()
+    for g, w in zip(full_g, full_w):
+        if w.numel():
+            err = max(err, (g - w).abs().max().item())
+            scale = max(scale, w.abs().max().item())
+    return err, PARALLEL_TOL * scale, (steps_g[0] - steps_w[0]).abs().max().item()
+
+
+def reference_traffic(torch, runtime, info, params, prompts, full_lanes, steps):
+    """The meshless per-layer Engine's (``unroll=False``) B=4 traffic and
+    its replay (:func:`replay`) over ``steps`` of its generated tokens,
+    the reference of every mesh."""
+    eng = runtime.Engine(info, params, len(prompts), token_chunk_size=ENGINE_CHUNK,
+                         unroll=False, prefill_dense=False, decode_dense=False)
+    toks = eng.generate(prompts, ENGINE_TOKENS)
+    forced = [[t[i] for t in toks] for i in range(steps)]
+    steps, full = replay(torch, runtime, eng, prompts, forced, full_lanes)
+    return {"prompts": prompts, "tokens": toks, "forced": forced, "full_lanes": full_lanes,
+            "steps": steps, "full": full}
+
+
+def compare_case(torch, runtime, info, params, mesh, plan, ref):
+    """One mesh's Engine on the card-vs-CPU model through (a)'s replay:
+    ``(err, limit, prefill err)`` against it (:func:`logits_err`)."""
+    eng = runtime.Engine(info, params, len(ref["prompts"]), token_chunk_size=ENGINE_CHUNK,
+                         mesh=mesh, tp_mode=plan)
+    got = replay(torch, runtime, eng, ref["prompts"], ref["forced"], ref["full_lanes"])
+    return logits_err(torch, got, (ref["steps"], ref["full"]))
+
+
+def multihost_rows(runtime, infer, reset_lane, emb_row):
+    """tests/test_multihost.py's scenario with fixed tokens: lanes LAST and
+    FULL, then lane 1 reset and given a new prompt while lane 0 goes on
+    with one embedding-vector token. Every logit row, in order."""
+    inp = runtime.RnnInput([runtime.RnnInputBatch([1, 2, 3, 4, 5], runtime.RnnOption.LAST),
+                            runtime.RnnInputBatch([9, 8, 7], runtime.RnnOption.FULL)], 32)
+    rows = []
+    while inp.num_token:
+        rows.extend(r for b in infer(inp).batches for r in b)
+    reset_lane(1)
+    inp.batches[0].tokens = [17, emb_row]
+    inp.batches[1] = runtime.RnnInputBatch([4, 5, 6], runtime.RnnOption.FULL)
+    while inp.num_token:
+        rows.extend(r for b in infer(inp).batches for r in b)
+    return rows
+
+
+def engine_launches(runtime, _bucket, spec, eng, lengths, n_tokens):
+    """Launches of ``eng.generate`` on prompts of ``lengths`` under a mesh
+    (the per-layer path on this rank's weights and lanes): each planned
+    prefill chunk and each of the decode steps on the rank's B lanes,
+    with the head on their rows."""
+    from web_rwkv_gguf_tpu_torch.models.forward import WKV7_CHUNKED_MIN_T
+    from web_rwkv_gguf_tpu_torch.models.loader import layer_params
+
+    B = eng._lanes.stop - eng._lanes.start
+    layers = layer_params(eng.params, eng.info.num_layer)
+    head = collections.Counter({matmul_kernel(eng.params["head"], B): 1})
+    want = collections.Counter()
+    for T in engine_plans(runtime, _bucket, lengths, eng.token_chunk_size):
+        want += expected_chunk(WKV7_CHUNKED_MIN_T, spec, layers, B, T) + head
+    step = expected_chunk(WKV7_CHUNKED_MIN_T, spec, layers, B, 1) + head
+    for _ in range(-(-(n_tokens - 1) // 32) * 32):
+        want += step
+    return want
+
+
+class KernelCheck:
+    """While entered, every call of the matmul kernels that ``Matrix.matmul``
+    launches and of the attention core and the WKV scan that the forward
+    launches is also computed by its plain version on the same inputs and
+    held against it (GEMV_TOL, GEMM_TOL and WKV_TOL × max|plain|; ATT_TOL ×
+    max(1, max|plain|), the kernel case's absolute tolerance at the
+    model's scale); ``worst`` keeps each (kernel, shape)'s largest error
+    over its limit and its calls."""
+
+    MATMULS = ("q4k_gemv", "q4k_gemm", "q6k_gemv", "q6k_gemm", "qkb_gemv", "qkb_gemm",
+               "qs_gemv", "qs_gemm", "nf4_gemv", "nf4_gemm")
+
+    def __init__(self):
+        from web_rwkv_gguf_tpu_torch.models import forward as fwd_mod
+        from web_rwkv_gguf_tpu_torch.models import matrix as matrix_mod
+        from web_rwkv_gguf_tpu_torch.ops.cuda import matmul as mm
+        from web_rwkv_gguf_tpu_torch.ops.cuda import wkv7 as core
+
+        self.worst = {}
+        self._sites = [(matrix_mod, n, getattr(mm, n), getattr(mm, n + "_plain"),
+                        gemv_compare if n.endswith("gemv") else gemm_compare)
+                       for n in self.MATMULS]
+        self._sites += [(fwd_mod, "att_core7_step", core.att_core7_step, core.att_core7_plain,
+                         None),
+                        (fwd_mod, "wkv7_scan", core.wkv7_scan, core.wkv7_scan_plain,
+                         scan_compare)]
+
+    def _wrap(self, name, kernel, plain, compare):
+        def call(*args):
+            got = kernel(*args)
+            want = plain(*args)
+            if compare is None:  # the attention core: y of the live lanes and the state
+                (y1, s1), (y0, s0), live = got, want, args[12]
+                err = max((s1 - s0).abs().max().item(),
+                          (y1[live] - y0[live]).abs().max().item() if live.any() else 0.0)
+                # ATT_TOL is absolute for its kernel case's O(1) inputs; a
+                # model's state reaches far past 1, so it scales with it here
+                limit = ATT_TOL * max(1.0, s0.abs().max().item(),
+                                      y0[live].abs().max().item() if live.any() else 0.0)
+                shape = tuple(args[0].shape[:3])
+            else:
+                err, limit = compare(got, want)
+                shape = ((args[0].shape[0], args[1].shape[0], args[0].shape[1])
+                         if name in self.MATMULS else tuple(args[1].shape))
+            key = f"{name}{list(shape)}"
+            ratio, calls = self.worst.get(key, (0.0, 0))
+            self.worst[key] = (max(ratio, err / limit if limit else math.inf), calls + 1)
+            return got
+        return call
+
+    def __enter__(self):
+        for mod, name, kernel, plain, compare in self._sites:
+            setattr(mod, name, self._wrap(name, kernel, plain, compare))
+        return self
+
+    def __exit__(self, *exc):
+        for mod, name, kernel, _, _ in self._sites:
+            setattr(mod, name, kernel)
+
+
+def kernel_counts(counters):
+    """Every counted kernel's launches and launches by shape, zeroed."""
+    got = {name: fn.launches for name, fn in counters.items()}
+    shapes = {name: dict(fn.shapes) for name, fn in counters.items()}
+    for fn in counters.values():
+        fn.launches = 0
+        fn.shapes.clear()
+    return got, shapes
+
+
+def parallel_counters():
+    from web_rwkv_gguf_tpu_torch.ops.cuda import layer7 as l7
+    from web_rwkv_gguf_tpu_torch.ops.cuda import layer56 as l56
+    from web_rwkv_gguf_tpu_torch.ops.cuda import matmul as mm
+    from web_rwkv_gguf_tpu_torch.ops.cuda import wkv4, wkv6
+    from web_rwkv_gguf_tpu_torch.ops.cuda import wkv7 as core
+
+    counters = {n: getattr(mm, n) for n in KernelCheck.MATMULS + ("quant_gemv_grouped",)}
+    counters.update({"att_core7_step": core.att_core7_step, "wkv7_scan": core.wkv7_scan,
+                     "layer_scan7": l7.layer_scan7, "wkv6_scan": wkv6.wkv6_scan,
+                     "layer_scan56": l56.layer_scan56, "wkv4_scan": wkv4.wkv4_scan})
+    return counters
+
+
+def mesh_case(torch, runtime, _bucket, spec, info, params, mesh, plan, ref):
+    """One mesh's Engine through the B=4 traffic: ``generate`` counted
+    (the main path, its launches against :func:`engine_launches`), a
+    16-step decode timed with CUDA events, then the replay under
+    :class:`KernelCheck` against (a)'s logits. Returns what the parent
+    logs and checks."""
+    from web_rwkv_gguf_tpu_torch import models
+    from web_rwkv_gguf_tpu_torch.parallel import sharding
+
+    counters = parallel_counters()
+    eng = runtime.Engine(info, params, len(ref["prompts"]), token_chunk_size=ENGINE_CHUNK,
+                         mesh=mesh, tp_mode=plan)
+    kernel_counts(counters)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    sharding.COMM_STATS.update(seconds=0.0, calls=0, bytes=0)
+    t0 = time.perf_counter()
+    toks = eng.generate(ref["prompts"], ENGINE_TOKENS)
+    torch.cuda.synchronize()
+    t_gen = time.perf_counter() - t0
+    comm = dict(sharding.COMM_STATS)
+    launches, shapes = kernel_counts(counters)
+    want = engine_launches(runtime, _bucket, spec, eng, [len(p) for p in ref["prompts"]],
+                           ENGINE_TOKENS)
+    # a timed decode on the engine's state
+    run = models.make_generator(info, steps=TIMED_STEPS, step=eng._mesh_step)
+    last = torch.tensor([[t[-1]] for t in toks], device=mesh.device)
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    sharding.COMM_STATS.update(seconds=0.0, calls=0, bytes=0)
+    t0 = time.perf_counter()
+    start.record()
+    run(eng.params, eng.state, last, None)
+    end.record()
+    torch.cuda.synchronize()
+    step_wall = (time.perf_counter() - t0) / TIMED_STEPS
+    step_comm = sharding.COMM_STATS["seconds"] / TIMED_STEPS
+    kernel_counts(counters)
+    with KernelCheck() as check:
+        got = replay(torch, runtime, eng, ref["prompts"], ref["forced"], ref["full_lanes"])
+    err, limit, first = logits_err(torch, got, (ref["steps"], ref["full"]))
+    return {"tokens": toks, "tokens_equal": toks == ref["tokens"], "err": err,
+            "limit": limit, "first": first, "launches": launches, "shapes": shapes,
+            "want": {k: v for k, v in want.items() if k}, "t_gen": t_gen,
+            "comm": comm, "step_ms": start.elapsed_time(end) / TIMED_STEPS, "step_wall": step_wall,
+            "step_comm": step_comm, "peak_mb": torch.cuda.max_memory_allocated() / 1e6,
+            "worst": check.worst}
+
+
+def pp_reference(torch, models, info, params, token0, stages):
+    """The single-rank greedy decode of :func:`parallel_rank`'s pipelined
+    case, group by group at B lanes: the whole-stack kernel on every layer
+    (``greedy_scan_reference``), and the same kernel over the stages'
+    slices of the stack in turn (the pipeline's launches, in one process).
+    Returns ``{"whole": [(tokens, state)], "slices": [...]}`` on the host."""
+    from web_rwkv_gguf_tpu_torch.models.forward import GN_EPS, L2_EPS, LN_EPS, embed_tokens
+    from web_rwkv_gguf_tpu_torch.ops.cuda import layer7 as l7
+    from web_rwkv_gguf_tpu_torch.ops.cuda import layer56 as l56
+    from web_rwkv_gguf_tpu_torch.parallel import greedy_scan_reference
+
+    mega = params.get("mega7") or params["mega56"]
+    L, v7 = mega["L"], "mega7" in params
+    lps = L // stages
+    host = lambda st: {k: v.cpu() for k, v in st.items()}  # noqa: E731
+    out = {"whole": [], "slices": []}
+    for g in range(token0.shape[0]):
+        toks, st = greedy_scan_reference(info, params, token0[g], PP_STEPS)
+        out["whole"].append((toks.cpu(), host(st)))
+        dev = params["emb"].device
+        B = token0.shape[1]
+        state = models.init_state(info, B, device=dev)
+        tok, mask, got = token0[g].to(dev), torch.ones(B, device=dev), []
+        for _ in range(PP_STEPS):
+            x, v0, parts = embed_tokens(params, tok[:, None])[:, 0], None, []
+            for s in range(stages):
+                part = l7.mega_layers(mega, s * lps, (s + 1) * lps)
+                lst = {k: a[s * lps:(s + 1) * lps] for k, a in state.items()}
+                if v7:
+                    x, new, v0 = l7.layer_scan7(part, lst, x, mask, None, LN_EPS, GN_EPS,
+                                                L2_EPS, v0_carry=(v0, s * lps))
+                else:
+                    x, new = l56.layer_scan56(part, lst, x, mask, None, LN_EPS, GN_EPS,
+                                              first_layer=s * lps)
+                parts.append(new)
+            state = {k: torch.cat([p[k] for p in parts]) for k in state}
+            tok = torch.argmax(models.logits_head(params, x), dim=-1)
+            got.append(tok)
+        out["slices"].append((torch.stack(got, -1).cpu(), host(state)))
+    return out
+
+
+def pp_case(torch, models, info, params, mesh, ref):
+    """The pipelined decoder on this rank's stage: two ``generate`` calls of
+    PP_STEPS / 2 (the state carried), counted, timed; tokens and this
+    stage's final state against the single-rank references, bit for bit."""
+    from web_rwkv_gguf_tpu_torch.parallel import PipelinedDecoder, sharding
+
+    counters = parallel_counters()
+    params = models.prepare_decode(params, info, batch_hint=PP_BATCH)
+    dec = PipelinedDecoder(info, params, mesh)
+    stage, lps = mesh.coord("pp"), info.num_layer // mesh.shape["pp"]
+    token0 = ref["token0"].to(mesh.device)
+    kernel_counts(counters)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    sharding.COMM_STATS.update(seconds=0.0, calls=0, bytes=0)
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    start.record()
+    t1 = dec.generate(token0, PP_STEPS // 2)
+    t2 = dec.generate(t1[..., -1], PP_STEPS // 2)
+    end.record()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches, shapes = kernel_counts(counters)
+    toks = torch.cat([t1, t2], -1).cpu()
+    same = {}
+    for kind in ("whole", "slices"):
+        ok_t = all(torch.equal(toks[g], ref[kind][g][0]) for g in range(len(ref[kind])))
+        ok_s = all(torch.equal(dec.state[k][:, g].cpu(), v[stage * lps:(stage + 1) * lps])
+                   for g in range(len(ref[kind])) for k, v in ref[kind][g][1].items())
+        same[kind] = (ok_t, ok_s)
+    jobs = PP_GROUPS * PP_STEPS
+    kernel = "layer_scan7" if "mega7" in params else "layer_scan56"
+    want = {kernel: jobs}
+    if stage == mesh.shape["pp"] - 1:
+        want[matmul_kernel(params["head"], PP_BATCH)] = jobs
+    return {"same": same, "launches": launches, "shapes": shapes, "want": want,
+            "wall": wall, "step_ms": start.elapsed_time(end) / PP_STEPS,
+            "comm": dict(sharding.COMM_STATS),
+            "peak_mb": torch.cuda.max_memory_allocated() / 1e6,
+            "stage_mb": sum(a.numel() * a.element_size() for a in _tensors(dec._pp)) / 1e6}
+
+
+def _tensors(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _tensors(v)
+    elif isinstance(tree, (list, tuple)):
+        for v in tree:
+            yield from _tensors(v)
+    elif hasattr(tree, "arrays"):
+        yield from _tensors(tree.arrays)
+    elif hasattr(tree, "numel"):
+        yield tree
+
+
+def parallel_rank(rank, world, workdir):
+    """A rank of (b): two ranks sharing the card over gloo. The TP and DP
+    meshes' Engines, the DistributedEngine's scenario and the pipelined
+    decode of both models, in that order; what it returns the parent
+    logs and checks. Kernels load from ``ops/cuda/_build/`` (the parent
+    built them)."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from web_rwkv_gguf_tpu_torch import models, runtime
+    from web_rwkv_gguf_tpu_torch.parallel import Mesh, make_mesh
+    from web_rwkv_gguf_tpu_torch.runtime.engine import _bucket
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    ref = torch.load(os.path.join(workdir, "reference.pt"), weights_only=False)
+    out = {"backend": dist.get_backend(), "device": torch.cuda.current_device(), "cases": {}}
+    # which collectives gloo takes a CUDA tensor for (the port copies
+    # through the host under gloo whatever this says)
+    probe = {}
+    for op in ("all_reduce", "broadcast", "all_gather"):
+        t = torch.full((4,), float(rank + 1), device="cuda")
+        try:
+            if op == "all_gather":
+                outs = [torch.empty_like(t) for _ in range(world)]
+                dist.all_gather(outs, t)
+                probe[op] = [o[0].item() for o in outs] == [1.0, 2.0]
+            else:
+                getattr(dist, op)(t, 0) if op == "broadcast" else dist.all_reduce(t)
+                probe[op] = t[0].item() == (1.0 if op == "broadcast" else 3.0)
+        except (RuntimeError, ValueError) as e:
+            probe[op] = f"refused: {str(e).splitlines()[0][:120]}"
+    out["gloo_cuda"] = probe
+    spec = MODELS["v7"]
+    t0 = time.perf_counter()
+    raw = open(os.path.join(workdir, "v7.gguf"), "rb").read()
+    info, params = load(models, raw, spec, "cuda")
+    del raw
+    out["load_s"] = time.perf_counter() - t0
+    raw = open(os.path.join(workdir, "v7c.gguf"), "rb").read()
+    info_c, params_c = load(models, raw, spec, "cuda")
+    del raw
+    for label, n_data, n_model, plan in PARALLEL_MESHES:
+        mesh = make_mesh(n_data, n_model)
+        case = mesh_case(torch, runtime, _bucket, spec, info, params, mesh, plan, ref)
+        case["compare"] = compare_case(torch, runtime, info_c, params_c, mesh, plan,
+                                       ref["compare"])
+        out["cases"][label] = case
+    mesh = make_mesh(1, 2)
+    eng = runtime.DistributedEngine(info_c, params_c, 2, mesh=mesh, token_chunk_size=32,
+                                    tp_mode="shard_map")
+    if eng.is_coordinator:
+        emb_row = params_c["emb"][11].float().cpu().numpy()
+        rows = multihost_rows(runtime, eng.infer, eng.reset_lane, emb_row)
+        eng.shutdown()
+        want = ref["compare"]["multihost"]
+        err = max(float(np.abs(a - b).max()) for a, b in zip(rows, want))
+        scale = max(float(np.abs(b).max()) for b in want)
+        out["distributed"] = {"rows": len(rows), "want_rows": len(want), "err": err,
+                              "limit": PARALLEL_TOL * scale}
+    else:
+        eng.serve()
+    del eng, info_c, params_c
+    mesh = Mesh({"pp": world})
+    for tag in PARALLEL_MODELS:
+        if tag != "v7":
+            raw = open(os.path.join(workdir, f"{tag}.gguf"), "rb").read()
+            info, params = load(models, raw, MODELS[tag], "cuda")
+            del raw
+        out["cases"][f"pp {tag}"] = pp_case(torch, models, info, params, mesh,
+                                            ref[f"pp {tag}"])
+    return out
+
+
 def write_bytes(path, fn, *args):
     """``fn(*args)`` (in a worker process): its bytes written to ``path``,
     the rest of what it returns given back. A file of up to ~1.2 GB crosses
@@ -1932,9 +2419,10 @@ def main() -> int:
         return 1
     # the models to run: all, or those named in the one argument (tags of
     # MODELS, comma-separated, in the order given)
-    tags = sys.argv[1].split(",") if len(sys.argv) > 1 else list(MODELS)
-    if any(tag not in MODELS for tag in tags):
-        print(f"chip_smoke: models are named from {list(MODELS)}", file=sys.stderr)
+    tags = sys.argv[1].split(",") if len(sys.argv) > 1 else [*MODELS, "parallel"]
+    if any(tag not in MODELS and tag != "parallel" for tag in tags):
+        print(f"chip_smoke: models are named from {list(MODELS)} and 'parallel'",
+              file=sys.stderr)
         return 2
     # the model files are built in worker processes while the kernels
     # build, each handed over on disk; every worker is stopped and every
@@ -1949,6 +2437,12 @@ def main() -> int:
 
         files = {}
         for tag in tags:
+            if tag == "parallel":  # the parallel phase's models, at 12 layers
+                files[tag] = {t: job(build_file, t, 12, MODELS[t]["seed"])
+                              for t in PARALLEL_MODELS}
+                files[tag]["v7c"] = job(build_file, "v7", COMPARE_LAYERS,
+                                        compare_seed(MODELS["v7"]))
+                continue
             spec = MODELS[tag]
             files[tag] = {"full": job(build_file, tag, spec["widths"]["n_layer"], spec["seed"]),
                           "compare": job(build_file, tag, COMPARE_LAYERS, compare_seed(spec))}
@@ -2007,6 +2501,8 @@ def run(np, torch, files) -> int:
             f.wait()
     log(f"model files: waited {time.perf_counter() - t0:.1f} s for the worker processes")
 
+    par_files = files.pop("parallel", None)
+
     # ---- kernels against their plain versions -------------------------------
     rng = np.random.default_rng(ENGINE_SEED)
     engine_prompts = [[int(t) for t in rng.integers(0, VOCAB, n)] for n in ENGINE_LENGTHS]
@@ -2016,6 +2512,8 @@ def run(np, torch, files) -> int:
     kmods = {"matmul": mm, "wkv7": core, "wkv6": wkv6, "wkv4": wkv4}
     cases = [case for tag in files
              for case in MODEL_CASES[tag](torch, kmods, bf16_peak, f32_peak, full_rows)]
+    if par_files:
+        cases += kernel_cases_tp(torch, kmods, bf16_peak, f32_peak)
     sources = {"q4k_gemv": ("web_rwkv_gguf_tpu_torch/ops/cuda/csrc/q4k_gemv.cu",
                             "web_rwkv_gguf_tpu/ops/pallas/matmul.py:793"),
                "q6k_gemv": ("web_rwkv_gguf_tpu_torch/ops/cuda/csrc/q6k_gemv.cu",
@@ -3582,6 +4080,176 @@ def run(np, torch, files) -> int:
                 f"{SLOT_SEED + j})")
             del raw3
             torch.cuda.empty_cache()
+
+    def record_path(path, launches, shapes, want):
+        """A main path run elsewhere (another rank, or counted by the case
+        itself): its launches logged, held exactly against ``want`` and
+        kept for the kernels line."""
+        want = {name: want.get(name, 0) for name in COUNTED}
+        got = {name: launches.get(name, 0) for name in COUNTED}
+        log(f"{path} launches: {got} (expected {want})")
+        log(f"{path} launches by shape: "
+            + "; ".join(f"{k} {v}" for k, v in shapes.items() if v))
+        if got != want:
+            failures.append(f"{path} did not run through every kernel as expected")
+        path_launches[path] = got
+        path_shapes[path] = {k: collections.Counter(shapes.get(k, {})) for k in counters}
+
+    failures = []  # the parallel phase's, raised at its end
+
+    def log_mesh_case(path, res, backend):
+        log(f"{path}: generate {res['t_gen']:.2f} s ({res['comm']['calls']} collectives, "
+            f"{res['comm']['seconds']:.3f} s in them, {res['comm']['bytes'] / 1e6:.2f} MB); "
+            f"decode {res['step_ms'] * 1e3:.1f} us a step on the CUDA events ({TIMED_STEPS} steps; "
+            f"{res['step_wall'] * 1e3:.2f} ms wall, {res['step_comm'] * 1e3:.2f} ms of it in "
+            f"collectives); peak {res['peak_mb']:.1f} MB; backend {backend}; tokens "
+            f"{'equal to' if res['tokens_equal'] else 'not those of'} the one-rank Engine; "
+            f"12-layer logits {res['err']:.3e} from it ({res['first']:.3e} after the "
+            f"prefill; {res['err'] / res['limit'] * PARALLEL_TOL:.3e} of max|logit|)")
+        if "compare" in res:
+            err, limit, first = res["compare"]
+            log(f"{path}: on the {COMPARE_LAYERS}-layer card-vs-CPU model, logits {err:.3e} "
+                f"from the one-rank Engine's ({first:.3e} after the prefill; limit "
+                f"{limit:.3e})")
+            if not err <= limit:
+                failures.append(f"{path}: logits past the stated tolerance")
+        bad = {k: v for k, v in res["worst"].items() if not v[0] <= 1.0}
+        log(f"{path} rank-local kernels against their plain versions (largest error / "
+            f"tolerance, calls): " + "; ".join(f"{k} {v[0]:.3f} x{v[1]}"
+                                               for k, v in sorted(res["worst"].items())))
+        if bad or not res["worst"]:
+            failures.append(f"{path}: a rank-local kernel disagrees with its plain "
+                            f"version: {bad}")
+
+    def parallel_phase(par):
+        """(a) the meshes of one rank in this process, world size 1 over
+        NCCL, against the meshless per-layer Engine, bit for bit; (b) two
+        spawned ranks sharing the card over gloo (``parallel_rank``)
+        against (a)'s logits and the single-rank pipelined references."""
+        import torch.distributed as dist
+
+        from web_rwkv_gguf_tpu_torch.parallel import make_mesh, multihost_initialize
+        from web_rwkv_gguf_tpu_torch.parallel.launch import launch
+
+        t_phase = time.perf_counter()
+        spec = MODELS["v7"]
+        workdir = tempfile.mkdtemp(prefix="chip_smoke_parallel_")
+        try:
+            raws = {}
+            for tag in (*PARALLEL_MODELS, "v7c"):
+                raws[tag] = par[tag].get()[0]
+                with open(os.path.join(workdir, f"{tag}.gguf"), "wb") as f:
+                    f.write(raws[tag])
+            prng = np.random.default_rng(ENGINE_SEED)
+            prompts = [[int(t) for t in prng.integers(0, VOCAB, n)] for n in ENGINE_LENGTHS]
+            full_lanes = [([int(t) for t in prng.integers(0, VOCAB, n)], o)
+                          for n, o in FULL_LANES]
+            t0 = time.perf_counter()
+            info_c, params_c = load(models, raws.pop("v7c"), spec, "cuda")
+            compare = reference_traffic(torch, runtime, info_c, params_c, prompts, full_lanes,
+                                        ENGINE_TOKENS - 1)
+            eng2 = runtime.Engine(info_c, params_c, 2, token_chunk_size=32, unroll=False,
+                                  prefill_dense=False, decode_dense=False)
+            compare["multihost"] = multihost_rows(runtime, eng2.infer, eng2.reset_state,
+                                                  params_c["emb"][11].float().cpu().numpy())
+            del eng2, info_c, params_c
+            info, params = load(models, raws["v7"], spec, "cuda")
+            ref = reference_traffic(torch, runtime, info, params, prompts, full_lanes,
+                                    REPLAY_STEPS)
+            ref["compare"] = compare
+            log(f"parallel reference: the meshless per-layer Engine (unroll=False) through "
+                f"the B=4 traffic and its replay, at {COMPARE_LAYERS} and 12 layers, "
+                f"{time.perf_counter() - t0:.1f} s")
+
+            # (a) world size 1 over NCCL: mesh (1, 1) in both plans
+            multihost_initialize(backend="nccl", rank=0, world_size=1, timeout=60,
+                                 init_method=f"file://{os.path.join(workdir, 'rendezvous')}")
+            try:
+                t = torch.ones(4, device="cuda")
+                dist.all_reduce(t)
+                log(f"parallel (a): NCCL at world size 1, backend {dist.get_backend()}, "
+                    f"an all_reduce gives {t.tolist()}")
+                if t.tolist() != [1.0] * 4:
+                    raise AssertionError("NCCL's all_reduce at world size 1 is not the identity")
+                mesh = make_mesh(1, 1)
+                for plan in ("shard_map", "gspmd"):
+                    t0 = time.perf_counter()
+                    res = mesh_case(torch, runtime, _bucket, spec, info, params, mesh, plan, ref)
+                    path = f"parallel (a) mesh (1, 1) {plan}"
+                    record_path(path, res["launches"], res["shapes"], res["want"])
+                    log_mesh_case(path, res, "nccl, world size 1")
+                    if not (res["tokens_equal"] and res["err"] == 0.0):
+                        failures.append(f"{path}: not the meshless Engine's logits bit for "
+                                        f"bit ({res['err']})")
+                    log(f"{path}: {time.perf_counter() - t0:.1f} s")
+            finally:
+                dist.destroy_process_group()
+
+            # the single-rank pipelined references, at B = PP_BATCH a group
+            token0 = torch.from_numpy(
+                np.random.default_rng(PP_SEED).integers(0, VOCAB, (PP_GROUPS, PP_BATCH)))
+            t0 = time.perf_counter()
+            for tag in PARALLEL_MODELS:
+                if tag != "v7":
+                    del info, params
+                    info, params = load(models, raws[tag], MODELS[tag], "cuda")
+                pd = models.prepare_decode(params, info, batch_hint=PP_BATCH)
+                ref[f"pp {tag}"] = {"token0": token0, **pp_reference(torch, models, info, pd,
+                                                                      token0, 2)}
+                same = all(torch.equal(a[0], b[0]) and all(torch.equal(a[1][k], b[1][k])
+                                                            for k in a[1])
+                           for a, b in zip(ref[f"pp {tag}"]["whole"],
+                                           ref[f"pp {tag}"]["slices"]))
+                log(f"parallel pp {tag} reference: the stages' slices in one process "
+                    f"{'equal' if same else 'differ from'} the whole stack, tokens and state")
+            del info, params, raws
+            torch.cuda.empty_cache()
+            torch.save(ref, os.path.join(workdir, "reference.pt"))
+            log(f"parallel references: {time.perf_counter() - t0:.1f} s")
+
+            # (b) two ranks sharing the card over gloo
+            t0 = time.perf_counter()
+            results = launch("chip_smoke:parallel_rank", 2, args=(workdir,), backend="gloo",
+                             deadline=PARALLEL_DEADLINE, timeout=60, threads=None,
+                             workdir=os.path.join(workdir, "ranks"))
+            log(f"parallel (b): two ranks over gloo on one card, {time.perf_counter() - t0:.1f} "
+                f"s with their start and loads ({[r['load_s'] for r in results]} s loading)")
+            for r, res in enumerate(results):
+                log(f"parallel (b) rank {r}: backend {res['backend']}, cuda:{res['device']}; "
+                    f"gloo takes CUDA tensors for {res['gloo_cuda']}")
+                for label, case in res["cases"].items():
+                    path = f"parallel (b) {label} rank {r}"
+                    record_path(path, case["launches"], case["shapes"], case["want"])
+                    if label.startswith("pp"):
+                        log(f"{path}: {case['wall']:.2f} s for {PP_GROUPS} groups x "
+                            f"{PP_BATCH} lanes x {PP_STEPS} steps, {case['step_ms'] * 1e3:.1f} "
+                            f"us a step on the CUDA events, {case['comm']['calls']} sends/"
+                            f"receives {case['comm']['seconds']:.3f} s; peak "
+                            f"{case['peak_mb']:.1f} MB, the stage's own parameters "
+                            f"{case['stage_mb']:.1f} MB; tokens, state equal to the slices "
+                            f"run in one process {case['same']['slices']}, to the whole "
+                            f"stack {case['same']['whole']}")
+                        if case["same"]["slices"] != (True, True):
+                            failures.append(f"{path}: not the single-rank generator's "
+                                            f"tokens and state")
+                        continue
+                    log_mesh_case(path, case, res["backend"])
+                if r == 0:
+                    d = res["distributed"]
+                    log(f"parallel (b) DistributedEngine mesh (1, 2) shard_map on the "
+                        f"{COMPARE_LAYERS}-layer model: {d['rows']} rows (the Engine's "
+                        f"{d['want_rows']}), {d['err']:.3e} from the single Engine's (limit "
+                        f"{d['limit']:.3e})")
+                    if d["rows"] != d["want_rows"] or not d["err"] <= d["limit"]:
+                        failures.append("DistributedEngine: not the single Engine's rows")
+            log(f"parallel phase: {time.perf_counter() - t_phase:.1f} s")
+            if failures:
+                raise AssertionError("parallel phase: " + "; ".join(failures))
+        finally:
+            shutil.rmtree(workdir, ignore_errors=True)
+
+    if par_files:
+        parallel_phase(par_files)
 
     # "launches": the kernel's count over the main paths' runs; by path and
     # at this entry's shape ("launches_at_shape", 0 for a shape off the paths)

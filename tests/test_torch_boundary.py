@@ -75,6 +75,36 @@ print(len(names))
     assert int(out.stdout.split()[-1]) >= 15
 
 
+# the modules that serve across ranks: each is among the files checked above
+RANK_MODULES = ("parallel/__init__.py", "parallel/sharding.py", "parallel/tensor.py",
+                "parallel/decode_pp.py", "parallel/launch.py", "runtime/distributed.py")
+
+
+@pytest.mark.parametrize("rel", RANK_MODULES)
+def test_rank_modules_are_checked(rel):
+    path = PORT / rel
+    assert path in _port_files()
+    assert not [m for m in _imports(path) if _forbidden(m)]
+
+
+def rank_modules(rank, world):
+    """A spawned rank's imported modules of JAX or the JAX package, after
+    importing the port's parallel and runtime packages."""
+    import web_rwkv_gguf_tpu_torch.parallel  # noqa: F401
+    import web_rwkv_gguf_tpu_torch.runtime  # noqa: F401
+
+    return sorted(m for m in sys.modules if _forbidden(m))
+
+
+def test_spawned_ranks_import_no_jax():
+    """Ranks started by ``parallel/launch.py`` (spawned: a fresh interpreter
+    each) hold no module of JAX or the JAX package, although this process
+    may."""
+    from web_rwkv_gguf_tpu_torch.parallel.launch import launch
+
+    assert launch(f"{__name__}:rank_modules", 2, deadline=60, timeout=30) == [[], []]
+
+
 def test_chip_smoke_refuses_without_a_card(tmp_path):
     """With no CUDA card (as here), chip_smoke.py exits non-zero at once
     and prints no result line."""

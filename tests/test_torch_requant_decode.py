@@ -244,19 +244,42 @@ def test_engine_matches_jax(model, jax_quant_matmul):
     assert (("mega7" in eng.params or "mega56" in eng.params)) == (scheme == "INT8")
 
 
+@functools.cache
+def _compare_models(seed):
+    """The NF4 compare model of ``seed`` (RWKV-7 at the 0.1B widths, two
+    layers), loaded by both packages once for every run on it."""
+    import chip_smoke as cs
+
+    raw, _ = cs.build_file("v7nf4", cs.COMPARE_LAYERS, seed)
+    return (load_model(GgufFile(raw), quant=QuantScheme.NF4, device="cpu"),
+            jax_load_model(JaxGgufFile(raw), quant=jax_formats.QuantScheme.NF4))
+
+
 def _compare_run(seed):
     """chip_smoke.py's card-vs-CPU decode steps on the NF4 compare model of
-    ``seed`` (RWKV-7 at the 0.1B widths, two layers, three steps at B=3):
-    the port's plain versions on the CPU against the JAX package, per
-    chunk as chip_smoke reads it (cs.rel_diff)."""
+    ``seed`` (three steps at B=3): the port's plain versions on the CPU
+    against the JAX package, per chunk as chip_smoke reads it
+    (cs.rel_diff)."""
     import chip_smoke as cs
     from web_rwkv_gguf_tpu_torch import models
 
-    raw, _ = cs.build_file("v7nf4", cs.COMPARE_LAYERS, seed)
-    info, params = load_model(GgufFile(raw), quant=QuantScheme.NF4, device="cpu")
-    jinfo, jparams = jax_load_model(JaxGgufFile(raw), quant=jax_formats.QuantScheme.NF4)
-    decode = [(np.array(t)[:, None], np.array(n)) for t, n in cs.COMPARE_STEPS]
-    port = cs.run_chunks(torch, models, info, params, decode, "cpu")
+    (info, params), _ = _compare_models(seed)
+    port = cs.run_chunks(torch, models, info, params, _compare_steps(), "cpu")
+    return cs.rel_diff(port, _jax_compare(seed))
+
+
+def _compare_steps():
+    import chip_smoke as cs
+
+    return [(np.array(t)[:, None], np.array(n)) for t, n in cs.COMPARE_STEPS]
+
+
+@functools.cache
+def _jax_compare(seed):
+    """The JAX package's side of :func:`_compare_run` (the port's
+    LayerNorm, which the test swaps, does not enter it), computed once."""
+    _, (jinfo, jparams) = _compare_models(seed)
+    decode = _compare_steps()
     jst, jax_out = jax_init_state(jinfo, len(decode[0][1])), []
     for toks, lens in decode:
         jx, jst = jax_forward_chunk(jinfo, jparams, jst, jnp.asarray(toks, jnp.int32),
@@ -265,7 +288,7 @@ def _compare_run(seed):
         jax_out.append({"logits": torch.tensor(np.asarray(
                             jax_logits_head(jparams, jx[live, lens[live] - 1]))),
                         **{k: torch.tensor(np.asarray(v)) for k, v in jst.items()}})
-    return cs.rel_diff(port, jax_out)
+    return jax_out
 
 
 def _jax_layer_norm(x, w, b, eps):

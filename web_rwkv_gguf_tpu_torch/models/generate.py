@@ -69,6 +69,7 @@ def make_generator(
     rescale: int | None = None,
     stop_ids: tuple[int, ...] = (),
     hooks: dict | None = None,
+    step=None,
 ):
     """Build ``(params, state, token [B, 1], generator=None) ->
     (tokens [B, steps], logits [B, V], state, generator, done [B])`` that
@@ -77,11 +78,14 @@ def make_generator(
     (state kept, stop id re-emitted); ``done`` reports which lanes have
     stopped by the end. ``logits`` are the last step's. ``hooks`` tap
     every step's forward and head (the JAX package's generator takes none,
-    so its ``Engine.generate`` decodes a hooked engine unhooked)."""
+    so its ``Engine.generate`` decodes a hooked engine unhooked).
+    ``step(params, state, token [B, 1], lens [B]) -> (logits [B, V],
+    state)`` replaces the forward and head of a step (the Engine's under a
+    mesh: ``runtime.Engine._mesh_step``)."""
     sample = make_sampler(temperature, top_k, top_p)
 
     def run(params, state, token, generator=None):
-        layers = layer_params(params, info.num_layer)
+        layers = None if step is not None else layer_params(params, info.num_layer)
         device = token.device
         stop = torch.tensor(stop_ids, dtype=torch.long, device=device)
         token = token.long()
@@ -91,9 +95,12 @@ def make_generator(
         for _ in range(steps):
             # done lanes run with length 0: the padding mask freezes them
             lens = torch.where(done, 0, 1)
-            x, state = _forward(info, params, layers, state, token, lens,
-                                rescale, hooks)
-            logits = logits_head(params, x[:, 0], hooks=hooks)
+            if step is not None:
+                logits, state = step(params, state, token, lens)
+            else:
+                x, state = _forward(info, params, layers, state, token, lens,
+                                    rescale, hooks)
+                logits = logits_head(params, x[:, 0], hooks=hooks)
             nxt = torch.where(done, token[:, 0], sample(logits, generator))
             done = done | torch.isin(nxt, stop)
             token = nxt[:, None]

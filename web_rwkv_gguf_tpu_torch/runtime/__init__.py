@@ -4,8 +4,9 @@ Ref: src/runtime/mod.rs (Runtime trait) and src/runtime/infer/rnn.rs
 (RnnInput / RnnIter / redirect), as the JAX package's ``runtime`` ports
 them: the scheduler, the ``Engine`` with its dense prefill and decode
 weights and their policies, hooks and embedding input, ``EnginePool``,
-and vision input (``VisionInput``, ``infer_vision``). The multi-device
-engines (``runtime/distributed.py``) are not ported yet.
+and vision input (``VisionInput``, ``infer_vision``), serving across ranks
+(``Engine(mesh=, tp_mode=)``) and the engine whose chunk plans every
+rank agrees on (``DistributedEngine``, ``runtime/distributed.py``).
 """
 
 from .scheduler import (  # noqa: F401
@@ -29,3 +30,4 @@ from .engine import (  # noqa: F401
     softmax,
 )
 from .vision import VisionInput, infer_vision  # noqa: F401
+from .distributed import OP_STEP, OP_STOP, DistributedEngine  # noqa: F401

@@ -27,6 +27,15 @@ over one shared set of weights.
 steps included, and leaves the whole-stack kernels (``forward_chunk``);
 a lane's token may be a ``[C]`` embedding vector (the reference's
 ``Token::Embed``), and a chunk holding one runs as ``input_embeds``.
+
+``Engine(mesh=, tp_mode=)`` serves across the ranks of a
+``parallel.Mesh`` (the JAX package's engine.py:147-163, 215-284,
+377-395): every rank builds the same engine and calls it with the same
+input; the weights are placed by ``tp_mode`` (``parallel/tensor.py``),
+the state by ``parallel.shard_state`` (lanes on ``data``, heads on
+``model``), and ``infer`` returns the whole ``RnnOutput`` on every rank.
+Under a mesh there is no dense copy, no unrolling and no whole-stack
+block: decode runs the per-layer kernels.
 """
 
 from __future__ import annotations
@@ -42,6 +51,8 @@ from ..models.generate import make_generator, make_sampler
 from ..models.info import ModelInfo, ModelVersion
 from ..models.loader import dense_cache_bytes, densify_matrices, prepare_decode
 from ..ops.cuda.layer7 import MAX_SCAN_BATCH
+from ..parallel.sharding import all_gather, data_sharding, gather_state, shard_heads, shard_state
+from ..parallel.tensor import TP_MODES, LocalParams, place_params, tp_head
 from .scheduler import RnnInput, RnnInputBatch, RnnOption
 
 
@@ -132,6 +143,42 @@ def softmax(logits) -> np.ndarray:
     return torch.softmax(torch.as_tensor(logits).float(), dim=-1).cpu().numpy()
 
 
+def _split_rows(logits: np.ndarray, counts: list[int]) -> RnnOutput:
+    """``logits`` ``[Σ counts, V]`` cut into each lane's rows."""
+    out, off = [], 0
+    for c in counts:
+        out.append(logits[off : off + c])
+        off += c
+    return RnnOutput(out)
+
+
+def _check_mesh_options(mesh, tp_mode, seq_parallel, pipeline_microbatches):
+    """Raise for an Engine's mesh options that it does not take."""
+    if tp_mode not in TP_MODES:
+        raise EngineError(f"unknown tp_mode {tp_mode!r}")
+    if seq_parallel:
+        raise UnsupportedFeature(
+            "Engine(seq_parallel=) runs parallel/sequence.py's prefill, which the port "
+            "does not have yet (it comes with the GPipe prefill, parallel/pipeline.py)")
+    if pipeline_microbatches:
+        raise UnsupportedFeature(
+            "Engine(pipeline_microbatches=) runs parallel/pipeline.py's GPipe prefill, "
+            "which the port does not have yet")
+
+
+def _placed(params, mesh, info, tp_mode) -> LocalParams:
+    """This rank's weights under ``tp_mode``: ``params`` as they are where
+    they were placed on ``mesh`` already (by ``shard_params`` or
+    ``shard_params_tp``, as an ``EnginePool`` shares them), else placed
+    now."""
+    if isinstance(params, LocalParams):
+        if params.mesh is not mesh or params.plan != tp_mode:
+            raise EngineError(f"params were placed for tp_mode {params.plan!r} on another "
+                              f"mesh or plan than {tp_mode!r}")
+        return params
+    return place_params(params, mesh, info, tp_mode)
+
+
 def _trim_stop(seqs: list[list[int]], max_tokens: int, stop_tokens: set[int]):
     trimmed = []
     for seq in seqs:
@@ -146,7 +193,11 @@ def _trim_stop(seqs: list[list[int]], max_tokens: int, stop_tokens: set[int]):
 
 class Engine:
     """Stateful batched inference over one loaded model (``params`` from
-    ``models.load_model`` on ``device``)."""
+    ``models.load_model`` on ``device``). With ``mesh=`` (a
+    ``parallel.Mesh``) the engine serves this rank's shard of the lanes
+    and weights on the mesh's device, ``tp_mode`` choosing the plan (see
+    the module docstring); ``params`` may then also be placed already
+    (``parallel.shard_params`` / ``shard_params_tp`` on the same mesh)."""
 
     def __init__(
         self,
@@ -162,21 +213,37 @@ class Engine:
         decode_dense: bool | None = None,
         unroll: bool | None = None,
         hooks: dict | None = None,
+        mesh=None,
+        tp_mode: str = "gspmd",
+        seq_parallel: bool = False,
+        pipeline_microbatches: int | None = None,
         device="cuda",
     ):
+        _check_mesh_options(mesh, tp_mode, seq_parallel, pipeline_microbatches)
         self.info = info
-        self.device = torch.device(device)
-        # dense bf16 weights for decode, or a dense copy for the chunks of
-        # at least prefill_dense_min_t tokens (_dense_weights)
-        params, self.params_quantized, self._params_prefill = _dense_weights(
-            params, num_batch, decode_dense, prefill_dense, memory_limit(self.device))
+        self.mesh = mesh
+        if mesh is not None:
+            # this rank's weights and lanes; no dense copy, no unrolling and
+            # no whole-stack blocks (the JAX engine's mesh path)
+            self.device = mesh.device
+            self._lanes = data_sharding(mesh, num_batch)
+            self.params = _placed(params, mesh, info, tp_mode)
+            self._info_fwd = self.params.info
+            self.params_quantized = self._params_prefill = None
+        else:
+            self.device = torch.device(device)
+            self._lanes, self._info_fwd = slice(0, num_batch), info
+            # dense bf16 weights for decode, or a dense copy for the chunks
+            # of at least prefill_dense_min_t tokens (_dense_weights)
+            params, self.params_quantized, self._params_prefill = _dense_weights(
+                params, num_batch, decode_dense, prefill_dense, memory_limit(self.device))
+            # decode of up to MAX_SCAN_BATCH lanes runs as one whole-stack
+            # kernel launch per token (ops/cuda/layer7), as the JAX engine's
+            # default single-device prepare_decode arranges it; unroll=False
+            # keeps the params as given
+            self.params = params if unroll is False else prepare_decode(
+                params, info, batch_hint=num_batch)
         self._prefill_min_t = prefill_dense_min_t
-        # decode of up to MAX_SCAN_BATCH lanes runs as one whole-stack
-        # kernel launch per token (ops/cuda/layer7), as the JAX engine's
-        # default single-device prepare_decode arranges it; unroll=False
-        # keeps the params as given
-        self.params = params if unroll is False else prepare_decode(
-            params, info, batch_hint=num_batch)
         self.num_batch = num_batch
         self.token_chunk_size = token_chunk_size
         self.rescale = rescale
@@ -194,21 +261,47 @@ class Engine:
         self.state = self._fresh_state()
 
     def _fresh_state(self) -> dict:
-        state = init_state(self.info, self.num_batch, device=self.device)
+        """A fresh state of every lane; under a mesh this rank's shard."""
+        device = "cpu" if self.mesh is not None else self.device
+        state = init_state(self.info, self.num_batch, device=device)
         if self._initial_wkv is not None:
-            wkv = torch.as_tensor(np.asarray(self._initial_wkv, np.float32),
-                                  device=self.device)
+            wkv = torch.as_tensor(np.asarray(self._initial_wkv, np.float32), device=device)
             state["wkv"] = wkv[:, None].expand_as(state["wkv"]).clone()
-        return state
+        return state if self.mesh is None else shard_state(state, self.mesh)
 
     # -- state management (ref: State trait, src/runtime/model.rs:78-103) --
 
+    def _local_lane(self, batch: int) -> int | None:
+        """This rank's index of lane ``batch``, None where another holds it."""
+        lo, hi = self._lanes.start, self._lanes.stop
+        return batch - lo if lo <= batch < hi else None
+
     def back_state(self, batch: int) -> dict:
-        """One lane's recurrent state, copied to the host (numpy)."""
-        return {k: a[:, batch].cpu().numpy() for k, a in self.state.items()}
+        """One lane's recurrent state, copied to the host (numpy); under a
+        mesh the whole lane, gathered from the ranks that hold it, on every
+        rank."""
+        if self.mesh is None:  # a copy: on the CPU .cpu() is the state itself
+            return {k: a[:, batch].cpu().numpy().copy() for k, a in self.state.items()}
+        b = self._local_lane(batch)
+        # every data rank hands in its copy of the lane's slot (zeros where
+        # it holds another lane); the owner's is taken
+        part = {k: (a[:, b] if b is not None else torch.zeros_like(a[:, 0]))[:, None]
+                for k, a in self.state.items()}
+        whole = gather_state(part, self.mesh)
+        owner = batch // (self._lanes.stop - self._lanes.start)
+        return {k: a[:, owner].cpu().numpy().copy() for k, a in whole.items()}
 
     def load_state(self, batch: int, snapshot: dict):
-        """Restore one lane's state from :meth:`back_state`."""
+        """Restore one lane's state from :meth:`back_state` (under a mesh,
+        the rank that holds the lane keeps its heads' part)."""
+        if self.mesh is not None:
+            b = self._local_lane(batch)
+            if b is not None:
+                part = shard_heads({k: torch.as_tensor(np.asarray(v))[:, None]
+                                    for k, v in snapshot.items()}, self.mesh)
+                for k, a in self.state.items():
+                    a[:, b] = part[k][:, 0].to(a.device)
+            return
         for k, a in self.state.items():
             a[:, batch] = torch.as_tensor(np.asarray(snapshot[k]), device=a.device)
 
@@ -216,9 +309,11 @@ class Engine:
         fresh = self._fresh_state()
         if batch is None:
             self.state = fresh
-        else:
+            return
+        b = batch if self.mesh is None else self._local_lane(batch)
+        if b is not None:
             for k, a in self.state.items():
-                a[:, batch] = fresh[k][:, batch]
+                a[:, b] = fresh[k][:, b]
 
     # -- inference ---------------------------------------------------------
 
@@ -267,26 +362,61 @@ class Engine:
         params = self.params
         if self._params_prefill is not None and chunk.shape[1] >= self._prefill_min_t:
             params = self._params_prefill
-        ln = torch.as_tensor(lens, dtype=torch.long, device=self.device)
-        tokens, embeds = ((None, chunk) if isinstance(chunk, torch.Tensor)
-                          else (torch.as_tensor(chunk, device=self.device), None))
-        x, state = forward_chunk(self.info, params, self.state, tokens, ln,
+        ln = torch.as_tensor(lens, dtype=torch.long, device=self.device)[self._lanes]
+        tokens, embeds = ((None, chunk[self._lanes]) if isinstance(chunk, torch.Tensor)
+                          else (torch.as_tensor(chunk[self._lanes], device=self.device), None))
+        x, state = forward_chunk(self._info_fwd, params, self.state, tokens, ln,
                                  rescale=self.rescale, hooks=self.hooks, input_embeds=embeds)
         return x, ln, state, params
 
     def _forward_last(self, chunk, lens: list[int]):
         """The chunk's forward and each lane's last-token logits ``[B, V]``
-        (on the device), the head from the same params as the chunk."""
+        (on the device; under a mesh every lane's, on every rank), the head
+        from the same params as the chunk."""
         x, ln, state, params = self._forward(chunk, lens)
         idx = torch.clamp(ln - 1, 0, x.shape[1] - 1)
         rows = x[torch.arange(x.shape[0], device=x.device), idx]
-        return self._head(params, rows), state
+        return self._gather_lanes(self._head(params, rows)), state
+
+    def _gather_lanes(self, t):
+        """Per-lane rows of this rank's lanes, gathered over ``data``."""
+        return t if self.mesh is None else all_gather(self.mesh, "data", t, dim=0)
 
     def _head(self, params, rows):
-        """The head on ``rows``, with the engine's hooks where it has any."""
+        """The head on ``rows``, with the engine's hooks where it has any
+        (under a mesh its vocabulary slices gathered over ``model``)."""
+        if isinstance(params, LocalParams):
+            return tp_head(params, rows, self.hooks)
         if self.hooks is None:
             return logits_head(params, rows)
         return logits_head(params, rows, hooks=self.hooks)
+
+    def _mesh_step(self, params, state, token, lens):
+        """One decode step under a mesh, as ``make_generator(step=)`` takes
+        it: every lane's token ``[B, 1]`` and length ``[B]`` in, every
+        lane's logits ``[B, V]`` and this rank's new state out."""
+        x, state = forward_chunk(self._info_fwd, params, state, token[self._lanes],
+                                 lens[self._lanes], rescale=self.rescale, hooks=self.hooks)
+        return self._gather_lanes(self._head(params, x[:, 0])), state
+
+    def _row_logits(self, x, rows_b: list[int], rows_t: list[int], counts: list[int]):
+        """Logits ``[n, V]`` (numpy) of the rows ``(rows_b[i], rows_t[i])``
+        of the chunk's residual ``x``, lane by lane as ``counts`` gives
+        them. The head runs on a power-of-two row count (engine.py:604-611
+        of the JAX package); under a mesh each data rank runs its own lanes'
+        rows, padded to the largest rank's count, and the results are
+        gathered."""
+        lo, per = self._lanes.start, self._lanes.stop - self._lanes.start
+        sizes = [sum(counts[i:i + per]) for i in range(0, self.num_batch, per)]
+        first, n = sum(sizes[:lo // per]), sizes[lo // per]
+        npad = _bucket(max(sizes), 1 << 30)
+        bi = torch.zeros(npad, dtype=torch.long)
+        ti = torch.zeros(npad, dtype=torch.long)
+        bi[:n] = torch.tensor(rows_b[first:first + n], dtype=torch.long) - lo
+        ti[:n] = torch.tensor(rows_t[first:first + n], dtype=torch.long)
+        rows = x[bi.to(x.device), ti.to(x.device)]
+        logits = self._gather_lanes(self._head(self.params, rows)).cpu().numpy()
+        return np.concatenate([logits[d * npad:d * npad + c] for d, c in enumerate(sizes)])
 
     def infer(self, input: RnnInput) -> RnnOutput:
         """Process one chunk of ``input`` (tokens are consumed in place).
@@ -334,21 +464,7 @@ class Engine:
         input.step(plan)
         if not rows_b:
             return self._empty()
-
-        # the head runs on a power-of-two row count (engine.py:604-611)
-        n = len(rows_b)
-        npad = _bucket(n, 1 << 30)
-        bi = torch.zeros(npad, dtype=torch.long)
-        ti = torch.zeros(npad, dtype=torch.long)
-        bi[:n] = torch.tensor(rows_b)
-        ti[:n] = torch.tensor(rows_t)
-        rows = x[bi.to(x.device), ti.to(x.device)]
-        logits = self._head(self.params, rows)[:n].cpu().numpy()
-        out, off = [], 0
-        for c in counts:
-            out.append(logits[off : off + c])
-            off += c
-        return RnnOutput(out)
+        return _split_rows(self._row_logits(x, rows_b, rows_t, counts), counts)
 
     # -- generation --------------------------------------------------------
 
@@ -408,9 +524,10 @@ def _generate(engines, groups, max_tokens, temperature, top_k, top_p, stop_token
     back from the device; the rounds end once every lane of every engine
     has stopped. The lanes' tokens, group after group."""
     stop_tokens = stop_tokens or set()
-    run = make_generator(engines[0].info, steps=segment, temperature=temperature, top_k=top_k,
-                         top_p=top_p, rescale=engines[0].rescale,
-                         stop_ids=tuple(sorted(stop_tokens)), hooks=engines[0].hooks)
+    runs = [make_generator(e.info, steps=segment, temperature=temperature, top_k=top_k,
+                           top_p=top_p, rescale=e.rescale, stop_ids=tuple(sorted(stop_tokens)),
+                           hooks=e.hooks, step=e._mesh_step if e.mesh is not None else None)
+            for e in engines]
     firsts, generators = zip(*(e._gen_prefill(g, temperature, top_k, top_p, seed + i)
                                for i, (e, g) in enumerate(zip(engines, groups))))
     tokens, generators = list(firsts), list(generators)
@@ -419,7 +536,7 @@ def _generate(engines, groups, max_tokens, temperature, top_k, top_p, stop_token
     while produced < max_tokens:
         dones = []
         for i, e in enumerate(engines):
-            toks, _, e.state, generators[i], done = run(e.params, e.state, tokens[i],
+            toks, _, e.state, generators[i], done = runs[i](e.params, e.state, tokens[i],
                                                         generators[i])
             segs[i].append(toks)
             tokens[i] = toks[:, -1:]
@@ -449,7 +566,8 @@ class EnginePool:
     dense copy, that copy is built once, before the engines, and every
     engine holds the same one (a second copy never exists, where the JAX
     pool builds one per engine and keeps the first). ``engine_kwargs`` go
-    to each :class:`Engine`."""
+    to each :class:`Engine`; with ``mesh=`` the weights are placed once
+    and every engine serves its group's lanes across the mesh."""
 
     def __init__(self, info: ModelInfo, params, num_lanes: int, *,
                  lanes_per_engine: int | None = None, device="cuda", **engine_kwargs):
@@ -461,14 +579,26 @@ class EnginePool:
         base, rem = divmod(num_lanes, n_eng)
         self.group_sizes = [base + (1 if i < rem else 0) for i in range(n_eng)]
         self.info = info
-        self.device = torch.device(device)
+        mesh = engine_kwargs.get("mesh")
+        self.device = torch.device(device) if mesh is None else mesh.device
         first = self.group_sizes[0]
-        params, self.params_quantized, prefill = _dense_weights(
-            params, first, engine_kwargs.pop("decode_dense", None),
-            engine_kwargs.pop("prefill_dense", None), memory_limit(self.device))
+        decode_dense = engine_kwargs.pop("decode_dense", None)
+        prefill_dense = engine_kwargs.pop("prefill_dense", None)
         min_t = engine_kwargs.pop("prefill_dense_min_t", 64)
-        if engine_kwargs.get("unroll") is not False:
-            params = prepare_decode(params, info, batch_hint=first)
+        if mesh is not None:
+            # the weights placed once, every engine holding this rank's
+            # shard (under a mesh there is no dense copy and no decode
+            # preparation: the JAX pool's engine.py:807)
+            _check_mesh_options(mesh, engine_kwargs.get("tp_mode", "gspmd"),
+                                engine_kwargs.get("seq_parallel"),
+                                engine_kwargs.get("pipeline_microbatches"))
+            params = _placed(params, mesh, info, engine_kwargs.get("tp_mode", "gspmd"))
+            self.params_quantized = prefill = None
+        else:
+            params, self.params_quantized, prefill = _dense_weights(
+                params, first, decode_dense, prefill_dense, memory_limit(self.device))
+            if engine_kwargs.get("unroll") is not False:
+                params = prepare_decode(params, info, batch_hint=first)
         self.params = params
         self.engines = [Engine(info, params, g, decode_dense=False, prefill_dense=False,
                                prefill_dense_min_t=min_t, device=device, **engine_kwargs)
