@@ -178,7 +178,7 @@ MODELS = {
                mega_batches=(4, 1, 16), dense_compare=True, pool=True, state_file=True,
                initial_state=True, hooks="othello", embeds=True, vision=True, direct=True,
                lora_layer0=True, apps=("gen", "batch", "chat", "ppl", "serde", "inspect",
-                                       "othello", "trace", "native", "convert")),
+                                       "othello", "trace", "native", "convert", "bench")),
     # RWKV-6 World 1.6B widths (BlinkDL's RWKV-x060-World-1B6: L=24, C=2048,
     # head 64, hidden int(3.5·C // 32 · 32); time-mix and decay LoRA ranks 32
     # and 64 from RWKV-LM's v6 model.py)
@@ -221,7 +221,10 @@ MODELS = {
     # (scripts/torch_trace_compare.py; PERF.md, Findings PR 5)
     "v7q5": dict(make="make_v7_gguf", seed=40, compare_seed=42, quantize="Q5_K",
                  head_quantize="Q6_K", kinds=("qk_b", "qk_nomin"), grouped=True,
-                 widths=dict(n_layer=12, n_emb=768, head_size=64, n_vocab=VOCAB, n_hidden=3072,
+                 # 6 of the model's 12 layers (12 until the pipeline and SP
+                 # Engines joined the parallel phase), and the run stays
+                 # within its time
+                 widths=dict(n_layer=6, n_emb=768, head_size=64, n_vocab=VOCAB, n_hidden=3072,
                              lora_w=64, lora_a=64, lora_g=128, lora_v=32),
                  matrices=(("att", "Wr"), ("att", "Wk"), ("att", "Wv"), ("att", "Wo"),
                            ("ffn", "Wk"), ("ffn", "Wv")),
@@ -396,6 +399,10 @@ PPL_CHUNK = 256
 PPL_SEED = 13
 PPL_TOL = 1e-2  # the nll, card against CPU on the two-layer model, relative
 GAME_TOKENS = 8
+# the bench apps' arguments on the card (the JAX apps' defaults are 100
+# runs, 256 + 64 tokens and 5 runs)
+BENCH_RUNS = 10
+BENCH_PREFILL, BENCH_GEN, BENCH_FORMAT_RUNS = 128, 8, 2
 CONVERT_SEED = 14
 CONVERT_LAYERS = 2
 
@@ -885,6 +892,35 @@ def kernel_cases_tp(torch, k, bf16_peak, f32_peak, dev="cuda"):
     return cases
 
 
+def kernel_cases_ppsp(torch, k, bf16_peak, f32_peak, dev="cuda"):
+    """The rank-local shapes of the pipeline and sequence-parallel Engines
+    of the parallel phase (the 0.1B models over two ranks on ``model``):
+    a pipeline microbatch is 2 of the Engine's 4 lanes (PP_MICROBATCHES),
+    a sequence-parallel chunk 4 lanes of 64 tokens a rank. The Q4_K dequant-GEMM at n = 256
+    (a microbatch's prefill chunk of T = 128; an SP chunk's 4 x 64 rows) on
+    the three layer shapes, the FFN value's input relu²; the Q4_K gemv at
+    n = 2 (a microbatch's decode) on the same shapes; the attention core
+    at B = 2; the RWKV-7 WKV scan at T = 64 for a microbatch's 2 ragged
+    lanes and for the SP chunk's 4 full ones; the V4 scan at a
+    microbatch's decode step (B = 2, T = 1) and prefill chunk (T = 64), and
+    at the SP chunk's 4 full lanes of 64 (its two passes: from the zero
+    state and from the composed one)."""
+    dev = torch.device(dev)
+    mm, core = k["matmul"], k["wkv7"]
+    shapes = ((768, 768, False), (3072, 768, False), (768, 3072, True))
+    cases = [q4k_case(torch, mm, "gemm", m, kk, 256, 7500 + m + kk, bf16_peak, relu2=r)
+             for m, kk, r in shapes]
+    cases += [q4k_case(torch, mm, "gemv", m, kk, 2, 7600 + m + kk, bf16_peak, relu2=r)
+              for m, kk, r in shapes]
+    cases.append(att_case(torch, core, 12, 64, [True, True], f32_peak, dev))
+    cases.append(scan_case(torch, core, 64, 12, 64, (64, 37), 7700, f32_peak, dev))
+    cases.append(scan_case(torch, core, 64, 12, 64, (64,) * 4, 7701, f32_peak, dev))
+    cases += [wkv4_case(torch, k["wkv4"], T, lens, fresh, f32_peak, dev)
+              for T, lens, fresh in ((1, (1, 1), False), (64, (64, 37), True),
+                                     (64, (64,) * 4, True))]
+    return cases
+
+
 def kernel_cases6(torch, k, bf16_peak, f32_peak, full_rows, dev="cuda"):
     """The RWKV-6 main paths' kernel calls at the 1.6B widths (C=2048,
     hidden 7168, H=32): the Q4_K gemv at n = 1 (the B=1 serve's decode;
@@ -982,6 +1018,52 @@ def kernel_cases5(torch, k, bf16_peak, f32_peak, full_rows, dev="cuda"):
     return cases
 
 
+def wkv4_case(torch, wkv4, T, lens, fresh, f32_peak, dev, C=768):
+    """The V4 WKV scan at B = len(lens) lanes of those lengths, T tokens,
+    C channels; ``fresh``: lane 0 starts from the initial state (pp at
+    F32_MIN), the others from a random one."""
+    from web_rwkv_gguf_tpu_torch.ops.wkv import F32_MIN
+
+    B = len(lens)
+
+    def make_scan(i):
+        _, _, normal = _rng(torch, dev, 13000 * i + B + T)
+        f = lambda *s: normal(*s) * 0.5  # noqa: E731
+        state = torch.stack([f(B, C), f(B, C).abs() + 0.1, f(B, C)], dim=-1)
+        if fresh:
+            state[0] = torch.tensor([0.0, 0.0, F32_MIN], device=dev)
+        mask = (torch.arange(T, device=dev)[None, :]
+                < torch.tensor(lens, device=dev)[:, None])
+        return (state, f(B, T, C), f(B, T, C), f(B, T, C), f(C), -torch.exp(f(C)), mask)
+
+    def compare(got, want):
+        (y1, s1), (y0, s0) = got, want
+        mask = (torch.arange(y0.shape[1], device=dev)[None, :]
+                < torch.tensor(lens, device=dev)[:, None])
+        sentinel = s0[..., 2] == F32_MIN
+        if not torch.equal(s1[..., 2][sentinel], s0[..., 2][sentinel]):
+            return math.inf, 0.0  # a lane left or lost the sentinel
+        frozen = [b for b, n in enumerate(lens) if n == 0]
+        if frozen and not torch.equal(s1[frozen], s0[frozen]):
+            return math.inf, 0.0  # a lane of length 0 changed its state
+        pp1, pp0 = s1[..., 2][~sentinel], s0[..., 2][~sentinel]
+        err = max((y1[mask] - y0[mask]).abs().max().item(),
+                  (s1[..., :2] - s0[..., :2]).abs().max().item(),
+                  (pp1 - pp0).abs().max().item())
+        return err, WKV_TOL * max(y0[mask].abs().max().item(),
+                                  s0[..., :2].abs().max().item(), pp0.abs().max().item())
+
+    live = sum(lens)
+    return dict(
+        name=f"wkv4_scan[B={B},T={T},C={C},lens={list(lens)}]", kernel=wkv4.wkv4_scan,
+        shape=(B, T, C), plain=wkv4.wkv4_scan_plain, make_args=make_scan,
+        compare=compare,
+        # k, v, r in and y out; the state in and out; u, w; the mask
+        nbytes=4 * (4 * B * T * C + 2 * 3 * B * C + 2 * C) + B * T,
+        # ~25 flops per live (token, channel): the output and the update
+        flops=25 * live * C, fpeak=f32_peak)
+
+
 def kernel_cases4(torch, k, bf16_peak, f32_peak, full_rows, dev="cuda"):
     """The RWKV-4 main paths' new kernel: the V4 WKV scan at the World 0.1B
     width (C=768) at B=1, T=64; B=4, T=64 with lengths (64, 40, 17, 0);
@@ -991,55 +1073,13 @@ def kernel_cases4(torch, k, bf16_peak, f32_peak, full_rows, dev="cuda"):
     starts from the initial state (pp at F32_MIN), the others from a
     random one; in the serve's cases lane 0 carries a random state, as a
     decode step does."""
-    from web_rwkv_gguf_tpu_torch.ops.wkv import F32_MIN
-
-    wkv4 = k["wkv4"]
     dev = torch.device(dev)
-    C = 768
-    cases = []
     # (T, lengths, whether lane 0 starts from the initial state)
-    for T, lens, fresh in ((64, (64,), True), (64, (64, 40, 17, 0), True),
-                           (128, (128,) * 4, True), (16, (16, 16, 9, 0), True),
-                           (32, (32, 32, 17, 0), True), (1, (1,), False), (8, (8,), False)):
-        B = len(lens)
-
-        def make_scan(i, B=B, T=T, lens=lens, fresh=fresh):
-            _, _, normal = _rng(torch, dev, 13000 * i + B + T)
-            f = lambda *s: normal(*s) * 0.5  # noqa: E731
-            state = torch.stack([f(B, C), f(B, C).abs() + 0.1, f(B, C)], dim=-1)
-            if fresh:
-                state[0] = torch.tensor([0.0, 0.0, F32_MIN], device=dev)
-            mask = (torch.arange(T, device=dev)[None, :]
-                    < torch.tensor(lens, device=dev)[:, None])
-            return (state, f(B, T, C), f(B, T, C), f(B, T, C), f(C), -torch.exp(f(C)), mask)
-
-        def compare(got, want, lens=lens):
-            (y1, s1), (y0, s0) = got, want
-            mask = (torch.arange(y0.shape[1], device=dev)[None, :]
-                    < torch.tensor(lens, device=dev)[:, None])
-            sentinel = s0[..., 2] == F32_MIN
-            if not torch.equal(s1[..., 2][sentinel], s0[..., 2][sentinel]):
-                return math.inf, 0.0  # a lane left or lost the sentinel
-            frozen = [b for b, n in enumerate(lens) if n == 0]
-            if frozen and not torch.equal(s1[frozen], s0[frozen]):
-                return math.inf, 0.0  # a lane of length 0 changed its state
-            pp1, pp0 = s1[..., 2][~sentinel], s0[..., 2][~sentinel]
-            err = max((y1[mask] - y0[mask]).abs().max().item(),
-                      (s1[..., :2] - s0[..., :2]).abs().max().item(),
-                      (pp1 - pp0).abs().max().item())
-            return err, WKV_TOL * max(y0[mask].abs().max().item(),
-                                      s0[..., :2].abs().max().item(), pp0.abs().max().item())
-
-        live = sum(lens)
-        cases.append(dict(
-            name=f"wkv4_scan[B={B},T={T},C={C},lens={list(lens)}]", kernel=wkv4.wkv4_scan,
-            shape=(B, T, C), plain=wkv4.wkv4_scan_plain, make_args=make_scan,
-            compare=compare,
-            # k, v, r in and y out; the state in and out; u, w; the mask
-            nbytes=4 * (4 * B * T * C + 2 * 3 * B * C + 2 * C) + B * T,
-            # ~25 flops per live (token, channel): the output and the update
-            flops=25 * live * C, fpeak=f32_peak))
-    return cases
+    return [wkv4_case(torch, k["wkv4"], T, lens, fresh, f32_peak, dev)
+            for T, lens, fresh in ((64, (64,), True), (64, (64, 40, 17, 0), True),
+                                   (128, (128,) * 4, True), (16, (16, 16, 9, 0), True),
+                                   (32, (32, 32, 17, 0), True), (1, (1,), False),
+                                   (8, (8,), False))]
 
 
 def kernel_cases7q5(torch, k, bf16_peak, f32_peak, full_rows, dev="cuda"):
@@ -1961,6 +2001,15 @@ REPLAY_STEPS = 8
 TIMED_STEPS = 8
 PP_SEED = 8  # the pipelined decode's first tokens
 PARALLEL_DEADLINE = 300  # seconds for the two ranks, their loads included
+# Engine(pipeline_microbatches=) over the B=4 traffic: two microbatches of
+# two lanes, one stage of L/2 layers a rank
+PP_MICROBATCHES = 2
+# Engine(seq_parallel=True, seq_parallel_min_t=SP_MIN_T): SP_LANES full
+# prompts of SP_PROMPT tokens, each infer a chunk of SP_CHUNK tokens a lane
+# (every lane full: sequence-parallel, SP_CHUNK / 2 tokens a rank), then
+# SP_STEPS decode steps
+SP_LANES, SP_PROMPT, SP_CHUNK, SP_MIN_T, SP_STEPS = 4, 256, 128, 128, 8
+SP_SEED = 15
 
 
 def replay(torch, runtime, eng, prompts, forced, full_lanes):
@@ -2020,13 +2069,47 @@ def reference_traffic(torch, runtime, info, params, prompts, full_lanes, steps):
             "steps": steps, "full": full}
 
 
-def compare_case(torch, runtime, info, params, mesh, plan, ref):
-    """One mesh's Engine on the card-vs-CPU model through (a)'s replay:
-    ``(err, limit, prefill err)`` against it (:func:`logits_err`)."""
+def compare_case(torch, runtime, info, params, mesh, ref, **engine_kwargs):
+    """One mesh's Engine (``engine_kwargs``: its plan) on the card-vs-CPU
+    model through (a)'s replay: ``(err, limit, prefill err)`` against it
+    (:func:`logits_err`)."""
     eng = runtime.Engine(info, params, len(ref["prompts"]), token_chunk_size=ENGINE_CHUNK,
-                         mesh=mesh, tp_mode=plan)
+                         mesh=mesh, **engine_kwargs)
     got = replay(torch, runtime, eng, ref["prompts"], ref["forced"], ref["full_lanes"])
     return logits_err(torch, got, (ref["steps"], ref["full"]))
+
+
+def sp_traffic(torch, runtime, eng, prompts, forced=None):
+    """The sequence-parallel traffic from a reset state: the prompts in
+    chunks of SP_CHUNK tokens a lane through ``infer`` (every lane full),
+    then SP_STEPS decode steps through ``infer``, each lane's token the
+    step's ``forced`` one (None: the greedy token of the last logits).
+    Returns every chunk's and step's last-token logits ``[S, B, V]`` on the
+    host and the tokens decoded."""
+    import numpy as np
+
+    eng.reset_state()
+    budget = len(prompts) * SP_CHUNK
+    steps, used = [], []
+    for c in range(0, SP_PROMPT, SP_CHUNK):
+        inp = runtime.RnnInput([runtime.RnnInputBatch(p[c:c + SP_CHUNK]) for p in prompts],
+                               budget)
+        steps.append(torch.from_numpy(np.stack([r[-1] for r in eng.infer(inp).batches])))
+    for i in range(SP_STEPS):
+        step = forced[i] if forced is not None else steps[-1].argmax(-1).tolist()
+        used.append(step)
+        inp = runtime.RnnInput([runtime.RnnInputBatch([int(t)]) for t in step], budget)
+        steps.append(torch.from_numpy(np.stack([r[-1] for r in eng.infer(inp).batches])))
+    return torch.stack(steps), used
+
+
+def sp_reference(torch, runtime, info, params, prompts):
+    """The meshless per-layer Engine's :func:`sp_traffic`, greedy: the
+    reference of the sequence-parallel Engines."""
+    eng = runtime.Engine(info, params, len(prompts), token_chunk_size=len(prompts) * SP_CHUNK,
+                         unroll=False, prefill_dense=False, decode_dense=False)
+    steps, forced = sp_traffic(torch, runtime, eng, prompts)
+    return {"prompts": prompts, "forced": forced, "steps": steps}
 
 
 def multihost_rows(runtime, infer, reset_lane, emb_row):
@@ -2050,18 +2133,66 @@ def engine_launches(runtime, _bucket, spec, eng, lengths, n_tokens):
     """Launches of ``eng.generate`` on prompts of ``lengths`` under a mesh
     (the per-layer path on this rank's weights and lanes): each planned
     prefill chunk and each of the decode steps on the rank's B lanes,
-    with the head on their rows."""
+    with the head on their rows. A pipeline Engine runs each chunk as its
+    microbatches on its stage's layers, and its prefill through ``infer``:
+    the head on the lanes that finish their prompt in the chunk, their
+    count bucketed to a power of two."""
     from web_rwkv_gguf_tpu_torch.models.forward import WKV7_CHUNKED_MIN_T
     from web_rwkv_gguf_tpu_torch.models.loader import layer_params
 
     B = eng._lanes.stop - eng._lanes.start
-    layers = layer_params(eng.params, eng.info.num_layer)
-    head = collections.Counter({matmul_kernel(eng.params["head"], B): 1})
+    pipeline = eng.plan == "pipeline"
+    M = eng._pp_m if pipeline else 1
+    layers = eng.params["blocks"] if pipeline else layer_params(eng.params, eng.info.num_layer)
+
+    def chunk(T):
+        one = expected_chunk(WKV7_CHUNKED_MIN_T, spec, layers, B // M, T)
+        return collections.Counter({k: v * M for k, v in one.items()})
+
+    head = eng.params["head"]
     want = collections.Counter()
-    for T in engine_plans(runtime, _bucket, lengths, eng.token_chunk_size):
-        want += expected_chunk(WKV7_CHUNKED_MIN_T, spec, layers, B, T) + head
-    step = expected_chunk(WKV7_CHUNKED_MIN_T, spec, layers, B, 1) + head
+    inp = runtime.RnnInput([runtime.RnnInputBatch([0] * n) for n in lengths],
+                           eng.token_chunk_size)
+    while inp.num_token:
+        plan = inp.plan()
+        want += chunk(_bucket(max(p.len for p in plan), inp.token_chunk_size))
+        rows = (sum(p.option == runtime.RnnOption.LAST and p.len > 0 for p in plan)
+                if pipeline else B)
+        if rows:
+            want[matmul_kernel(head, _bucket(rows, 1 << 30))] += 1
+        inp.step(plan)
+    step = chunk(1) + collections.Counter({matmul_kernel(head, B): 1})
     for _ in range(-(-(n_tokens - 1) // 32) * 32):
+        want += step
+    return want
+
+
+def sp_launches(spec, eng, steps):
+    """Launches of the sequence-parallel case on this rank: SP_PROMPT /
+    SP_CHUNK chunks of the B lanes' SP_CHUNK tokens, each rank a block of
+    SP_CHUNK / n of them (every matrix at n = B·block rows, the WKV at the
+    block's length: RWKV-6, -5 and -4 twice, the pass from the zero state
+    and the one from the composed state), the head on the B lanes; then
+    ``generate``'s one-token prefill chunk and ``steps`` decode steps, the
+    per-layer path at T=1 on the whole weights with the head."""
+    from web_rwkv_gguf_tpu_torch.models.forward import WKV7_CHUNKED_MIN_T
+    from web_rwkv_gguf_tpu_torch.models.info import ModelVersion
+    from web_rwkv_gguf_tpu_torch.models.loader import layer_params
+
+    B, L = eng.num_batch, eng.info.num_layer
+    layers = layer_params(eng.params, L)
+    block = SP_CHUNK // eng.mesh.shape["model"]
+    head = collections.Counter({matmul_kernel(eng.params["head"], B): 1})
+    sp = expected_chunk(WKV7_CHUNKED_MIN_T, spec, layers, B, block) + head
+    _, below, above = spec["wkv"]
+    first = below if block < WKV7_CHUNKED_MIN_T else above
+    if eng.info.version != ModelVersion.V7 and first is not None:
+        sp[first] += L
+    step = expected_chunk(WKV7_CHUNKED_MIN_T, spec, layers, B, 1) + head
+    want = collections.Counter()
+    for _ in range(SP_PROMPT // SP_CHUNK):
+        want += sp
+    for _ in range(steps + 1):
         want += step
     return want
 
@@ -2150,18 +2281,18 @@ def parallel_counters():
     return counters
 
 
-def mesh_case(torch, runtime, _bucket, spec, info, params, mesh, plan, ref):
-    """One mesh's Engine through the B=4 traffic: ``generate`` counted
-    (the main path, its launches against :func:`engine_launches`), a
-    16-step decode timed with CUDA events, then the replay under
-    :class:`KernelCheck` against (a)'s logits. Returns what the parent
-    logs and checks."""
+def mesh_case(torch, runtime, _bucket, spec, info, params, mesh, ref, **engine_kwargs):
+    """One mesh's Engine (``engine_kwargs``: its plan) through the B=4
+    traffic: ``generate`` counted (the main path, its launches against
+    :func:`engine_launches`), a decode of TIMED_STEPS steps timed with
+    CUDA events, then the replay under :class:`KernelCheck` against (a)'s
+    logits. Returns what the parent logs and checks."""
     from web_rwkv_gguf_tpu_torch import models
     from web_rwkv_gguf_tpu_torch.parallel import sharding
 
     counters = parallel_counters()
     eng = runtime.Engine(info, params, len(ref["prompts"]), token_chunk_size=ENGINE_CHUNK,
-                         mesh=mesh, tp_mode=plan)
+                         mesh=mesh, **engine_kwargs)
     kernel_counts(counters)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -2195,7 +2326,66 @@ def mesh_case(torch, runtime, _bucket, spec, info, params, mesh, plan, ref):
             "want": {k: v for k, v in want.items() if k}, "t_gen": t_gen,
             "comm": comm, "step_ms": start.elapsed_time(end) / TIMED_STEPS, "step_wall": step_wall,
             "step_comm": step_comm, "peak_mb": torch.cuda.max_memory_allocated() / 1e6,
-            "worst": check.worst}
+            "params_mb": tensor_mb(eng.params), "worst": check.worst}
+
+
+def sp_case(torch, runtime, spec, info, params, mesh, ref):
+    """The sequence-parallel Engine on the SP traffic: two chunks through
+    ``infer`` (each timed, with its seconds in collectives) and then
+    ``generate`` of SP_STEPS decode steps from each lane's greedy token,
+    counted as one main path (its launches against :func:`sp_launches`);
+    then :func:`sp_traffic` under :class:`KernelCheck` against ``ref``'s
+    logits (:func:`sp_reference`). Returns what the parent logs and
+    checks."""
+    import numpy as np
+
+    from web_rwkv_gguf_tpu_torch.parallel import sharding
+
+    counters = parallel_counters()
+    eng = runtime.Engine(info, params, SP_LANES, token_chunk_size=SP_LANES * SP_CHUNK,
+                         mesh=mesh, seq_parallel=True, seq_parallel_min_t=SP_MIN_T)
+    kernel_counts(counters)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    chunks = []
+    for c in range(0, SP_PROMPT, SP_CHUNK):
+        inp = runtime.RnnInput([runtime.RnnInputBatch(p[c:c + SP_CHUNK]) for p in ref["prompts"]],
+                               SP_LANES * SP_CHUNK)
+        sharding.COMM_STATS.update(seconds=0.0, calls=0, bytes=0)
+        t0 = time.perf_counter()
+        out = eng.infer(inp)
+        torch.cuda.synchronize()
+        chunks.append((time.perf_counter() - t0, dict(sharding.COMM_STATS)))
+    first = [[int(np.argmax(r[-1]))] for r in out.batches]
+    t0 = time.perf_counter()
+    toks = eng.generate(first, SP_STEPS + 1, segment=SP_STEPS)
+    torch.cuda.synchronize()
+    t_gen = time.perf_counter() - t0
+    launches, shapes = kernel_counts(counters)
+    want = sp_launches(spec, eng, SP_STEPS)
+    with KernelCheck() as check:
+        got, _ = sp_traffic(torch, runtime, eng, ref["prompts"], ref["forced"])
+    err = (got - ref["steps"]).abs().max().item()
+    return {"launches": launches, "shapes": shapes, "want": {k: v for k, v in want.items() if k},
+            "chunks": chunks, "t_gen": t_gen, "tokens": toks, "err": err,
+            "first": (got[:2] - ref["steps"][:2]).abs().max().item(),
+            "limit": PARALLEL_TOL * ref["steps"].abs().max().item(),
+            "peak_mb": torch.cuda.max_memory_allocated() / 1e6,
+            "params_mb": tensor_mb(eng.params), "worst": check.worst}
+
+
+def sp_compare(torch, runtime, info, params, mesh, ref, **engine_kwargs):
+    """The sequence-parallel Engine (with ``engine_kwargs``, such as
+    ``pipeline_microbatches``) on the card-vs-CPU model through
+    :func:`sp_traffic`: ``(err, limit, the two chunks' err)`` against the
+    meshless Engine's (:func:`sp_reference`)."""
+    eng = runtime.Engine(info, params, SP_LANES, token_chunk_size=SP_LANES * SP_CHUNK,
+                         mesh=mesh, seq_parallel=True, seq_parallel_min_t=SP_MIN_T,
+                         **engine_kwargs)
+    got, _ = sp_traffic(torch, runtime, eng, ref["prompts"], ref["forced"])
+    return ((got - ref["steps"]).abs().max().item(),
+            PARALLEL_TOL * ref["steps"].abs().max().item(),
+            (got[:2] - ref["steps"][:2]).abs().max().item())
 
 
 def pp_reference(torch, models, info, params, token0, stages):
@@ -2296,11 +2486,19 @@ def _tensors(tree):
         yield tree
 
 
+def tensor_mb(tree) -> float:
+    """MB of the distinct tensors of a parameter tree (one shared by two
+    entries counted once)."""
+    seen = {t.data_ptr(): t.numel() * t.element_size() for t in _tensors(tree)}
+    return sum(seen.values()) / 1e6
+
+
 def parallel_rank(rank, world, workdir):
     """A rank of (b): two ranks sharing the card over gloo. The TP and DP
-    meshes' Engines, the DistributedEngine's scenario and the pipelined
-    decode of both models, in that order; what it returns the parent
-    logs and checks. Kernels load from ``ops/cuda/_build/`` (the parent
+    meshes' Engines, the pipeline and SP Engines on the card-vs-CPU model,
+    the DistributedEngine's scenario, and for each model the pipelined
+    decode, the pipeline Engine and the SP Engine, in that order; what it
+    returns the parent logs and checks. Kernels load from ``ops/cuda/_build/`` (the parent
     built them)."""
     import numpy as np
     import torch
@@ -2340,11 +2538,20 @@ def parallel_rank(rank, world, workdir):
     del raw
     for label, n_data, n_model, plan in PARALLEL_MESHES:
         mesh = make_mesh(n_data, n_model)
-        case = mesh_case(torch, runtime, _bucket, spec, info, params, mesh, plan, ref)
-        case["compare"] = compare_case(torch, runtime, info_c, params_c, mesh, plan,
-                                       ref["compare"])
+        case = mesh_case(torch, runtime, _bucket, spec, info, params, mesh, ref, tp_mode=plan)
+        case["compare"] = compare_case(torch, runtime, info_c, params_c, mesh, ref["compare"],
+                                       tp_mode=plan)
         out["cases"][label] = case
     mesh = make_mesh(1, 2)
+    # the card-vs-CPU model's held checks of the pipeline and SP Engines
+    pp_compare = compare_case(torch, runtime, info_c, params_c, mesh, ref["compare"],
+                              pipeline_microbatches=PP_MICROBATCHES)
+    out["sp compare"] = sp_compare(torch, runtime, info_c, params_c, mesh, ref["compare"]["sp"])
+    # both options at once: the SP chunks on the stages' state gathered
+    # into every layer, the decode steps through the pipeline
+    out["sp pp compare"] = sp_compare(torch, runtime, info_c, params_c, mesh,
+                                      ref["compare"]["sp"],
+                                      pipeline_microbatches=PP_MICROBATCHES)
     eng = runtime.DistributedEngine(info_c, params_c, 2, mesh=mesh, token_chunk_size=32,
                                     tp_mode="shard_map")
     if eng.is_coordinator:
@@ -2359,14 +2566,23 @@ def parallel_rank(rank, world, workdir):
     else:
         eng.serve()
     del eng, info_c, params_c
-    mesh = Mesh({"pp": world})
+    pp_mesh = Mesh({"pp": world})
     for tag in PARALLEL_MODELS:
         if tag != "v7":
+            del info, params
             raw = open(os.path.join(workdir, f"{tag}.gguf"), "rb").read()
             info, params = load(models, raw, MODELS[tag], "cuda")
             del raw
-        out["cases"][f"pp {tag}"] = pp_case(torch, models, info, params, mesh,
+        out["cases"][f"pp {tag}"] = pp_case(torch, models, info, params, pp_mesh,
                                             ref[f"pp {tag}"])
+        case = mesh_case(torch, runtime, _bucket, MODELS[tag], info, params, mesh,
+                         ref if tag == "v7" else ref[f"traffic {tag}"],
+                         pipeline_microbatches=PP_MICROBATCHES)
+        if tag == "v7":
+            case["compare"] = pp_compare
+        out["cases"][f"pipeline {tag}"] = case
+        out["cases"][f"sp {tag}"] = sp_case(torch, runtime, MODELS[tag], info, params, mesh,
+                                            ref[f"sp {tag}"])
     return out
 
 
@@ -2514,6 +2730,11 @@ def run(np, torch, files) -> int:
              for case in MODEL_CASES[tag](torch, kmods, bf16_peak, f32_peak, full_rows)]
     if par_files:
         cases += kernel_cases_tp(torch, kmods, bf16_peak, f32_peak)
+        # the rank-local shapes of the pipeline and SP Engines that the
+        # models' own cases do not hold already
+        named = {c["name"] for c in cases}
+        cases += [c for c in kernel_cases_ppsp(torch, kmods, bf16_peak, f32_peak)
+                  if c["name"] not in named]
     sources = {"q4k_gemv": ("web_rwkv_gguf_tpu_torch/ops/cuda/csrc/q4k_gemv.cu",
                             "web_rwkv_gguf_tpu/ops/pallas/matmul.py:793"),
                "q6k_gemv": ("web_rwkv_gguf_tpu_torch/ops/cuda/csrc/q6k_gemv.cu",
@@ -3943,6 +4164,39 @@ def run(np, torch, files) -> int:
                     f"prompt, {len(toks)} greedy tokens {toks}, each step {dict(h_step)}; "
                     f"{secs:.2f} s with the load")
                 del h_eng
+            if "bench" in parts:
+                from web_rwkv_gguf_tpu_torch.apps import bench_format, bench_kernels
+
+                # bench_kernels' default [2688, 768] matrices: each N is
+                # called 1 + warmup + 1 + runs times; N=1 takes the gemv
+                # (Q4_K; Q8_0 and Int8 the f32-scale one), N=256 the GEMM
+                calls = 1 + 10 + 1 + BENCH_RUNS
+                want = {"q4k_gemv": calls, "q4k_gemm": calls, "qs_gemv": 2 * calls,
+                        "qs_gemm": 2 * calls}
+                _, secs, out, _ = counted(
+                    f"{tag} apps bench_kernels", want,
+                    lambda: quiet(bench_kernels.main, ["--n", "1", "--n", "256", "--runs",
+                                                       str(BENCH_RUNS), "--device", "cuda"]))
+                log(f"{tag} apps bench_kernels (--n 1 --n 256 --runs {BENCH_RUNS}; host clock, "
+                    f"{secs:.2f} s, on {smi}): " + " | ".join(line for line in out if line))
+                # bench_format: warmup + runs prefills of one lane x the
+                # prompt, then 1 + runs x gen-tokens greedy steps on the
+                # loaded (per-layer) params
+                layers = layer_params(params, L)
+                want = (times(expected_chunk(WKV7_CHUNKED_MIN_T, spec, layers, 1,
+                                             BENCH_PREFILL), 2 + BENCH_FORMAT_RUNS)
+                        + times(expected_chunk(WKV7_CHUNKED_MIN_T, spec, layers, 1, 1)
+                                + head_of(params, 1), 1 + BENCH_FORMAT_RUNS * BENCH_GEN))
+                rows, secs, out, _ = counted(
+                    f"{tag} apps bench_format", want,
+                    lambda: quiet(bench_format.main, [
+                        model, "--prefill-tokens", str(BENCH_PREFILL), "--gen-tokens",
+                        str(BENCH_GEN), "--runs", str(BENCH_FORMAT_RUNS), "--device", "cuda"]))
+                log(f"{tag} apps bench_format (--prefill-tokens {BENCH_PREFILL} --gen-tokens "
+                    f"{BENCH_GEN} --runs {BENCH_FORMAT_RUNS}; host clock, {secs:.2f} s, on "
+                    f"{smi}): " + " | ".join(line for line in out if line))
+                if not (rows[0]["prefill_tps"] > 0 and rows[0]["gen_tps"] > 0):
+                    raise AssertionError(f"{tag}: bench_format measured no rate")
             if "trace" in parts:
                 tdir = f"{tmp}/trace"
                 with trace.trace_to(tdir) as prof:
@@ -4102,7 +4356,8 @@ def run(np, torch, files) -> int:
             f"{res['comm']['seconds']:.3f} s in them, {res['comm']['bytes'] / 1e6:.2f} MB); "
             f"decode {res['step_ms'] * 1e3:.1f} us a step on the CUDA events ({TIMED_STEPS} steps; "
             f"{res['step_wall'] * 1e3:.2f} ms wall, {res['step_comm'] * 1e3:.2f} ms of it in "
-            f"collectives); peak {res['peak_mb']:.1f} MB; backend {backend}; tokens "
+            f"collectives); peak {res['peak_mb']:.1f} MB, weights held "
+            f"{res['params_mb']:.1f} MB; backend {backend}; tokens "
             f"{'equal to' if res['tokens_equal'] else 'not those of'} the one-rank Engine; "
             f"12-layer logits {res['err']:.3e} from it ({res['first']:.3e} after the "
             f"prefill; {res['err'] / res['limit'] * PARALLEL_TOL:.3e} of max|logit|)")
@@ -4113,6 +4368,24 @@ def run(np, torch, files) -> int:
                 f"{limit:.3e})")
             if not err <= limit:
                 failures.append(f"{path}: logits past the stated tolerance")
+        bad = {k: v for k, v in res["worst"].items() if not v[0] <= 1.0}
+        log(f"{path} rank-local kernels against their plain versions (largest error / "
+            f"tolerance, calls): " + "; ".join(f"{k} {v[0]:.3f} x{v[1]}"
+                                               for k, v in sorted(res["worst"].items())))
+        if bad or not res["worst"]:
+            failures.append(f"{path}: a rank-local kernel disagrees with its plain "
+                            f"version: {bad}")
+
+    def log_sp_case(path, res):
+        (t1, c1), (t2, c2) = res["chunks"]
+        log(f"{path}: {SP_LANES} lanes x {SP_CHUNK} tokens a chunk, {SP_CHUNK // 2} a rank: "
+            f"chunk 1 {t1 * 1e3:.2f} ms ({c1['calls']} collectives, {c1['seconds'] * 1e3:.2f} "
+            f"ms in them, {c1['bytes'] / 1e6:.3f} MB), chunk 2 {t2 * 1e3:.2f} ms "
+            f"({c2['calls']} collectives, {c2['seconds'] * 1e3:.2f} ms in them), host clock; "
+            f"generate of {SP_STEPS} steps {res['t_gen']:.2f} s; peak {res['peak_mb']:.1f} MB, "
+            f"weights held {res['params_mb']:.1f} MB; 12-layer logits {res['err']:.3e} from "
+            f"the meshless Engine's ({res['first']:.3e} after the chunks; "
+            f"{res['err'] / res['limit'] * PARALLEL_TOL:.3e} of max|logit|)")
         bad = {k: v for k, v in res["worst"].items() if not v[0] <= 1.0}
         log(f"{path} rank-local kernels against their plain versions (largest error / "
             f"tolerance, calls): " + "; ".join(f"{k} {v[0]:.3f} x{v[1]}"
@@ -4144,10 +4417,13 @@ def run(np, torch, files) -> int:
             prompts = [[int(t) for t in prng.integers(0, VOCAB, n)] for n in ENGINE_LENGTHS]
             full_lanes = [([int(t) for t in prng.integers(0, VOCAB, n)], o)
                           for n, o in FULL_LANES]
+            sp_prompts = np.random.default_rng(SP_SEED).integers(
+                0, VOCAB, (SP_LANES, SP_PROMPT)).tolist()
             t0 = time.perf_counter()
             info_c, params_c = load(models, raws.pop("v7c"), spec, "cuda")
             compare = reference_traffic(torch, runtime, info_c, params_c, prompts, full_lanes,
                                         ENGINE_TOKENS - 1)
+            compare["sp"] = sp_reference(torch, runtime, info_c, params_c, sp_prompts)
             eng2 = runtime.Engine(info_c, params_c, 2, token_chunk_size=32, unroll=False,
                                   prefill_dense=False, decode_dense=False)
             compare["multihost"] = multihost_rows(runtime, eng2.infer, eng2.reset_state,
@@ -4157,9 +4433,10 @@ def run(np, torch, files) -> int:
             ref = reference_traffic(torch, runtime, info, params, prompts, full_lanes,
                                     REPLAY_STEPS)
             ref["compare"] = compare
+            ref["sp v7"] = sp_reference(torch, runtime, info, params, sp_prompts)
             log(f"parallel reference: the meshless per-layer Engine (unroll=False) through "
-                f"the B=4 traffic and its replay, at {COMPARE_LAYERS} and 12 layers, "
-                f"{time.perf_counter() - t0:.1f} s")
+                f"the B=4 traffic and its replay and the SP traffic, at {COMPARE_LAYERS} and "
+                f"12 layers, {time.perf_counter() - t0:.1f} s")
 
             # (a) world size 1 over NCCL: mesh (1, 1) in both plans
             multihost_initialize(backend="nccl", rank=0, world_size=1, timeout=60,
@@ -4174,7 +4451,8 @@ def run(np, torch, files) -> int:
                 mesh = make_mesh(1, 1)
                 for plan in ("shard_map", "gspmd"):
                     t0 = time.perf_counter()
-                    res = mesh_case(torch, runtime, _bucket, spec, info, params, mesh, plan, ref)
+                    res = mesh_case(torch, runtime, _bucket, spec, info, params, mesh, ref,
+                                    tp_mode=plan)
                     path = f"parallel (a) mesh (1, 1) {plan}"
                     record_path(path, res["launches"], res["shapes"], res["want"])
                     log_mesh_case(path, res, "nccl, world size 1")
@@ -4193,6 +4471,9 @@ def run(np, torch, files) -> int:
                 if tag != "v7":
                     del info, params
                     info, params = load(models, raws[tag], MODELS[tag], "cuda")
+                    ref[f"traffic {tag}"] = reference_traffic(torch, runtime, info, params,
+                                                              prompts, full_lanes, REPLAY_STEPS)
+                    ref[f"sp {tag}"] = sp_reference(torch, runtime, info, params, sp_prompts)
                 pd = models.prepare_decode(params, info, batch_hint=PP_BATCH)
                 ref[f"pp {tag}"] = {"token0": token0, **pp_reference(torch, models, info, pd,
                                                                       token0, 2)}
@@ -4233,7 +4514,20 @@ def run(np, torch, files) -> int:
                             failures.append(f"{path}: not the single-rank generator's "
                                             f"tokens and state")
                         continue
+                    if label.startswith("sp"):
+                        log_sp_case(path, case)
+                        continue
                     log_mesh_case(path, case, res["backend"])
+                for key, what in (("sp compare", "sp"),
+                                  ("sp pp compare", "sp with pipeline_microbatches")):
+                    err, limit, first = res[key]
+                    log(f"parallel (b) {what} rank {r} on the {COMPARE_LAYERS}-layer "
+                        f"card-vs-CPU model: logits {err:.3e} from the meshless Engine's "
+                        f"({first:.3e} after the two sequence-parallel chunks; limit "
+                        f"{limit:.3e})")
+                    if not err <= limit:
+                        failures.append(f"parallel (b) {what} rank {r}: logits past the "
+                                        f"stated tolerance")
                 if r == 0:
                     d = res["distributed"]
                     log(f"parallel (b) DistributedEngine mesh (1, 2) shard_map on the "

@@ -573,3 +573,56 @@ def test_device_cuda_without_a_card_raises(files, tmp_path, app):
     argv = ["--model", files["v7"], "--vocab", files["vocab"], *extra.get(app, [])]
     with pytest.raises(RuntimeError, match="no CUDA card"):
         app.main(argv)
+
+
+# ---- bench_kernels and bench_format -------------------------------------------
+
+BENCH_ROW = re.compile(r"^(dense_bf16|q4_k|q8_0|int8) +(\d+) +\d+\.\d +\d+\.\d +\d+$")
+
+
+def test_bench_kernels_prints_the_jax_table(capsys):
+    """Each kind at each N: one row of the JAX app's columns (its header
+    line, its kernels and N in its order), timed on the CPU's plain
+    versions; ``--device cuda`` raises where there is no card."""
+    from web_rwkv_gguf_tpu.apps import bench_kernels as jax_bench_kernels
+    from web_rwkv_gguf_tpu_torch.apps import bench_kernels
+
+    argv = ["--m", "256", "--k", "256", "--n", "1", "--n", "64", "--runs", "1",
+            "--warmup", "0"]
+    bench_kernels.main(argv + CPU)
+    got = capsys.readouterr().out.rstrip("\n").split("\n")
+    jax_bench_kernels.main(argv)
+    want = capsys.readouterr().out.rstrip("\n").split("\n")
+    assert got[0] == "matmul [256x256] on cpu"
+    assert got[1] == want[1]
+    rows = [BENCH_ROW.match(line) for line in got[2:]]
+    assert all(rows) and len(rows) == 8
+    assert [m.groups() for m in rows] == [BENCH_ROW.match(line).groups()
+                                          for line in want[2:]]
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="no CUDA card"):
+            bench_kernels.main(argv)
+
+
+def test_bench_format_prints_the_jax_table(files, capsys):
+    """One two-layer file: the loaded line, then the JAX app's header, rule
+    and a row with the file's name and its six columns; the prefill and
+    generation rates it returns are positive. ``--device cuda`` raises
+    where there is no card."""
+    from web_rwkv_gguf_tpu.apps import bench_format as jax_bench_format
+    from web_rwkv_gguf_tpu_torch.apps import bench_format
+
+    argv = [files["v7"], "--prefill-tokens", "16", "--gen-tokens", "2", "--runs", "1",
+            "--warmup", "0"]
+    rows = bench_format.main(argv + CPU)
+    got = capsys.readouterr().out.rstrip("\n").split("\n")
+    jax_bench_format.main(argv + ["--no-pallas"])
+    want = capsys.readouterr().out.rstrip("\n").split("\n")
+    assert LOADED.match(got[0])
+    assert got[1:3] == want[-3:-1]
+    assert re.match(r"^tiny_v7\.gguf +\d+\.\d +\d+ +-?\d+\.\d +\d+ +\d+\.\d$", got[3])
+    assert len(got) == 4 and len(rows) == 1
+    assert rows[0]["prefill_tps"] > 0 and rows[0]["gen_tps"] > 0
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="no CUDA card"):
+            bench_format.main(argv)

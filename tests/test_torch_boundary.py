@@ -77,7 +77,8 @@ print(len(names))
 
 # the modules that serve across ranks: each is among the files checked above
 RANK_MODULES = ("parallel/__init__.py", "parallel/sharding.py", "parallel/tensor.py",
-                "parallel/decode_pp.py", "parallel/launch.py", "runtime/distributed.py")
+                "parallel/decode_pp.py", "parallel/launch.py", "parallel/pipeline.py",
+                "parallel/sequence.py", "runtime/distributed.py")
 
 
 @pytest.mark.parametrize("rel", RANK_MODULES)

@@ -289,17 +289,22 @@ def test_a_failing_rank_fails_the_launch_within_its_deadline():
 
 
 def test_engine_mesh_options():
-    """What the mesh Engine refuses: an unknown ``tp_mode``, and the
-    sequence-parallel and pipelined prefills, which the port does not
-    have yet."""
-    from web_rwkv_gguf_tpu_torch.errors import EngineError, UnsupportedFeature
+    """What the mesh Engine refuses: an unknown ``tp_mode``; the
+    sequence-parallel and pipeline options without a mesh (the JAX
+    Engine's EngineError), and a pipeline whose lanes do not divide by its
+    microbatches. On a mesh both options build."""
+    from web_rwkv_gguf_tpu_torch.errors import EngineError
     from web_rwkv_gguf_tpu_torch.utils.synthetic import make_v7_gguf
 
     info, params = load_model(GgufFile(make_v7_gguf()), device="cpu")
     mesh = make_mesh(1, 1, device="cpu")
     with pytest.raises(EngineError, match="tp_mode"):
         Engine(info, params, 2, mesh=mesh, tp_mode="pjit", device="cpu")
-    with pytest.raises(UnsupportedFeature, match="sequence.py"):
-        Engine(info, params, 2, mesh=mesh, seq_parallel=True, device="cpu")
-    with pytest.raises(UnsupportedFeature, match="pipeline.py"):
-        Engine(info, params, 2, mesh=mesh, pipeline_microbatches=2, device="cpu")
+    with pytest.raises(EngineError, match="requires a mesh"):
+        Engine(info, params, 2, seq_parallel=True, device="cpu")
+    with pytest.raises(EngineError, match="requires a mesh"):
+        Engine(info, params, 2, pipeline_microbatches=2, device="cpu")
+    with pytest.raises(EngineError, match="divide"):
+        Engine(info, params, 3, mesh=mesh, pipeline_microbatches=2, device="cpu")
+    assert Engine(info, params, 2, mesh=mesh, seq_parallel=True).plan == "sequence"
+    assert Engine(info, params, 2, mesh=mesh, pipeline_microbatches=2).plan == "pipeline"

@@ -220,6 +220,35 @@ def _wkv5(state, r, k, v, u, w, mask):
     return _wkv6(state, r, k, v, u, w.expand(r.shape), mask)
 
 
+def _wkv4(state, k, v, r, u, w, mask):
+    """The V4 recurrence over a chunk: the scan kernel at every T."""
+    return wkv4_scan(state, k, v, r, u, w, mask)
+
+
+_WKV = {ModelVersion.V7: _wkv7, ModelVersion.V6: _wkv6, ModelVersion.V5: _wkv5,
+        ModelVersion.V4: _wkv4}
+
+
+class Block:
+    """Where a chunk's tokens sit in their sequence, as a layer sees it:
+    the whole rest of the sequence after the carried state. The token
+    before the chunk's first is the carried shift row (:meth:`previous`),
+    and the WKV runs from the carried state (:meth:`wkv`, the router of
+    the model's version). ``parallel/sequence.py`` splits one chunk over
+    ranks by overriding both."""
+
+    def previous(self, xx: torch.Tensor, shift: torch.Tensor) -> torch.Tensor:
+        """The row ``[B, C]`` before the chunk's first token of ``xx``."""
+        return shift
+
+    def wkv(self, version: ModelVersion, state, *args):
+        """``(y, new_state)`` of the version's WKV over the chunk."""
+        return _WKV[version](state, *args)
+
+
+WHOLE = Block()
+
+
 def _v7_control(att, H, k, a, w_in, hk):
     """Control-k: the l2-normalized ``kk`` and the k that the delta rule
     takes, between the JAX package's ``pre/post_att_control`` taps.
@@ -243,14 +272,15 @@ def _value_residual(att, vx, v, v0, layer_idx):
     return v + v_mix * (v0 - v), v0
 
 
-def _layer_v7(info, blk, lst, x, v0, layer_idx, mask, lengths, hk=_NOHOOK):
+def _layer_v7(info, blk, lst, x, v0, layer_idx, mask, lengths, hk=_NOHOOK,
+              block=WHOLE):
     H = info.num_head
     att, ffn = blk["att"], blk["ffn"]
     x = hk("pre_att", x=x)["x"]
     xx = B.layer_norm(x, blk["ln1"]["w"], blk["ln1"]["b"], LN_EPS)
     xx = hk("post_att_layer_norm", x=xx)["x"]
     xx = hk("pre_att_token_shift", x=xx)["x"]
-    sh = lst["att_shift"]
+    sh = block.previous(xx, lst["att_shift"])
     rx, wx, kx, vx, ax, gx = B.token_shift_multi(xx, sh, att["x_stack"]).unbind(2)
     t = hk("post_att_token_shift", rx=rx, wx=wx, kx=kx, vx=vx, ax=ax, gx=gx)
     rx, wx, kx, vx, ax, gx = (t[n] for n in ("rx", "wx", "kx", "vx", "ax", "gx"))
@@ -303,7 +333,8 @@ def _layer_v7(info, blk, lst, x, v0, layer_idx, mask, lengths, hk=_NOHOOK):
         kkh = _heads(kk, H)
         t = hk("pre_att_time_mix", r=rh, w=wh, k=kh, v=vh, a=-kkh, b=kkh * _heads(a, H))
         rh, kh, vh = t["r"], t["k"], t["v"]
-        y, wkv = _wkv7(lst["wkv"], rh, t["w"], kh, vh, t["a"], t["b"], mask)
+        y, wkv = block.wkv(info.version, lst["wkv"], rh, t["w"], kh, vh, t["a"], t["b"],
+                           mask)
         y = B.group_norm(_flat(y), att["gn"]["w"], att["gn"]["b"], H, GN_EPS)
         y = y + _flat(W.wkv7_bonus(rh, kh, vh, att["r_k"]))
         y = hk("post_att_time_mix", x=y)["x"]
@@ -315,7 +346,8 @@ def _layer_v7(info, blk, lst, x, v0, layer_idx, mask, lengths, hk=_NOHOOK):
     xx2 = B.layer_norm(x, blk["ln2"]["w"], blk["ln2"]["b"], LN_EPS)
     xx2 = hk("post_ffn_layer_norm", x=xx2)["x"]
     xx2 = hk("pre_ffn_token_shift", x=xx2)["x"]
-    kx2 = B.token_shift(xx2, lst["ffn_shift"], ffn["x_k"], reversed_mix=True)
+    sh2 = block.previous(xx2, lst["ffn_shift"])
+    kx2 = B.token_shift(xx2, sh2, ffn["x_k"], reversed_mix=True)
     kx2 = hk("post_ffn_token_shift", kx=kx2)["kx"]
     kx2 = hk("pre_ffn_linear", kx=kx2)["kx"]
     kf = hk("post_ffn_linear", k=ffn["Wk"].matmul(kx2))["k"]
@@ -327,7 +359,7 @@ def _layer_v7(info, blk, lst, x, v0, layer_idx, mask, lengths, hk=_NOHOOK):
     new = {
         "att_shift": B.update_shift_state(xx, lengths, sh),
         "wkv": wkv,
-        "ffn_shift": B.update_shift_state(xx2, lengths, lst["ffn_shift"]),
+        "ffn_shift": B.update_shift_state(xx2, lengths, sh2),
     }
     return x, v0, new
 
@@ -364,14 +396,14 @@ def _att_gate(y, g, hk):
     return hk("post_att_gate", x=t["x"] * (g * torch.sigmoid(g)))["x"]
 
 
-def _layer_v6(info, blk, lst, x, mask, lengths, hk=_NOHOOK):
+def _layer_v6(info, blk, lst, x, mask, lengths, hk=_NOHOOK, block=WHOLE):
     H = info.num_head
     att, ffn = blk["att"], blk["ffn"]
     x = hk("pre_att", x=x)["x"]
     xx = B.layer_norm(x, blk["ln1"]["w"], blk["ln1"]["b"], LN_EPS)
     xx = hk("post_att_layer_norm", x=xx)["x"]
     xx = hk("pre_att_token_shift", x=xx)["x"]
-    sh = lst["att_shift"]
+    sh = block.previous(xx, lst["att_shift"])
     wx, kx, vx, rx, gx = _ddlerp(xx, sh, att, hk)
     t = hk("pre_att_linear", wx=wx, kx=kx, vx=vx, rx=rx, gx=gx)
     wx, kx, vx, rx, gx = t["wx"], t["kx"], t["vx"], t["rx"], t["gx"]
@@ -393,14 +425,15 @@ def _layer_v6(info, blk, lst, x, mask, lengths, hk=_NOHOOK):
     w_raw, k = t["w"], t["k"]
     w = hk("post_att_time_decay_activate", w=_heads(B.stable_exp(w_raw), H))["w"]
     t = hk("pre_att_time_mix", r=r, k=k, v=v, w=w)
-    y, wkv = _wkv6(lst["wkv"], t["r"], t["k"], t["v"], att["time_first"], t["w"], mask)
+    y, wkv = block.wkv(info.version, lst["wkv"], t["r"], t["k"], t["v"], att["time_first"],
+                       t["w"], mask)
     y = B.group_norm(_flat(y), att["gn"]["w"], att["gn"]["b"], H, GN_EPS)
     x = _att_out(att, x, _att_gate(y, g, hk), hk)
 
     x = hk("pre_ffn", x=x)["x"]
     xx2 = B.layer_norm(x, blk["ln2"]["w"], blk["ln2"]["b"], LN_EPS)
     xx2 = hk("post_ffn_layer_norm", x=xx2)["x"]
-    out, ffn_shift = _ffn(ffn, xx2, lst["ffn_shift"], lengths, True, hk)
+    out, ffn_shift = _ffn(ffn, xx2, block.previous(xx2, lst["ffn_shift"]), lengths, True, hk)
     new = {"att_shift": B.update_shift_state(xx, lengths, sh), "wkv": wkv,
            "ffn_shift": ffn_shift}
     return hk("post_ffn", x=x + out)["x"], new
@@ -423,14 +456,14 @@ def _ffn(ffn, xx2, shift, lengths, reversed_mix, hk):
     return out, B.update_shift_state(xx2, lengths, shift)
 
 
-def _layer_v5(info, blk, lst, x, mask, lengths, hk=_NOHOOK):
+def _layer_v5(info, blk, lst, x, mask, lengths, hk=_NOHOOK, block=WHOLE):
     H = info.num_head
     att, ffn = blk["att"], blk["ffn"]
     x = hk("pre_att", x=x)["x"]
     xx = B.layer_norm(x, blk["ln1"]["w"], blk["ln1"]["b"], LN_EPS)
     xx = hk("post_att_layer_norm", x=xx)["x"]
     xx = hk("pre_att_token_shift", x=xx)["x"]
-    sh = lst["att_shift"]
+    sh = block.previous(xx, lst["att_shift"])
     kx, vx, rx, gx = (B.token_shift(xx, sh, att["mix_" + s], reversed_mix=False)
                       for s in "kvrg")
     t = hk("post_att_token_shift", kx=kx, vx=vx, rx=rx, gx=gx)
@@ -441,27 +474,27 @@ def _layer_v5(info, blk, lst, x, mask, lengths, hk=_NOHOOK):
     g = att["Wg"].matmul(t["gx"])
     t = hk("post_att_linear", k=k, v=v, r=r, g=g)
     t = hk("pre_att_time_mix", k=t["k"], v=t["v"], r=t["r"], g=t["g"])
-    y, wkv = _wkv5(lst["wkv"], _heads(t["r"], H), _heads(t["k"], H), _heads(t["v"], H),
-                   att["time_first"], att["time_decay"], mask)
+    y, wkv = block.wkv(info.version, lst["wkv"], _heads(t["r"], H), _heads(t["k"], H),
+                       _heads(t["v"], H), att["time_first"], att["time_decay"], mask)
     y = B.group_norm(_flat(y), att["gn"]["w"], att["gn"]["b"], H, GN_EPS)
     x = _att_out(att, x, _att_gate(y, t["g"], hk), hk)
 
     x = hk("pre_ffn", x=x)["x"]
     xx2 = B.layer_norm(x, blk["ln2"]["w"], blk["ln2"]["b"], LN_EPS)
     xx2 = hk("post_ffn_layer_norm", x=xx2)["x"]
-    out, ffn_shift = _ffn(ffn, xx2, lst["ffn_shift"], lengths, False, hk)
+    out, ffn_shift = _ffn(ffn, xx2, block.previous(xx2, lst["ffn_shift"]), lengths, False, hk)
     new = {"att_shift": B.update_shift_state(xx, lengths, sh), "wkv": wkv,
            "ffn_shift": ffn_shift}
     return hk("post_ffn", x=x + out)["x"], new
 
 
-def _layer_v4(info, blk, lst, x, mask, lengths, hk=_NOHOOK):
+def _layer_v4(info, blk, lst, x, mask, lengths, hk=_NOHOOK, block=WHOLE):
     att, ffn = blk["att"], blk["ffn"]
     x = hk("pre_att", x=x)["x"]
     xx = B.layer_norm(x, blk["ln1"]["w"], blk["ln1"]["b"], LN_EPS)
     xx = hk("post_att_layer_norm", x=xx)["x"]
     xx = hk("pre_att_token_shift", x=xx)["x"]
-    sh = lst["att_shift"]
+    sh = block.previous(xx, lst["att_shift"])
     kx, vx, rx = (B.token_shift(xx, sh, att["mix_" + s], reversed_mix=False) for s in "kvr")
     t = hk("post_att_token_shift", kx=kx, vx=vx, rx=rx)
     t = hk("pre_att_linear", kx=t["kx"], vx=t["vx"], rx=t["rx"])
@@ -471,14 +504,14 @@ def _layer_v4(info, blk, lst, x, mask, lengths, hk=_NOHOOK):
     t = hk("post_att_linear", k=k, v=v, r=r)
     t = hk("pre_att_time_mix", k=t["k"], v=t["v"], r=t["r"])
     state4 = torch.stack([lst["aa"], lst["bb"], lst["pp"]], dim=-1)
-    y, state4 = wkv4_scan(state4, t["k"], t["v"], t["r"], att["time_first"],
+    y, state4 = block.wkv(info.version, state4, t["k"], t["v"], t["r"], att["time_first"],
                           att["time_decay"], mask)
     x = _att_out(att, x, hk("post_att_time_mix", x=y)["x"], hk)
 
     x = hk("pre_ffn", x=x)["x"]
     xx2 = B.layer_norm(x, blk["ln2"]["w"], blk["ln2"]["b"], LN_EPS)
     xx2 = hk("post_ffn_layer_norm", x=xx2)["x"]
-    out, ffn_shift = _ffn(ffn, xx2, lst["ffn_shift"], lengths, False, hk)
+    out, ffn_shift = _ffn(ffn, xx2, block.previous(xx2, lst["ffn_shift"]), lengths, False, hk)
     new = {"att_shift": B.update_shift_state(xx, lengths, sh), "aa": state4[..., 0],
            "bb": state4[..., 1], "pp": state4[..., 2], "ffn_shift": ffn_shift}
     return hk("post_ffn", x=x + out)["x"], new

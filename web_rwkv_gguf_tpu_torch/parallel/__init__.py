@@ -6,10 +6,11 @@ holding its shard, with explicit ``torch.distributed`` collectives
 (``sharding.py``). Quantized weights are cut over ``model`` (column- and
 row-parallel pairs, ``tensor.py``), recurrent state over ``data`` with
 the lanes and over ``model`` with the heads, and the decode's layer
-stack over ``pp`` stages (``decode_pp.py``). ``launch.py`` starts the
-ranks of one host. The JAX package's sequence-parallel prefill
-(``sequence.py``) and GPipe prefill (``pipeline.py``) are not ported
-yet.
+stack over ``pp`` stages (``decode_pp.py``). A chunk's layer stack may
+also run as a GPipe pipeline of microbatches over the stages
+(``pipeline.py``), and a long chunk's tokens may be cut over the ranks
+(``sequence.py``, the sequence-parallel prefill). ``launch.py`` starts
+the ranks of one host.
 """
 
 from .sharding import (  # noqa: F401
@@ -21,7 +22,9 @@ from .sharding import (  # noqa: F401
     shard_params,
     shard_state,
 )
+from .sequence import make_seq_parallel_prefill  # noqa: F401
 from .tensor import make_tp_forward, make_tp_head, shard_params_tp  # noqa: F401
+from .pipeline import make_pipeline_forward, pipeline_state  # noqa: F401
 from .decode_pp import (  # noqa: F401
     PipelinedDecoder,
     greedy_scan_reference,

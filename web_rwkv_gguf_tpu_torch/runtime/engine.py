@@ -36,6 +36,32 @@ the state by ``parallel.shard_state`` (lanes on ``data``, heads on
 ``model``), and ``infer`` returns the whole ``RnnOutput`` on every rank.
 Under a mesh there is no dense copy, no unrolling and no whole-stack
 block: decode runs the per-layer kernels.
+
+More layouts over the mesh's ``model`` axis (the JAX package's
+engine.py:331-371, 489-578):
+
+- ``pipeline_microbatches=M``: the ranks of ``model`` are pipeline
+  stages (``parallel/pipeline.py``). A rank holds its stage's ``L / S``
+  layers of the weights and of its lanes' state, and the embedding and
+  head whole; every chunk, ``generate``'s decode steps included, runs
+  through the pipeline as M microbatches of the rank's lanes.
+- ``seq_parallel=True``: chunks of at least ``seq_parallel_min_t``
+  tokens whose lanes are all full and whose T divides by the ``model``
+  ranks × 16 run as the sequence-parallel prefill
+  (``parallel/sequence.py``), each rank a block of the tokens. The
+  weights are whole on every rank and the state is replicated over
+  ``model``, so every other chunk runs the per-layer forward on them,
+  each rank of ``model`` the same lanes.
+- both: the weights are whole on every rank and the state is the
+  pipeline's. A chunk that qualifies runs the sequence-parallel prefill
+  on the stages' state gathered into every layer, and each rank keeps
+  its stage's layers of the result; every other chunk runs through the
+  pipeline on views of the stage's layers (the JAX Engine's routing).
+
+Both take ``tp_mode`` and ignore it for the weights (the JAX Engine
+hands its tensor-parallel params to either and computes the same);
+neither takes hooks. ``rescale`` holds on both (the JAX Engine drops it
+there: ROADMAP, reference faults).
 """
 
 from __future__ import annotations
@@ -51,7 +77,10 @@ from ..models.generate import make_generator, make_sampler
 from ..models.info import ModelInfo, ModelVersion
 from ..models.loader import dense_cache_bytes, densify_matrices, prepare_decode
 from ..ops.cuda.layer7 import MAX_SCAN_BATCH
-from ..parallel.sharding import all_gather, data_sharding, gather_state, shard_heads, shard_state
+from ..ops.wkv_chunked import CHUNK
+from ..parallel.pipeline import run_pipeline, stage_layers, stage_params
+from ..parallel.sequence import make_seq_parallel_prefill
+from ..parallel.sharding import all_gather, data_sharding, gather_state, shard_heads
 from ..parallel.tensor import TP_MODES, LocalParams, place_params, tp_head
 from .scheduler import RnnInput, RnnInputBatch, RnnOption
 
@@ -152,31 +181,61 @@ def _split_rows(logits: np.ndarray, counts: list[int]) -> RnnOutput:
     return RnnOutput(out)
 
 
-def _check_mesh_options(mesh, tp_mode, seq_parallel, pipeline_microbatches):
-    """Raise for an Engine's mesh options that it does not take."""
+# the weights of a mesh Engine by its options: a tensor-parallel plan
+# (``tp_mode``), a pipeline stage's layers, or the whole model on every rank
+# (sequence parallelism, alone or beside the pipeline)
+PIPELINE, SEQUENCE, PIPELINE_SEQUENCE = "pipeline", "sequence", "pipeline+sequence"
+
+
+def _mesh_plan(mesh, tp_mode, seq_parallel, pipeline_microbatches, num_batch, hooks) -> str:
+    """The placement of an Engine's weights under ``mesh`` (None without
+    one); raises for options it does not take, with the JAX Engine's errors
+    for the JAX Engine's bad cases (engine.py:331-371 of the JAX package).
+    ``tp_mode`` places the weights of a plain mesh Engine only: a pipeline
+    Engine holds its stage's layers, a sequence-parallel one (with the
+    pipeline or without) the whole model (each computes what the JAX
+    Engine computes with either ``tp_mode``, tests/test_torch_pipeline.py)."""
     if tp_mode not in TP_MODES:
         raise EngineError(f"unknown tp_mode {tp_mode!r}")
-    if seq_parallel:
-        raise UnsupportedFeature(
-            "Engine(seq_parallel=) runs parallel/sequence.py's prefill, which the port "
-            "does not have yet (it comes with the GPipe prefill, parallel/pipeline.py)")
+    for on, what in ((seq_parallel, "seq_parallel"),
+                     (pipeline_microbatches, "pipeline_microbatches")):
+        if on and mesh is None:
+            raise EngineError(f"{what} requires a mesh")
+        if on and hooks:
+            raise UnsupportedFeature(f"hooks are not supported on the {what} path")
     if pipeline_microbatches:
-        raise UnsupportedFeature(
-            "Engine(pipeline_microbatches=) runs parallel/pipeline.py's GPipe prefill, "
-            "which the port does not have yet")
+        if num_batch % pipeline_microbatches:
+            raise EngineError("num_batch must divide by microbatches")
+        lanes = data_sharding(mesh, num_batch)
+        if (lanes.stop - lanes.start) % pipeline_microbatches:
+            raise EngineError("a data rank's lanes must divide by microbatches")
+        return PIPELINE_SEQUENCE if seq_parallel else PIPELINE
+    if mesh is None:
+        return None
+    return SEQUENCE if seq_parallel else tp_mode
 
 
-def _placed(params, mesh, info, tp_mode) -> LocalParams:
-    """This rank's weights under ``tp_mode``: ``params`` as they are where
-    they were placed on ``mesh`` already (by ``shard_params`` or
-    ``shard_params_tp``, as an ``EnginePool`` shares them), else placed
-    now."""
+def _placed(params, mesh, info, plan) -> LocalParams:
+    """This rank's weights under ``plan`` (:func:`_mesh_plan`): ``params``
+    as they are where they were placed on ``mesh`` by that plan already (as
+    an ``EnginePool`` shares them), else placed now: the tensor-parallel
+    plans by ``parallel.tensor.place_params``, a pipeline stage's layers by
+    ``parallel.pipeline.stage_params``, a sequence-parallel Engine's
+    whole model without the whole-stack blocks (its pipeline, where it has
+    one, runs on views of the stage's layers)."""
     if isinstance(params, LocalParams):
-        if params.mesh is not mesh or params.plan != tp_mode:
-            raise EngineError(f"params were placed for tp_mode {params.plan!r} on another "
-                              f"mesh or plan than {tp_mode!r}")
+        if params.mesh is not mesh or params.plan != plan:
+            raise EngineError(f"params were placed for {params.plan!r} on another "
+                              f"mesh or plan than {plan!r}")
         return params
-    return place_params(params, mesh, info, tp_mode)
+    if plan in TP_MODES:
+        return place_params(params, mesh, info, plan)
+    if plan == PIPELINE:
+        out = LocalParams(stage_params(params, info, mesh))
+    else:
+        out = LocalParams({k: v for k, v in params.items() if k not in ("mega7", "mega56")})
+    out.mesh, out.plan, out.info, out.head_sharded = mesh, plan, info, False
+    return out
 
 
 def _trim_stop(seqs: list[list[int]], max_tokens: int, stop_tokens: set[int]):
@@ -197,7 +256,13 @@ class Engine:
     ``parallel.Mesh``) the engine serves this rank's shard of the lanes
     and weights on the mesh's device, ``tp_mode`` choosing the plan (see
     the module docstring); ``params`` may then also be placed already
-    (``parallel.shard_params`` / ``shard_params_tp`` on the same mesh)."""
+    (``parallel.shard_params`` / ``shard_params_tp`` on the same mesh, or
+    an ``EnginePool``'s). ``seq_parallel=True`` runs chunks of at least
+    ``seq_parallel_min_t`` tokens, every lane full, through the
+    sequence-parallel prefill (``parallel/sequence.py``);
+    ``pipeline_microbatches=M`` runs every chunk, decode included, through
+    the GPipe layer pipeline (``parallel/pipeline.py``), lane ``m·B/M +
+    b`` as microbatch m's slot b."""
 
     def __init__(
         self,
@@ -216,20 +281,29 @@ class Engine:
         mesh=None,
         tp_mode: str = "gspmd",
         seq_parallel: bool = False,
+        seq_parallel_min_t: int = 64,
         pipeline_microbatches: int | None = None,
         device="cuda",
     ):
-        _check_mesh_options(mesh, tp_mode, seq_parallel, pipeline_microbatches)
+        self.plan = _mesh_plan(mesh, tp_mode, seq_parallel, pipeline_microbatches, num_batch,
+                               hooks)
         self.info = info
         self.mesh = mesh
+        self._spf = self._pp_m = None
         if mesh is not None:
             # this rank's weights and lanes; no dense copy, no unrolling and
             # no whole-stack blocks (the JAX engine's mesh path)
             self.device = mesh.device
             self._lanes = data_sharding(mesh, num_batch)
-            self.params = _placed(params, mesh, info, tp_mode)
+            self.params = _placed(params, mesh, info, self.plan)
             self._info_fwd = self.params.info
             self.params_quantized = self._params_prefill = None
+            if pipeline_microbatches:
+                self._pp_m = pipeline_microbatches
+                self._stage = stage_layers(info, mesh)
+            if seq_parallel:
+                self._spf = make_seq_parallel_prefill(info, mesh, rescale=rescale)
+                self._sp_min_t = seq_parallel_min_t
         else:
             self.device = torch.device(device)
             self._lanes, self._info_fwd = slice(0, num_batch), info
@@ -267,7 +341,37 @@ class Engine:
         if self._initial_wkv is not None:
             wkv = torch.as_tensor(np.asarray(self._initial_wkv, np.float32), device=device)
             state["wkv"] = wkv[:, None].expand_as(state["wkv"]).clone()
-        return state if self.mesh is None else shard_state(state, self.mesh)
+        if self.mesh is None:
+            return state
+        return self._to_rank({k: a[:, self._lanes] for k, a in state.items()})
+
+    def _to_rank(self, state: dict) -> dict:
+        """A whole ``[L, b, ...]`` state of some of this rank's lanes as the
+        rank holds it, on its device: a pipeline stage's layers, the
+        sequence-parallel Engine's whole (replicated over ``model``), else
+        its WKV heads (``parallel.sharding.shard_heads``)."""
+        if self.plan in TP_MODES:
+            return shard_heads(state, self.mesh)
+        first, end = self._layers()
+        return {k: a[first:end].to(self.device).contiguous() for k, a in state.items()}
+
+    def _gather_state(self, part: dict) -> dict:
+        """The inverse of :meth:`_to_rank` over the mesh: every layer of
+        every data rank's lanes of ``part``, on every rank."""
+        if self.plan in TP_MODES:
+            return gather_state(part, self.mesh)
+        if self._pp_m:
+            part = self._all_layers(part)
+        return {k: all_gather(self.mesh, "data", a, dim=1) for k, a in part.items()}
+
+    def _layers(self) -> tuple[int, int]:
+        """``(first, end)``: the global layers of the state this rank holds."""
+        return self._stage if self._pp_m else (0, self.info.num_layer)
+
+    def _all_layers(self, part: dict) -> dict:
+        """A pipeline stage's layers of a state gathered into every layer,
+        stage by stage over ``model``."""
+        return {k: all_gather(self.mesh, "model", a, dim=0) for k, a in part.items()}
 
     # -- state management (ref: State trait, src/runtime/model.rs:78-103) --
 
@@ -287,18 +391,18 @@ class Engine:
         # it holds another lane); the owner's is taken
         part = {k: (a[:, b] if b is not None else torch.zeros_like(a[:, 0]))[:, None]
                 for k, a in self.state.items()}
-        whole = gather_state(part, self.mesh)
+        whole = self._gather_state(part)
         owner = batch // (self._lanes.stop - self._lanes.start)
         return {k: a[:, owner].cpu().numpy().copy() for k, a in whole.items()}
 
     def load_state(self, batch: int, snapshot: dict):
         """Restore one lane's state from :meth:`back_state` (under a mesh,
-        the rank that holds the lane keeps its heads' part)."""
+        the rank that holds the lane keeps its part)."""
         if self.mesh is not None:
             b = self._local_lane(batch)
             if b is not None:
-                part = shard_heads({k: torch.as_tensor(np.asarray(v))[:, None]
-                                    for k, v in snapshot.items()}, self.mesh)
+                part = self._to_rank({k: torch.as_tensor(np.asarray(v))[:, None]
+                                      for k, v in snapshot.items()})
                 for k, a in self.state.items():
                     a[:, b] = part[k][:, 0].to(a.device)
             return
@@ -354,19 +458,56 @@ class Engine:
             np.stack(vecs)).to(self.device)
         return embeds.view(self.num_batch, T, -1)
 
+    def _sp_ok(self, chunk, lens: list[int]) -> bool:
+        """Whether a chunk takes the sequence-parallel prefill: no
+        embeddings, at least ``seq_parallel_min_t`` tokens, T divisible by
+        the ``model`` ranks × 16, and every lane full (the JAX Engine's
+        rule, engine.py:489-497)."""
+        T = chunk.shape[1]
+        return (self._spf is not None and not isinstance(chunk, torch.Tensor)
+                and T >= self._sp_min_t and T % (self.mesh.shape["model"] * CHUNK) == 0
+                and all(n == T for n in lens))
+
+    def _run(self, params, state, tokens, ln, embeds=None, sp=False):
+        """The forward of this rank's lanes (ids ``[b, T]`` or ``embeds``
+        ``[b, T, C]``, lengths ``ln`` ``[b]``) by the engine's plan:
+        ``(x [b, T, C], new state)``. ``sp`` runs the sequence-parallel
+        prefill, its x gathered over ``model`` (on a pipeline Engine, on
+        the stages' state gathered into every layer, this stage's layers of
+        the result kept); a pipeline Engine's other chunks run as its M
+        microbatches (the JAX Engine's order, engine.py:556-578)."""
+        if sp:
+            whole = self._all_layers(state) if self._pp_m else state
+            x, whole = self._spf(params, whole, tokens)
+            first, end = self._layers()
+            return (all_gather(self.mesh, "model", x, dim=1),
+                    {k: a[first:end] for k, a in whole.items()})
+        if self._pp_m:
+            M = self._pp_m
+            b, T = ln.shape[0], (tokens if embeds is None else embeds).shape[1]
+            st = {k: a.unflatten(1, (M, b // M)) for k, a in state.items()}
+            x, st = run_pipeline(
+                self.info, self.mesh, params, st,
+                None if tokens is None else tokens.reshape(M, b // M, T), ln.reshape(M, -1),
+                rescale=self.rescale,
+                input_embeds=None if embeds is None else embeds.unflatten(0, (M, b // M)))
+            return x.flatten(0, 1), {k: a.flatten(1, 2) for k, a in st.items()}
+        return forward_chunk(self._info_fwd, params, state, tokens, ln, rescale=self.rescale,
+                             hooks=self.hooks, input_embeds=embeds)
+
     def _forward(self, chunk, lens: list[int]):
         """The chunk's forward (ids ``[B, T]`` or embeddings ``[B, T, C]``,
         from :meth:`_chunk_tokens`) on the params its length T routes it
         to: the dense prefill copy from ``prefill_dense_min_t`` tokens on,
-        where the engine has one (engine.py:483-487 of the JAX package)."""
+        where the engine has one (engine.py:483-487 of the JAX package);
+        the sequence-parallel prefill where :meth:`_sp_ok` says so."""
         params = self.params
         if self._params_prefill is not None and chunk.shape[1] >= self._prefill_min_t:
             params = self._params_prefill
         ln = torch.as_tensor(lens, dtype=torch.long, device=self.device)[self._lanes]
         tokens, embeds = ((None, chunk[self._lanes]) if isinstance(chunk, torch.Tensor)
                           else (torch.as_tensor(chunk[self._lanes], device=self.device), None))
-        x, state = forward_chunk(self._info_fwd, params, self.state, tokens, ln,
-                                 rescale=self.rescale, hooks=self.hooks, input_embeds=embeds)
+        x, state = self._run(params, self.state, tokens, ln, embeds, self._sp_ok(chunk, lens))
         return x, ln, state, params
 
     def _forward_last(self, chunk, lens: list[int]):
@@ -395,8 +536,7 @@ class Engine:
         """One decode step under a mesh, as ``make_generator(step=)`` takes
         it: every lane's token ``[B, 1]`` and length ``[B]`` in, every
         lane's logits ``[B, V]`` and this rank's new state out."""
-        x, state = forward_chunk(self._info_fwd, params, state, token[self._lanes],
-                                 lens[self._lanes], rescale=self.rescale, hooks=self.hooks)
+        x, state = self._run(params, state, token[self._lanes], lens[self._lanes])
         return self._gather_lanes(self._head(params, x[:, 0])), state
 
     def _row_logits(self, x, rows_b: list[int], rows_t: list[int], counts: list[int]):
@@ -433,8 +573,10 @@ class Engine:
             return self._empty()
         tokens = self._chunk_tokens(input.batches, plan)
 
-        # an embedding chunk takes the general path, as in the JAX engine
-        if (not isinstance(tokens, torch.Tensor)
+        # an embedding chunk, a pipeline Engine's and a sequence-parallel
+        # chunk take the general path, as in the JAX engine
+        if (not isinstance(tokens, torch.Tensor) and not self._pp_m
+                and not self._sp_ok(tokens, lens)
                 and all(p.option in (None, RnnOption.LAST) for p in plan)):
             # one head call on every lane's last row; only the lanes that
             # finish their prompt this chunk are fetched
@@ -481,6 +623,17 @@ class Engine:
         inp = RnnInput([RnnInputBatch(list(p)) for p in prompts],
                        self.token_chunk_size)
         generator = torch.Generator(device=self.device).manual_seed(seed)
+        sample = make_sampler(temperature, top_k, top_p)
+        if self._pp_m or self._spf is not None:
+            # the JAX Engine's non-lean prefill (engine.py:649): infer() a
+            # chunk at a time, each lane's last logits row
+            last = [None] * self.num_batch
+            while inp.num_token:
+                for b, rows in enumerate(self.infer(inp).batches):
+                    if len(rows):
+                        last[b] = rows[-1]
+            logits = torch.from_numpy(np.stack(last)).to(self.device)
+            return sample(logits, generator)[:, None], generator
         logits = None
         while inp.num_token:
             plan = inp.plan()
@@ -492,7 +645,6 @@ class Engine:
             ran = torch.tensor([p.len > 0 for p in plan], device=self.device)
             logits = lg if logits is None else torch.where(ran[:, None], lg, logits)
             inp.step(plan)
-        sample = make_sampler(temperature, top_k, top_p)
         return sample(logits, generator)[:, None], generator
 
     def generate(
@@ -566,8 +718,10 @@ class EnginePool:
     dense copy, that copy is built once, before the engines, and every
     engine holds the same one (a second copy never exists, where the JAX
     pool builds one per engine and keeps the first). ``engine_kwargs`` go
-    to each :class:`Engine`; with ``mesh=`` the weights are placed once
-    and every engine serves its group's lanes across the mesh."""
+    to each :class:`Engine`; with ``mesh=`` the weights are placed once (by
+    ``tp_mode``, or a pipeline stage's or the whole model's for
+    ``pipeline_microbatches`` and ``seq_parallel``) and every engine serves
+    its group's lanes across the mesh."""
 
     def __init__(self, info: ModelInfo, params, num_lanes: int, *,
                  lanes_per_engine: int | None = None, device="cuda", **engine_kwargs):
@@ -589,10 +743,11 @@ class EnginePool:
             # the weights placed once, every engine holding this rank's
             # shard (under a mesh there is no dense copy and no decode
             # preparation: the JAX pool's engine.py:807)
-            _check_mesh_options(mesh, engine_kwargs.get("tp_mode", "gspmd"),
-                                engine_kwargs.get("seq_parallel"),
-                                engine_kwargs.get("pipeline_microbatches"))
-            params = _placed(params, mesh, info, engine_kwargs.get("tp_mode", "gspmd"))
+            plan = _mesh_plan(mesh, engine_kwargs.get("tp_mode", "gspmd"),
+                              engine_kwargs.get("seq_parallel"),
+                              engine_kwargs.get("pipeline_microbatches"), first,
+                              engine_kwargs.get("hooks"))
+            params = _placed(params, mesh, info, plan)
             self.params_quantized = prefill = None
         else:
             params, self.params_quantized, prefill = _dense_weights(

@@ -88,10 +88,12 @@ def device_sync(tree):
     """Wait until the work behind ``tree`` (a tensor, or dicts, lists and
     tuples of them) has run: synchronise the device of its first tensor,
     then fetch one element of it to the host (on the CPU only the fetch).
-    Returns that element as numpy, or ``tree`` where it holds no tensor."""
+    Returns that element as numpy (a bf16 one as f32, which numpy lacks),
+    or ``tree`` where it holds no tensor."""
     leaf = _first_tensor(tree)
     if leaf is None:
         return tree
     if leaf.device.type == "cuda":
         torch.cuda.synchronize(leaf.device)
-    return leaf.reshape(-1)[:1].cpu().numpy()
+    first = leaf.reshape(-1)[:1].cpu()
+    return (first.float() if first.dtype == torch.bfloat16 else first).numpy()
