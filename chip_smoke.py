@@ -156,7 +156,9 @@ _V6_MATRICES = (("att", "Wr"), ("att", "Wk"), ("att", "Wv"), ("att", "Wg"), ("at
 # decoding on dense weights; "pool", an EnginePool of POOL_LANES lanes;
 # "state_file", a lane through a state file; "initial_state", a file's
 # time_state; "snapshot", a .rwkvz snapshot; "safetensors", a .safetensors
-# file of the model. The model surface: "hooks", the
+# file of the model. "graph": the compiled step (CUDA graph replays) against
+# the eager step on the Engine's B=4 traffic, the B=1 serve and a pool of
+# POOL_LANES lanes. The model surface: "hooks", the
 # Engine with taps (RWKV-7: every tap observed, a hooked chunk against the
 # unhooked one bit for bit, the hooked decode counted and profiled) and the
 # modifying pair of the named example (HOOK_EXAMPLES) against the CPU;
@@ -176,7 +178,7 @@ MODELS = {
                          ("ffn", "Wk"), ("ffn", "Wv")),
                wkv=("att_core7_step", "wkv7_scan", None), mega=("mega7", "layer_scan7"),
                mega_batches=(4, 1, 16), dense_compare=True, pool=True, state_file=True,
-               initial_state=True, hooks="othello", embeds=True, vision=True, direct=True,
+               initial_state=True, graph=True, hooks="othello", embeds=True, vision=True, direct=True,
                lora_layer0=True, apps=("gen", "batch", "chat", "ppl", "serde", "inspect",
                                        "othello", "trace", "native", "convert", "bench")),
     # RWKV-6 World 1.6B widths (BlinkDL's RWKV-x060-World-1B6: L=24, C=2048,
@@ -190,7 +192,7 @@ MODELS = {
                            rank_tm=32, rank_td=64),
                matrices=_V6_MATRICES, wkv=("wkv6_scan", "wkv6_scan", None),
                mega=("mega56", "layer_scan56"), mega_batches=(4, 1, 16), dense_compare=True,
-               dense8=True, hooks="puzzle15", apps=("puzzle15",)),
+               dense8=True, graph=True, hooks="puzzle15", apps=("puzzle15",)),
     # RWKV-5 World 0.4B widths (BlinkDL's RWKV-5-World-0.4B-v2: L=24, C=1024,
     # head 64, hidden int(3.5·C // 32 · 32) from RWKV-LM's v5 train.py); the
     # WKV is RWKV-6's with the static decay broadcast over the tokens
@@ -209,7 +211,7 @@ MODELS = {
                matrices=(("att", "Wr"), ("att", "Wk"), ("att", "Wv"), ("att", "Wo"),
                          ("ffn", "Wk"), ("ffn", "Wv"), ("ffn", "Wr")),
                wkv=("wkv4_scan",) * 3, mega=("mega56", "layer_scan56"),
-               mega_batches=(4, 1, 16), state_file=True),
+               mega_batches=(4, 1, 16), state_file=True, graph=True),
     # RWKV-7 0.1B widths in llama.cpp's Q5_K_M placement, made uniform
     # across layers as the Q4_K_M one is (Q5_K layers, Q6_K head)
     # Its card-vs-CPU model is seed 42's, not seed + 1's: seed 41's model
@@ -269,7 +271,7 @@ MODELS = {
                   matrices=(("att", "Wr"), ("att", "Wk"), ("att", "Wv"), ("att", "Wo"),
                             ("ffn", "Wk"), ("ffn", "Wv")),
                   wkv=("att_core7_step", "wkv7_scan", None), mega=None, mega_batches=(),
-                  snapshot=True, apps=("gen_nf4",)),
+                  snapshot=True, graph=True, apps=("gen_nf4",)),
     # RWKV-6 World 1.6B widths requantized as --quant int8 does
     "v6i8": dict(make="make_v6_gguf", seed=80, quantize=None, quant="INT8",
                  kinds=("int8", "dense"),
@@ -1738,16 +1740,16 @@ def load(models, raw, spec, device):
     return models.load_model(GgufFile(raw), quant=quant, device=device)
 
 
-def serve(torch, models, info, params, prompts, steps):
+def serve(torch, models, info, params, prompts, gen):
     """Answer each prompt at batch 1: the prompt prefilled as one chunk
     through forward_chunk, its last logits through logits_head and a
-    greedy pick, then ``steps`` greedy tokens from make_generator.
-    Returns the tokens per request and the seconds of prefill and of
-    generation."""
+    greedy pick, then the greedy tokens of ``gen`` (a make_generator
+    segment; on the card a CUDA graph, captured at its first call).
+    Returns the tokens per request, the seconds of prefill and of
+    generation, and each request's prompt logits, last logits and state."""
     dev = params["emb"].device
     sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
-    gen = models.make_generator(info, steps=steps)
-    out, t_prompt, t_gen = [], 0.0, 0.0
+    out, t_prompt, t_gen, finals = [], 0.0, 0.0, []
     for prompt in prompts:
         sync()
         t0 = time.perf_counter()
@@ -1765,25 +1767,30 @@ def serve(torch, models, info, params, prompts, steps):
         if not (torch.isfinite(logits).all() and torch.isfinite(last).all()
                 and all(torch.isfinite(v).all() for v in state.values())):
             raise AssertionError("non-finite logits or state")
-        if tuple(logits.shape) != (1, info.num_vocab) or tuple(toks.shape) != (1, steps):
+        if tuple(logits.shape) != (1, info.num_vocab) or toks.shape[0] != 1:
             raise AssertionError(f"unexpected shapes {logits.shape} {toks.shape}")
         out.append([int(first)] + toks[0].tolist())
+        finals.append((logits, last, {k: v.clone() for k, v in state.items()}))
         t_prompt += t1 - t0
         t_gen += t2 - t1
-    return out, t_prompt, t_gen
+    return out, t_prompt, t_gen, finals
 
 
-def profile(torch, fn, per):
+def profile(torch, fn, per, warm=True, host=True):
     """Device kernel time of one ``fn()`` call divided by ``per``, in all
     and by kernel, from torch.profiler (device-side kernel events only, so
     no time is counted twice); None where the profiler saw no device time.
     Also the wall µs under the profiler, divided by ``per``. ``fn`` runs
-    once before, unprofiled."""
+    once before, unprofiled, unless ``warm`` is False (it ran already).
+    ``host`` False records the device's activity alone (the same kernel
+    times, without the cost of tracing every host op of an eager step)."""
     from torch.profiler import ProfilerActivity, profile as torch_profile
 
-    fn()
+    if warm:
+        fn()
     torch.cuda.synchronize()
-    with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    activities = [ProfilerActivity.CPU] * host + [ProfilerActivity.CUDA]
+    with torch_profile(activities=activities) as prof:
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
@@ -2977,21 +2984,22 @@ def run(np, torch, files) -> int:
             f"{models.dense_cache_bytes(params)}), prompt chunks T={Ts}, one decode step in "
             f"layer_scan56's dense slot; tokens {toks[0]}")
 
-    def decode_segments(info, engines, groups, steps):
+    def decode_segments(info, engines, groups, steps, host=True):
         """Wall seconds and device µs a step of one decode segment of
-        ``steps`` steps on each engine, dispatched engine by engine before
+        ``steps`` greedy steps on each engine (its own cached generator: a
+        CUDA graph on a graph engine), dispatched engine by engine before
         anything is read back (as ``EnginePool.generate`` dispatches them),
         each from its own prefill of its prompts."""
-        segment = models.make_generator(info, steps=steps)
         starts = []
         for e, prompts in zip(engines, groups):
             e.reset_state()
             first, gen = e._gen_prefill(prompts, 0.0, 0, 0.0, 0)
-            starts.append((e.state, first, gen))
+            starts.append((e._generator(steps, 0.0, 0, 0.0, ()), clone_tree(e.state), first,
+                           gen))
 
         def run():
             return [segment(e.params, st, first, gen)[0]
-                    for e, (st, first, gen) in zip(engines, starts)]
+                    for e, (segment, st, first, gen) in zip(engines, starts)]
 
         run()
         torch.cuda.synchronize()
@@ -2999,7 +3007,7 @@ def run(np, torch, files) -> int:
         run()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        busy = profile(torch, run, steps)[0]
+        busy = profile(torch, run, steps, warm=False, host=host)[0]
         return wall, busy
 
     def pool_phase(tag, spec, info, params):
@@ -3261,11 +3269,11 @@ def run(np, torch, files) -> int:
             for _ in range(DECODE_STEPS):
                 want += chunk(1, 1, serve_layers) + head(1)
         form = "unrolled params" if spec.get("grouped") else "loaded params"
-        tokens1, t_prompt, t_gen = counted(
+        gen = models.make_generator(info, steps=DECODE_STEPS)  # captured at its first call
+        tokens1, t_prompt, t_gen, _ = counted(
             f"{tag} serve (B=1, {form})", want,
-            lambda: serve(torch, models, info, serve_params, PROMPTS, DECODE_STEPS))
-        tokens2, t_prompt2, t_gen2 = serve(torch, models, info, serve_params, PROMPTS,
-                                           DECODE_STEPS)
+            lambda: serve(torch, models, info, serve_params, PROMPTS, gen))
+        tokens2, t_prompt2, t_gen2, _ = serve(torch, models, info, serve_params, PROMPTS, gen)
         if tokens1 != tokens2:
             raise AssertionError(f"{tag}: greedy tokens differ between two runs")
         if not all(0 <= t < info.num_vocab for req in tokens1 for t in req):
@@ -3275,8 +3283,9 @@ def run(np, torch, files) -> int:
         log(f"{tag} requests: {len(PROMPTS)} x ({len(PROMPTS[0])} prompt tokens in one chunk "
             f"+ 1 + {DECODE_STEPS} greedy); tokens identical across two runs; first request "
             f"{tokens1[0][:8]}...")
-        log(f"{tag} eager decode at B=1: {n_dec / t_gen2:.2f} tok/s "
-            f"({t_gen2 / n_dec * 1e3:.3f} ms/token; first run {n_dec / t_gen:.2f} tok/s), "
+        log(f"{tag} decode at B=1 (a CUDA graph a segment): {n_dec / t_gen2:.2f} tok/s "
+            f"({t_gen2 / n_dec * 1e3:.3f} ms/token; first run, the capture included, "
+            f"{n_dec / t_gen:.2f} tok/s), "
             f"prompt prefill {t_prompt2 / n_prompt * 1e3:.3f} ms/prompt token (one chunk of "
             f"{len(PROMPTS[0])}), on {smi}")
         dstate = models.init_state(info, 1, device="cuda")
@@ -3365,11 +3374,12 @@ def run(np, torch, files) -> int:
         if [o[:ENGINE_TOKENS] for o in out_t] != out_gen:
             raise AssertionError(f"{tag}: engine greedy tokens differ between two runs")
         # decode alone: the Engine's own prefill, then the decode segment that
-        # generate runs (make_generator on the Engine's prepared params), timed
+        # generate runs (the Engine's cached generator, its graph captured by
+        # the generate calls above), timed
         eng.reset_state()
         first, gen = eng._gen_prefill(engine_prompts, 0.0, 0, 0.0, 0)
-        segment = models.make_generator(info, steps=decode_steps)
-        pre_state = eng.state
+        segment = eng._generator(decode_steps, 0.0, 0, 0.0, ())
+        pre_state = clone_tree(eng.state)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         toks, _, _, _, _ = segment(eng.params, pre_state, first, gen)
@@ -3578,6 +3588,223 @@ def run(np, torch, files) -> int:
         at_1 = spec["wkv"][0]
         want["wkv7_scan" if at_1 == "att_core7_step" else at_1] += len(layers)
         return want
+
+    def graph_pool_mb(graphs):
+        """MB the caching allocator holds in the pools of ``graphs``
+        (``StepGraphs``): their segments in ``torch.cuda.memory_snapshot``."""
+        pools = {tuple(g.pool) for g in graphs}
+        return sum(seg["total_size"] for seg in torch.cuda.memory_snapshot()
+                   if tuple(seg.get("segment_pool_id") or ()) in pools) / 1e6
+
+    def same_tree(a, b, path="") -> list:
+        """The paths where two trees of tensors, arrays, lists and ints differ
+        (values bit for bit, shapes, dtypes)."""
+        if isinstance(a, dict):
+            return ([path] if a.keys() != b.keys()
+                    else [d for k in a for d in same_tree(a[k], b[k], f"{path}.{k}")])
+        if isinstance(a, (list, tuple)):
+            return ([path] if len(a) != len(b)
+                    else [d for i, (x, y) in enumerate(zip(a, b))
+                          for d in same_tree(x, y, f"{path}[{i}]")])
+        if isinstance(a, torch.Tensor):
+            ok = a.dtype == b.dtype and a.shape == b.shape and torch.equal(a, b)
+        elif isinstance(a, np.ndarray):
+            ok = a.dtype == b.dtype and a.shape == b.shape and np.array_equal(a, b)
+        else:
+            ok = a == b
+        return [] if ok else [path]
+
+    def graph_phase(tag, spec, info, params):
+        """The compiled step against the eager one on the same params: the
+        Engine's B=4 traffic (prefill, ENGINE_TOKENS greedy tokens, the FULL
+        infer, each lane's LAST logits), the B=1 serve (PROMPTS, DECODE_STEPS
+        greedy tokens from make_generator; its prefill is forward_chunk,
+        eager in both) and an EnginePool of POOL_LANES lanes, each with
+        ``graph=False`` and by default. For each: tokens, state and logits
+        of the graphs against the eager step's bit for bit; the graphs'
+        launches counted as a main path against the eager run's, by kernel
+        and shape; wall and device µs a decode step and a prompt token, the
+        busy shares; the seconds of warm-up and capture; the graph pool's
+        MB. The Engine's sampled segment: two calls from one state draw
+        other tokens, each the eager segment's."""
+        from web_rwkv_gguf_tpu_torch.runtime import graph as graph_mod
+
+        t_phase = time.perf_counter()
+        B4 = len(ENGINE_LENGTHS)
+        serve_params = models.unroll_params(params) if spec.get("grouped") else params
+        pool_lanes, _ = pool_prompts()
+        pool_groups = [pool_lanes[:16], pool_lanes[16:]]
+        n_serve = sum(len(p) for p in PROMPTS)
+        failures = []
+
+        def counts_of(fn):
+            before = graph_mod.launch_counts()
+            out = fn()
+            torch.cuda.synchronize()
+            delta = graph_mod.count_delta(before, graph_mod.launch_counts())
+            return out, {k: n for k, (n, _) in delta.items()}, {k: dict(c) for k, (_, c)
+                                                                 in delta.items()}
+
+        def engine_traffic(eng):
+            toks = eng.generate(engine_prompts, ENGINE_TOKENS)
+            state = clone_tree(eng.state)
+            inp = runtime.RnnInput([runtime.RnnInputBatch(list(b.tokens), b.option)
+                                    for b in full_inp.batches], ENGINE_CHUNK)
+            full = [o.copy() for o in eng.infer(inp)]
+            return toks, state, full, last_logits(eng, engine_prompts)
+
+        def pool_traffic(pool):
+            toks = pool.generate(pool_lanes, POOL_TOKENS)
+            states = [clone_tree(e.state) for e in pool.engines]
+            return toks, states, [last_logits(e, g) for e, g in zip(pool.engines, pool_groups)]
+
+        def serve_traffic(gen):
+            toks, _, _, finals = serve(torch, models, info, serve_params, PROMPTS, gen)
+            return toks, [f[2] for f in finals], [(f[0], f[1]) for f in finals]
+
+        def prefill_times(engines, groups, n_prompt):
+            def prefill():
+                for e, g in zip(engines, groups):
+                    e.reset_state()
+                    e.generate(g, 1)
+            prefill()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            prefill()
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) / n_prompt * 1e6
+            return wall, profile(torch, prefill, n_prompt, warm=False, host=False)[0]
+
+        def engine_times(engines, groups):
+            n_prompt = sum(len(p) for g in groups for p in g)
+            pre = prefill_times(engines, groups, n_prompt)
+            wall, busy = decode_segments(info, engines, groups, DECODE_STEPS, host=False)
+            return pre, (wall / DECODE_STEPS * 1e6, busy)
+
+        def serve_times(gen):
+            _, _, t_gen, _ = serve(torch, models, info, serve_params, PROMPTS, gen)
+            st = models.init_state(info, 1, device="cuda")
+            tok = torch.tensor([[PROMPTS[0][-1]]], device="cuda")
+            busy = profile(torch, lambda: gen(serve_params, st, tok), DECODE_STEPS, warm=False,
+                           host=False)[0]
+            return None, (t_gen / (len(PROMPTS) * DECODE_STEPS) * 1e6, busy)
+
+        def workloads(graph):
+            """(label, traffic, times, graphs) of each workload on ``graph``."""
+            eng = runtime.Engine(info, params, B4, token_chunk_size=ENGINE_CHUNK, graph=graph,
+                                 device="cuda")
+            yield (f"engine B={B4}", lambda: engine_traffic(eng),
+                   lambda: engine_times([eng], [engine_prompts]), lambda: [eng._graphs], eng)
+            gen = models.make_generator(info, steps=DECODE_STEPS, graph=graph)
+            yield ("serve B=1", lambda: serve_traffic(gen), lambda: serve_times(gen),
+                   lambda: [gen.graphs], None)
+            pool = runtime.EnginePool(info, params, POOL_LANES, token_chunk_size=ENGINE_CHUNK,
+                                      graph=graph, device="cuda")
+            yield (f"pool of {len(pool.engines)} x {pool.group_sizes[0]}",
+                   lambda: pool_traffic(pool), lambda: engine_times(pool.engines, pool_groups),
+                   lambda: [e._graphs for e in pool.engines], None)
+
+        def us(t):
+            return "not measured" if t is None else f"{t:.1f}"
+
+        def busy_share(dev, wall):
+            return "not measured" if dev is None else f"{dev / wall:.3f}"
+
+        engines = {}
+        for (label, traffic, timed, held, eng_e), (_, traffic_g, timed_g, held_g, eng_g) in zip(
+                workloads(False), workloads(None)):
+            t_work = time.perf_counter()
+            out_e, counts_e, shapes_e = counts_of(traffic)
+            path = f"{tag} graph {label}"
+            part = [time.perf_counter()]
+            out_g = counted(path, counts_e, traffic_g)
+            part.append(time.perf_counter())
+            diff = same_tree(out_g, out_e)
+            shapes_ok = {k: dict(c) for k, c in path_shapes[path].items() if c} == shapes_e
+            log(f"{path}: graph against eager: tokens, state and logits "
+                f"{'equal bit for bit' if not diff else 'DIFFER at ' + str(diff[:8])}; "
+                f"launches by kernel {counts_e} equal, by shape "
+                f"{'equal' if shapes_ok else 'DIFFER'}")
+            if diff or not shapes_ok:
+                failures.append(f"{label}: " + ("outputs differ" if diff else "shapes differ"))
+            times = {"eager": timed()}
+            part.append(time.perf_counter())
+            times["graph"] = timed_g()
+            part.append(time.perf_counter())
+            graphs = [g for g in held_g() if g is not None]
+            secs = sum(g.capture_seconds for g in graphs)
+            n_graphs = sum(len(g.graphs) for g in graphs)
+            pre = "; ".join(
+                f"{mode} {us(t[0][0])} wall us, {us(t[0][1])} device us, busy "
+                f"{busy_share(t[0][1], t[0][0])}" for mode, t in times.items() if t[0])
+            log(f"{path} decode a step: " + "; ".join(
+                f"{mode} {t[1][0] / 1e3:.3f} wall ms, {us(t[1][1])} device us, busy "
+                f"{busy_share(t[1][1], t[1][0])}" for mode, t in times.items())
+                + (f"; prefill a prompt token: {pre}" if pre else
+                   f"; prefill {n_serve} prompt tokens on forward_chunk, eager in both")
+                + f"; capture {secs:.3f} s for {n_graphs} graphs on {len(graphs)} engines "
+                f"({secs / len(graphs):.3f} s an engine); graph pool "
+                f"{graph_pool_mb(graphs):.1f} MB; on {smi} ({time.perf_counter() - t_work:.1f} "
+                f"s for both: traffic eager {part[0] - t_work:.1f} s, graph "
+                f"{part[1] - part[0]:.1f} s; timing eager {part[2] - part[1]:.1f} s, graph "
+                f"{part[3] - part[2]:.1f} s)")
+            if eng_g is not None:
+                engines = {"graph": eng_g, "eager": eng_e}
+
+        # the segment as one graph against DECODE_STEPS replays of a one-step
+        # graph (the Engine's cached generators), from one state: tokens and
+        # wall ms a step
+        eng = engines["graph"]
+        eng.reset_state()
+        first, _ = eng._gen_prefill(engine_prompts, 0.0, 0, 0.0, 0)
+        start = clone_tree(eng.state)
+        whole, one = (eng._generator(n, 0.0, 0, 0.0, ()) for n in (DECODE_STEPS, 1))
+
+        def stepwise():
+            tok, st, out = first, start, []
+            for _ in range(DECODE_STEPS):
+                toks, _, st, _, _ = one(eng.params, st, tok, None)
+                out.append(toks)
+                tok = toks
+            return torch.cat(out, dim=1)
+
+        walls = {}
+        for label, fn in (("one graph", lambda: whole(eng.params, start, first, None)[0]),
+                          ("replays of one step", stepwise)):
+            fn()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            toks = fn()
+            torch.cuda.synchronize()
+            walls[label] = ((time.perf_counter() - t0) / DECODE_STEPS * 1e3, toks.clone())
+        same = torch.equal(walls["one graph"][1], walls["replays of one step"][1])
+        log(f"{tag} graph engine B={B4} decode, {DECODE_STEPS} steps: " + "; ".join(
+            f"{label} {ms:.3f} wall ms a step" for label, (ms, _) in walls.items())
+            + f"; tokens {'equal' if same else 'DIFFER'}; on {smi}")
+        if not same:
+            failures.append("the segment against its steps")
+
+        # the sampled segment: the Engine's cached generator, two calls from
+        # one state with one torch.Generator
+        draws = {}
+        for mode, eng in engines.items():
+            eng.reset_state()
+            first, _ = eng._gen_prefill(engine_prompts, 0.0, 0, 0.0, 0)
+            run = eng._generator(DECODE_STEPS, 1.0, 0, 0.9, ())
+            start, rng = clone_tree(eng.state), torch.Generator(device="cuda").manual_seed(5)
+            draws[mode] = [run(eng.params, start, first, rng)[0].clone() for _ in range(2)]
+            draws[mode].append(rng.get_state())
+        advanced = not torch.equal(draws["graph"][0], draws["graph"][1])
+        diff = same_tree(draws["graph"], draws["eager"])
+        log(f"{tag} graph sampled segment (temperature 1, top_p 0.9, {DECODE_STEPS} steps, "
+            f"B={B4}): two calls from one state draw {'other' if advanced else 'THE SAME'} "
+            f"tokens; tokens and generator state "
+            f"{'equal' if not diff else 'DIFFER from'} the eager segment's")
+        if not advanced or diff:
+            failures.append("the sampled segment")
+        log(f"{tag} graph phase: {time.perf_counter() - t_phase:.1f} s")
+        if failures:
+            raise AssertionError(f"{tag} graph phase: {failures}")
 
     def hooks_phase(tag, spec, info, params):
         """RWKV-7: observer taps on every name of HOOK_NAMES: a T=64 chunk
@@ -4286,6 +4513,8 @@ def run(np, torch, files) -> int:
                 or any(blocks[p][n].kind != layer_kind for p, n in spec["matrices"])):
             raise AssertionError(f"{tag}: the model did not load as {spec['kinds']}")
         drive(tag, spec, info, params)
+        if spec.get("graph"):
+            graph_phase(tag, spec, info, params)
         if spec.get("hooks"):
             hooks_phase(tag, spec, info, params)
         if spec.get("embeds"):

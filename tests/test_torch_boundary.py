@@ -88,6 +88,18 @@ def test_rank_modules_are_checked(rel):
     assert not [m for m in _imports(path) if _forbidden(m)]
 
 
+# the compiled step's modules: the CUDA graphs of the Engine's forward and
+# of the decode segment, each among the files checked above
+GRAPH_MODULES = ("runtime/graph.py", "runtime/engine.py", "models/generate.py")
+
+
+@pytest.mark.parametrize("rel", GRAPH_MODULES)
+def test_graph_modules_are_checked(rel):
+    path = PORT / rel
+    assert path in _port_files()
+    assert not [m for m in _imports(path) if _forbidden(m)]
+
+
 def rank_modules(rank, world):
     """A spawned rank's imported modules of JAX or the JAX package, after
     importing the port's parallel and runtime packages."""

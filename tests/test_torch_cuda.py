@@ -1415,3 +1415,117 @@ def test_requant_forward_routes_through_the_kernels_on_card(card, scheme):
         _close(a, b, 1e-2)
     for key, v in outs["cpu"][1].items():
         _close(outs["cuda"][1][key][0], v[0], 1e-2)
+
+
+# --------------------------------------------------------------------------
+# the compiled step: the Engine's forward and the decode segment as CUDA
+# graph replays (runtime/graph.py) against the eager step
+# --------------------------------------------------------------------------
+
+GRAPH_LENGTHS = (300, 77, 40, 9)  # chip_smoke.py's B=4 traffic
+GRAPH_TOKENS = 33  # the first token and one segment of 32
+
+
+def _graph_model(card, n_layer=2):
+    """A two-layer RWKV-7 Q4_K_M model (Q4_K layers, Q6_K head) at C=256."""
+    from web_rwkv_gguf_tpu_torch.gguf import GgufFile
+    from web_rwkv_gguf_tpu_torch.models import load_model
+    from web_rwkv_gguf_tpu_torch.utils.synthetic import make_v7_gguf
+
+    raw = make_v7_gguf(n_layer=n_layer, n_emb=256, head_size=64, n_vocab=512, n_hidden=1024,
+                       quantize=ggml.GgmlDType.Q4_K, head_quantize=ggml.GgmlDType.Q6_K,
+                       seed=4)
+    return load_model(GgufFile(raw), device=card)
+
+
+def _graph_traffic(eng, prompts):
+    """``generate`` twice (the second from a reset state replays what the
+    first captured), then a FULL and LAST ``infer``: the tokens, the state
+    after each, the logits rows and the launches by kernel and shape."""
+    from web_rwkv_gguf_tpu_torch.runtime import RnnInput, RnnInputBatch, RnnOption
+    from web_rwkv_gguf_tpu_torch.runtime import graph
+
+    before = graph.launch_counts()
+    out = []
+    for _ in range(2):
+        eng.reset_state()
+        out.append(eng.generate(prompts, GRAPH_TOKENS))
+        out.append({k: v.clone() for k, v in eng.state.items()})
+    inp = RnnInput([RnnInputBatch(list(p[:60]), RnnOption.FULL if b == 0 else RnnOption.LAST)
+                    for b, p in enumerate(prompts)], 32)
+    while inp.num_token:
+        out.append([o.copy() for o in eng.infer(inp).batches])
+    out.append({k: v.clone() for k, v in eng.state.items()})
+    torch.cuda.synchronize()
+    return out, graph.count_delta(before, graph.launch_counts())
+
+
+def _same(a, b):
+    if isinstance(a, dict):
+        return a.keys() == b.keys() and all(_same(a[k], b[k]) for k in a)
+    if isinstance(a, list):
+        return len(a) == len(b) and all(_same(x, y) for x, y in zip(a, b))
+    if isinstance(a, torch.Tensor):
+        return torch.equal(a, b)
+    if isinstance(a, np.ndarray):
+        return np.array_equal(a, b)
+    return a == b
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B", [4, 1])
+def test_graph_engine_equals_the_eager_step_on_card(card, B):
+    """The Engine's graph replays (the default on the card) against
+    ``graph=False`` on the same params: B=4 on prompts of 300/77/40/9
+    tokens (chunks of T = 128 and below, the whole-stack decode) and B=1
+    on an 8-token prompt (the unrolled decode with the grouped r/k/v gemv),
+    each generating twice and then a FULL chunk: tokens, state and logits
+    bit for bit, launches by kernel and shape exact."""
+    from web_rwkv_gguf_tpu_torch.models import unroll_params
+    from web_rwkv_gguf_tpu_torch.runtime import Engine
+
+    info, params = _graph_model(card)
+    if B == 1:  # the B=1 serve's arrangement: per-layer views, r/k/v grouped
+        params = unroll_params(params)
+    rng = np.random.default_rng(7)
+    prompts = [[int(t) for t in rng.integers(0, 512, n)]
+               for n in (GRAPH_LENGTHS if B == 4 else (8,))]
+    runs = {}
+    for graphed in (True, False):
+        eng = Engine(info, params, B, device=card, unroll=B != 1,
+                     graph=None if graphed else False)
+        assert eng.graph == graphed
+        runs[graphed] = _graph_traffic(eng, prompts)
+        if graphed:
+            assert eng._graphs.graphs and all(
+                a is eng._graphs.state[k] for k, a in eng.state.items())
+    (got, got_n), (want, want_n) = runs[True], runs[False]
+    assert got_n == want_n
+    assert _same(got, want)
+
+
+@pytest.mark.cuda
+def test_graph_generator_advances_its_sampler_on_card(card):
+    """``make_generator`` on the card captures its segment; two calls of a
+    sampled segment from one state and one ``torch.Generator`` draw
+    different tokens, the generator advancing as the eager segment
+    advances it; the greedy segment equals the eager one bit for bit."""
+    from web_rwkv_gguf_tpu_torch.models import init_state, make_generator, prepare_decode
+
+    info, params = _graph_model(card)
+    params = prepare_decode(params, info, 2)
+    tok = torch.tensor([[5], [9]], device=card)
+    outs = {}
+    for graph in (None, False):
+        greedy = make_generator(info, steps=16, graph=graph)
+        sampled = make_generator(info, steps=16, temperature=1.0, graph=graph)
+        gen = torch.Generator(device=card).manual_seed(3)
+        state = init_state(info, 2, device=card)
+        g_toks, _, g_state, _, _ = greedy(params, state, tok)
+        g_state = {k: v.clone() for k, v in g_state.items()}
+        draws = [sampled(params, state, tok, gen)[0].clone() for _ in range(2)]
+        outs[graph] = (g_toks, g_state, draws, gen.get_state())
+    assert _same(outs[None][0], outs[False][0]) and _same(outs[None][1], outs[False][1])
+    assert not torch.equal(*outs[None][2])
+    assert _same(outs[None][2], outs[False][2])
+    assert torch.equal(outs[None][3], outs[False][3])

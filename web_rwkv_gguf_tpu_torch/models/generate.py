@@ -8,12 +8,17 @@ Per-lane stop tokens: a lane that samples a stop id freezes — it runs
 with length 0, so the padding mask keeps its recurrent state — and keeps
 re-emitting the stop id; the caller trims the surplus. The returned
 ``done`` flags say which lanes have stopped.
+
+On a CUDA device a segment is captured once as a CUDA graph and replayed
+(``runtime/graph.py``), the counterpart of the JAX package's compiled
+segment.
 """
 
 from __future__ import annotations
 
 import torch
 
+from ..errors import UnsupportedFeature
 from .forward import _forward, logits_head
 from .info import ModelInfo
 from .loader import layer_params
@@ -70,6 +75,7 @@ def make_generator(
     stop_ids: tuple[int, ...] = (),
     hooks: dict | None = None,
     step=None,
+    graph=None,
 ):
     """Build ``(params, state, token [B, 1], generator=None) ->
     (tokens [B, steps], logits [B, V], state, generator, done [B])`` that
@@ -81,16 +87,29 @@ def make_generator(
     so its ``Engine.generate`` decodes a hooked engine unhooked).
     ``step(params, state, token [B, 1], lens [B]) -> (logits [B, V],
     state)`` replaces the forward and head of a step (the Engine's under a
-    mesh: ``runtime.Engine._mesh_step``)."""
-    sample = make_sampler(temperature, top_k, top_p)
+    mesh: ``runtime.Engine._mesh_step``).
 
-    def run(params, state, token, generator=None):
+    The whole segment is one CUDA graph (the JAX package's one compiled
+    ``lax.scan``, ``done`` kept on the device): ``graph`` None captures
+    where the token lies on a CUDA device and there are no hooks and no
+    ``step``, False runs every step eagerly (the reference), True captures
+    on any device (on the CPU only with ``runtime.graph.CAPTURE``
+    replaced), and a ``runtime.graph.StepGraphs`` (an Engine's) captures
+    into its pool and static state. A captured segment's state comes back
+    as static buffers, updated in place by every call; a call's
+    ``generator`` is advanced as the eager segment advances it. The
+    returned function's ``graphs`` is the ``StepGraphs`` of its last
+    captured call (None before one)."""
+    if graph is not None and graph is not False and (hooks is not None or step is not None):
+        raise UnsupportedFeature("hooks and step= run eagerly: a captured segment takes "
+                                 "neither")
+    sample = make_sampler(temperature, top_k, top_p)
+    sampled = temperature > 0.0
+
+    def segment(params, state, token, generator, stop):
         layers = None if step is not None else layer_params(params, info.num_layer)
-        device = token.device
-        stop = torch.tensor(stop_ids, dtype=torch.long, device=device)
-        token = token.long()
         done = torch.isin(token[:, 0], stop)
-        logits = torch.zeros(token.shape[0], info.num_vocab, device=device)
+        logits = torch.zeros(token.shape[0], info.num_vocab, device=token.device)
         toks = []
         for _ in range(steps):
             # done lanes run with length 0: the padding mask freezes them
@@ -106,6 +125,48 @@ def make_generator(
             token = nxt[:, None]
             toks.append(nxt)
         out = torch.stack(toks, dim=1) if toks else token[:, :0]
+        return out, logits, state, done
+
+    own = {}  # a standalone generator's graphs and its sampling generator
+
+    def captured(params, state, token, generator):
+        from ..runtime.graph import StepGraphs, commit  # runtime imports this module
+
+        graphs = graph if isinstance(graph, StepGraphs) else own.get("graphs")
+        if graphs is None:
+            graphs = own["graphs"] = StepGraphs(state)
+        run.graphs = graphs
+        # the graph samples from a generator of its own, registered at
+        # capture; a call's generator state is handed in and back out
+        gen = own.get("gen")
+        if sampled and gen is None:
+            gen = own["gen"] = torch.Generator(device=graphs.device)
+        if sampled and generator is not None:
+            gen.set_state(generator.get_state())
+
+        def make(static, st):
+            stop = torch.tensor(stop_ids, dtype=torch.long, device=graphs.device)
+
+            def fn():
+                out, logits, new, done = segment(params, st, static["token"], gen, stop)
+                commit(st, new)
+                return out, logits, done
+            return fn
+
+        (out, logits, done), state = graphs.run(
+            ("segment", id(own)), params, make, {"token": token.long()}, state,
+            (gen,) if sampled else ())
+        if sampled and generator is not None:
+            generator.set_state(gen.get_state())
         return out, logits, state, generator, done
 
+    def run(params, state, token, generator=None):
+        if graph is False or (graph is None and (not token.is_cuda or hooks is not None
+                                                 or step is not None)):
+            stop = torch.tensor(stop_ids, dtype=torch.long, device=token.device)
+            out, logits, state, done = segment(params, state, token.long(), generator, stop)
+            return out, logits, state, generator, done
+        return captured(params, state, token, generator)
+
+    run.graphs = None
     return run

@@ -6,12 +6,23 @@ src/runtime/mod.rs:84-219). The engine owns the recurrent state of
 (``runtime/scheduler.py``) and ``generate`` prefills prompts, then decodes
 all lanes in lockstep through ``models/generate.make_generator``.
 
-PyTorch runs eagerly, so there is no compile cache; chunk lengths are
-still bucketed to powers of two exactly as the JAX package does, so each
-chunk takes the same WKV route (the scan kernel below T = 128, the
-chunk-parallel form from it) and each matmul the same numerics class.
-Logits come back to the host as numpy arrays, as the JAX engine returns
-them; ``generate`` keeps them on the device and fetches only token ids.
+Chunk lengths are bucketed to powers of two exactly as the JAX package
+does, so each chunk takes the same WKV route (the scan kernel below
+T = 128, the chunk-parallel form from it) and each matmul the same
+numerics class. On a CUDA device each bucket's step is a CUDA graph, the
+counterpart of the JAX engine's jitted, state-donating programs
+(``runtime/graph.py``): the forward of every (params, T bucket), FULL or
+all-LAST with the head, and ``generate``'s decode segment per sampling
+config (``_gen_cache``, as the JAX engine's), each captured at its first
+call and replayed after it; ``engine.state`` then holds the graphs'
+static buffers, updated in place. ``Engine(graph=False)`` keeps the eager
+step, the reference the card checks hold the graphs against. Hooks, a
+mesh (the pipeline and sequence-parallel Engines, ``DistributedEngine``)
+and embedding chunks run eagerly: taps are Python calls each step, gloo's
+collectives go through the host, and a chunk of embeddings is built on
+the host. Logits come back to the host as numpy arrays, as the JAX engine
+returns them; ``generate`` keeps them on the device and fetches only
+token ids.
 
 Dense weights, as the JAX engine arranges them: chunks of at least
 ``prefill_dense_min_t`` tokens may run on a dense bf16 copy of every
@@ -82,6 +93,7 @@ from ..parallel.pipeline import run_pipeline, stage_layers, stage_params
 from ..parallel.sequence import make_seq_parallel_prefill
 from ..parallel.sharding import all_gather, data_sharding, gather_state, shard_heads
 from ..parallel.tensor import TP_MODES, LocalParams, place_params, tp_head
+from .graph import StepGraphs, commit, new_pool
 from .scheduler import RnnInput, RnnInputBatch, RnnOption
 
 
@@ -262,7 +274,11 @@ class Engine:
     sequence-parallel prefill (``parallel/sequence.py``);
     ``pipeline_microbatches=M`` runs every chunk, decode included, through
     the GPipe layer pipeline (``parallel/pipeline.py``), lane ``m·B/M +
-    b`` as microbatch m's slot b."""
+    b`` as microbatch m's slot b. ``graph``: None replays each step as a
+    CUDA graph on a CUDA device without hooks or a mesh (the module
+    docstring), False runs every step eagerly (the reference), True
+    captures on any device (on the CPU only with ``runtime.graph.CAPTURE``
+    replaced, as the tests do)."""
 
     def __init__(
         self,
@@ -283,6 +299,7 @@ class Engine:
         seq_parallel: bool = False,
         seq_parallel_min_t: int = 64,
         pipeline_microbatches: int | None = None,
+        graph: bool | None = None,
         device="cuda",
     ):
         self.plan = _mesh_plan(mesh, tp_mode, seq_parallel, pipeline_microbatches, num_batch,
@@ -333,6 +350,18 @@ class Engine:
         # kernels, which the params keep for an unhooked call
         self.hooks = hooks
         self.state = self._fresh_state()
+        # CUDA graphs of the token path (runtime/graph.py): never with hooks
+        # (Python taps each step) or a mesh (gloo goes through the host)
+        if graph is None:
+            graph = self.device.type == "cuda" and mesh is None and hooks is None
+        elif graph and (mesh is not None or hooks is not None):
+            raise UnsupportedFeature("hooks and mesh plans run eagerly: graph=True takes "
+                                     "neither")
+        self.graph = graph
+        self._graphs = None  # StepGraphs, made at the first captured step
+        self._graph_pool = None  # a pool shared with other engines (EnginePool)
+        self._graph_params = None  # the params objects the graphs were captured on
+        self._gen_cache = {}  # generators by sampling config
 
     def _fresh_state(self) -> dict:
         """A fresh state of every lane; under a mesh this rank's shard."""
@@ -495,15 +524,67 @@ class Engine:
         return forward_chunk(self._info_fwd, params, state, tokens, ln, rescale=self.rescale,
                              hooks=self.hooks, input_embeds=embeds)
 
+    def _chunk_params(self, chunk):
+        """The params a chunk's length T routes it to: the dense prefill
+        copy from ``prefill_dense_min_t`` tokens on, where the engine has
+        one (engine.py:483-487 of the JAX package)."""
+        if self._params_prefill is not None and chunk.shape[1] >= self._prefill_min_t:
+            return self._params_prefill
+        return self.params
+
+    def _graphed(self, chunk) -> bool:
+        """Whether a chunk runs as a CUDA graph replay: on a graph engine
+        (no hooks, no mesh), a chunk of token ids."""
+        return self.graph and not isinstance(chunk, torch.Tensor)
+
+    def _step_graphs(self) -> StepGraphs:
+        """The engine's graphs, made at the first call; every graph is
+        dropped when the engine's params or dense prefill copy is another
+        object than they were captured on."""
+        if self._graphs is None:
+            self._graphs = StepGraphs(self.state, pool=self._graph_pool)
+        held = (self.params, self._params_prefill)
+        if self._graph_params is None or any(a is not b for a, b in zip(held,
+                                                                         self._graph_params)):
+            self._graphs.drop()
+            self._graph_params = held
+        return self._graphs
+
+    def _replay(self, last: bool, params, chunk: np.ndarray, lens: list[int]):
+        """One chunk of ids ``[B, T]`` as the replay of its bucket's graph,
+        the state updated in place: each lane's last-token logits ``[B, V]``
+        (``last``: the JAX engine's ``_fwd_last``, the head in the graph)
+        or the residual ``x [B, T, C]``."""
+        B, T = chunk.shape
+        info, rescale = self._info_fwd, self.rescale
+
+        def make(static, state):
+            tokens, ln = static["tokens"], static["lens"]
+
+            def fn():
+                x, new = forward_chunk(info, params, state, tokens, ln, rescale=rescale)
+                commit(state, new)
+                if not last:
+                    return (x,)
+                idx = torch.clamp(ln - 1, 0, T - 1)
+                return (logits_head(params, x[torch.arange(B, device=x.device), idx]),)
+            return fn
+
+        inputs = {"tokens": torch.from_numpy(chunk),
+                  "lens": torch.tensor(lens, dtype=torch.long)}
+        (out,), self.state = self._step_graphs().run(("last" if last else "full", T), params,
+                                                    make, inputs, self.state)
+        return out
+
     def _forward(self, chunk, lens: list[int]):
         """The chunk's forward (ids ``[B, T]`` or embeddings ``[B, T, C]``,
         from :meth:`_chunk_tokens`) on the params its length T routes it
-        to: the dense prefill copy from ``prefill_dense_min_t`` tokens on,
-        where the engine has one (engine.py:483-487 of the JAX package);
-        the sequence-parallel prefill where :meth:`_sp_ok` says so."""
-        params = self.params
-        if self._params_prefill is not None and chunk.shape[1] >= self._prefill_min_t:
-            params = self._params_prefill
+        to (:meth:`_chunk_params`), the sequence-parallel prefill where
+        :meth:`_sp_ok` says so: ``(x, lengths [B] or None on a graph
+        replay, new state, params)``."""
+        params = self._chunk_params(chunk)
+        if self._graphed(chunk):
+            return self._replay(False, params, chunk, lens), None, self.state, params
         ln = torch.as_tensor(lens, dtype=torch.long, device=self.device)[self._lanes]
         tokens, embeds = ((None, chunk[self._lanes]) if isinstance(chunk, torch.Tensor)
                           else (torch.as_tensor(chunk[self._lanes], device=self.device), None))
@@ -514,6 +595,8 @@ class Engine:
         """The chunk's forward and each lane's last-token logits ``[B, V]``
         (on the device; under a mesh every lane's, on every rank), the head
         from the same params as the chunk."""
+        if self._graphed(chunk):
+            return self._replay(True, self._chunk_params(chunk), chunk, lens), self.state
         x, ln, state, params = self._forward(chunk, lens)
         idx = torch.clamp(ln - 1, 0, x.shape[1] - 1)
         rows = x[torch.arange(x.shape[0], device=x.device), idx]
@@ -545,7 +628,10 @@ class Engine:
         them. The head runs on a power-of-two row count (engine.py:604-611
         of the JAX package); under a mesh each data rank runs its own lanes'
         rows, padded to the largest rank's count, and the results are
-        gathered."""
+        gathered. On a graph engine too the head runs eagerly here, once a
+        chunk: its row count follows the FULL lanes' lengths, so a graph
+        would be captured for each count, and the chunk's forward is
+        already one replay."""
         lo, per = self._lanes.start, self._lanes.stop - self._lanes.start
         sizes = [sum(counts[i:i + per]) for i in range(0, self.num_batch, per)]
         first, n = sum(sizes[:lo // per]), sizes[lo // per]
@@ -647,6 +733,21 @@ class Engine:
             inp.step(plan)
         return sample(logits, generator)[:, None], generator
 
+    def _generator(self, steps, temperature, top_k, top_p, stop_ids):
+        """``make_generator``'s decode segment for one sampling config,
+        made once (the JAX engine's ``_gen_cache``, engine.py:274-279 and
+        729-735): on a graph engine captured into the engine's graphs, so a
+        later ``generate()`` replays it."""
+        key = (steps, temperature, top_k, top_p, stop_ids)
+        run = self._gen_cache.get(key)
+        if run is None:
+            run = self._gen_cache[key] = make_generator(
+                self.info, steps=steps, temperature=temperature, top_k=top_k, top_p=top_p,
+                rescale=self.rescale, stop_ids=stop_ids, hooks=self.hooks,
+                step=self._mesh_step if self.mesh is not None else None,
+                graph=self._step_graphs() if self.graph else False)
+        return run
+
     def generate(
         self,
         prompts: list[list[int]],
@@ -676,9 +777,7 @@ def _generate(engines, groups, max_tokens, temperature, top_k, top_p, stop_token
     back from the device; the rounds end once every lane of every engine
     has stopped. The lanes' tokens, group after group."""
     stop_tokens = stop_tokens or set()
-    runs = [make_generator(e.info, steps=segment, temperature=temperature, top_k=top_k,
-                           top_p=top_p, rescale=e.rescale, stop_ids=tuple(sorted(stop_tokens)),
-                           hooks=e.hooks, step=e._mesh_step if e.mesh is not None else None)
+    runs = [e._generator(segment, temperature, top_k, top_p, tuple(sorted(stop_tokens)))
             for e in engines]
     firsts, generators = zip(*(e._gen_prefill(g, temperature, top_k, top_p, seed + i)
                                for i, (e, g) in enumerate(zip(engines, groups))))
@@ -721,7 +820,8 @@ class EnginePool:
     to each :class:`Engine`; with ``mesh=`` the weights are placed once (by
     ``tp_mode``, or a pipeline stage's or the whole model's for
     ``pipeline_microbatches`` and ``seq_parallel``) and every engine serves
-    its group's lanes across the mesh."""
+    its group's lanes across the mesh. Without one, each engine keeps its
+    own CUDA graphs and state, and all of them share one memory pool."""
 
     def __init__(self, info: ModelInfo, params, num_lanes: int, *,
                  lanes_per_engine: int | None = None, device="cuda", **engine_kwargs):
@@ -758,8 +858,12 @@ class EnginePool:
         self.engines = [Engine(info, params, g, decode_dense=False, prefill_dense=False,
                                prefill_dense_min_t=min_t, device=device, **engine_kwargs)
                         for g in self.group_sizes]
+        # one memory pool for every engine's graphs: they replay in turn on
+        # one stream, and nothing of a graph's pool outlives its replay
+        pool = new_pool(self.device) if mesh is None else None
         for eng in self.engines:
             eng._params_prefill = prefill
+            eng._graph_pool = pool
 
     @property
     def num_lanes(self) -> int:
