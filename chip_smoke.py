@@ -2684,6 +2684,7 @@ def main() -> int:
 def run(np, torch, files) -> int:
     from web_rwkv_gguf_tpu_torch import io as rio
     from web_rwkv_gguf_tpu_torch import models, runtime
+    from web_rwkv_gguf_tpu_torch.runtime import graph as graph_mod
     from web_rwkv_gguf_tpu_torch.gguf import GgufFile, GgufWriter
     from web_rwkv_gguf_tpu_torch.models import matrix as matrix_mod
     from web_rwkv_gguf_tpu_torch.models.forward import WKV7_CHUNKED_MIN_T
@@ -3614,21 +3615,115 @@ def run(np, torch, files) -> int:
             ok = a == b
         return [] if ok else [path]
 
+    def counts_of(fn):
+        """``fn()`` and the launches it added: ``(its result, launches by
+        kernel, launches by kernel and shape)``."""
+        before = graph_mod.launch_counts()
+        out = fn()
+        torch.cuda.synchronize()
+        delta = graph_mod.count_delta(before, graph_mod.launch_counts())
+        return out, {k: n for k, (n, _) in delta.items()}, {k: dict(c) for k, (_, c)
+                                                             in delta.items()}
+
+    def engine_traffic(eng):
+        """The Engine's B=4 traffic: ENGINE_TOKENS greedy tokens, the state,
+        the FULL infer and each lane's LAST logits after its prompt."""
+        toks = eng.generate(engine_prompts, ENGINE_TOKENS)
+        state = clone_tree(eng.state)
+        inp = runtime.RnnInput([runtime.RnnInputBatch(list(b.tokens), b.option)
+                                for b in full_inp.batches], ENGINE_CHUNK)
+        full = [o.copy() for o in eng.infer(inp)]
+        return toks, state, full, last_logits(eng, engine_prompts)
+
+    def prefill_times(engines, groups):
+        """Wall and device µs a prompt token of each engine's prefill of its
+        group (``generate(..., 1)`` from a reset state), after one untimed
+        call (a graph engine's captures)."""
+        n_prompt = sum(len(p) for g in groups for p in g)
+
+        def prefill():
+            for e, g in zip(engines, groups):
+                e.reset_state()
+                e.generate(g, 1)
+        prefill()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        prefill()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) / n_prompt * 1e6
+        return wall, profile(torch, prefill, n_prompt, warm=False, host=False)[0]
+
+    def engine_times(engines, groups):
+        """The engines' prefill a prompt token and decode a step (their
+        cached DECODE_STEPS segments): ``{what: (wall µs, device µs)}``."""
+        pre = prefill_times(engines, groups)
+        wall, busy = decode_segments(engines[0].info, engines, groups, DECODE_STEPS, host=False)
+        return {"prefill a prompt token": pre, "decode a step": (wall / DECODE_STEPS * 1e6, busy)}
+
+    def us(t):
+        return "not measured" if t is None else f"{t:.1f}"
+
+    def busy_share(dev, wall):
+        return "not measured" if dev is None else f"{dev / wall:.3f}"
+
+    def fmt_time(what, wall, dev):
+        """Wall and device µs of one ``what`` (a decode step's wall in ms)
+        and the busy share."""
+        shown = f"{wall / 1e3:.3f} wall ms" if what.startswith("decode") else f"{wall:.1f} wall us"
+        return f"{shown}, {us(dev)} device us, busy {busy_share(dev, wall)}"
+
+    def graph_vs_eager(path, traffic, timed, held, failures, note=""):
+        """One workload on CUDA graphs against the eager step. ``traffic``
+        and ``timed`` map "eager" (``graph=False``) and "graph" (the
+        default) to functions: the traffic's outputs (tokens, state,
+        logits) of the graph run against the eager run's bit for bit, the
+        graph run counted as the main path ``path`` against the eager run's
+        launches, by kernel and shape; ``timed[mode]()`` gives ``{what:
+        (wall µs, device µs)}``, logged with the busy shares, the seconds of
+        warm-up and capture of ``held()``'s ``StepGraphs`` and their pool's
+        MB. A difference is appended to ``failures``. Returns the times."""
+        t_work = time.perf_counter()
+        out_e, counts_e, shapes_e = counts_of(traffic["eager"])
+        part = [time.perf_counter()]
+        out_g = counted(path, counts_e, traffic["graph"])
+        part.append(time.perf_counter())
+        diff = same_tree(out_g, out_e)
+        shapes_ok = {k: dict(c) for k, c in path_shapes[path].items() if c} == shapes_e
+        log(f"{path}: graph against eager: tokens, state and logits "
+            f"{'equal bit for bit' if not diff else 'DIFFER at ' + str(diff[:8])}; "
+            f"launches by kernel {counts_e} equal, by shape "
+            f"{'equal' if shapes_ok else 'DIFFER'}")
+        if diff or not shapes_ok:
+            failures.append(f"{path}: " + ("outputs differ" if diff else "shapes differ"))
+        times = {"eager": timed["eager"]()}
+        part.append(time.perf_counter())
+        times["graph"] = timed["graph"]()
+        part.append(time.perf_counter())
+        graphs = [g for g in held() if g is not None]
+        secs = sum(g.capture_seconds for g in graphs)
+        n_graphs = sum(len(g.graphs) for g in graphs)
+
+        log(f"{path} " + "; ".join(
+            f"{what}: " + ", ".join(f"{mode} {fmt_time(what, *t[what])}"
+                                    for mode, t in times.items())
+            for what in times["eager"]) + note
+            + f"; capture {secs:.3f} s for {n_graphs} graphs on {len(graphs)} engines "
+            f"({secs / len(graphs):.3f} s an engine); graph pool "
+            f"{graph_pool_mb(graphs):.1f} MB; on {smi} ({time.perf_counter() - t_work:.1f} "
+            f"s for both: traffic eager {part[0] - t_work:.1f} s, graph "
+            f"{part[1] - part[0]:.1f} s; timing eager {part[2] - part[1]:.1f} s, graph "
+            f"{part[3] - part[2]:.1f} s)")
+        return times
+
     def graph_phase(tag, spec, info, params):
         """The compiled step against the eager one on the same params: the
         Engine's B=4 traffic (prefill, ENGINE_TOKENS greedy tokens, the FULL
         infer, each lane's LAST logits), the B=1 serve (PROMPTS, DECODE_STEPS
         greedy tokens from make_generator; its prefill is forward_chunk,
         eager in both) and an EnginePool of POOL_LANES lanes, each with
-        ``graph=False`` and by default. For each: tokens, state and logits
-        of the graphs against the eager step's bit for bit; the graphs'
-        launches counted as a main path against the eager run's, by kernel
-        and shape; wall and device µs a decode step and a prompt token, the
-        busy shares; the seconds of warm-up and capture; the graph pool's
-        MB. The Engine's sampled segment: two calls from one state draw
-        other tokens, each the eager segment's."""
-        from web_rwkv_gguf_tpu_torch.runtime import graph as graph_mod
-
+        ``graph=False`` and by default, through :func:`graph_vs_eager`. The
+        Engine's sampled segment: two calls from one state draw other
+        tokens, each the eager segment's."""
         t_phase = time.perf_counter()
         B4 = len(ENGINE_LENGTHS)
         serve_params = models.unroll_params(params) if spec.get("grouped") else params
@@ -3636,22 +3731,6 @@ def run(np, torch, files) -> int:
         pool_groups = [pool_lanes[:16], pool_lanes[16:]]
         n_serve = sum(len(p) for p in PROMPTS)
         failures = []
-
-        def counts_of(fn):
-            before = graph_mod.launch_counts()
-            out = fn()
-            torch.cuda.synchronize()
-            delta = graph_mod.count_delta(before, graph_mod.launch_counts())
-            return out, {k: n for k, (n, _) in delta.items()}, {k: dict(c) for k, (_, c)
-                                                                 in delta.items()}
-
-        def engine_traffic(eng):
-            toks = eng.generate(engine_prompts, ENGINE_TOKENS)
-            state = clone_tree(eng.state)
-            inp = runtime.RnnInput([runtime.RnnInputBatch(list(b.tokens), b.option)
-                                    for b in full_inp.batches], ENGINE_CHUNK)
-            full = [o.copy() for o in eng.infer(inp)]
-            return toks, state, full, last_logits(eng, engine_prompts)
 
         def pool_traffic(pool):
             toks = pool.generate(pool_lanes, POOL_TOKENS)
@@ -3662,92 +3741,37 @@ def run(np, torch, files) -> int:
             toks, _, _, finals = serve(torch, models, info, serve_params, PROMPTS, gen)
             return toks, [f[2] for f in finals], [(f[0], f[1]) for f in finals]
 
-        def prefill_times(engines, groups, n_prompt):
-            def prefill():
-                for e, g in zip(engines, groups):
-                    e.reset_state()
-                    e.generate(g, 1)
-            prefill()
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            prefill()
-            torch.cuda.synchronize()
-            wall = (time.perf_counter() - t0) / n_prompt * 1e6
-            return wall, profile(torch, prefill, n_prompt, warm=False, host=False)[0]
-
-        def engine_times(engines, groups):
-            n_prompt = sum(len(p) for g in groups for p in g)
-            pre = prefill_times(engines, groups, n_prompt)
-            wall, busy = decode_segments(info, engines, groups, DECODE_STEPS, host=False)
-            return pre, (wall / DECODE_STEPS * 1e6, busy)
-
         def serve_times(gen):
             _, _, t_gen, _ = serve(torch, models, info, serve_params, PROMPTS, gen)
             st = models.init_state(info, 1, device="cuda")
             tok = torch.tensor([[PROMPTS[0][-1]]], device="cuda")
             busy = profile(torch, lambda: gen(serve_params, st, tok), DECODE_STEPS, warm=False,
                            host=False)[0]
-            return None, (t_gen / (len(PROMPTS) * DECODE_STEPS) * 1e6, busy)
+            return {"decode a step": (t_gen / (len(PROMPTS) * DECODE_STEPS) * 1e6, busy)}
 
         def workloads(graph):
-            """(label, traffic, times, graphs) of each workload on ``graph``."""
+            """(label, traffic, times, graphs, engine, note) of each workload
+            on ``graph``."""
             eng = runtime.Engine(info, params, B4, token_chunk_size=ENGINE_CHUNK, graph=graph,
                                  device="cuda")
             yield (f"engine B={B4}", lambda: engine_traffic(eng),
-                   lambda: engine_times([eng], [engine_prompts]), lambda: [eng._graphs], eng)
+                   lambda: engine_times([eng], [engine_prompts]), lambda: [eng._graphs], eng, "")
             gen = models.make_generator(info, steps=DECODE_STEPS, graph=graph)
             yield ("serve B=1", lambda: serve_traffic(gen), lambda: serve_times(gen),
-                   lambda: [gen.graphs], None)
+                   lambda: [gen.graphs], None,
+                   f"; prefill {n_serve} prompt tokens on forward_chunk, eager in both")
             pool = runtime.EnginePool(info, params, POOL_LANES, token_chunk_size=ENGINE_CHUNK,
                                       graph=graph, device="cuda")
             yield (f"pool of {len(pool.engines)} x {pool.group_sizes[0]}",
                    lambda: pool_traffic(pool), lambda: engine_times(pool.engines, pool_groups),
-                   lambda: [e._graphs for e in pool.engines], None)
-
-        def us(t):
-            return "not measured" if t is None else f"{t:.1f}"
-
-        def busy_share(dev, wall):
-            return "not measured" if dev is None else f"{dev / wall:.3f}"
+                   lambda: [e._graphs for e in pool.engines], None, "")
 
         engines = {}
-        for (label, traffic, timed, held, eng_e), (_, traffic_g, timed_g, held_g, eng_g) in zip(
-                workloads(False), workloads(None)):
-            t_work = time.perf_counter()
-            out_e, counts_e, shapes_e = counts_of(traffic)
-            path = f"{tag} graph {label}"
-            part = [time.perf_counter()]
-            out_g = counted(path, counts_e, traffic_g)
-            part.append(time.perf_counter())
-            diff = same_tree(out_g, out_e)
-            shapes_ok = {k: dict(c) for k, c in path_shapes[path].items() if c} == shapes_e
-            log(f"{path}: graph against eager: tokens, state and logits "
-                f"{'equal bit for bit' if not diff else 'DIFFER at ' + str(diff[:8])}; "
-                f"launches by kernel {counts_e} equal, by shape "
-                f"{'equal' if shapes_ok else 'DIFFER'}")
-            if diff or not shapes_ok:
-                failures.append(f"{label}: " + ("outputs differ" if diff else "shapes differ"))
-            times = {"eager": timed()}
-            part.append(time.perf_counter())
-            times["graph"] = timed_g()
-            part.append(time.perf_counter())
-            graphs = [g for g in held_g() if g is not None]
-            secs = sum(g.capture_seconds for g in graphs)
-            n_graphs = sum(len(g.graphs) for g in graphs)
-            pre = "; ".join(
-                f"{mode} {us(t[0][0])} wall us, {us(t[0][1])} device us, busy "
-                f"{busy_share(t[0][1], t[0][0])}" for mode, t in times.items() if t[0])
-            log(f"{path} decode a step: " + "; ".join(
-                f"{mode} {t[1][0] / 1e3:.3f} wall ms, {us(t[1][1])} device us, busy "
-                f"{busy_share(t[1][1], t[1][0])}" for mode, t in times.items())
-                + (f"; prefill a prompt token: {pre}" if pre else
-                   f"; prefill {n_serve} prompt tokens on forward_chunk, eager in both")
-                + f"; capture {secs:.3f} s for {n_graphs} graphs on {len(graphs)} engines "
-                f"({secs / len(graphs):.3f} s an engine); graph pool "
-                f"{graph_pool_mb(graphs):.1f} MB; on {smi} ({time.perf_counter() - t_work:.1f} "
-                f"s for both: traffic eager {part[0] - t_work:.1f} s, graph "
-                f"{part[1] - part[0]:.1f} s; timing eager {part[2] - part[1]:.1f} s, graph "
-                f"{part[3] - part[2]:.1f} s)")
+        for eager, graphed in zip(workloads(False), workloads(None)):
+            label, traffic_e, timed_e, _, eng_e, note = eager
+            _, traffic_g, timed_g, held_g, eng_g, _ = graphed
+            graph_vs_eager(f"{tag} graph {label}", {"eager": traffic_e, "graph": traffic_g},
+                           {"eager": timed_e, "graph": timed_g}, held_g, failures, note)
             if eng_g is not None:
                 engines = {"graph": eng_g, "eager": eng_e}
 
@@ -3809,21 +3833,24 @@ def run(np, torch, files) -> int:
     def hooks_phase(tag, spec, info, params):
         """RWKV-7: observer taps on every name of HOOK_NAMES: a T=64 chunk
         of four lanes with and without them, x and state bit for bit, every
-        tap fired at every layer; then the Engine at B=4 with the taps
-        (the usual prompts, then HOOK_STEPS greedy steps), counted: no
-        whole-stack, att-core or grouped launch, the WKV as wkv7_scan at
-        T=1 a layer a step; the hooked step's device µs. Other versions:
-        the Engine with the model's example hook, counted."""
+        tap fired at every layer; then the Engine at B=4 with the taps on
+        ``graph=False`` (on a graph a tap fires at the capture only), the
+        usual prompts and HOOK_STEPS greedy steps, counted, every tap fired
+        at every layer of every step. Every model, with its example hook
+        (HOOK_EXAMPLES): the B=4 traffic on the default graph against
+        ``graph=False`` (:func:`graph_vs_eager`); the graph Engine's
+        generate counted: no whole-stack, att-core or grouped launch, the
+        WKV as wkv7_scan at T=1 a layer a step; and the hooked decode
+        segment alone (``make_generator(hooks=)``, HOOK_STEPS steps from the
+        Engine's prefill) profiled both ways."""
         from web_rwkv_gguf_tpu_torch.models.forward import HOOK_NAMES
 
         t0 = time.perf_counter()
         L, B4 = info.num_layer, len(ENGINE_LENGTHS)
-        v7 = info.version.value == "v7"
-        fired = collections.defaultdict(list)
-        taps = {n: (lambda name: lambda layer, **t: fired[name].append(layer))(n)
-                for n in HOOK_NAMES[info.version]}
-        hooks = taps if v7 else HOOK_EXAMPLES[spec["hooks"]](L)
-        if v7:
+        if info.version.value == "v7":
+            fired = collections.defaultdict(list)
+            taps = {n: (lambda name: lambda layer, **t: fired[name].append(layer))(n)
+                    for n in HOOK_NAMES[info.version]}
             lens = [min(n, 64) for n in ENGINE_LENGTHS]
             toks = torch.tensor([p[:64] + [0] * (64 - len(p[:64])) for p in engine_prompts],
                                 device="cuda")
@@ -3839,66 +3866,122 @@ def run(np, torch, files) -> int:
                 f"bit; taps that did not fire once at every layer: {bad or 'none'}")
             if not same or bad:
                 raise AssertionError(f"{tag}: the hooked chunk is not the unhooked one")
-        eng = runtime.Engine(info, params, num_batch=B4, token_chunk_size=ENGINE_CHUNK,
-                             hooks=hooks, device="cuda")
-        want = (engine_prefill(spec, eng, ENGINE_LENGTHS)
-                + times(engine_step(spec, eng), HOOK_STEPS))
-        fired.clear()
-        label = "every tap" if v7 else f"{spec['hooks']}'s tap"
-        toks = counted(f"{tag} hooks engine generate (B={B4}, {label})", want,
-                       lambda: eng.generate(engine_prompts, 1 + HOOK_STEPS, segment=HOOK_STEPS))
-        if [len(t) for t in toks] != [1 + HOOK_STEPS] * B4:
-            raise AssertionError(f"{tag}: the hooked Engine gave {[len(t) for t in toks]}")
-        if v7:
+            eng = runtime.Engine(info, params, num_batch=B4, token_chunk_size=ENGINE_CHUNK,
+                                 hooks=taps, graph=False, device="cuda")
+            want = (engine_prefill(spec, eng, ENGINE_LENGTHS)
+                    + times(engine_step(spec, eng), HOOK_STEPS))
+            fired.clear()
+            toks = counted(f"{tag} hooks engine generate (B={B4}, every tap, graph=False)", want,
+                           lambda: eng.generate(engine_prompts, 1 + HOOK_STEPS,
+                                                segment=HOOK_STEPS))
+            if [len(t) for t in toks] != [1 + HOOK_STEPS] * B4:
+                raise AssertionError(f"{tag}: the hooked Engine gave {[len(t) for t in toks]}")
             steps = len(engine_plans(runtime, _bucket, ENGINE_LENGTHS, ENGINE_CHUNK)) + HOOK_STEPS
             bad = [n for n in taps if n not in MODEL_TAPS and fired[n] != list(range(L)) * steps]
             if bad:
                 raise AssertionError(f"{tag}: taps {bad} did not fire at every layer")
-        # the hooked decode step alone: device and wall µs
+            del eng
+        name = spec["hooks"]
+        hooks = HOOK_EXAMPLES[name](L)
+        failures = []
+        engs = {mode: runtime.Engine(info, params, num_batch=B4, token_chunk_size=ENGINE_CHUNK,
+                                     hooks=hooks, graph=graph, device="cuda")
+                for mode, graph in (("eager", False), ("graph", None))}
+        graph_vs_eager(f"{tag} hooks {name} engine B={B4}",
+                       {m: (lambda e=e: engine_traffic(e)) for m, e in engs.items()},
+                       {m: (lambda e=e: engine_times([e], [engine_prompts]))
+                        for m, e in engs.items()},
+                       lambda: [engs["graph"]._graphs], failures)
+        eng = engs["graph"]
+        want = engine_prefill(spec, eng, ENGINE_LENGTHS) + times(engine_step(spec, eng),
+                                                                 HOOK_STEPS)
+        toks = counted(f"{tag} hooks engine generate (B={B4}, {name}'s taps, graph)", want,
+                       lambda: eng.generate(engine_prompts, 1 + HOOK_STEPS, segment=HOOK_STEPS))
+        if [len(t) for t in toks] != [1 + HOOK_STEPS] * B4:
+            raise AssertionError(f"{tag}: the hooked Engine gave {[len(t) for t in toks]}")
+        # the hooked decode segment alone, from the Engine's prefill: device
+        # and wall µs a step, eager and captured
         eng.reset_state()
-        first, gen = eng._gen_prefill(engine_prompts, 0.0, 0, 0.0, 0)
-        segment = models.make_generator(info, steps=HOOK_STEPS, hooks=hooks)
-        state = eng.state
-        segment(eng.params, state, first, None)
-        torch.cuda.synchronize()
-        t1 = time.perf_counter()
-        segment(eng.params, state, first, None)
-        torch.cuda.synchronize()
-        wall_us = (time.perf_counter() - t1) / HOOK_STEPS * 1e6
-        busy, prof_wall_us, rows = profile(
-            torch, lambda: segment(eng.params, state, first, None), HOOK_STEPS)
-        log_profile(f"{tag} hooked engine decode at B={B4} ({label})", busy, prof_wall_us, rows,
-                    wall_us, "step")
+        first, _ = eng._gen_prefill(engine_prompts, 0.0, 0, 0.0, 0)
+        start = clone_tree(eng.state)
+        for mode, graph in (("eager", False), ("graph", None)):
+            segment = models.make_generator(info, steps=HOOK_STEPS, hooks=hooks, graph=graph)
+            t1 = time.perf_counter()
+            segment(eng.params, start, first, None)  # the graph's warm-up and capture
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+            segment(eng.params, start, first, None)
+            torch.cuda.synchronize()
+            wall_us = (time.perf_counter() - t2) / HOOK_STEPS * 1e6
+            busy, prof_wall_us, rows = profile(
+                torch, lambda: segment(eng.params, start, first, None), HOOK_STEPS, warm=False)
+            log_profile(f"{tag} hooked decode segment at B={B4} ({name}'s taps, {mode}; first "
+                        f"call {t2 - t1:.3f} s)", busy, prof_wall_us, rows, wall_us, "step")
         log(f"{tag} hooks phase: {time.perf_counter() - t0:.1f} s")
+        if failures:
+            raise AssertionError(f"{tag} hooks phase: {failures}")
 
     def embeds_phase(tag, info, params):
-        """Token::Embed: an Engine of four lanes, EMBED_TOKENS tokens each:
+        """Token::Embed: Engines of four lanes, EMBED_TOKENS tokens each:
         lane 0 token ids, lane 1 the same tokens as their embedding rows,
-        lane 2 ids and rows in turn, lane 3 ids of another prompt; lanes 0
-        and 1 give the same logits bit for bit, lane 2 within rounding."""
+        lane 2 ids and rows in turn, lane 3 ids of another prompt; on the
+        default graph (the ("embeds", T) replay) against ``graph=False``
+        (:func:`graph_vs_eager`: each lane's last logits and the state bit
+        for bit, launches by kernel and shape, wall and device µs a prompt
+        token); lanes 0 and 1 give the same logits bit for bit, lane 2
+        within rounding."""
         t0 = time.perf_counter()
         ids = engine_prompts[0][:EMBED_TOKENS]
         rows = params["emb"][torch.tensor(ids, device="cuda")].float().cpu().numpy()
         lanes = [ids, list(rows), [t if i % 2 == 0 else rows[i] for i, t in enumerate(ids)],
                  engine_prompts[1][:EMBED_TOKENS]]
-        eng = runtime.Engine(info, params, num_batch=len(lanes), token_chunk_size=ENGINE_CHUNK,
-                             device="cuda")
-        inp = runtime.RnnInput([runtime.RnnInputBatch(list(t)) for t in lanes], ENGINE_CHUNK)
-        last = [None] * len(lanes)
-        while inp.num_token:
-            for b, o in enumerate(eng.infer(inp)):
-                if len(o):
-                    last[b] = o[-1]
+        n_tok = sum(len(t) for t in lanes)
+
+        def traffic(eng):
+            eng.reset_state()
+            inp = runtime.RnnInput([runtime.RnnInputBatch(list(t)) for t in lanes], ENGINE_CHUNK)
+            last = [None] * len(lanes)
+            while inp.num_token:
+                for b, o in enumerate(eng.infer(inp)):
+                    if len(o):
+                        last[b] = o[-1]
+            return np.stack(last), clone_tree(eng.state)
+
+        def timed(eng):
+            traffic(eng)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            traffic(eng)
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t1) / n_tok * 1e6
+            dev = profile(torch, lambda: traffic(eng), n_tok, warm=False, host=False)[0]
+            return {"prefill a prompt token": (wall, dev)}
+
+        engs = {mode: runtime.Engine(info, params, num_batch=len(lanes),
+                                     token_chunk_size=ENGINE_CHUNK, graph=graph, device="cuda")
+                for mode, graph in (("eager", False), ("graph", None))}
+        failures = []
+        graph_vs_eager(f"{tag} embeds engine B={len(lanes)}",
+                       {m: (lambda e=e: traffic(e)) for m, e in engs.items()},
+                       {m: (lambda e=e: timed(e)) for m, e in engs.items()},
+                       lambda: [engs["graph"]._graphs], failures)
+        eng = engs["graph"]
+        last, _ = traffic(eng)
+        keys = sorted(eng._graphs.graphs)
         same = np.array_equal(last[0], last[1])
-        finite = all(np.isfinite(o).all() for o in last)
+        finite = bool(np.isfinite(last).all())
         log(f"{tag} embeds: lanes of {EMBED_TOKENS} ids / rows / mixed / ids through "
             f"Engine.infer (chunk T={_bucket(EMBED_TOKENS, ENGINE_CHUNK)}, dense prefill copy "
-            f"{eng._params_prefill is not None}): lane 1 (rows) against lane 0 (ids) "
-            f"{'equal' if same else 'DIFFERENT'} bit for bit; lane 2 (mixed) "
+            f"{eng._params_prefill is not None}; graphs {keys}): lane 1 (rows) against lane 0 "
+            f"(ids) {'equal' if same else 'DIFFERENT'} bit for bit; lane 2 (mixed) "
             f"max|d|/max {rel_err(last[2], last[0]):.3e}; finite {finite}; "
             f"{time.perf_counter() - t0:.1f} s")
+        if not any(k[0] == "embeds" for k in keys):
+            failures.append("no embeds graph")
         if not same or not finite:
-            raise AssertionError(f"{tag}: embedding rows did not give the ids' logits")
+            failures.append("embedding rows did not give the ids' logits")
+        if failures:
+            raise AssertionError(f"{tag} embeds phase: {failures}")
 
     def vision_patches():
         return (np.random.default_rng(VISION_SEED).normal(size=(16, 16, 3, 64))

@@ -1529,3 +1529,122 @@ def test_graph_generator_advances_its_sampler_on_card(card):
     assert not torch.equal(*outs[None][2])
     assert _same(outs[None][2], outs[False][2])
     assert torch.equal(outs[None][3], outs[False][3])
+
+
+def _graph_model_v6(card):
+    """A two-layer RWKV-6 Q4_K_M model (Q4_K layers, Q6_K head) at C=256."""
+    from web_rwkv_gguf_tpu_torch.gguf import GgufFile
+    from web_rwkv_gguf_tpu_torch.models import load_model
+    from web_rwkv_gguf_tpu_torch.utils.synthetic import make_v6_gguf
+
+    raw = make_v6_gguf(n_layer=2, n_emb=256, head_size=64, n_vocab=512, n_hidden=1024,
+                       quantize=ggml.GgmlDType.Q4_K, head_quantize=ggml.GgmlDType.Q6_K,
+                       seed=5)
+    return load_model(GgufFile(raw), device=card)
+
+
+def _example_hooks(app, num_layer):
+    from importlib import import_module
+
+    return getattr(import_module(f"web_rwkv_gguf_tpu_torch.apps.{app}"),
+                   f"make_{app}_hooks")(num_layer)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("app", ["othello", "puzzle15"])
+def test_graph_hooked_engine_equals_the_eager_step_on_card(card, app):
+    """The apps' example hooks (othello's pair on RWKV-7, puzzle15's tap on
+    RWKV-6) in the Engine's graphs, the default on the card, against
+    ``graph=False``: B=4 on prompts of 300/77/40/9 tokens, generating twice
+    and then a FULL chunk: tokens, state and logits bit for bit, launches
+    by kernel and shape exact, and the hooked step on the per-layer path
+    (no whole-stack, att-core or grouped launch)."""
+    from web_rwkv_gguf_tpu_torch.runtime import Engine
+
+    info, params = (_graph_model if app == "othello" else _graph_model_v6)(card)
+    rng = np.random.default_rng(8)
+    prompts = [[int(t) for t in rng.integers(0, 512, n)] for n in GRAPH_LENGTHS]
+    runs = {}
+    for graphed in (True, False):
+        eng = Engine(info, params, 4, device=card, hooks=_example_hooks(app, info.num_layer),
+                     graph=None if graphed else False)
+        assert eng.graph == graphed
+        runs[graphed] = _graph_traffic(eng, prompts)
+        if graphed:
+            assert any(k[0] == "segment" for k in eng._graphs.graphs)
+    (got, got_n), (want, want_n) = runs[True], runs[False]
+    assert got_n == want_n
+    assert not {"layer_scan7", "layer_scan56", "att_core7_step", "quant_gemv_grouped"} & set(got_n)
+    assert _same(got, want)
+
+
+@pytest.mark.cuda
+def test_graph_embedding_chunk_equals_the_eager_step_on_card(card):
+    """Token::Embed lanes (ids; the same tokens as embedding rows; the two
+    in turn; ids of another prompt; 40 tokens each, one T=64 chunk of 160
+    tokens) through
+    ``Engine.infer`` on the ``("embeds", 64)`` graph against ``graph=False``,
+    twice from a reset state (the second call replays): logits and state
+    bit for bit, launches by kernel and shape exact, one capture."""
+    from web_rwkv_gguf_tpu_torch.runtime import Engine, RnnInput, RnnInputBatch, graph
+
+    info, params = _graph_model(card)
+    rng = np.random.default_rng(9)
+    ids, other = ([int(t) for t in rng.integers(0, 512, 40)] for _ in range(2))
+    rows = params["emb"][torch.tensor(ids, device=card)].float().cpu().numpy()
+    lanes = [ids, list(rows), [t if i % 2 == 0 else rows[i] for i, t in enumerate(ids)], other]
+    runs = {}
+    for graphed in (True, False):
+        eng = Engine(info, params, 4, device=card, graph=None if graphed else False)
+        before = graph.launch_counts()
+        out = []
+        for _ in range(2):
+            eng.reset_state()
+            inp = RnnInput([RnnInputBatch(list(t)) for t in lanes], 160)
+            while inp.num_token:
+                out.append([o.copy() for o in eng.infer(inp).batches])
+            out.append({k: v.clone() for k, v in eng.state.items()})
+        torch.cuda.synchronize()
+        runs[graphed] = out, graph.count_delta(before, graph.launch_counts())
+        if graphed:
+            assert list(eng._graphs.graphs) == [("embeds", 64)]
+    (got, got_n), (want, want_n) = runs[True], runs[False]
+    assert got_n == want_n
+    assert _same(got, want)
+    assert np.array_equal(got[0][0], got[0][1])  # the rows lane is the ids lane
+
+
+@pytest.mark.cuda
+def test_graph_refuses_a_hook_that_reads_the_host_on_card(card):
+    """A hook that calls ``.item()`` cannot be captured: the graph Engine
+    and the captured segment raise ``UnsupportedFeature`` naming
+    ``graph=False``, the Engine's state as it was; ``graph=False`` runs it;
+    and a graph Engine made after the failed capture still equals the
+    eager step (the stream and the allocator put back)."""
+    from web_rwkv_gguf_tpu_torch.errors import UnsupportedFeature
+    from web_rwkv_gguf_tpu_torch.models import init_state, make_generator
+    from web_rwkv_gguf_tpu_torch.runtime import Engine
+
+    info, params = _graph_model(card)
+    seen = []
+
+    def reads_the_host(layer, x):
+        seen.append(x.abs().max().item())
+
+    hooks = {"pre_head": reads_the_host}
+    prompts = [[3, 17, 40, 5], [9, 1, 25]]
+    eng = Engine(info, params, 2, device=card, hooks=hooks)
+    fresh = {k: v.clone() for k, v in eng.state.items()}
+    with pytest.raises(UnsupportedFeature, match="graph=False"):
+        eng.generate(prompts, 4)
+    assert torch.cuda.current_stream(card) == torch.cuda.default_stream(card)
+    assert _same({k: v.clone() for k, v in eng.state.items()}, fresh)
+    with pytest.raises(UnsupportedFeature, match="graph=False"):
+        make_generator(info, steps=2, hooks=hooks)(params, init_state(info, 2, device=card),
+                                                   torch.tensor([[5], [9]], device=card))
+    seen.clear()
+    toks = Engine(info, params, 2, device=card, hooks=hooks, graph=False).generate(prompts, 4)
+    assert [len(t) for t in toks] == [4, 4] and seen
+    runs = [Engine(info, params, 2, device=card, graph=g).generate(prompts, 33)
+            for g in (None, False)]
+    assert runs[0] == runs[1]

@@ -251,21 +251,28 @@ def test_standalone_generator_keeps_the_callers_state(recorder):
 
 
 def test_eager_paths_by_rule(recorder):
-    """Hooks stay eager (graph=None resolves to False; graph=True refuses
-    them), and a chunk holding an embedding vector runs eagerly on a graph
-    engine, as does a CPU engine by default."""
+    """The rule: a mesh stays eager (graph=True with a mesh of one rank
+    raises) and a CPU engine is eager by default; hooks and embedding
+    chunks are captured (graph=True takes hooks, in the Engine and in
+    make_generator, and a chunk holding an embedding vector replays its
+    ("embeds", T) graph, equal to the eager step bit for bit)."""
+    from web_rwkv_gguf_tpu_torch.parallel import make_mesh
+
     info, params = load_model(GgufFile(FILES["v7"]()), dtype=torch.float32, device="cpu")
     assert Engine(info, params, 1, device="cpu").graph is False
     with pytest.raises(UnsupportedFeature):
-        Engine(info, params, 1, hooks={}, graph=True, device="cpu")
+        Engine(info, params, 1, mesh=make_mesh(1, 1, device="cpu"), graph=True, device="cpu")
+    assert Engine(info, params, 1, mesh=make_mesh(1, 1, device="cpu"), device="cpu").graph is False
+    assert Engine(info, params, 1, hooks={}, graph=True, device="cpu").graph is True
+    make_generator(info, steps=2, hooks={}, graph=True)
     with pytest.raises(UnsupportedFeature):
-        make_generator(info, steps=2, hooks={}, graph=True)
+        make_generator(info, steps=2, step=lambda *a: None, graph=True)
     eng = Engine(info, params, 1, token_chunk_size=CHUNK, graph=True, device="cpu")
     ref = Engine(info, params, 1, token_chunk_size=CHUNK, graph=False, device="cpu")
     vec = np.random.default_rng(0).normal(size=info.num_emb).astype(np.float32)
     got, want = (e.infer(RnnInput([RnnInputBatch([3, vec, 4])], CHUNK))[0] for e in (eng, ref))
     assert np.array_equal(got, want)
-    assert eng._graphs is None and recorder.captures == 0
+    assert list(eng._graphs.graphs) == [("embeds", 4)] and recorder.captures == 1
 
 
 def _jax_engines(raw, num_batch, dtype):

@@ -110,7 +110,21 @@ class HookCtx:
     ``post_head_layer_norm``, ``post_head``) fire with layer -1;
     ``post_embed`` is a legacy alias of ``post_embed_layer_norm`` and
     ``pre_att_decay_activate`` of ``pre_att_time_decay_activate`` (RWKV-6:
-    the raw decay ``w`` [B, T, C] and ``k`` [B, T, H, hs])."""
+    the raw decay ``w`` [B, T, C] and ``k`` [B, T, H, hs]).
+
+    Under a CUDA graph (``runtime/graph.py``; an ``Engine`` or
+    ``make_generator`` on a card by default) a hook keeps the JAX
+    package's contract, where a hook is traced once into the jitted step:
+
+    - a hook is a function of tensors, made of device ops;
+    - its Python body runs when the step is warmed up and captured, never
+      at a replay, so host work in it (a count, a list of what fired)
+      happens at the capture only;
+    - a hook that reads the host (``.item()``, ``.cpu()``,
+      ``bool(tensor)``, or ``torch.tensor(list, device="cuda")`` inside
+      the step) must run with ``graph=False``: on a graph its capture
+      fails, and the step raises ``UnsupportedFeature``, naming
+      ``graph=False``. It never falls back to the eager step."""
 
     def __init__(self, hooks: dict, layer: int):
         self.hooks = hooks

@@ -11,7 +11,8 @@ re-emitting the stop id; the caller trims the surplus. The returned
 
 On a CUDA device a segment is captured once as a CUDA graph and replayed
 (``runtime/graph.py``), the counterpart of the JAX package's compiled
-segment.
+segment; hooks are captured with it, their Python bodies run at the
+warm-up and the capture only (``models.forward.HookCtx``).
 """
 
 from __future__ import annotations
@@ -90,19 +91,20 @@ def make_generator(
     mesh: ``runtime.Engine._mesh_step``).
 
     The whole segment is one CUDA graph (the JAX package's one compiled
-    ``lax.scan``, ``done`` kept on the device): ``graph`` None captures
-    where the token lies on a CUDA device and there are no hooks and no
-    ``step``, False runs every step eagerly (the reference), True captures
-    on any device (on the CPU only with ``runtime.graph.CAPTURE``
-    replaced), and a ``runtime.graph.StepGraphs`` (an Engine's) captures
-    into its pool and static state. A captured segment's state comes back
-    as static buffers, updated in place by every call; a call's
-    ``generator`` is advanced as the eager segment advances it. The
-    returned function's ``graphs`` is the ``StepGraphs`` of its last
+    ``lax.scan``, ``done`` kept on the device), the hooks' taps in it:
+    ``graph`` None captures where the token lies on a CUDA device and
+    there is no ``step`` (a mesh Engine's, eager by rule), False runs every
+    step eagerly (the reference), True captures on any device (on the CPU
+    only with ``runtime.graph.CAPTURE`` replaced), and a
+    ``runtime.graph.StepGraphs`` (an Engine's) captures into its pool and
+    static state. A captured segment's state comes back as static
+    buffers, updated in place by every call; a call's ``generator`` is
+    advanced as the eager segment advances it. A segment whose hooks read
+    the host raises ``UnsupportedFeature`` at its first captured call.
+    The returned function's ``graphs`` is the ``StepGraphs`` of its last
     captured call (None before one)."""
-    if graph is not None and graph is not False and (hooks is not None or step is not None):
-        raise UnsupportedFeature("hooks and step= run eagerly: a captured segment takes "
-                                 "neither")
+    if graph is not None and graph is not False and step is not None:
+        raise UnsupportedFeature("step= runs eagerly: a captured segment does not take it")
     sample = make_sampler(temperature, top_k, top_p)
     sampled = temperature > 0.0
 
@@ -161,8 +163,7 @@ def make_generator(
         return out, logits, state, generator, done
 
     def run(params, state, token, generator=None):
-        if graph is False or (graph is None and (not token.is_cuda or hooks is not None
-                                                 or step is not None)):
+        if graph is False or (graph is None and (not token.is_cuda or step is not None)):
             stop = torch.tensor(stop_ids, dtype=torch.long, device=token.device)
             out, logits, state, done = segment(params, state, token.long(), generator, stop)
             return out, logits, state, generator, done

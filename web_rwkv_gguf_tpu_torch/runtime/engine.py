@@ -12,17 +12,18 @@ T = 128, the chunk-parallel form from it) and each matmul the same
 numerics class. On a CUDA device each bucket's step is a CUDA graph, the
 counterpart of the JAX engine's jitted, state-donating programs
 (``runtime/graph.py``): the forward of every (params, T bucket), FULL or
-all-LAST with the head, and ``generate``'s decode segment per sampling
-config (``_gen_cache``, as the JAX engine's), each captured at its first
-call and replayed after it; ``engine.state`` then holds the graphs'
-static buffers, updated in place. ``Engine(graph=False)`` keeps the eager
-step, the reference the card checks hold the graphs against. Hooks, a
-mesh (the pipeline and sequence-parallel Engines, ``DistributedEngine``)
-and embedding chunks run eagerly: taps are Python calls each step, gloo's
-collectives go through the host, and a chunk of embeddings is built on
-the host. Logits come back to the host as numpy arrays, as the JAX engine
-returns them; ``generate`` keeps them on the device and fetches only
-token ids.
+all-LAST with the head, the forward of an embedding chunk (the JAX
+engine's ``_forward_embeds``), and ``generate``'s decode segment per
+sampling config (``_gen_cache``, as the JAX engine's), each captured at
+its first call and replayed after it, hooks and all; ``engine.state``
+then holds the graphs' static buffers, updated in place.
+``Engine(graph=False)`` keeps the eager step, the reference the card
+checks hold the graphs against. A mesh (the tensor-parallel, pipeline
+and sequence-parallel Engines, ``DistributedEngine`` across ranks) runs
+eagerly by rule: gloo's collectives go through the host, and one card
+proves NCCL only at one rank. Logits come back to the host as numpy
+arrays, as the JAX engine returns them; ``generate`` keeps them on the
+device and fetches only token ids.
 
 Dense weights, as the JAX engine arranges them: chunks of at least
 ``prefill_dense_min_t`` tokens may run on a dense bf16 copy of every
@@ -36,8 +37,11 @@ over one shared set of weights.
 
 ``Engine(hooks=)`` taps every forward and head, ``generate``'s decode
 steps included, and leaves the whole-stack kernels (``forward_chunk``);
-a lane's token may be a ``[C]`` embedding vector (the reference's
-``Token::Embed``), and a chunk holding one runs as ``input_embeds``.
+on a graph engine the taps run when a step is warmed up and captured,
+and only their device work replays (``models.forward.HookCtx``: a hook
+that reads the host needs ``graph=False``). A lane's token may be a
+``[C]`` embedding vector (the reference's ``Token::Embed``), and a chunk
+holding one runs as ``input_embeds``.
 
 ``Engine(mesh=, tp_mode=)`` serves across the ranks of a
 ``parallel.Mesh`` (the JAX package's engine.py:147-163, 215-284,
@@ -275,10 +279,13 @@ class Engine:
     ``pipeline_microbatches=M`` runs every chunk, decode included, through
     the GPipe layer pipeline (``parallel/pipeline.py``), lane ``m·B/M +
     b`` as microbatch m's slot b. ``graph``: None replays each step as a
-    CUDA graph on a CUDA device without hooks or a mesh (the module
-    docstring), False runs every step eagerly (the reference), True
-    captures on any device (on the CPU only with ``runtime.graph.CAPTURE``
-    replaced, as the tests do)."""
+    CUDA graph on a CUDA device without a mesh, hooks and embedding chunks
+    included (the module docstring), False runs every step eagerly (the
+    reference), True captures on any device (on the CPU only with
+    ``runtime.graph.CAPTURE`` replaced, as the tests do) and refuses a
+    mesh. A step that cannot be captured (a hook that reads the host)
+    raises ``UnsupportedFeature`` at its first call; it never falls back
+    to the eager step."""
 
     def __init__(
         self,
@@ -350,13 +357,13 @@ class Engine:
         # kernels, which the params keep for an unhooked call
         self.hooks = hooks
         self.state = self._fresh_state()
-        # CUDA graphs of the token path (runtime/graph.py): never with hooks
-        # (Python taps each step) or a mesh (gloo goes through the host)
+        # CUDA graphs of every step (runtime/graph.py), hooked ones included;
+        # never under a mesh (gloo goes through the host, and one card proves
+        # NCCL only at one rank)
         if graph is None:
-            graph = self.device.type == "cuda" and mesh is None and hooks is None
-        elif graph and (mesh is not None or hooks is not None):
-            raise UnsupportedFeature("hooks and mesh plans run eagerly: graph=True takes "
-                                     "neither")
+            graph = self.device.type == "cuda" and mesh is None
+        elif graph and mesh is not None:
+            raise UnsupportedFeature("mesh plans run eagerly: graph=True takes no mesh")
         self.graph = graph
         self._graphs = None  # StepGraphs, made at the first captured step
         self._graph_pool = None  # a pool shared with other engines (EnginePool)
@@ -532,11 +539,6 @@ class Engine:
             return self._params_prefill
         return self.params
 
-    def _graphed(self, chunk) -> bool:
-        """Whether a chunk runs as a CUDA graph replay: on a graph engine
-        (no hooks, no mesh), a chunk of token ids."""
-        return self.graph and not isinstance(chunk, torch.Tensor)
-
     def _step_graphs(self) -> StepGraphs:
         """The engine's graphs, made at the first call; every graph is
         dropped when the engine's params or dense prefill copy is another
@@ -550,30 +552,35 @@ class Engine:
             self._graph_params = held
         return self._graphs
 
-    def _replay(self, last: bool, params, chunk: np.ndarray, lens: list[int]):
-        """One chunk of ids ``[B, T]`` as the replay of its bucket's graph,
-        the state updated in place: each lane's last-token logits ``[B, V]``
-        (``last``: the JAX engine's ``_fwd_last``, the head in the graph)
-        or the residual ``x [B, T, C]``."""
-        B, T = chunk.shape
-        info, rescale = self._info_fwd, self.rescale
+    def _replay(self, last: bool, params, chunk, lens: list[int]):
+        """One chunk as the replay of its bucket's graph, the engine's hooks
+        in it, the state updated in place: for ids ``[B, T]`` each lane's
+        last-token logits ``[B, V]`` (``last``: the JAX engine's
+        ``_fwd_last``, the head in the graph) or the residual ``x [B, T,
+        C]``; for embeddings ``[B, T, C]`` (a static input of the
+        ``("embeds", T)`` graph: the JAX engine's ``_forward_embeds``) x."""
+        embeds = isinstance(chunk, torch.Tensor)
+        B, T = chunk.shape[:2]
+        info, rescale, hooks = self._info_fwd, self.rescale, self.hooks
 
         def make(static, state):
-            tokens, ln = static["tokens"], static["lens"]
+            tokens, inp, ln = static.get("tokens"), static.get("embeds"), static["lens"]
 
             def fn():
-                x, new = forward_chunk(info, params, state, tokens, ln, rescale=rescale)
+                x, new = forward_chunk(info, params, state, tokens, ln, rescale=rescale,
+                                       hooks=hooks, input_embeds=inp)
                 commit(state, new)
                 if not last:
                     return (x,)
                 idx = torch.clamp(ln - 1, 0, T - 1)
-                return (logits_head(params, x[torch.arange(B, device=x.device), idx]),)
+                return (logits_head(params, x[torch.arange(B, device=x.device), idx],
+                                    hooks=hooks),)
             return fn
 
-        inputs = {"tokens": torch.from_numpy(chunk),
-                  "lens": torch.tensor(lens, dtype=torch.long)}
-        (out,), self.state = self._step_graphs().run(("last" if last else "full", T), params,
-                                                    make, inputs, self.state)
+        inputs = {"embeds": chunk} if embeds else {"tokens": torch.from_numpy(chunk)}
+        inputs["lens"] = torch.tensor(lens, dtype=torch.long)
+        key = ("embeds" if embeds else "last" if last else "full", T)
+        (out,), self.state = self._step_graphs().run(key, params, make, inputs, self.state)
         return out
 
     def _forward(self, chunk, lens: list[int]):
@@ -583,7 +590,7 @@ class Engine:
         :meth:`_sp_ok` says so: ``(x, lengths [B] or None on a graph
         replay, new state, params)``."""
         params = self._chunk_params(chunk)
-        if self._graphed(chunk):
+        if self.graph:
             return self._replay(False, params, chunk, lens), None, self.state, params
         ln = torch.as_tensor(lens, dtype=torch.long, device=self.device)[self._lanes]
         tokens, embeds = ((None, chunk[self._lanes]) if isinstance(chunk, torch.Tensor)
@@ -594,10 +601,14 @@ class Engine:
     def _forward_last(self, chunk, lens: list[int]):
         """The chunk's forward and each lane's last-token logits ``[B, V]``
         (on the device; under a mesh every lane's, on every rank), the head
-        from the same params as the chunk."""
-        if self._graphed(chunk):
+        from the same params as the chunk. On a graph engine a chunk of ids
+        replays its ``("last", T)`` graph, the head in it; an embedding
+        chunk replays its forward and runs the head eagerly."""
+        if self.graph and not isinstance(chunk, torch.Tensor):
             return self._replay(True, self._chunk_params(chunk), chunk, lens), self.state
         x, ln, state, params = self._forward(chunk, lens)
+        if ln is None:
+            ln = torch.as_tensor(lens, dtype=torch.long, device=x.device)
         idx = torch.clamp(ln - 1, 0, x.shape[1] - 1)
         rows = x[torch.arange(x.shape[0], device=x.device), idx]
         return self._gather_lanes(self._head(params, rows)), state

@@ -1,12 +1,13 @@
 """The compiled step: the serving step captured as CUDA graphs.
 
 The port's counterpart of the JAX package's ``jax.jit(...,
-donate_argnums=(1,))``: the JAX Engine jits its forward, its all-LAST
-forward with the head and ``make_generator``'s decode segment, one
-program per (B, T bucket), and donates the state (engine.py:1-9,
-304-329, 729-735 and models/generate.py:81-132 of the JAX package). Here
-each such step is captured once into a CUDA graph and replayed, the
-state updated in place.
+donate_argnums=(1,))``: the JAX Engine jits its forward, its embedding
+forward, its all-LAST forward with the head and ``make_generator``'s
+decode segment, one program per (B, T bucket), its hooks traced into
+each, and donates the state (engine.py:1-9, 299-329, 729-735 and
+models/generate.py:81-132 of the JAX package). Here each such step is
+captured once into a CUDA graph and replayed, the state updated in
+place.
 
 A :class:`StepGraphs` holds what one engine's graphs share: the recurrent
 state as static buffers that every replay reads and writes in place, one
@@ -35,20 +36,31 @@ host, which runs at capture and never at a replay. A graph keeps the
 counts its capture added and adds them at each replay, so a replayed
 step reports what the eager step reports.
 
-What runs eagerly instead is the caller's rule (``Engine``,
-``make_generator``): hooks, mesh plans and embedding chunks. A capture
-that fails raises.
+Hooks: a step's hooks (``models.forward.HookCtx``) are Python calls
+inside ``fn``, so they run at the warm-up and at the capture, and only
+the device work they added replays: the JAX contract, where a hook is
+traced once. A hook that reads the host (``.item()``, ``.cpu()``,
+``bool(tensor)``, ``torch.tensor(list, device="cuda")``) cannot be
+captured: the capture's error is raised again as ``UnsupportedFeature``
+naming ``graph=False``, with the state, the generators and the counts
+put back as they were before the step; nothing falls back to the eager
+step.
+
+What runs eagerly instead is the caller's explicit rule (``Engine``,
+``make_generator``): the mesh plans and a ``make_generator(step=)``.
 """
 
 from __future__ import annotations
 
 import collections
+import contextlib
 import gc
 import time
 from dataclasses import dataclass
 
 import torch
 
+from ..errors import UnsupportedFeature
 from ..ops.cuda import layer7, layer56, matmul, wkv4, wkv6, wkv7
 
 # every kernel wrapper that counts its launches (``.launches``, ``.shapes``)
@@ -105,8 +117,18 @@ def capture_cuda(fn, pool, stream, generators):
     collecting = gc.isenabled()
     gc.disable()
     try:
-        with torch.cuda.graph(graph, pool=pool, stream=stream):
-            out = fn()
+        # torch.cuda.graph's steps, by hand: where fn fails (a host read under
+        # capture), the capture is ended and the stream put back all the same
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        with torch.cuda.stream(stream):
+            graph.capture_begin(pool=pool)
+            try:
+                out = fn()
+            except BaseException:
+                _end_failed_capture(graph, stream.device, pool)
+                raise
+            graph.capture_end()
     finally:
         if collecting:
             gc.enable()
@@ -116,6 +138,17 @@ def capture_cuda(fn, pool, stream, generators):
         return out
 
     return replay
+
+
+def _end_failed_capture(graph, device, pool):
+    """End a capture that its step made invalid: ``cudaStreamEndCapture``
+    ends it and reports the fault, and PyTorch raises that before it stops
+    routing the capture stream's allocations to ``pool``, which is stopped
+    here. The step's own error is the one the caller raises."""
+    with contextlib.suppress(RuntimeError):
+        graph.capture_end()
+    with contextlib.suppress(RuntimeError):  # a PyTorch that stopped it itself
+        torch._C._cuda_endAllocateToPool(torch.device(device).index, pool)
 
 
 # The capture factory ``(fn, pool, stream, generators) -> replay``. Tests
@@ -188,14 +221,14 @@ class StepGraphs:
         self.adopt(state)
         graph = self.graphs.get(key)
         if graph is None or graph.params is not params:
-            graph = self.graphs[key] = self._capture(params, make, inputs, generators)
+            graph = self.graphs[key] = self._capture(key, params, make, inputs, generators)
         for name, t in inputs.items():
             graph.inputs[name].copy_(t)
         out = graph.replay()
         add_launch_counts(graph.counts)
         return tuple(o.clone() for o in out), dict(self.state)
 
-    def _capture(self, params, make, inputs, generators) -> _Graph:
+    def _capture(self, key, params, make, inputs, generators) -> _Graph:
         t0 = time.perf_counter()
         static = {name: torch.empty(t.shape, dtype=t.dtype, device=self.device).copy_(t)
                   for name, t in inputs.items()}
@@ -203,22 +236,31 @@ class StepGraphs:
         saved = {k: a.clone() for k, a in self.state.items()}
         rng = [g.get_state() for g in generators]
         counts = launch_counts()
-        if self.stream is not None:
-            self.stream.wait_stream(torch.cuda.current_stream(self.device))
-            with torch.cuda.stream(self.stream):
+        try:
+            if self.stream is not None:
+                self.stream.wait_stream(torch.cuda.current_stream(self.device))
+                with torch.cuda.stream(self.stream):
+                    fn()
+            else:
                 fn()
-        else:
-            fn()
-        warm = launch_counts()
-        replay = CAPTURE(fn, self.pool, self.stream, generators)
-        captured = count_delta(warm, launch_counts())
-        set_launch_counts(counts)
-        if self.stream is not None:
-            torch.cuda.current_stream(self.device).wait_stream(self.stream)
-        commit(self.state, saved)
-        for g, st in zip(generators, rng):
-            g.set_state(st)
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+            warm = launch_counts()
+            try:
+                replay = CAPTURE(fn, self.pool, self.stream, generators)
+            except RuntimeError as e:
+                raise UnsupportedFeature(
+                    f"the step {key} cannot be captured as a CUDA graph ({e}); a step whose "
+                    f"hooks read the host (.item(), .cpu(), bool(tensor), torch.tensor(list, "
+                    f"device=...)) runs with graph=False") from e
+            captured = count_delta(warm, launch_counts())
+        finally:
+            # the warm-up's and the capture's state, draws and counts go back
+            set_launch_counts(counts)
+            if self.stream is not None:
+                torch.cuda.current_stream(self.device).wait_stream(self.stream)
+            commit(self.state, saved)
+            for g, st in zip(generators, rng):
+                g.set_state(st)
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
         self.capture_seconds += time.perf_counter() - t0
         return _Graph(params, static, replay, captured)
